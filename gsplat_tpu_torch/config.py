@@ -1,0 +1,143 @@
+"""Static render configuration for the PyTorch/CUDA port.
+
+Counterpart of ``gsplat_tpu/config.py:18-234`` with identical fields,
+defaults and derived properties, so a config built for one package means
+the same render in the other. ``TrainConfig`` comes with the training
+slice.
+
+Options the port does not implement yet are accepted here (the fields
+must match) and raise ``NotImplementedError`` where they are used:
+``cull_mode="ellipse"``, ``tile_rank_cap > 0`` (and with it
+``occlusion_cull``), ``bwd_pairs > 0``, ``view_tile_rows > 0``,
+``transmittance_math="log"`` and ``backend="xla"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+def parse_background(s: str) -> tuple:
+    """CLI background spec -> RGB tuple: 'black', 'white', or 'r,g,b'."""
+    named = {"black": (0.0, 0.0, 0.0), "white": (1.0, 1.0, 1.0)}
+    if s in named:
+        return named[s]
+    parts = tuple(float(x) for x in s.split(","))
+    if len(parts) != 3:
+        raise ValueError(
+            f"background must be 'black', 'white' or 'r,g,b' — got {s!r}"
+        )
+    return parts
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render configuration (hashable).
+
+    Field meanings are documented at the JAX counterpart
+    (``gsplat_tpu/config.py:35-162``).
+    """
+
+    height: int
+    width: int
+    tile: int = 16
+    near: float = 0.01
+    far: float = 100.0
+    pix_guard: float = 32.0
+    pix_guard_v: float | None = None
+    min_conic: float = 1e-6
+    chi2_clip: float = 6.25
+    alpha_max: float = 0.99
+    alpha_cutoff: float = 1.0 / 128.0
+    transmittance_min: float = 5e-5
+    max_pairs: int = 2**18
+    max_per_tile: int = 1024
+    tile_chunk: int = 16
+    pair_block: int = 128
+    backend: str = "auto"
+    aa_mode: str = "none"
+    aa_dilation: float = 0.3
+    background: tuple = (0.0, 0.0, 0.0)
+    transmittance_math: str = "cumprod"
+    cull_mode: str = "rect"
+    max_rows: int = 0
+    tile_rank_cap: int = 0
+    trunc_pairs: int = 0
+    bwd_pairs: int = 0
+    occlusion_cull: bool = True
+    cull_chunks: int = 64
+    view_tile_rows: int = 0
+
+    def __post_init__(self):
+        # Kept from the JAX package so both accept the same configs: its
+        # binning packs tile coordinates into 10 bits (the port's int64
+        # binning would not need the limit).
+        if self.tiles_x >= 1024 or self.tiles_y >= 1024:
+            raise ValueError(
+                f"tile grid {self.tiles_x}x{self.tiles_y} exceeds the "
+                f"1023-tile-per-axis limit of the packed binning encoding "
+                f"(image {self.width}x{self.height}, tile {self.tile}); "
+                f"use a larger tile size"
+            )
+
+    @property
+    def row_capacity(self) -> int:
+        """Static (gaussian, tile-row) capacity of the ellipse expansion."""
+        return self.max_rows if self.max_rows else self.max_pairs // 2
+
+    @property
+    def padded_pairs(self) -> int:
+        """Static capacity of the block-aligned pair list."""
+        worst_pad = self.num_tiles * (self.pair_block - 1)
+        return cdiv(self.max_pairs + worst_pad, self.pair_block) * self.pair_block
+
+    @property
+    def num_pair_blocks(self) -> int:
+        return self.padded_pairs // self.pair_block
+
+    @property
+    def rank_cap_blocks(self) -> int:
+        """Per-tile block cap of the rank truncation (0 = off)."""
+        return cdiv(self.tile_rank_cap, self.pair_block)
+
+    @property
+    def trunc_padded_pairs(self) -> int:
+        """Static capacity of the block-compacted truncated pair list."""
+        if not self.tile_rank_cap:
+            return self.padded_pairs
+        if self.trunc_pairs:
+            cap = cdiv(self.trunc_pairs, self.pair_block) * self.pair_block
+        else:
+            cap = self.num_tiles * self.rank_cap_blocks * self.pair_block
+        return min(cap, self.padded_pairs)
+
+    @property
+    def num_trunc_blocks(self) -> int:
+        return self.trunc_padded_pairs // self.pair_block
+
+    @property
+    def tiles_x(self) -> int:
+        return cdiv(self.width, self.tile)
+
+    @property
+    def tiles_y(self) -> int:
+        return cdiv(self.height, self.tile)
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles_x * self.tiles_y
+
+    @property
+    def padded_width(self) -> int:
+        return self.tiles_x * self.tile
+
+    @property
+    def padded_height(self) -> int:
+        return self.tiles_y * self.tile
+
+    def with_(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
+compiled at first use into ``gsplat_tpu_torch/_build/<name>-<hash>/``
+(listed in ``.gitignore``), keyed by a hash of the sources and flags, so
+an edit rebuilds and an unchanged tree loads what is there. No PyTorch
+header is compiled: a build takes seconds.
+
+``-fmad=false`` keeps each kernel's rounding equal to its plain PyTorch
+version's (see the note in each source). ``-Xptxas -v`` reports registers,
+shared memory and spills into ``ptxas.log`` beside the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v",
+)
+
+SIGNATURES = {
+    # raster_fwd(feat, n_pairs, stride, tile_start, tile_count, out,
+    #            num_tiles, tiles_x, G, chi2_clip, alpha_max,
+    #            alpha_cutoff, t_min, stream) -> cudaError_t
+    "raster_fwd": (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (on PATH or /usr/local/cuda/bin): the CUDA "
+            "kernels cannot be built")
+    return nvcc
+
+
+def _target_dir(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"
+
+
+def build(names=tuple(SIGNATURES)) -> dict:
+    """Build every named kernel that is not built yet, all nvcc processes
+    started together. Returns {name: {"lib": path, "ptxas": nvcc's -v
+    report}}; raises if nvcc is missing or any build fails."""
+    todo = {}
+    info = {}
+    for name in names:
+        d = _target_dir(name)
+        lib = d / f"lib{name}.so"
+        if lib.exists():
+            log = d / "ptxas.log"
+            info[name] = {"lib": lib,
+                          "ptxas": log.read_text() if log.exists() else ""}
+        else:
+            todo[name] = d
+    if not todo:
+        return info
+    nvcc = find_nvcc()
+    procs = {}
+    for name, d in todo.items():
+        d.mkdir(parents=True, exist_ok=True)
+        tmp = d / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, d)
+    failed = []
+    for name, (proc, tmp, d) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        (d / "ptxas.log").write_text(log)
+        os.replace(tmp, d / f"lib{name}.so")
+        info[name] = {"lib": d / f"lib{name}.so", "ptxas": log}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return info
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = build((name,))[name]["lib"]
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = SIGNATURES[name]
+        _loaded[name] = lib
+    return lib
