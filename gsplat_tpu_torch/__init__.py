@@ -7,17 +7,20 @@ path is a kernel written by hand for Hopper (``ops/csrc``), built with
 nvcc at first use. Importing the package needs neither CUDA nor nvcc.
 """
 
-from .config import RenderConfig, cdiv, parse_background
+from .config import RenderConfig, TrainConfig, cdiv, parse_background
 from .device import resolve_device
 from .models.gaussians import GaussianPool, pool_from_numpy
 from .ops.binning import TileBinning, bin_gaussians
+from .ops.losses import compute_loss
 from .ops.projection import ProjectedGaussians, project_gaussians
 from .ops.rasterize import RenderAux, rasterize
 from .render import pair_demand, render, render_from_params
-from .train.trainer import restore_pool
+from .train.trainer import (TrainState, init_train_state, make_train_step,
+                            position_lr, restore_pool)
 
 __all__ = [
     "RenderConfig",
+    "TrainConfig",
     "cdiv",
     "parse_background",
     "resolve_device",
@@ -25,6 +28,7 @@ __all__ = [
     "pool_from_numpy",
     "TileBinning",
     "bin_gaussians",
+    "compute_loss",
     "ProjectedGaussians",
     "project_gaussians",
     "RenderAux",
@@ -33,4 +37,8 @@ __all__ = [
     "render",
     "render_from_params",
     "restore_pool",
+    "TrainState",
+    "init_train_state",
+    "make_train_step",
+    "position_lr",
 ]

@@ -1,15 +1,18 @@
 """Static render configuration for the PyTorch/CUDA port.
 
-Counterpart of ``gsplat_tpu/config.py:18-234`` with identical fields,
-defaults and derived properties, so a config built for one package means
-the same render in the other. ``TrainConfig`` comes with the training
-slice.
+Counterpart of ``gsplat_tpu/config.py:18-296`` (``RenderConfig`` and
+``TrainConfig``) with identical fields, defaults and derived properties,
+so a config built for one package means the same render or training step
+in the other.
 
 Options the port does not implement yet are accepted here (the fields
 must match) and raise ``NotImplementedError`` where they are used:
 ``cull_mode="ellipse"``, ``tile_rank_cap > 0`` (and with it
 ``occlusion_cull``), ``bwd_pairs > 0``, ``view_tile_rows > 0``,
-``transmittance_math="log"`` and ``backend="xla"``.
+``transmittance_math="log"`` and ``backend="xla"``; in ``TrainConfig``,
+``adc_mode="paper"`` and ``batched_render=True`` (``make_train_step``
+raises). The ADC schedule fields are carried as they are; nothing reads
+them until ``fit()`` is ported.
 """
 
 from __future__ import annotations
@@ -141,3 +144,46 @@ class RenderConfig:
 
     def with_(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Static training hyperparameters (reference scripts/train.py:222-250).
+
+    Field meanings are documented at the JAX counterpart
+    (``gsplat_tpu/config.py:237-296``).
+    """
+
+    iterations: int = 30000
+    batch_size: int = 1
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    adam_eps: float = 1e-15
+    lambda_l1: float = 0.8
+    lambda_ssim: float = 0.2
+    grad_clip_pos: float = 1.0
+    # Adaptive density control schedule.
+    densify_until_iter: int = 15000
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    prune_opacity_threshold: float = 0.01
+    max_grad: float = 0.01
+    scale_threshold: float = 0.01
+    adc_mode: str = "reference"
+    densify_grad_threshold: float = 0.0002
+    percent_dense: float = 0.01
+    scene_extent: float = 5.0
+    min_opacity: float = 0.005
+    max_screen_size: int = 0  # px; 0 disables screen-size pruning
+    checkpoint_interval: int = 1000
+    capacity: int = 2**17
+    num_sh_bands: int = 3
+    sh_warmup_interval: int = 0
+    nan_guard: bool = True
+    batched_render: bool = False

@@ -45,14 +45,15 @@ class GaussianPool(nn.Module):
 
 def pool_from_numpy(params: dict, alive, device="cuda") -> GaussianPool:
     """Carry the JAX package's pool across: the same parameter names and
-    layouts as numpy arrays, stored f32 and contiguous on ``device``."""
+    layouts as numpy arrays, copied to f32 contiguous tensors on ``device``
+    (never aliasing the caller's arrays: training updates them in place)."""
     dev = resolve_device(device)
     tensors = {
-        k: torch.from_numpy(np.ascontiguousarray(params[k], np.float32)).to(dev)
+        k: torch.from_numpy(np.array(params[k], np.float32, order="C")).to(dev)
         for k in PARAM_KEYS
         if k in params
     }
-    alive_t = torch.from_numpy(np.ascontiguousarray(alive, bool)).to(dev)
+    alive_t = torch.from_numpy(np.array(alive, bool, order="C")).to(dev)
     n = alive_t.shape[0]
     for k, v in tensors.items():
         if v.shape[0] != n:

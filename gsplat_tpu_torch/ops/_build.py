@@ -39,6 +39,18 @@ SIGNATURES = {
          ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
+    # raster_bwd(feat, n_pairs, stride, tile_start, tile_count, fwd, gout,
+    #            dfeat, dstride, num_tiles, tiles_x, G, chi2_clip,
+    #            alpha_max, alpha_cutoff, one_minus_max, t_min, stream)
+    #            -> cudaError_t
+    "raster_bwd": (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from .clamps import maximum
+
 
 def w2c_from_c2w(c2w: torch.Tensor) -> torch.Tensor:
     """Invert a rigid camera-to-world transform: [R|t] -> [R^T | -R^T t]."""
@@ -40,7 +42,7 @@ def transform_to_camera_space(pc: torch.Tensor, c2w: torch.Tensor):
 def inv2x2_packed(a, b, c, eps: float = 1e-12):
     """Inverse of symmetric 2x2 [[a, b], [b, c]] -> conic (A, B, C)."""
     det = a * c - b * b
-    safe_det = torch.clamp(det, min=eps)
+    safe_det = maximum(det, eps)
     inv_det = 1.0 / safe_det
     return c * inv_det, -b * inv_det, a * inv_det
 

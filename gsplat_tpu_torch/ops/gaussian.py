@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from .clamps import maximum
+
 
 def quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:
     """[..., 4] (x, y, z, w) quaternions -> [..., 3, 3] rotation matrices."""
@@ -36,7 +38,7 @@ def normalize_quat(q_raw: torch.Tensor) -> torch.Tensor:
 
 def exp_scale(scale_raw: torch.Tensor) -> torch.Tensor:
     """Log-space scale -> positive scale, clamped to >= 1e-6."""
-    return torch.clamp(torch.exp(scale_raw), min=1e-6)
+    return maximum(torch.exp(scale_raw), 1e-6)
 
 
 def build_cov3d_packed(scale_raw: torch.Tensor, q_raw: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ import torch
 
 from ..config import RenderConfig
 from .camera import inv2x2_packed, transform_to_camera_space
+from .clamps import clip, maximum
 
 EVAL_MIN = 1e-6  # reference render.py:178 clamp bounds
 EVAL_MAX = 1e4
@@ -49,8 +50,8 @@ def clamp_eigvals_2x2(a, b, c, lo=EVAL_MIN, hi=EVAL_MAX):
     r = torch.sqrt(d * d + b * b + 1e-30)
     l1_raw = m - r
     l2_raw = m + r
-    l1 = torch.clamp(l1_raw, lo, hi)
-    l2 = torch.clamp(l2_raw, lo, hi)
+    l1 = clip(l1_raw, lo, hi)
+    l2 = clip(l2_raw, lo, hi)
     unclamped = (l1_raw >= lo) & (l2_raw <= hi)
     m_new = 0.5 * (l1 + l2)
     f = (l2 - l1) / (2.0 * r)
@@ -88,7 +89,7 @@ def project_gaussians(
     H, W = cfg.height, cfg.width
 
     # --- opacity pre-filter (reference render.py:104-107) ---
-    opacity = torch.clamp(torch.sigmoid(opacity_raw), 0.0, 0.999)
+    opacity = clip(torch.sigmoid(opacity_raw), 0.0, 0.999)
     valid = opacity >= cfg.alpha_cutoff * 0.5
     if extra_valid is not None:
         valid = valid & extra_valid
@@ -119,7 +120,7 @@ def project_gaussians(
     v = fy * y / z + cy
 
     # --- EWA: Sigma2D = (J Rwc) Sigma (J Rwc)^T, rows (J Rwc)_r = J_r R^T ---
-    invz = 1.0 / torch.clamp(z, min=1e-6)
+    invz = 1.0 / maximum(z, 1e-6)
     invz2 = invz * invz
     zero = torch.zeros_like(invz)
     ju = (fx * invz, zero, -fx * x * invz2)
@@ -158,10 +159,10 @@ def project_gaussians(
         s_a = s_a + cfg.aa_dilation
         s_c = s_c + cfg.aa_dilation
     elif cfg.aa_mode == "mip":
-        det_before = torch.clamp(s_a * s_c - s_b * s_b, min=1e-12)
+        det_before = maximum(s_a * s_c - s_b * s_b, 1e-12)
         s_a = s_a + cfg.aa_dilation
         s_c = s_c + cfg.aa_dilation
-        det_after = torch.clamp(s_a * s_c - s_b * s_b, min=1e-12)
+        det_after = maximum(s_a * s_c - s_b * s_b, 1e-12)
         opacity = opacity * torch.sqrt(det_before / det_after)
     elif cfg.aa_mode != "none":
         raise ValueError(f"unknown aa_mode {cfg.aa_mode!r}")
@@ -169,6 +170,8 @@ def project_gaussians(
     s_a, s_b, s_c, lam_max = clamp_eigvals_2x2(s_a, s_b, s_c)
 
     # --- cutoff-tied marginal radius + AABB (render.py:227-247) ---
+    # (These clamps feed only integer radii and tile bounds: no gradient
+    # path, so torch.clamp's tie rule does not matter here.)
     k2 = torch.clamp(
         2.0 * torch.log(torch.clamp(opacity, min=1e-12) / cfg.alpha_cutoff),
         max=cfg.chi2_clip,
@@ -205,8 +208,8 @@ def project_gaussians(
     tile_max = torch.where(valid[:, None], tile_max, -1)
 
     conic_a, conic_b, conic_c = inv2x2_packed(s_a, s_b, s_c)
-    conic_a = torch.clamp(conic_a, min=cfg.min_conic)  # render.py:310-315
-    conic_c = torch.clamp(conic_c, min=cfg.min_conic)
+    conic_a = maximum(conic_a, cfg.min_conic)  # render.py:310-315
+    conic_c = maximum(conic_c, cfg.min_conic)
     conic = torch.stack([conic_a, conic_b, conic_c], dim=-1).to(dtype)
 
     return ProjectedGaussians(

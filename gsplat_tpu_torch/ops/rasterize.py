@@ -1,13 +1,16 @@
 """Tile rasterization: depth-sorted alpha compositing of projected Gaussians.
 
 Counterpart of ``gsplat_tpu/ops/rasterize.py``: ``RenderAux`` (``:44-75``),
-``_pair_features`` (``:133-147``), the forward of ``gather_pair_features``
-(``:150-203``), ``rasterize_binned_pallas`` (``:462-560``) and ``rasterize``
+``_pair_features`` (``:133-147``), ``gather_pair_features`` with its
+backward (``:150-264``, the untruncated, uncompacted branch),
+``rasterize_binned_pallas`` (``:462-560``) and ``rasterize``
 (``:592-609``). The compositing itself is ``ops/raster_cuda.py``: the
-Hopper kernel for CUDA tensors, its plain PyTorch version for CPU tensors.
+Hopper kernels for CUDA tensors, their plain PyTorch versions for CPU
+tensors, forward and backward.
 
-This slice is forward-only; ``backend="xla"`` (the ``max_per_tile``
-``lax.map`` compositor) and ``bwd_pairs > 0`` raise NotImplementedError.
+``backend="xla"`` (the ``max_per_tile`` ``lax.map`` compositor),
+``bwd_pairs > 0`` (the compacted backward) and the truncated gather
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from ..config import RenderConfig
 from .binning import TileBinning, bin_gaussians
+from .clamps import clip
 from .projection import ProjectedGaussians
 from .raster_cuda import composite_pairs
 
@@ -61,17 +65,89 @@ def _pair_features(proj: ProjectedGaussians, colors: torch.Tensor, dtype):
     return torch.where(proj.valid[:, None], feat, 0.0)
 
 
-def gather_pair_features(feat10: torch.Tensor, pair_slot: torch.Tensor):
-    """Expand per-gaussian features [N, 10] (depth order) to the sorted pair
-    list, feature-major [10, padded_pairs]; padding slots (-1) are zero.
-
-    Forward only: one pairs-sized gather (the JAX package leaves it to
-    XLA). Its backward comes with the training slice.
-    """
+def _gather(feat10: torch.Tensor, pair_slot: torch.Tensor):
     n = feat10.shape[0]
     idx = torch.clamp(pair_slot, 0, n - 1).to(torch.int64)
     out = torch.index_select(feat10.T.contiguous(), 1, idx)
     return torch.where(pair_slot[None, :] >= 0, out, 0.0)
+
+
+_SCAN_BLOCK = 1024
+
+
+def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum of [R, P] along P, in two levels: within
+    chunks of ``_SCAN_BLOCK``, then over the chunk totals.
+
+    Each level is a scan along the innermost dimension of a tensor with
+    many rows, so it is parallel and its order is fixed (deterministic).
+    A one-level cumsum of [10, P] along P runs on CUDA as about one thread
+    block for all 10 rows (a few rows, each millions long), and PyTorch's
+    fast 1-D float scan is not deterministic from run to run.
+    """
+    R, P = x.shape
+    B = _SCAN_BLOCK
+    xb = torch.nn.functional.pad(x, (0, (-P) % B)).reshape(R, -1, B)
+    c = torch.cumsum(xb, dim=2)
+    tot = c[:, :-1, B - 1]  # every chunk's total but the last
+    pre = torch.cat([tot.new_zeros(R, 1), torch.cumsum(tot, dim=1)], dim=1)
+    return (c + pre[:, :, None]).reshape(R, -1)[:, :P]
+
+
+class _GatherPairFeatures(torch.autograd.Function):
+    """The gather with the JAX package's backward (``_gpf_bwd``,
+    ``gsplat_tpu/ops/rasterize.py:217-261``, untruncated and uncompacted):
+    key each pair's cotangent rows by ``pair_slot`` (padding keyed to
+    ``n``, so it sorts last), one stable sort that carries the rows, a
+    cumulative sum along the pairs (two-level, :func:`_cumsum_rows`), and
+    the per-gaussian segment
+    difference at ``gauss_offsets`` (each gaussian's pairs are exactly its
+    footprint count). No atomics: autograd through ``index_select`` would
+    be an ``index_add_``, whose order on CUDA varies from run to run."""
+
+    @staticmethod
+    def forward(ctx, feat10, pair_slot, gauss_offsets):
+        ctx.n = feat10.shape[0]
+        ctx.save_for_backward(pair_slot, gauss_offsets)
+        return _gather(feat10, pair_slot)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        pair_slot, gauss_offsets = ctx.saved_tensors
+        n = ctx.n
+        key = torch.where(pair_slot >= 0, pair_slot, n)
+        perm = torch.sort(key, stable=True).indices
+        c = _cumsum_rows(g.index_select(1, perm))
+        cpad = torch.cat([c.new_zeros(g.shape[0], 1), c], dim=1)
+        bounds = gauss_offsets.to(torch.int64)
+        seg = cpad[:, bounds[1:]] - cpad[:, bounds[:-1]]  # [10, N]
+        return seg.T, None, None
+
+
+def gather_pair_features(feat10: torch.Tensor, pair_slot: torch.Tensor,
+                         gauss_offsets: torch.Tensor, truncated: bool = False,
+                         bwd_cap: int = 0):
+    """Expand per-gaussian features [N, 10] (depth order) to the sorted pair
+    list, feature-major [10, padded_pairs]; padding slots (-1) are zero.
+
+    Forward: one pairs-sized gather. Backward (recorded when grad is
+    enabled and ``feat10`` requires it): the sort-based per-gaussian sum of
+    :class:`_GatherPairFeatures`. ``gauss_offsets`` [N+1] are the binning's
+    per-gaussian pair offsets (``TileBinning.gauss_offsets``).
+    ``truncated`` (per-tile rank truncation) and ``bwd_cap > 0`` (the
+    compacted backward) are not ported and raise.
+    """
+    if truncated:
+        raise NotImplementedError(
+            "the truncated gather backward (tile_rank_cap > 0) is not "
+            "ported yet")
+    if bwd_cap:
+        raise NotImplementedError(
+            "bwd_cap > 0 (the compacted gather backward) is not ported yet")
+    if torch.is_grad_enabled() and feat10.requires_grad:
+        return _GatherPairFeatures.apply(feat10, pair_slot, gauss_offsets)
+    return _gather(feat10, pair_slot)
 
 
 def rasterize_binned(
@@ -87,7 +163,8 @@ def rasterize_binned(
     T = cfg.tile
     feat10 = _pair_features(proj, colors, torch.float32)[
         binning.depth_order.to(torch.int64)]
-    pair_feat = gather_pair_features(feat10, binning.pair_slot)
+    pair_feat = gather_pair_features(feat10, binning.pair_slot,
+                                     binning.gauss_offsets)
     out = composite_pairs(
         pair_feat, binning.tile_start, binning.tile_count, cfg
     )  # [num_tiles, 8, P]: rows 0-2 rgb, 3 depth, 4 transmittance
@@ -102,7 +179,7 @@ def rasterize_binned(
     planes = planes.permute(0, 3, 1, 4, 2).reshape(
         cfg.padded_height, cfg.padded_width, 5
     )[: cfg.height, : cfg.width]
-    img = torch.clamp(planes[..., 0:3], 0.0, 1.0)
+    img = clip(planes[..., 0:3], 0.0, 1.0)  # JAX's tie gradient (clamps.py)
 
     aux = RenderAux(
         num_pairs=binning.num_pairs,

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .clamps import maximum
+
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
 SH_C2_0 = 1.0925484305920792  # xy, yz, xz
@@ -83,7 +85,7 @@ def evaluate_sh(
     # sqrt(max(.)) keeps d|v|/dv finite where a dead pool slot sits exactly
     # at the camera position.
     sq = torch.sum(view_dir * view_dir, dim=-1, keepdim=True)
-    norm = torch.sqrt(torch.clamp(sq, min=1e-24))
+    norm = torch.sqrt(maximum(sq, 1e-24))
     view_dir = view_dir / (norm + 1e-8)
     coeffs = pack_sh_coeffs(f_dc, f_rest)  # [N, K, 3]
     basis = sh_basis(view_dir)[:, : coeffs.shape[1]]  # [N, K]

@@ -1,3 +1,21 @@
-from .trainer import restore_pool
+"""Training: optimizer construction, the train step, checkpoint loading."""
 
-__all__ = ["restore_pool"]
+from .trainer import (
+    TrainState,
+    batch_loss_fn,
+    init_train_state,
+    make_optimizer,
+    make_train_step,
+    position_lr,
+    restore_pool,
+)
+
+__all__ = [
+    "TrainState",
+    "batch_loss_fn",
+    "init_train_state",
+    "make_optimizer",
+    "make_train_step",
+    "position_lr",
+    "restore_pool",
+]
