@@ -7,9 +7,10 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero, with no result line):
   1. card check: torch.cuda.is_available(); the card's name and power limit;
-  2. build every kernel of the serving and training paths from
-     ``gsplat_tpu_torch/ops/csrc`` (raster_fwd = K1, raster_bwd = K2; one
-     nvcc per source, all started together), with ptxas registers/spills;
+  2. build every kernel of the serving, training and profiling paths from
+     ``gsplat_tpu_torch/ops/csrc`` (raster_fwd = K1, raster_bwd = K2,
+     raster_ablate = four ablations of K1; one nvcc per source, all started
+     together), with ptxas registers/spills (a spill fails the run);
   3. K1, then K2 on a seeded cotangent, against their plain PyTorch versions
      on a seeded synthetic scene at 1920x1080 (K2 also: exact zeros outside
      the composited blocks, finite, a second call bit-identical);
@@ -32,14 +33,23 @@ Phases (any failure exits non-zero, with no result line):
      no pair overflow; step ms, per-view ms, peak device memory;
   9. timing of K2 alone (CUDA events) at the bench pose, on the inputs the
      fwd+bwd of phase 7 gave it, beside its plain version and its bound;
- 10. one JSON line {"kernels": [...]}, the card line, and the final line
+ 10. the compositor-ablation profiler (K3): K1 and the four ablation kernels
+     (raster_ablate.cu: empty, no-compute, no-transc, no-mxu) against their
+     plain versions on the profiler's 1080p workload, the plain versions'
+     times, then ``profile_kernel.main(["--iters", "20"])`` with the launch
+     counts set to 0 just before it: ms, ns/block and share of bound of
+     each variant, each launch count, the tile-0 digests against the plain
+     versions', and K1's time minus each ablation's;
+ 11. one JSON line {"kernels": [...]}, the card line, and the final line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
 
+import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -68,6 +78,16 @@ OPS_PER_PAIR_PIXEL = 26
 # (4), the four prefix sums (8), T*(1-alpha) (2), and one add per partial
 # for the pixel sum (10).
 OPS_BWD_PER_PAIR_PIXEL = 79
+# The ablation kernels' counts (30 for no-transc, 27 for no-mxu, listed
+# term by term) are gsplat_tpu_torch.profile_kernel.OPS_PER_PAIR_PIXEL,
+# beside K1's; the profiler computes every variant's bound from them.
+# The TPU body each ablation kernel replaces (scripts/profile_kernel.py).
+ABLATION_REPLACES = {
+    "empty": "scripts/profile_kernel.py:222",
+    "no-compute": "scripts/profile_kernel.py:173",
+    "no-transc": "scripts/profile_kernel.py:50",
+    "no-mxu": "scripts/profile_kernel.py:145",
+}
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 FEAT_ROWS = 10
@@ -406,6 +426,68 @@ def train_parts_ms(state, batch, cfg, tcfg, reps=3):
             "clip + mask + guard": t["step"] - t["fwd+bwd"] - t["adam"]}
 
 
+def ablation_phase(card, dev):
+    """Phase 10: K1 and the four ablation kernels against their plain
+    versions on the profiler's 1080p workload (rows 0-4 within TOL, row 5
+    exact, rows 6-7 zero), each plain version's time, then the profiler
+    through its entry point with every launch count set to 0 just before.
+    Returns ({variant: max abs error}, {variant: plain ms}, {variant: the
+    profiler's result}, {variant: launches in the profiler's run})."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch import profile_kernel
+    from gsplat_tpu_torch.ops.raster_ablate import (VARIANTS, ablate,
+                                                    ablate_plain)
+    from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs,
+                                                  composite_pairs_plain)
+
+    cfg = gt.RenderConfig(height=H, width=W, max_pairs=2**18)
+    pf, ts, tc = (t.to(dev) for t in profile_kernel.make_workload(cfg, 4))
+    pairs = {"full": (composite_pairs, composite_pairs_plain)}
+    pairs.update({v: (functools.partial(ablate, v),
+                      functools.partial(ablate_plain, v)) for v in VARIANTS})
+    errs, plain_ms, digests = {}, {}, {}
+    for name, (kernel, plain) in pairs.items():
+        plain_fn = functools.partial(plain, pf, ts, tc, cfg, tile_chunk=512)
+        out_k = kernel(pf, ts, tc, cfg)
+        out_p = plain_fn()
+        torch.cuda.synchronize()
+        errs[name] = float((out_k[:, 0:5] - out_p[:, 0:5]).abs().max())
+        same5 = bool(torch.equal(out_k[:, 5], out_p[:, 5]))
+        zero67 = bool((out_k[:, 6:] == 0).all())
+        finite = bool(torch.isfinite(out_k).all())
+        digests[name] = float(out_p[0, 0:5].sum())
+        print(f"[profile workload 1080p] {name} vs plain: max abs err rows "
+              f"0-4 {errs[name]:.3e} (tol {TOL}), row 5 exact: {same5}, "
+              f"rows 6-7 zero: {zero67}, finite: {finite}, blocks "
+              f"composited {int(out_k[:, 5, 0].sum())}", flush=True)
+        if not (errs[name] <= TOL and same5 and zero67 and finite):
+            raise SystemExit(f"FAIL: {name} disagrees with its plain version")
+        if name != "full":
+            plain_ms[name] = cuda_ms(plain_fn, 1)
+        del out_k, out_p
+
+    # The slice's main path: the profiler, as a user runs it.
+    composite_pairs.launches = 0
+    for v in VARIANTS:
+        ablate.launches[v] = 0
+    res = {r["name"]: r for r in profile_kernel.main(
+        ["--iters", "20", "--device", str(dev)])}
+    counts = {name: profile_kernel.launch_count(name) for name in pairs}
+    print(f"[{card}] profiler launches (counts set to 0 before it): "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    print(f"[{card}] K1 minus each ablation (CUDA events, one call): "
+          + ", ".join(f"{v} {res['full']['ms'] - res[v]['ms']:+.4f} ms"
+                      for v in VARIANTS), flush=True)
+    for name in pairs:
+        r = res[name]
+        if counts[name] == 0 or r["launches"] != counts[name] \
+                or not r["ms"] > 0 or abs(r["digest"] - digests[name]) > 1e-3:
+            raise SystemExit(f"FAIL: profiler variant {name}: {r}, plain "
+                             f"digest {digests[name]}, {counts[name]} "
+                             f"launches")
+    return errs, plain_ms, res, counts
+
+
 def image_from_tiles(out, tile_count, cfg):
     """[num_tiles, 8, P] compositor output -> [H, W, 3] image, as
     rasterize_binned assembles it."""
@@ -504,8 +586,12 @@ def main():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, info in built.items():
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "properties")):
                 print(f"  {name} ptxas: {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores", line)
+            if spills and int(spills.group(1)) > 0:
+                raise SystemExit(f"FAIL: {name} spills registers: {line}")
     print("  raster_bwd dynamic shared memory: (10 + 8 x 10) x G x 4 B per "
           "CTA = 46080 B at pair_block 128")
     errs, bwd_errs = [], []
@@ -660,7 +746,11 @@ def main():
           f"{bwd_bound_ms:.4f} ms by {bwd_bound_by} ({bops:.3e} ops, "
           f"{bbytes:.3e} bytes)", flush=True)
 
-    # --- 10. result lines ---
+    # --- 10. the compositor-ablation profiler (K3) ---
+    abl_errs, abl_plain_ms, prof, prof_counts = ablation_phase(card, dev)
+    errs.append(abl_errs["full"])
+
+    # --- 11. result lines ---
     kernels = [{
         "name": "raster_fwd",
         "route": "cuda",
@@ -686,6 +776,19 @@ def main():
         "bound_by": bwd_bound_by,
         "library_ms": None,
     }]
+    kernels += [{
+        "name": f"raster_ablate[{v}]",
+        "route": "cuda",
+        "source": "gsplat_tpu_torch/ops/csrc/raster_ablate.cu",
+        "replaces": ABLATION_REPLACES[v],
+        "launches": prof_counts[v],
+        "max_abs_err": abl_errs[v],
+        "ms": prof[v]["ms"],
+        "plain_ms": abl_plain_ms[v],
+        "bound_ms": prof[v]["bound_ms"],
+        "bound_by": prof[v]["bound_by"],
+        "library_ms": None,
+    } for v in ABLATION_REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,16 @@ SIGNATURES = {
          ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
+    # raster_ablate(variant, feat, n_pairs, stride, tile_start, tile_count,
+    #               out, num_tiles, tiles_x, G, chi2_clip, alpha_max,
+    #               alpha_cutoff, t_min, stream) -> cudaError_t
+    "raster_ablate": (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

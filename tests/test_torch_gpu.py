@@ -18,6 +18,10 @@ row's max abs (only the order of the pixel sums differs), exact zeros
 outside the blocks the forward composited, and two runs bit-identical (no
 float atomics). A train step on the card vs on the CPU: gradients within
 5e-4 of each leaf's largest, the render's own gradient tolerance.
+
+The four ablation kernels of the profiler vs their plain versions: as the
+forward compositor (rows 0-4 within 2e-5 abs, row 5 exact, rows 6-7 zero),
+for the same reason.
 """
 
 import numpy as np
@@ -25,12 +29,14 @@ import pytest
 import torch
 
 import gsplat_tpu_torch as gt
+from gsplat_tpu_torch.ops import raster_ablate as tabl
 from gsplat_tpu_torch.ops import raster_cuda as tras
 from gsplat_tpu_torch.ops.binning import bin_gaussians
 from gsplat_tpu_torch.ops.gaussian import build_cov3d_packed
 from gsplat_tpu_torch.ops.projection import project_gaussians
 from gsplat_tpu_torch.ops.rasterize import _pair_features, gather_pair_features
 from gsplat_tpu_torch.ops.sh import evaluate_sh
+from gsplat_tpu_torch.profile_kernel import make_workload
 
 pytestmark = pytest.mark.gpu
 
@@ -221,6 +227,27 @@ def test_train_step_on_card_matches_cpu(cuda):
         scale = float(want.abs().max())
         assert scale > 0 and torch.isfinite(got).all(), k
         assert float((got - want).abs().max()) <= 5e-4 * scale, k
+
+
+@pytest.mark.parametrize("opacity", [0.05, 0.9])
+@pytest.mark.parametrize("variant", list(tabl.VARIANTS))
+def test_ablation_kernel_matches_plain(cuda, variant, opacity):
+    """The profiler's workload at 192x128; at opacity 0.9 no-transc and
+    no-mxu skip continuation blocks."""
+    cfg = gt.RenderConfig(**CFG)
+    pf, ts, tc = (t.to(cuda) for t in make_workload(cfg, 4))
+    pf[5] = opacity
+    before = tabl.ablate.launches[variant]
+    got = tabl.ablate(variant, pf, ts, tc, cfg)
+    assert tabl.ablate.launches[variant] == before + 1
+    want = tabl.ablate_plain(variant, pf, ts, tc, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got[:, :5] - want[:, :5]).abs().max()) <= TOL
+    assert torch.equal(got[:, 5], want[:, 5])
+    assert (got[:, 6:] == 0).all()
+    if opacity > 0.5 and variant in ("no-transc", "no-mxu"):
+        assert (got[:, 5, 0] < 4).any(), "no tile was skipped"
 
 
 def test_render_gradients_are_bit_identical_across_runs(cuda):
