@@ -58,6 +58,11 @@ import time
 import numpy as np
 import torch
 
+# One definition of the card's peak rates, K1's operation count and the
+# device timer (CUDA events behind a busy stream), shared with the profiler.
+from gsplat_tpu_torch.profile_kernel import (OPS_PER_PAIR_PIXEL, PEAK_BYTES,
+                                             PEAK_F32_FLOPS, device_ms)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "bench_assets", "trained_ckpt.npz")
 H, W = 1080, 1920
@@ -66,21 +71,15 @@ TOL = 2e-5  # kernel vs plain, rows 0-4 abs (both round alike: -fmad=false)
 # K2 vs plain, rows 0-9, relative to each row's max abs: the per-(pair,
 # pixel) terms round alike; only the order of the pixel sums differs.
 BWD_TOL = 1e-5
-# Arithmetic operations per active (pair, pixel) in the compositor: du, dv
-# (2), q (9), -q/2 (1), exp (1), op*g (1), min (1), alpha*T (1), four sums
-# (8), T*(1-alpha) (2). Compares/selects are not counted.
-OPS_PER_PAIR_PIXEL = 26
-# The same for K2 (raster_bwd.cu): du, dv (2), q (9), -q/2 (1), exp (1),
-# op*g (1), min (1), w = alpha*T (1), gdotc (7), gP += gdotc*w (2),
-# gS (1), 1-alpha and its floor (2), dalpha (4: gdotc*T, gS+gTT, divide,
-# subtract), dq (3), the u and v partials (6 each), the three conic
-# partials (2, 3, 2), the opacity partial (1), the four colour partials
-# (4), the four prefix sums (8), T*(1-alpha) (2), and one add per partial
-# for the pixel sum (10).
+# Arithmetic operations per active (pair, pixel) in K2 (raster_bwd.cu),
+# counted as K1's are in profile_kernel.OPS_PER_PAIR_PIXEL: du, dv (2),
+# q (9), -q/2 (1), exp (1), op*g (1), min (1), w = alpha*T (1), gdotc (7),
+# gP += gdotc*w (2), gS (1), 1-alpha and its floor (2), dalpha (4:
+# gdotc*T, gS+gTT, divide, subtract), dq (3), the u and v partials (6
+# each), the three conic partials (2, 3, 2), the opacity partial (1), the
+# four colour partials (4), the four prefix sums (8), T*(1-alpha) (2), and
+# one add per partial for the pixel sum (10).
 OPS_BWD_PER_PAIR_PIXEL = 79
-# The ablation kernels' counts (30 for no-transc, 27 for no-mxu, listed
-# term by term) are gsplat_tpu_torch.profile_kernel.OPS_PER_PAIR_PIXEL,
-# beside K1's; the profiler computes every variant's bound from them.
 # The TPU body each ablation kernel replaces (scripts/profile_kernel.py).
 ABLATION_REPLACES = {
     "empty": "scripts/profile_kernel.py:222",
@@ -88,8 +87,6 @@ ABLATION_REPLACES = {
     "no-transc": "scripts/profile_kernel.py:50",
     "no-mxu": "scripts/profile_kernel.py:145",
 }
-PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 FEAT_ROWS = 10
 TRAIN_H, TRAIN_W = 540, 960  # the reference's training resolution
 TRAIN_PAIRS = 2**21
@@ -310,7 +307,7 @@ def bwd_parts_ms(params, c2w, fx, fy, cx, cy, cfg, alive, seen, reps=5):
     out = {}
     for name, fn in parts.items():
         fn()
-        out[name] = float(np.median([cuda_ms(fn, 1) for _ in range(reps)]))
+        out[name] = float(np.median([device_ms(fn, 1) for _ in range(reps)]))
     return out
 
 
@@ -420,7 +417,7 @@ def train_parts_ms(state, batch, cfg, tcfg, reps=3):
     for name, fn in (("fwd", forward), ("fwd+bwd", forward_backward),
                      ("adam", state.opt_state.step), ("step", full_step)):
         fn()
-        t[name] = float(np.median([cuda_ms(fn, 1) for _ in range(reps)]))
+        t[name] = float(np.median([device_ms(fn, 1) for _ in range(reps)]))
     return {"step": t["step"], "forward (4 views + loss)": t["fwd"],
             "backward": t["fwd+bwd"] - t["fwd"], "Adam": t["adam"],
             "clip + mask + guard": t["step"] - t["fwd+bwd"] - t["adam"]}
@@ -463,7 +460,7 @@ def ablation_phase(card, dev):
         if not (errs[name] <= TOL and same5 and zero67 and finite):
             raise SystemExit(f"FAIL: {name} disagrees with its plain version")
         if name != "full":
-            plain_ms[name] = cuda_ms(plain_fn, 1)
+            plain_ms[name] = device_ms(plain_fn, 1)
         del out_k, out_p
 
     # The slice's main path: the profiler, as a user runs it.
@@ -499,17 +496,6 @@ def image_from_tiles(out, tile_count, cfg):
     return torch.clamp(img[: cfg.height, : cfg.width], 0.0, 1.0)
 
 
-def cuda_ms(fn, iters):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def stage_ms(params, c2w, fx, fy, cx, cy, cfg, alive, reps=5):
     """Device time of each stage of render_from_params, one at a time on
     the same inputs (CUDA events; median of `reps`). `rasterize_binned`
@@ -543,7 +529,8 @@ def stage_ms(params, c2w, fx, fy, cx, cy, cfg, alive, reps=5):
     with torch.no_grad():
         for name, fn in steps.items():
             fn()
-            out[name] = float(np.median([cuda_ms(fn, 1) for _ in range(reps)]))
+            out[name] = float(np.median([device_ms(fn, 1)
+                                         for _ in range(reps)]))
     return out
 
 
@@ -687,13 +674,13 @@ def main():
     for _ in range(3):
         composite_pairs(pf, ts, tc, cfg)
     torch.cuda.synchronize()
-    kernel_ms = cuda_ms(lambda: composite_pairs(pf, ts, tc, cfg), 20)
+    kernel_ms = device_ms(lambda: composite_pairs(pf, ts, tc, cfg), 20)
     composite_pairs_plain(pf, ts, tc, cfg, tile_chunk=1024)
-    plain_ms = cuda_ms(
+    plain_ms = device_ms(
         lambda: composite_pairs_plain(pf, ts, tc, cfg, tile_chunk=1024), 2)
     G, P = cfg.pair_block, cfg.tile * cfg.tile
     blocks = int(torch.where(tc > 0, out_k[:, 5, 0], 0.0).sum())
-    ops = blocks * G * P * OPS_PER_PAIR_PIXEL
+    ops = blocks * G * P * OPS_PER_PAIR_PIXEL["full"]
     nbytes = blocks * FEAT_ROWS * G * 4 + cfg.num_tiles * 8 * P * 4 \
         + 2 * cfg.num_tiles * 4
     t_ops = ops / PEAK_F32_FLOPS * 1e3
@@ -727,9 +714,9 @@ def main():
     for _ in range(3):
         composite_pairs_bwd(*bargs)
     torch.cuda.synchronize()
-    bwd_ms = cuda_ms(lambda: composite_pairs_bwd(*bargs), 20)
+    bwd_ms = device_ms(lambda: composite_pairs_bwd(*bargs), 20)
     composite_pairs_bwd_plain(*bargs, tile_chunk=512)
-    bwd_plain_ms = cuda_ms(
+    bwd_plain_ms = device_ms(
         lambda: composite_pairs_bwd_plain(*bargs, tile_chunk=512), 2)
     bblocks = int(torch.where(bargs[2] > 0, bargs[3][:, 5, 0], 0.0).sum())
     bops = bblocks * G * P * OPS_BWD_PER_PAIR_PIXEL

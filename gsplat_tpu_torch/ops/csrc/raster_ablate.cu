@@ -38,7 +38,7 @@
 // Arithmetic. Built with -fmad=false like K1, every expression in the
 // plain version's order, so kernel and plain version round alike.
 //
-// Bound. kNoTransc and kNoMxu are bound by operations, as K1 is: 30 and 27
+// Bound. kNoTransc and kNoMxu are bound by operations, as K1 is: 29 and 26
 // f32 operations per composited (pair, pixel) (counted in
 // gsplat_tpu_torch/profile_kernel.py), against 10 x G x 4 B per block.
 // kNoCompute and kEmpty are bound by bytes: the staged rows plus the

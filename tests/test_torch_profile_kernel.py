@@ -232,7 +232,7 @@ def test_bounds():
     assert by == "bytes" and ms == pytest.approx(
         (blocks * 10 * 128 * 4 + out_bytes + cfg.num_tiles * 8)
         / 3.35e12 * 1e3)
-    for name, ops in (("full", 26), ("no-transc", 30), ("no-mxu", 27)):
+    for name, ops in (("full", 26), ("no-transc", 29), ("no-mxu", 26)):
         ms, by = tprof.bound_ms(name, blocks, cfg)
         assert by == "operations"
         assert ms == pytest.approx(blocks * 128 * 256 * ops / 67e12 * 1e3)
