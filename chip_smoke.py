@@ -9,8 +9,9 @@ Phases (any failure exits non-zero, with no result line):
   1. card check: torch.cuda.is_available(); the card's name and power limit;
   2. build every kernel of the serving, training and profiling paths from
      ``gsplat_tpu_torch/ops/csrc`` (raster_fwd = K1, raster_bwd = K2,
-     raster_ablate = four ablations of K1; one nvcc per source, all started
-     together), with ptxas registers/spills (a spill fails the run);
+     raster_ablate = K3's eight bodies in two templates; one nvcc per
+     source, all started together), with ptxas registers/spills (a spill
+     fails the run);
   3. K1, then K2 on a seeded cotangent, against their plain PyTorch versions
      on a seeded synthetic scene at 1920x1080 (K2 also: exact zeros outside
      the composited blocks, finite, a second call bit-identical);
@@ -33,13 +34,15 @@ Phases (any failure exits non-zero, with no result line):
      no pair overflow; step ms, per-view ms, peak device memory;
   9. timing of K2 alone (CUDA events) at the bench pose, on the inputs the
      fwd+bwd of phase 7 gave it, beside its plain version and its bound;
- 10. the compositor-ablation profiler (K3): K1 and the four ablation kernels
-     (raster_ablate.cu: empty, no-compute, no-transc, no-mxu) against their
-     plain versions on the profiler's 1080p workload, the plain versions'
-     times, then ``profile_kernel.main(["--iters", "20"])`` with the launch
-     counts set to 0 just before it: ms, ns/block and share of bound of
-     each variant, each launch count, the tile-0 digests against the plain
-     versions', and K1's time minus each ablation's;
+ 10. the compositor-ablation profiler (K3): K1 and the eight K3 kernels
+     (raster_ablate.cu: cumprod, pg-roll, pg-log, no-transc, no-mxu,
+     no-compute, no-input, empty) against their plain versions on the
+     profiler's 1080p workload, and cumprod and pg-* also against K1's plain
+     version (they compute K1's function), the plain versions' times, then
+     ``profile_kernel.main(["--iters", "20"])`` with the launch counts set to
+     0 just before it: ms, ns/block and share of bound of each variant, each
+     launch count, the tile-0 digests against the plain versions', and K1's
+     time minus each variant's;
  11. one JSON line {"kernels": [...]}, the card line, and the final line
      {"ok": true, "device": {...}}.
 
@@ -86,6 +89,10 @@ ABLATION_REPLACES = {
     "no-compute": "scripts/profile_kernel.py:173",
     "no-transc": "scripts/profile_kernel.py:50",
     "no-mxu": "scripts/profile_kernel.py:145",
+    "no-input": "scripts/profile_kernel.py:184",
+    "cumprod": "scripts/profile_kernel.py:90",
+    "pg-roll": "scripts/profile_kernel.py:231 (roll)",
+    "pg-log": "scripts/profile_kernel.py:231 (log)",
 }
 FEAT_ROWS = 10
 TRAIN_H, TRAIN_W = 540, 960  # the reference's training resolution
@@ -424,15 +431,17 @@ def train_parts_ms(state, batch, cfg, tcfg, reps=3):
 
 
 def ablation_phase(card, dev):
-    """Phase 10: K1 and the four ablation kernels against their plain
-    versions on the profiler's 1080p workload (rows 0-4 within TOL, row 5
-    exact, rows 6-7 zero), each plain version's time, then the profiler
-    through its entry point with every launch count set to 0 just before.
+    """Phase 10: K1 and the eight K3 kernels against their plain versions
+    on the profiler's 1080p workload (rows 0-4 within TOL, row 5 exact,
+    rows 6-7 zero, finite), cumprod and pg-* also against K1's plain
+    version (rows 0-4 within TOL, row 5 exact), each plain version's time,
+    then the profiler through its entry point with every launch count set
+    to 0 just before.
     Returns ({variant: max abs error}, {variant: plain ms}, {variant: the
     profiler's result}, {variant: launches in the profiler's run})."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch import profile_kernel
-    from gsplat_tpu_torch.ops.raster_ablate import (VARIANTS, ablate,
+    from gsplat_tpu_torch.ops.raster_ablate import (K1_FUNCTION, ablate,
                                                     ablate_plain)
     from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs,
                                                   composite_pairs_plain)
@@ -441,7 +450,8 @@ def ablation_phase(card, dev):
     pf, ts, tc = (t.to(dev) for t in profile_kernel.make_workload(cfg, 4))
     pairs = {"full": (composite_pairs, composite_pairs_plain)}
     pairs.update({v: (functools.partial(ablate, v),
-                      functools.partial(ablate_plain, v)) for v in VARIANTS})
+                      functools.partial(ablate_plain, v))
+                  for v in profile_kernel.VARIANTS if v != "full"})
     errs, plain_ms, digests = {}, {}, {}
     for name, (kernel, plain) in pairs.items():
         plain_fn = functools.partial(plain, pf, ts, tc, cfg, tile_chunk=512)
@@ -459,22 +469,34 @@ def ablation_phase(card, dev):
               f"composited {int(out_k[:, 5, 0].sum())}", flush=True)
         if not (errs[name] <= TOL and same5 and zero67 and finite):
             raise SystemExit(f"FAIL: {name} disagrees with its plain version")
-        if name != "full":
+        if name == "full":
+            k1_plain = out_p
+        else:
             plain_ms[name] = device_ms(plain_fn, 1)
+        if name in K1_FUNCTION:
+            err_k1 = float((out_k[:, 0:5] - k1_plain[:, 0:5]).abs().max())
+            same5_k1 = bool(torch.equal(out_k[:, 5], k1_plain[:, 5]))
+            print(f"[profile workload 1080p] {name} vs K1's plain version: "
+                  f"max abs err rows 0-4 {err_k1:.3e} (tol {TOL}), row 5 "
+                  f"exact: {same5_k1}", flush=True)
+            if not (err_k1 <= TOL and same5_k1):
+                raise SystemExit(f"FAIL: {name} disagrees with K1's plain "
+                                 f"version")
         del out_k, out_p
+    del k1_plain
 
     # The slice's main path: the profiler, as a user runs it.
     composite_pairs.launches = 0
-    for v in VARIANTS:
+    for v in ablate.launches:
         ablate.launches[v] = 0
     res = {r["name"]: r for r in profile_kernel.main(
         ["--iters", "20", "--device", str(dev)])}
     counts = {name: profile_kernel.launch_count(name) for name in pairs}
     print(f"[{card}] profiler launches (counts set to 0 before it): "
           + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
-    print(f"[{card}] K1 minus each ablation (CUDA events, one call): "
+    print(f"[{card}] K1 minus each variant (CUDA events, one call): "
           + ", ".join(f"{v} {res['full']['ms'] - res[v]['ms']:+.4f} ms"
-                      for v in VARIANTS), flush=True)
+                      for v in pairs if v != "full"), flush=True)
     for name in pairs:
         r = res[name]
         if counts[name] == 0 or r["launches"] != counts[name] \

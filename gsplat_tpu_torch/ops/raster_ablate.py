@@ -1,10 +1,11 @@
-"""Instruction-class ablations of the forward compositor (K1): the Hopper
-kernels and their plain PyTorch versions.
+"""Instruction-class ablations and alternative designs of the forward
+compositor (K1): the Hopper kernels and their plain PyTorch versions.
 
-Counterpart of four of the bodies that ``scripts/profile_kernel.py`` times
-through ``run_variant`` (its ``pallas_call`` at ``:365``). Each takes one
-class of work out of K1 (``raster_cuda.composite_pairs``), so that K1's
-time minus the variant's reads off that class's cost on the card:
+Counterpart of the eight bodies besides ``full`` that
+``scripts/profile_kernel.py`` times through ``run_variant`` (its
+``pallas_call`` at ``:365``). The first five take one class of work out of
+K1 (``raster_cuda.composite_pairs``), so that K1's time minus the variant's
+reads off that class's cost on the card:
 
 * ``empty`` (``_kernel_empty``, ``:222``): no feature is read and nothing
   is computed; T stays 1. The launch and per-CTA floor.
@@ -21,21 +22,41 @@ time minus the variant's reads off that class's cost on the card:
   per-pair transmittance: ``w = alpha T_in`` where ``T_in > T_min``, and the
   block's outgoing ``T = T_in exp(sum log1p(-alpha))``. On Hopper this
   removes K1's dependent per-pair T chain (there is no matrix unit in K1).
+* ``no-input`` (``_kernel_no_input``, ``:184``): K1's arithmetic on iota
+  features, row r of pair j of every block being ``j * 1e-3 + r`` (f32), with
+  log-space transmittance: ``s = log1p(-alpha)``, ``T_excl = exp(cum_incl -
+  s) T_in``, outgoing ``T = T_in exp(sum s)``. ``pair_feat`` is never read.
+  With these features alpha is non-zero only near pixel (0, 0): every other
+  tile composites its blocks with alpha = 0 everywhere.
 
-``no-transc`` and ``no-mxu`` skip a continuation block when the tile's
-largest T is ``<= transmittance_min`` (K1's ``__syncthreads_or`` rule). The
-TPU bodies gate on ``first | max(T_in) > T_min`` and ignore the dead bit;
-that is K1's rule on a layout with no dead blocks, which the profiler's
-workload is.
+The other three compute K1's function another way (alternative designs of
+K1; :data:`K1_FUNCTION`):
+
+* ``cumprod`` (``_kernel_cumprod``, ``:90``): ``T_excl = (within * gpre) *
+  T_in``, ``within`` the exclusive product of ``1 - alpha`` inside each group
+  of 8 pairs, ``gpre`` the exclusive product of the group totals; outgoing
+  ``T = T_in * (product of all group totals)``.
+* ``pg-roll`` and ``pg-log`` (``_kernel_pg``, ``:231``): the [P, G]
+  orientation, T along the pair axis by an inclusive doubling scan (steps
+  k = 1, 2, 4, ... G/2, ``x = x op where(i >= k, x[i - k], identity)``):
+  of ``1 - alpha`` by products for ``roll`` (T_excl the scan shifted by one
+  pair), of ``log1p(-alpha)`` by sums for ``log`` (``T_excl = exp(cum - s)
+  T_in``). The channel sums follow :func:`_block_sum`'s order.
+
+``no-transc``, ``no-mxu``, ``no-input``, ``cumprod`` and ``pg-*`` skip a
+continuation block when the tile's largest T is ``<= transmittance_min``
+(K1's ``__syncthreads_or`` rule). The TPU bodies gate on ``first | max(T_in)
+> T_min`` and ignore the dead bit; that is K1's rule on a layout with no
+dead blocks, which the profiler's workload is.
 
 Output ``[num_tiles, 8, tile*tile]`` f32 for every variant. Rows 0-3 are
 the sums of ``w * (r, g, b, depth)`` (zero for ``empty`` and
 ``no-compute``), row 4 the final T. The TPU bodies write only rows 0-4
-(``empty`` and ``no-compute`` only row 4) and leave tiles with no block
-unwritten; interpret mode fills what is unwritten with NaN. Here every row
-is defined: row 5 is the number of blocks composited, as K1's row 5 is
-(0 for ``empty``), rows 6-7 are 0, and a tile with no block gets T = 1 and
-zeros, as in K1.
+(``empty`` and ``no-compute`` only row 4; the pg bodies rows 5-7 from a
+scratch they never set) and leave tiles with no block unwritten; interpret
+mode fills what is unwritten with NaN. Here every row is defined: row 5 is
+the number of blocks composited, as K1's row 5 is (0 for ``empty``), rows
+6-7 are 0, and a tile with no block gets T = 1 and zeros, as in K1.
 
 :func:`ablate` chooses by the tensors' device: CPU tensors take
 :func:`ablate_plain`; CUDA tensors launch the kernel
@@ -54,13 +75,17 @@ from .raster_cuda import (FEAT_ROWS, _block_alpha, _check_inputs,
                           _check_kernel_args, _running_sum, _tile_pixels)
 
 # Variant name -> the kernel's template argument (raster_ablate.cu).
-VARIANTS = {"empty": 0, "no-compute": 1, "no-transc": 2, "no-mxu": 3}
+VARIANTS = {"empty": 0, "no-compute": 1, "no-transc": 2, "no-mxu": 3,
+            "no-input": 4, "cumprod": 5, "pg-roll": 6, "pg-log": 7}
+# The variants that compute K1's function (composite_pairs_plain's).
+K1_FUNCTION = ("cumprod", "pg-roll", "pg-log")
 WARP = 32
+CUMPROD_GROUP = 8  # pairs per group of the two-level product
 
 
 def _check_variant(variant):
     if variant not in VARIANTS:
-        raise ValueError(f"unknown ablation {variant!r}; ported: "
+        raise ValueError(f"unknown ablation {variant!r}; known: "
                          f"{', '.join(VARIANTS)}")
 
 
@@ -72,7 +97,7 @@ def _block_sum(x):
     m, G = x.shape
     if G % WARP:
         raise ValueError(f"pair_block must be a multiple of {WARP} for "
-                         f"no-compute (got {G})")
+                         f"no-compute and pg-* (got {G})")
     cols = x.reshape(m, G // WARP, WARP)
     s = cols[:, 0]
     for r in range(1, G // WARP):
@@ -95,15 +120,97 @@ def _rational_alpha(f, px, py, cfg: RenderConfig):
     return torch.where(a >= cfg.alpha_cutoff, a, 0.0)
 
 
+def _iota_features(G, m, dev):
+    """no-input's features [10, m, G]: row r of pair j is j * 1e-3 + r in
+    f32, as the TPU body and the kernel form them."""
+    j = torch.arange(G, dtype=torch.float32, device=dev) * 1e-3
+    rows = torch.arange(FEAT_ROWS, dtype=torch.float32, device=dev)
+    return (j[None, :] + rows[:, None])[:, None, :].expand(FEAT_ROWS, m, G)
+
+
+def _cumprod_transmittance(alpha, T_in):
+    """cumprod's (T_excl [m, G, P], T_out [m, P]) for alpha [m, G, P]: the
+    within-group products and the group prefix, each a sequential product
+    starting at 1, as the kernel keeps them."""
+    m, G, P = alpha.shape
+    mg = (1.0 - alpha).reshape(m, G // CUMPROD_GROUP, CUMPROD_GROUP, P)
+    ones = torch.ones_like(mg[:, :, :1])
+    within = torch.cumprod(torch.cat([ones, mg[:, :, :-1]], dim=2), dim=2)
+    gtot = within[:, :, -1] * mg[:, :, -1]  # [m, K, P]
+    gpre = torch.cumprod(torch.cat([ones[:, :1, 0], gtot], dim=1), dim=1)
+    T_excl = (within * gpre[:, :-1, None, :]).reshape(m, G, P) \
+        * T_in[:, None, :]
+    return T_excl, T_in * gpre[:, -1]
+
+
+def _block_weights(variant, f, px, py, T_in, cfg: RenderConfig):
+    """(w [m, G, P], outgoing T [m, P]) of one block for the variants that
+    walk the pairs in order: no-transc, no-mxu, no-input and cumprod."""
+    G = f.shape[2]
+    zero = torch.zeros_like(T_in)
+    if variant == "no-transc":
+        alpha = _rational_alpha(f, px, py, cfg)
+        s = -alpha
+        incl = _running_sum(zero, s)  # [m, G, P]
+        T_excl = (1.0 + (incl - s)) * T_in[:, None, :]
+        T_out = T_in * (1.0 + incl[:, G - 1])
+    elif variant == "no-mxu":
+        alpha = _block_alpha(f, px, py, cfg)[0]
+        T_excl = T_in[:, None, :]  # w = alpha T_in where T_in > T_min
+        logs = _running_sum(zero, torch.log1p(-alpha))[:, G - 1]
+        T_out = T_in * torch.exp(logs)
+    elif variant == "no-input":
+        alpha = _block_alpha(f, px, py, cfg)[0]
+        s = torch.log1p(-alpha)
+        incl = _running_sum(zero, s)
+        T_excl = torch.exp(incl - s) * T_in[:, None, :]
+        T_out = T_in * torch.exp(incl[:, G - 1])
+    else:  # cumprod
+        alpha = _block_alpha(f, px, py, cfg)[0]
+        T_excl, T_out = _cumprod_transmittance(alpha, T_in)
+    w = torch.where(T_excl > cfg.transmittance_min, alpha * T_excl, 0.0)
+    return w, T_out
+
+
+def _pg_block(variant, f, px, py, T_in, cfg: RenderConfig):
+    """(the block's channel sums [m, 4, P], outgoing T [m, P]) for pg-roll
+    and pg-log, in the [m, P, G] orientation: the doubling scan along the
+    pairs in the TPU body's association, the sums in _block_sum's order."""
+    alpha = _block_alpha(f, px, py, cfg)[0].transpose(1, 2).contiguous()
+    m, P, G = alpha.shape
+    i = torch.arange(G, device=alpha.device)
+    roll = variant == "pg-roll"
+    s = 1.0 - alpha if roll else torch.log1p(-alpha)
+    x = s
+    k = 1
+    while k < G:
+        part = torch.where(i >= k, torch.roll(x, k, -1), 1.0 if roll else 0.0)
+        x = x * part if roll else x + part
+        k *= 2
+    if roll:  # exclusive: the inclusive scan shifted by one pair
+        T_excl = torch.where(i >= 1, torch.roll(x, 1, -1), 1.0) \
+            * T_in[:, :, None]
+        T_out = T_in * x[:, :, G - 1]
+    else:
+        T_excl = torch.exp(x - s) * T_in[:, :, None]
+        T_out = T_in * torch.exp(x[:, :, G - 1])
+    w = torch.where(T_excl > cfg.transmittance_min, alpha * T_excl, 0.0)
+    sums = [_block_sum((w * f[6 + ch][:, None, :]).reshape(m * P, G))
+            .reshape(m, P) for ch in range(4)]
+    return torch.stack(sums, dim=1), T_out
+
+
 def ablate_plain(variant, pair_feat, tile_start, tile_count,
                  cfg: RenderConfig, tile_chunk: int = 0):
     """Plain PyTorch version of the ablation ``variant`` (any device).
 
     Walks the blocks as :func:`raster_cuda.composite_pairs_plain` does, all
     tiles of a chunk at once, and evaluates every per-(pair, pixel) term in
-    the kernel's order with sequential running sums (cumulative ops along a
-    non-innermost dimension), so on the card it rounds as the kernel does.
-    ``tile_chunk`` > 0 bounds memory to that many tiles at a time.
+    the kernel's order with sequential running sums and products
+    (cumulative ops along a non-innermost dimension) or, for pg-*, the
+    kernel's scan and reduction order, so on the card it rounds as the
+    kernel does. ``no-input`` never reads ``pair_feat``. ``tile_chunk`` > 0
+    bounds memory to that many tiles at a time.
     """
     _check_variant(variant)
     dev = pair_feat.device
@@ -137,29 +244,18 @@ def ablate_plain(variant, pair_feat, tile_start, tile_count,
             pcol = start[idx, None] + k * G + cols  # [m, G]
             if variant == "no-compute":
                 T[idx] = T[idx] + _block_sum(pair_feat[0, pcol])[:, None]
-                cnt[idx] += 1.0
-                k += 1
-                continue
-            f = pair_feat[:FEAT_ROWS, pcol]  # [10, m, G]
-            T_in = T[idx]  # [m, P]
-            zero = torch.zeros_like(T_in)
-            if variant == "no-transc":
-                alpha = _rational_alpha(f, px[idx], py[idx], cfg)
-                s = -alpha
-                incl = _running_sum(zero, s)  # [m, G, P]
-                T_excl = (1.0 + (incl - s)) * T_in[:, None, :]
-                w = torch.where(T_excl > cfg.transmittance_min,
-                                alpha * T_excl, 0.0)
-                T[idx] = T_in * (1.0 + incl[:, G - 1])
-            else:  # no-mxu
-                alpha = _block_alpha(f, px[idx], py[idx], cfg)[0]
-                w = torch.where(T_in[:, None, :] > cfg.transmittance_min,
-                                alpha * T_in[:, None, :], 0.0)
-                logs = _running_sum(zero, torch.log1p(-alpha))[:, G - 1]
-                T[idx] = T_in * torch.exp(logs)
-            for ch in range(4):
-                acc[idx, ch] = _running_sum(
-                    acc[idx, ch], w * f[6 + ch][:, :, None])[:, G - 1]
+            elif variant in ("pg-roll", "pg-log"):
+                sums, T[idx] = _pg_block(variant, pair_feat[:FEAT_ROWS, pcol],
+                                         px[idx], py[idx], T[idx], cfg)
+                acc[idx] = acc[idx] + sums
+            else:
+                f = _iota_features(G, idx.numel(), dev) \
+                    if variant == "no-input" else pair_feat[:FEAT_ROWS, pcol]
+                w, T[idx] = _block_weights(variant, f, px[idx], py[idx],
+                                           T[idx], cfg)
+                for ch in range(4):
+                    acc[idx, ch] = _running_sum(
+                        acc[idx, ch], w * f[6 + ch][:, :, None])[:, G - 1]
             cnt[idx] += 1.0
             k += 1
         out[tiles, 0:4] = acc

@@ -3,20 +3,24 @@
 Counterpart of ``scripts/profile_kernel.py``: it times the bare forward
 compositor (K1, ``raster_cuda.composite_pairs``) on a synthetic
 block-aligned pair list (no binning, no gather, no saturation skip at the
-default opacity) beside ablations that each take one class of work out of
-it (``ops/raster_ablate.py``):
+default opacity) beside three other designs of it and five ablations that
+each take one class of work out of it (``ops/raster_ablate.py``):
 
   full        K1 (ops/csrc/raster_fwd.cu)
+  cumprod     K1's function, T a two-level product (groups of 8 pairs)
+  pg-roll     K1's function with pairs on lanes, T a doubling-scan product
+  pg-log      the same, T from a doubling-scan sum of log1p(-alpha)
   no-transc   exp replaced by 1/(1+q/2), the T product by 1 + a sum
   no-mxu      no per-pair T chain: w = alpha T_in, T_out from a log sum
   no-compute  the feature rows staged and row 0 summed, nothing else
+  no-input    K1's arithmetic on iota features with log-space T, no read
   empty       the tile's output written, nothing read (launch floor)
 
-``full`` minus a variant is what that class of work costs K1. Each line
-prints the time per launch, per block of the workload, the tile-0 digest
-(the sum of out[0, 0:5], which agrees with the JAX script's) and, on the
-card, the variant's bound and K1's share of it. ``no-input``, ``cumprod``,
-``pg-roll`` and ``pg-log`` are not ported yet and raise.
+``full`` minus an ablation is what that class of work costs K1; ``full``
+minus cumprod or pg-* is what that design saves. Each line prints the time
+per launch, per block of the workload, the tile-0 digest (the sum of
+out[0, 0:5], which agrees with the JAX script's) and, on the card, the
+variant's bound and its share of it.
 
     python -m gsplat_tpu_torch.profile_kernel [--blocks-per-tile 4]
         [--height 1080] [--width 1920] [--iters 20] [--only full,empty]
@@ -42,23 +46,32 @@ from .device import resolve_device
 from .ops.raster_ablate import ablate
 from .ops.raster_cuda import FEAT_ROWS, FEAT_WIDTH, composite_pairs
 
-VARIANTS = {
-    "full": composite_pairs,
-    "no-transc": functools.partial(ablate, "no-transc"),
-    "no-mxu": functools.partial(ablate, "no-mxu"),
-    "no-compute": functools.partial(ablate, "no-compute"),
-    "empty": functools.partial(ablate, "empty"),
-}
-UNPORTED = ("no-input", "cumprod", "pg-roll", "pg-log")
+# The JAX script's VARIANTS, in its order.
+VARIANTS = {"full": composite_pairs}
+VARIANTS.update((name, functools.partial(ablate, name)) for name in (
+    "cumprod", "pg-roll", "pg-log", "no-transc", "no-mxu", "no-compute",
+    "no-input", "empty"))
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # f32 operations per composited (pair, pixel), counted from each kernel's
-# body; compares, selects and sign flips are not counted.
+# body; compares, selects, sign flips and the once-per-block T update are
+# not counted. A sum over the pairs counts one add per pair and channel
+# (pg-*'s lane-then-shuffle order repeats some adds on every lane).
 OPS_PER_PAIR_PIXEL = {
     # du, dv (2), q (9), -q/2 (1), exp (1), op*g (1), min (1), alpha*T (1),
     # four sums (8), T*(1-alpha) (2)
     "full": 26,
+    # K1's alpha (15), 1-alpha (1), within*gpre (1), *T_in (1),
+    # alpha*T_excl (1), within*m (1), four sums (8); gpre*within once per
+    # group of 8 pairs is not counted
+    "cumprod": 28,
+    # K1's alpha (15), 1-alpha (1), excl*T_in (1), alpha*T_excl (1), four
+    # sums (8); plus one multiply per scan step (SCAN_VARIANTS)
+    "pg-roll": 26,
+    # K1's alpha (15), log1p (1), cum - s (1), exp (1), *T_in (1),
+    # alpha*T_excl (1), four sums (8); plus one add per scan step
+    "pg-log": 28,
     # du, dv (2), q (9), q/2 (1), 1+ (1), divide (1), op*g (1), min (1),
     # run + s (1), run - s (1), 1+ (1), *T (1), alpha*T_excl (1), four
     # sums (8)
@@ -66,7 +79,20 @@ OPS_PER_PAIR_PIXEL = {
     # du, dv (2), q (9), -q/2 (1), exp (1), op*g (1), min (1), alpha*T (1),
     # four sums (8), log1p (1), run + log1p (1)
     "no-mxu": 26,
+    # K1's alpha (15), log1p (1), run + s (1), run - s (1), exp (1), *T (1),
+    # alpha*T_excl (1), four sums (8). The iota features are a function of
+    # the pair alone (11 operations per pair, not per pixel): not counted.
+    "no-input": 29,
 }
+# Variants whose T is a doubling scan over the block's pairs: one more
+# operation per (pair, pixel) for each of its ceil(log2 G) steps.
+SCAN_VARIANTS = ("pg-roll", "pg-log")
+
+
+def ops_per_pair_pixel(name: str, pair_block: int) -> int:
+    """f32 operations per composited (pair, pixel) of the variant."""
+    steps = (pair_block - 1).bit_length() if name in SCAN_VARIANTS else 0
+    return OPS_PER_PAIR_PIXEL[name] + steps
 
 
 def make_workload(cfg: RenderConfig, blocks_per_tile: int, seed: int = 0):
@@ -110,15 +136,17 @@ def bound_ms(name: str, blocks: int, cfg: RenderConfig):
     and each output byte written once at 3.35 TB/s, against the operations
     at 67 TFLOP/s f32. ``no-compute`` counts the 10 staged rows it is
     defined to read (the TPU body reads the whole feature block) and one
-    add per staged u and per pixel; ``empty`` only writes its output."""
+    add per staged u and per pixel; ``no-input`` reads no feature; ``empty``
+    only writes its output."""
     G, P = cfg.pair_block, cfg.tile * cfg.tile
     out_bytes = cfg.num_tiles * 8 * P * 4
     if name == "empty":
         ops, nbytes = 0, out_bytes
     else:
-        nbytes = blocks * FEAT_ROWS * G * 4 + out_bytes + 2 * cfg.num_tiles * 4
+        feat_bytes = 0 if name == "no-input" else blocks * FEAT_ROWS * G * 4
+        nbytes = feat_bytes + out_bytes + 2 * cfg.num_tiles * 4
         ops = blocks * (G + P) if name == "no-compute" else \
-            blocks * G * P * OPS_PER_PAIR_PIXEL[name]
+            blocks * G * P * ops_per_pair_pixel(name, G)
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -196,13 +224,8 @@ def main(argv=None) -> list:
 
     names = list(VARIANTS) if not args.only else args.only.split(",")
     for name in names:
-        if name in UNPORTED:
-            raise NotImplementedError(
-                f"variant {name!r} is not ported yet (ROADMAP.md Queue 2, "
-                f"K3: the next slice ports no-input, cumprod, pg-roll and "
-                f"pg-log)")
         if name not in VARIANTS:
-            raise ValueError(f"unknown variant {name!r}; ported: "
+            raise ValueError(f"unknown variant {name!r}; known: "
                              f"{', '.join(VARIANTS)}")
     dev = resolve_device(args.device)
     cfg = RenderConfig(height=args.height, width=args.width,

@@ -19,9 +19,11 @@ outside the blocks the forward composited, and two runs bit-identical (no
 float atomics). A train step on the card vs on the CPU: gradients within
 5e-4 of each leaf's largest, the render's own gradient tolerance.
 
-The four ablation kernels of the profiler vs their plain versions: as the
+The eight K3 kernels of the profiler vs their plain versions: as the
 forward compositor (rows 0-4 within 2e-5 abs, row 5 exact, rows 6-7 zero),
-for the same reason.
+for the same reason. cumprod, pg-roll and pg-log compute the forward
+compositor's function, so they are also held against its plain version
+within the same 2e-5 (their T is rounded in another association).
 """
 
 import numpy as np
@@ -232,8 +234,9 @@ def test_train_step_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("opacity", [0.05, 0.9])
 @pytest.mark.parametrize("variant", list(tabl.VARIANTS))
 def test_ablation_kernel_matches_plain(cuda, variant, opacity):
-    """The profiler's workload at 192x128; at opacity 0.9 no-transc and
-    no-mxu skip continuation blocks."""
+    """The profiler's workload at 192x128; at opacity 0.9 every variant
+    with the skip rule (all but empty, no-compute and no-input, whose
+    features ignore the opacity) skips continuation blocks."""
     cfg = gt.RenderConfig(**CFG)
     pf, ts, tc = (t.to(cuda) for t in make_workload(cfg, 4))
     pf[5] = opacity
@@ -246,8 +249,12 @@ def test_ablation_kernel_matches_plain(cuda, variant, opacity):
     assert float((got[:, :5] - want[:, :5]).abs().max()) <= TOL
     assert torch.equal(got[:, 5], want[:, 5])
     assert (got[:, 6:] == 0).all()
-    if opacity > 0.5 and variant in ("no-transc", "no-mxu"):
+    if opacity > 0.5 and variant not in ("empty", "no-compute", "no-input"):
         assert (got[:, 5, 0] < 4).any(), "no tile was skipped"
+    if variant in tabl.K1_FUNCTION:
+        k1 = tras.composite_pairs_plain(pf, ts, tc, cfg)
+        assert float((got[:, :5] - k1[:, :5]).abs().max()) <= TOL
+        assert torch.equal(got[:, 5], k1[:, 5])
 
 
 def test_render_gradients_are_bit_identical_across_runs(cuda):

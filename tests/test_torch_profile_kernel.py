@@ -12,9 +12,14 @@ checked on its own.
 
 Tolerances:
 
-* ``no-transc``, ``no-mxu``: rows 0-4 within 1e-5 of each row's max abs
-  (the JAX bodies sum with an MXU cumsum, a dot and tree reductions, the
-  port in sequence);
+* ``no-transc``, ``no-mxu``, ``no-input``, ``cumprod``, ``pg-roll``,
+  ``pg-log``: rows 0-4 within 1e-5 of each row's max abs (the JAX bodies
+  sum with an MXU cumsum or triangular matmul, a dot and tree reductions,
+  the port in sequence or in its kernel's lane order);
+* ``cumprod``, ``pg-roll``, ``pg-log`` against the port's K1 plain version
+  (``composite_pairs_plain``, the same function with T as a sequential
+  product): rows 0-4 within 2e-5 abs, the kernel-vs-plain tolerance, and
+  row 5 exactly;
 * ``no-compute``: row 4 within 1e-6 relative (one f32 sum per block of u
   values up to ~1e3, in another order);
 * ``empty``: row 4 exactly;
@@ -44,6 +49,7 @@ import gsplat_tpu_torch.config as tconfig
 from gsplat_tpu.ops import raster_pallas as jras
 from gsplat_tpu_torch import profile_kernel as tprof
 from gsplat_tpu_torch.ops import raster_ablate as tabl
+from gsplat_tpu_torch.ops import raster_cuda as tras
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "scripts", "profile_kernel.py")
@@ -89,6 +95,8 @@ def _jax_body(name, pair_feat, cfg, bpt):
         out_specs=pl.BlockSpec((1, 8, P),
                                lambda b, bm: (bm[b] >> J.META_SHIFT, 0, 0),
                                memory_space=pltpu.VMEM),
+        scratch_shapes=([pltpu.VMEM((P, 8), jnp.float32)]
+                        if name in J.PG_VARIANTS else []),
     )
     fn = jax.jit(lambda bm, f: pl.pallas_call(
         functools.partial(J.VARIANTS[name], cfg=cfg),
@@ -99,21 +107,31 @@ def _jax_body(name, pair_feat, cfg, bpt):
     return np.asarray(fn(block_meta, jnp.asarray(pair_feat)))
 
 
-@pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("variant", list(tabl.VARIANTS))
-def test_ablation_matches_jax_body(variant, case):
+def _workload(case):
+    """The profiler's workload for CASES[case]: (cfg, pair_feat, tile_start,
+    tile_count)."""
     height, width, G, bpt, opacity = CASES[case]
-    kw = dict(height=height, width=width, max_pairs=2**18, pair_block=G)
-    cfg = tconfig.RenderConfig(**kw)
+    cfg = tconfig.RenderConfig(height=height, width=width, max_pairs=2**18,
+                               pair_block=G)
     pf, ts, tc = tprof.make_workload(cfg, bpt)
     if opacity is not None:
         pf[5] = opacity
+    return cfg, pf, ts, tc
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("variant", list(tabl.VARIANTS))
+def test_ablation_matches_jax_body(variant, case):
+    _, _, G, bpt, opacity = CASES[case]
+    cfg, pf, ts, tc = _workload(case)
     launches = dict(tabl.ablate.launches)
     got = tabl.ablate(variant, pf, ts, tc, cfg).numpy()
     assert tabl.ablate.launches == launches  # CPU: the plain version
-    want = _jax_body(variant, pf.numpy(), jconfig.RenderConfig(**kw), bpt)
+    jcfg = jconfig.RenderConfig(height=cfg.height, width=cfg.width,
+                                max_pairs=cfg.max_pairs, pair_block=G)
+    want = _jax_body(variant, pf.numpy(), jcfg, bpt)
 
-    if variant in ("no-transc", "no-mxu"):
+    if variant not in ("empty", "no-compute"):
         for r in range(5):
             scale = np.abs(want[:, r]).max()
             err = np.abs(got[:, r] - want[:, r]).max()
@@ -130,9 +148,32 @@ def test_ablation_matches_jax_body(variant, case):
     if variant in ("empty", "no-compute"):
         assert (got[:, 0:4] == 0).all()
         assert (blocks == (0 if variant == "empty" else bpt)).all()
-    elif opacity is not None:
+    elif opacity is not None and variant != "no-input":
         assert (blocks < bpt).any(), "no tile was skipped"
         assert (blocks >= 1).all()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("variant", tabl.K1_FUNCTION)
+def test_k1_designs_match_k1_plain(variant, case):
+    """cumprod and pg-* compute K1's function: held against K1's plain
+    version, skip decisions (row 5) included."""
+    cfg, pf, ts, tc = _workload(case)
+    got = tabl.ablate(variant, pf, ts, tc, cfg)
+    want = tras.composite_pairs_plain(pf, ts, tc, cfg)
+    assert float((got[:, 0:5] - want[:, 0:5]).abs().max()) <= 2e-5
+    assert torch.equal(got[:, 5], want[:, 5])
+    assert (got[:, 6:] == 0).all()
+
+
+def test_no_input_never_reads_pair_feat():
+    cfg, pf, ts, tc = _workload("32x48-G128-b4-opacity0.9")
+    got = tabl.ablate("no-input", pf, ts, tc, cfg)
+    again = tabl.ablate("no-input", torch.zeros_like(pf), ts, tc, cfg)
+    assert torch.equal(got, again)
+    # The iota features put alpha > 0 only near pixel (0, 0): tile 0.
+    assert float(got[0, 0:4].abs().max()) > 0
+    assert (got[1:, 0:4] == 0).all() and (got[1:, 4] == 1).all()
 
 
 def test_make_workload_matches_jax_script(monkeypatch):
@@ -167,9 +208,10 @@ def test_make_workload_matches_jax_script(monkeypatch):
 
 def test_profiler_digests_match_jax_script():
     """The whole slice, workload included: both profilers, run as a user
-    runs them on the CPU, print the same tile-0 digests."""
+    runs them on the CPU, print the same tile-0 digests for every variant
+    whose rows 0-4 the JAX body writes."""
     flags = ["--height", "32", "--width", "48", "--blocks-per-tile", "2",
-             "--iters", "1", "--only", "full,no-transc,no-mxu"]
+             "--iters", "1", "--only", ",".join(tprof.VARIANTS)]
     env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_PLATFORM_NAME="cpu")
     cmds = [[sys.executable, SCRIPT, *flags],
             [sys.executable, "-m", "gsplat_tpu_torch.profile_kernel",
@@ -189,9 +231,14 @@ def test_profiler_digests_match_jax_script():
         digests.append({m[0]: float(m[1]) for m in re.findall(
             r"^(\S+)\s.*tile0-digest (\S+)", out, re.M)})
     jax_d, port_d = digests
-    assert set(jax_d) == set(port_d) == {"full", "no-transc", "no-mxu"}
+    assert set(jax_d) == set(port_d) == set(tprof.VARIANTS)
+    # empty and no-compute leave rows 0-3 unwritten on the TPU: NaN there.
+    unwritten = {"empty", "no-compute"}
+    assert {n for n, d in jax_d.items() if np.isnan(d)} == unwritten
     for name, want in jax_d.items():
-        assert abs(port_d[name] - want) <= 1e-3, (name, port_d[name], want)
+        if name not in unwritten:
+            assert abs(port_d[name] - want) <= 1e-3, (name, port_d[name],
+                                                      want)
 
 
 def test_profiler_runs_every_ported_variant_on_cpu(capsys):
@@ -203,12 +250,6 @@ def test_profiler_runs_every_ported_variant_on_cpu(capsys):
     assert by["full"]["blocks"] == by["no-compute"]["blocks"] == 12
     assert by["empty"]["blocks"] == 0 and by["empty"]["digest"] == 256.0
     assert "bound" not in capsys.readouterr().out  # no device numbers
-
-
-@pytest.mark.parametrize("name", list(tprof.UNPORTED))
-def test_unported_variant_raises(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprof.main(["--device", "cpu", "--only", f"full,{name}"])
 
 
 def test_profiler_rejects_unknown_variant_and_missing_card():
@@ -232,10 +273,16 @@ def test_bounds():
     assert by == "bytes" and ms == pytest.approx(
         (blocks * 10 * 128 * 4 + out_bytes + cfg.num_tiles * 8)
         / 3.35e12 * 1e3)
-    for name, ops in (("full", 26), ("no-transc", 29), ("no-mxu", 26)):
+    # pg-*: log2(128) = 7 scan steps on top of the per-pair terms.
+    for name, ops in (("full", 26), ("no-transc", 29), ("no-mxu", 26),
+                      ("no-input", 29), ("cumprod", 28), ("pg-roll", 33),
+                      ("pg-log", 35)):
         ms, by = tprof.bound_ms(name, blocks, cfg)
         assert by == "operations"
         assert ms == pytest.approx(blocks * 128 * 256 * ops / 67e12 * 1e3)
+    assert tprof.ops_per_pair_pixel("pg-roll", 32) == 26 + 5
+    assert tprof.ops_per_pair_pixel("pg-log", 256) == 28 + 8
+    assert tprof.ops_per_pair_pixel("pg-log", 96) == 28 + 7
 
 
 def test_ablate_wrapper_on_cpu():
@@ -256,5 +303,6 @@ def test_ablate_wrapper_on_cpu():
         assert (out[:, [0, 1, 2, 3, 5, 6, 7]] == 0).all()
     cfg48 = cfg.with_(pair_block=48)
     pf48, ts48, tc48 = tprof.make_workload(cfg48, 1)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        tabl.ablate("no-compute", pf48, ts48, tc48, cfg48)
+    for variant in ("no-compute", "pg-roll", "pg-log"):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            tabl.ablate(variant, pf48, ts48, tc48, cfg48)
