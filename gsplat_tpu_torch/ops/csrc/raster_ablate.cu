@@ -115,7 +115,9 @@ __device__ __forceinline__ void stage_rows(float* sm,
   }
 }
 
-// K1's alpha for one (pair, pixel).
+// K1's alpha for one (pair, pixel); with kRational (kNoTransc) the falloff
+// exp(-q/2) becomes 1/(1+q/2).
+template <bool kRational = false>
 __device__ __forceinline__ float pair_alpha(float px, float py, float u,
                                             float v, float ca, float cb,
                                             float cc, float op,
@@ -124,7 +126,10 @@ __device__ __forceinline__ float pair_alpha(float px, float py, float u,
   const float du = px - u;
   const float dv = py - v;
   const float q = ca * du * du + 2.0f * cb * du * dv + cc * dv * dv;
-  const float g = q <= chi2_clip ? expf(-0.5f * q) : 0.0f;
+  float g = 0.0f;
+  if (q <= chi2_clip) {
+    g = kRational ? 1.0f / (1.0f + 0.5f * q) : expf(-0.5f * q);
+  }
   const float a_raw = op * g;
   const float a = a_raw > alpha_max ? alpha_max : a_raw;
   return a >= alpha_cutoff ? a : 0.0f;
@@ -223,20 +228,9 @@ __global__ void __launch_bounds__(kPixels) raster_ablate_kernel(
             fbl = sm[8 * G + j];
             fd = sm[9 * G + j];
           }
-          float alpha;
-          if constexpr (V == kNoTransc) {
-            const float du = px - fu;
-            const float dv = py - fv;
-            const float q = fa * du * du + 2.0f * fb * du * dv +
-                            fc * dv * dv;
-            const float g = q <= chi2_clip ? 1.0f / (1.0f + 0.5f * q) : 0.0f;
-            const float a_raw = fo * g;
-            const float a = a_raw > alpha_max ? alpha_max : a_raw;
-            alpha = a >= alpha_cutoff ? a : 0.0f;
-          } else {
-            alpha = pair_alpha(px, py, fu, fv, fa, fb, fc, fo, chi2_clip,
-                               alpha_max, alpha_cutoff);
-          }
+          const float alpha = pair_alpha<V == kNoTransc>(
+              px, py, fu, fv, fa, fb, fc, fo, chi2_clip, alpha_max,
+              alpha_cutoff);
           float w;
           if constexpr (V == kNoTransc) {
             const float s = -alpha;

@@ -43,7 +43,7 @@ import torch
 
 from .config import RenderConfig
 from .device import resolve_device
-from .ops.raster_ablate import ablate
+from .ops.raster_ablate import K1_FUNCTION, ablate
 from .ops.raster_cuda import FEAT_ROWS, FEAT_WIDTH, composite_pairs
 
 # The JAX script's VARIANTS, in its order.
@@ -56,22 +56,13 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # f32 operations per composited (pair, pixel), counted from each kernel's
 # body; compares, selects, sign flips and the once-per-block T update are
-# not counted. A sum over the pairs counts one add per pair and channel
-# (pg-*'s lane-then-shuffle order repeats some adds on every lane).
+# not counted. A variant that computes K1's function (K1_FUNCTION: cumprod,
+# pg-roll, pg-log) is held to K1's count, the least that function needs;
+# what its design adds on top is its cost, not its bound.
 OPS_PER_PAIR_PIXEL = {
     # du, dv (2), q (9), -q/2 (1), exp (1), op*g (1), min (1), alpha*T (1),
     # four sums (8), T*(1-alpha) (2)
     "full": 26,
-    # K1's alpha (15), 1-alpha (1), within*gpre (1), *T_in (1),
-    # alpha*T_excl (1), within*m (1), four sums (8); gpre*within once per
-    # group of 8 pairs is not counted
-    "cumprod": 28,
-    # K1's alpha (15), 1-alpha (1), excl*T_in (1), alpha*T_excl (1), four
-    # sums (8); plus one multiply per scan step (SCAN_VARIANTS)
-    "pg-roll": 26,
-    # K1's alpha (15), log1p (1), cum - s (1), exp (1), *T_in (1),
-    # alpha*T_excl (1), four sums (8); plus one add per scan step
-    "pg-log": 28,
     # du, dv (2), q (9), q/2 (1), 1+ (1), divide (1), op*g (1), min (1),
     # run + s (1), run - s (1), 1+ (1), *T (1), alpha*T_excl (1), four
     # sums (8)
@@ -84,15 +75,8 @@ OPS_PER_PAIR_PIXEL = {
     # the pair alone (11 operations per pair, not per pixel): not counted.
     "no-input": 29,
 }
-# Variants whose T is a doubling scan over the block's pairs: one more
-# operation per (pair, pixel) for each of its ceil(log2 G) steps.
-SCAN_VARIANTS = ("pg-roll", "pg-log")
-
-
-def ops_per_pair_pixel(name: str, pair_block: int) -> int:
-    """f32 operations per composited (pair, pixel) of the variant."""
-    steps = (pair_block - 1).bit_length() if name in SCAN_VARIANTS else 0
-    return OPS_PER_PAIR_PIXEL[name] + steps
+OPS_PER_PAIR_PIXEL.update((name, OPS_PER_PAIR_PIXEL["full"])
+                          for name in K1_FUNCTION)
 
 
 def make_workload(cfg: RenderConfig, blocks_per_tile: int, seed: int = 0):
@@ -146,7 +130,7 @@ def bound_ms(name: str, blocks: int, cfg: RenderConfig):
         feat_bytes = 0 if name == "no-input" else blocks * FEAT_ROWS * G * 4
         nbytes = feat_bytes + out_bytes + 2 * cfg.num_tiles * 4
         ops = blocks * (G + P) if name == "no-compute" else \
-            blocks * G * P * ops_per_pair_pixel(name, G)
+            blocks * G * P * OPS_PER_PAIR_PIXEL[name]
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes

@@ -273,16 +273,20 @@ def test_bounds():
     assert by == "bytes" and ms == pytest.approx(
         (blocks * 10 * 128 * 4 + out_bytes + cfg.num_tiles * 8)
         / 3.35e12 * 1e3)
-    # pg-*: log2(128) = 7 scan steps on top of the per-pair terms.
+    # cumprod and pg-* compute K1's function: K1's count, whatever the
+    # design adds on top.
     for name, ops in (("full", 26), ("no-transc", 29), ("no-mxu", 26),
-                      ("no-input", 29), ("cumprod", 28), ("pg-roll", 33),
-                      ("pg-log", 35)):
+                      ("no-input", 29), ("cumprod", 26), ("pg-roll", 26),
+                      ("pg-log", 26)):
         ms, by = tprof.bound_ms(name, blocks, cfg)
         assert by == "operations"
         assert ms == pytest.approx(blocks * 128 * 256 * ops / 67e12 * 1e3)
-    assert tprof.ops_per_pair_pixel("pg-roll", 32) == 26 + 5
-    assert tprof.ops_per_pair_pixel("pg-log", 256) == 28 + 8
-    assert tprof.ops_per_pair_pixel("pg-log", 96) == 28 + 7
+    for G in (32, 96, 256):
+        small = tconfig.RenderConfig(height=32, width=48, max_pairs=2**12,
+                                     pair_block=G)
+        full = tprof.bound_ms("full", 12, small)
+        for name in tabl.K1_FUNCTION:
+            assert tprof.bound_ms(name, 12, small) == full
 
 
 def test_ablate_wrapper_on_cpu():
