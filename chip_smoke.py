@@ -13,16 +13,20 @@ Phases (any failure exits non-zero, with no result line):
      source, all started together), with ptxas registers/spills (a spill
      fails the run);
   3. K1, then K2 on a seeded cotangent, against their plain PyTorch versions
-     on a seeded synthetic scene at 1920x1080 (K2 also: exact zeros outside
-     the composited blocks, finite, a second call bit-identical);
+     on a seeded synthetic scene at 1920x1080 (K1 writing its block-start
+     state: output bit-identical to K1 without it, state bit-identical to
+     the plain forward's; K2, given K1's state, at each pixels-per-thread
+     factor built: within BWD_TOL, exact zeros outside the composited
+     blocks, finite, a second call bit-identical);
   4. the same on ``bench_assets/trained_ckpt.npz`` at 1920x1080 from the
      bench pose (camera at center + (0, -0.6R, -4.4R));
   5. serving: restore_pool -> make_render_fn -> render_trajectory over the
      bench pose plus an 8-frame orbit at orbit_scale 4.4, with the kernel's
      launch count read around the run, and the served bench-pose frame held
      against the image assembled from the plain compositor's output;
-  6. timing of K1 alone (CUDA events) beside its plain version and its
-     bound, and the device time of each stage of one frame;
+  6. timing of K1 alone (CUDA events), without and with state writing,
+     beside its plain version and its bound, and the device time of each
+     stage of one frame;
   7. fwd+bwd at 1080p at the bench pose (render_from_params, loss
      mean(im) + mean(im^2), .backward()): one K1 and one K2 launch per call,
      finite gradients, dead slots' gradients 0, ms per call, and the device
@@ -33,7 +37,9 @@ Phases (any failure exits non-zero, with no result line):
      skipped, dead slots do not move, K1 and K2 launch views x steps times,
      no pair overflow; step ms, per-view ms, peak device memory;
   9. timing of K2 alone (CUDA events) at the bench pose, on the inputs the
-     fwd+bwd of phase 7 gave it, beside its plain version and its bound;
+     fwd+bwd of phase 7 gave it, at each pixels-per-thread factor, with
+     its registers, CTAs launched and active and the state's bytes, beside
+     its plain version and its bound;
  10. the compositor-ablation profiler (K3): K1 and the eight K3 kernels
      (raster_ablate.cu: cumprod, pg-roll, pg-log, no-transc, no-mxu,
      no-compute, no-input, empty) against their plain versions on the
@@ -71,8 +77,9 @@ CKPT = os.path.join(ROOT, "bench_assets", "trained_ckpt.npz")
 H, W = 1080, 1920
 MAX_PAIRS = 2**22
 TOL = 2e-5  # kernel vs plain, rows 0-4 abs (both round alike: -fmad=false)
-# K2 vs plain, rows 0-9, relative to each row's max abs: the per-(pair,
-# pixel) terms round alike; only the order of the pixel sums differs.
+# K2 vs plain, rows 0-9, relative to each row's max abs: alpha, T and w
+# round alike; the pixel sums' order, fused multiply-adds in the ten
+# partials and the division's fast path (raster_bwd.cu) differ.
 BWD_TOL = 1e-5
 # Arithmetic operations per active (pair, pixel) in K2 (raster_bwd.cu),
 # counted as K1's are in profile_kernel.OPS_PER_PAIR_PIXEL: du, dv (2),
@@ -99,6 +106,22 @@ TRAIN_H, TRAIN_W = 540, 960  # the reference's training resolution
 TRAIN_PAIRS = 2**21
 TRAIN_BATCH = 4
 TRAIN_STEPS = 6
+
+
+def ptxas_registers(log):
+    """{pixels per thread: registers} of raster_bwd's instantiations, from
+    nvcc's -Xptxas -v report."""
+    regs, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            k = re.search(r"raster_bwd_kernelILi(\d+)E", fn)
+            if k:
+                regs[int(k.group(1))] = int(m.group(1))
+    return regs
 
 
 def card_line() -> str:
@@ -188,40 +211,63 @@ def active_slots(binning, out, cfg):
     return active.repeat_interleave(G)
 
 
-def check_bwd(name, pf, binning, out, cfg, seed):
-    """K2 vs its plain version on a seeded cotangent: rows 0-9 within
-    BWD_TOL of each row's max abs, exact zeros outside the composited
-    blocks, finite, and a second launch bit-identical. Returns the max abs
-    error."""
-    from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs_bwd,
+def check_bwd(name, pf, binning, out, state_p, cfg, seed):
+    """K1 writing its block-start state: output bit-identical to `out` (K1
+    without state), state bit-identical to the plain forward's `state_p`
+    at the composited blocks. Then K2, given K1's state, vs its plain
+    version on a seeded cotangent, at every pixels-per-thread factor: rows
+    0-9 within BWD_TOL of each row's max abs, exact zeros outside the
+    composited blocks, finite, and a second launch bit-identical. Returns
+    the max abs error."""
+    from gsplat_tpu_torch.ops.raster_cuda import (BWD_PIXELS_PER_THREAD,
+                                                  _composite_fwd, _launch_bwd,
+                                                  composite_pairs_bwd,
                                                   composite_pairs_bwd_plain)
 
+    ts, tc = binning.tile_start, binning.tile_count
+    out_s, state = _composite_fwd(pf, ts, tc, cfg, with_state=True)
+    torch.cuda.synchronize()
+    act = active_slots(binning, out, cfg)[::cfg.pair_block]
+    same_out = bool(torch.equal(out_s, out))
+    same_state = bool(torch.equal(state[act], state_p[act]))
+    print(f"[{name}] K1 with state writing: output bit-identical to K1 "
+          f"without: {same_out}; state of the {int(act.sum())} composited "
+          f"blocks bit-identical to the plain forward's: {same_state}",
+          flush=True)
+    if not (same_out and same_state):
+        raise SystemExit(f"FAIL: {name}: K1's state disagrees")
     gen = torch.Generator(device=pf.device).manual_seed(seed)
     gout = torch.randn(cfg.num_tiles, 8, cfg.tile**2, generator=gen,
                        device=pf.device)
-    args = (pf, binning.tile_start, binning.tile_count, out, gout, cfg)
-    d_k = composite_pairs_bwd(*args)
-    d_k2 = composite_pairs_bwd(*args)
-    d_p = composite_pairs_bwd_plain(*args, tile_chunk=512)
-    torch.cuda.synchronize()
-    rel = []
-    for r in range(FEAT_ROWS):
-        scale = float(d_p[r].abs().max())
-        err = float((d_k[r] - d_p[r]).abs().max())
-        rel.append(err / scale if scale > 0 else (0.0 if err == 0 else 1.0))
+    args = (pf, ts, tc, out, state, gout, cfg)
+    d_p = composite_pairs_bwd_plain(*args, block_chunk=256)
     off = ~active_slots(binning, out, cfg)
-    zeros = bool((d_k[:, off] == 0).all())
-    finite = bool(torch.isfinite(d_k).all())
-    same = bool(torch.equal(d_k, d_k2))
-    err = float((d_k - d_p).abs().max())
-    print(f"[{name}] K2 vs plain: max abs err {err:.3e}, max per-row "
-          f"relative {max(rel):.3e} (tol {BWD_TOL}), zeros outside the "
-          f"{int((~off).sum() // cfg.pair_block)} composited blocks: "
-          f"{zeros}, finite: {finite}, two launches bit-identical: {same}",
-          flush=True)
-    if not (max(rel) <= BWD_TOL and zeros and finite and same):
-        raise SystemExit(f"FAIL: {name}: K2 disagrees with its plain version")
-    return err
+    errs = []
+    for ppt in (2, 4, 8):
+        launch = composite_pairs_bwd if ppt == BWD_PIXELS_PER_THREAD \
+            else functools.partial(_launch_bwd, ppt=ppt)
+        d_k = launch(*args)
+        d_k2 = launch(*args)
+        torch.cuda.synchronize()
+        rel = []
+        for r in range(FEAT_ROWS):
+            scale = float(d_p[r].abs().max())
+            err = float((d_k[r] - d_p[r]).abs().max())
+            rel.append(err / scale if scale > 0
+                       else (0.0 if err == 0 else 1.0))
+        zeros = bool((d_k[:, off] == 0).all())
+        finite = bool(torch.isfinite(d_k).all())
+        same = bool(torch.equal(d_k, d_k2))
+        errs.append(float((d_k - d_p).abs().max()))
+        print(f"[{name}] K2 ({ppt} pixels per thread) vs plain: max abs err "
+              f"{errs[-1]:.3e}, max per-row relative {max(rel):.3e} (tol "
+              f"{BWD_TOL}), zeros outside the {int((~off).sum()) // cfg.pair_block}"
+              f" composited blocks: {zeros}, finite: {finite}, two launches "
+              f"bit-identical: {same}", flush=True)
+        if not (max(rel) <= BWD_TOL and zeros and finite and same):
+            raise SystemExit(f"FAIL: {name}: K2 ({ppt} pixels per thread) "
+                             f"disagrees with its plain version")
+    return max(errs)
 
 
 def fwd_bwd_phase(pool, c2w, fx, fy, cx, cy, cfg, card, reps=5):
@@ -578,7 +624,9 @@ def main():
 
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch.ops import _build
-    from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs,
+    from gsplat_tpu_torch.ops.raster_cuda import (BWD_PIXELS_PER_THREAD,
+                                                  _composite_fwd, _launch_bwd,
+                                                  bwd_grid, composite_pairs,
                                                   composite_pairs_bwd,
                                                   composite_pairs_bwd_plain,
                                                   composite_pairs_plain)
@@ -601,8 +649,9 @@ def main():
             spills = re.search(r"(\d+) bytes spill stores", line)
             if spills and int(spills.group(1)) > 0:
                 raise SystemExit(f"FAIL: {name} spills registers: {line}")
-    print("  raster_bwd dynamic shared memory: (10 + 8 x 10) x G x 4 B per "
-          "CTA = 46080 B at pair_block 128")
+    print("  raster_bwd dynamic shared memory: (10 + 10 x 256 / (32 x "
+          "pixels per thread)) x G x 4 B per CTA = 15360 B at pair_block 128 "
+          "and 4 pixels per thread")
     errs, bwd_errs = [], []
 
     # --- 3. kernel vs plain, synthetic scene ---
@@ -614,13 +663,15 @@ def main():
     sp = serving_path(sparams, sc2w, fx, fy, cx, cy, cfg)
     pf, binning = sp["pair_feat"], sp["bin"]
     out_k = composite_pairs(pf, binning.tile_start, binning.tile_count, cfg)
-    out_p = composite_pairs_plain(pf, binning.tile_start, binning.tile_count,
-                                  cfg, tile_chunk=1024)
+    out_p, state_p = composite_pairs_plain(
+        pf, binning.tile_start, binning.tile_count, cfg, tile_chunk=1024,
+        with_state=True)
     torch.cuda.synchronize()
     print(f"synthetic: 32768 gaussians, {int(binning.num_pairs)} pairs")
     errs.append(compare("synthetic 1080p", out_k, out_p, binning.tile_count))
-    bwd_errs.append(check_bwd("synthetic 1080p", pf, binning, out_k, cfg,
-                              seed=1))
+    bwd_errs.append(check_bwd("synthetic 1080p", pf, binning, out_k, state_p,
+                              cfg, seed=1))
+    del state_p
 
     # --- 4. kernel vs plain, trained checkpoint at the bench pose ---
     pool = gt.restore_pool(CKPT, device="cuda")
@@ -629,8 +680,9 @@ def main():
                       alive=pool.alive)
     pf, binning = sp["pair_feat"], sp["bin"]
     out_k = composite_pairs(pf, binning.tile_start, binning.tile_count, cfg)
-    out_p = composite_pairs_plain(pf, binning.tile_start, binning.tile_count,
-                                  cfg, tile_chunk=1024)
+    out_p, state_p = composite_pairs_plain(
+        pf, binning.tile_start, binning.tile_count, cfg, tile_chunk=1024,
+        with_state=True)
     torch.cuda.synchronize()
     n_pairs = int(binning.num_pairs)
     print(f"trained: {int(pool.alive.sum())} alive of {pool.capacity}, "
@@ -638,7 +690,8 @@ def main():
     errs.append(compare("trained 1080p bench pose", out_k, out_p,
                         binning.tile_count))
     bwd_errs.append(check_bwd("trained 1080p bench pose", pf, binning, out_k,
-                              cfg, seed=2))
+                              state_p, cfg, seed=2))
+    del state_p
     plain_img = image_from_tiles(out_p, binning.tile_count, cfg)
 
     # --- 5. serving through the port's entry points ---
@@ -697,6 +750,9 @@ def main():
         composite_pairs(pf, ts, tc, cfg)
     torch.cuda.synchronize()
     kernel_ms = device_ms(lambda: composite_pairs(pf, ts, tc, cfg), 20)
+    state_ms = device_ms(
+        lambda: _composite_fwd(pf, ts, tc, cfg, with_state=True), 20)
+    kernel_ms2 = device_ms(lambda: composite_pairs(pf, ts, tc, cfg), 20)
     composite_pairs_plain(pf, ts, tc, cfg, tile_chunk=1024)
     plain_ms = device_ms(
         lambda: composite_pairs_plain(pf, ts, tc, cfg, tile_chunk=1024), 2)
@@ -711,7 +767,9 @@ def main():
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     per_frame = launches / calls[0]
     print(f"[{card}] raster_fwd at the bench pose: {kernel_ms:.4f} ms "
-          f"(CUDA events, 20 launches), plain {plain_ms:.3f} ms, "
+          f"(CUDA events, 20 launches; again after the state timing "
+          f"{kernel_ms2:.4f} ms; writing the block-start state, as autograd "
+          f"asks, {state_ms:.4f} ms), plain {plain_ms:.3f} ms, "
           f"{per_frame:.0f} launch/frame; {blocks} active blocks of "
           f"{cfg.num_pair_blocks}; bound {bound_ms:.4f} ms by {bound_by} "
           f"({ops:.3e} ops, {nbytes:.3e} bytes)", flush=True)
@@ -732,17 +790,30 @@ def main():
     train_k1, train_k2 = train_phase(pool, c2w, center, radius, card)
 
     # --- 9. K2 timing at the bench pose (launches here are not counted) ---
-    bargs = seen["args"]  # (pair_feat, tile_start, tile_count, out, gout, cfg)
+    # (pair_feat, tile_start, tile_count, out, state, gout, cfg)
+    bargs = seen["args"]
     for _ in range(3):
         composite_pairs_bwd(*bargs)
     torch.cuda.synchronize()
     bwd_ms = device_ms(lambda: composite_pairs_bwd(*bargs), 20)
-    composite_pairs_bwd_plain(*bargs, tile_chunk=512)
+    ppt_ms = {}
+    for ppt in (2, 4, 8):
+        fn = functools.partial(_launch_bwd, *bargs, ppt=ppt)
+        fn()
+        ppt_ms[ppt] = device_ms(fn, 20)
+    regs = ptxas_registers(built["raster_bwd"]["ptxas"])
+    composite_pairs_bwd_plain(*bargs, block_chunk=256)
     bwd_plain_ms = device_ms(
-        lambda: composite_pairs_bwd_plain(*bargs, tile_chunk=512), 2)
+        lambda: composite_pairs_bwd_plain(*bargs, block_chunk=256), 2)
     bblocks = int(torch.where(bargs[2] > 0, bargs[3][:, 5, 0], 0.0).sum())
     bops = bblocks * G * P * OPS_BWD_PER_PAIR_PIXEL
-    bbytes = bblocks * 2 * FEAT_ROWS * G * 4 + cfg.num_tiles * 2 * 8 * P * 4
+    # Read once: the tile ranges and each tile's block count (row 5), the
+    # active blocks' feature rows and block-start state, rows 0-4 of the
+    # forward output and of the cotangent of the tiles with active blocks;
+    # written once: the whole [10, pairs] gradient, zeros included.
+    btiles = int(((bargs[2] > 0) & (bargs[3][:, 5, 0] > 0)).sum())
+    bbytes = cfg.num_tiles * 3 * 4 + bblocks * (FEAT_ROWS * G + 5 * P) * 4 \
+        + btiles * 2 * 5 * P * 4 + FEAT_ROWS * bargs[0].shape[1] * 4
     bt_ops = bops / PEAK_F32_FLOPS * 1e3
     bt_bytes = bbytes / PEAK_BYTES * 1e3
     bwd_bound_ms = max(bt_ops, bt_bytes)
@@ -754,6 +825,18 @@ def main():
           f"of {TRAIN_BATCH} views); {bblocks} active blocks; bound "
           f"{bwd_bound_ms:.4f} ms by {bwd_bound_by} ({bops:.3e} ops, "
           f"{bbytes:.3e} bytes)", flush=True)
+    n_blocks = bargs[0].shape[1] // G
+    state = bargs[4]
+    print(f"[{card}] raster_bwd design: {BWD_PIXELS_PER_THREAD} pixels per "
+          f"thread ({P // BWD_PIXELS_PER_THREAD} threads per CTA), a "
+          f"persistent grid over the {bblocks} composited blocks of "
+          f"{n_blocks}; block-start state {state.numel() * 4} B allocated, "
+          f"{bblocks * 5 * P * 4} B written by K1; by pixels per thread "
+          f"(CUDA events, 20 launches): " + ", ".join(
+              f"{k}: {v:.4f} ms, {regs.get(k, '?')} registers, "
+              f"{min(bwd_grid(cfg, k), n_blocks)} CTAs launched, share of "
+              f"bound {bwd_bound_ms / v:.3f}" for k, v in ppt_ms.items()),
+          flush=True)
 
     # --- 10. the compositor-ablation profiler (K3) ---
     abl_errs, abl_plain_ms, prof, prof_counts = ablation_phase(card, dev)

@@ -29,26 +29,26 @@ NVCC_FLAGS = (
 )
 
 SIGNATURES = {
-    # raster_fwd(feat, n_pairs, stride, tile_start, tile_count, out,
-    #            num_tiles, tiles_x, G, chi2_clip, alpha_max,
-    #            alpha_cutoff, t_min, stream) -> cudaError_t
+    # raster_fwd(feat, n_pairs, stride, tile_start, tile_count, out, state,
+    #            num_tiles, tiles_x, G, chi2_clip, alpha_max, alpha_cutoff,
+    #            t_min, stream) -> cudaError_t   (state may be null)
     "raster_fwd": (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_void_p],
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
-    # raster_bwd(feat, n_pairs, stride, tile_start, tile_count, fwd, gout,
-    #            dfeat, dstride, num_tiles, tiles_x, G, chi2_clip,
-    #            alpha_max, alpha_cutoff, one_minus_max, t_min, stream)
-    #            -> cudaError_t
+    # raster_bwd(ppt, feat, n_blocks, stride, tile_start, tile_off,
+    #            num_tiles, fwd, gout, state, dfeat, dstride, tiles_x, G,
+    #            chi2_clip, alpha_max, alpha_cutoff, one_minus_max, t_min,
+    #            stream) -> cudaError_t
     "raster_bwd": (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
     # raster_ablate(variant, feat, n_pairs, stride, tile_start, tile_count,

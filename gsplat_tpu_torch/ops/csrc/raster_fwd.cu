@@ -20,7 +20,13 @@
 //     composited block, so row 4 (and the alpha plane) keeps the TPU
 //     kernel's block-granular meaning, and row 5 counts the blocks
 //     composited (a later backward reads it as the active-block prefix);
-//   * the [8, 256] output is written once, at the end.
+//   * the [8, 256] output is written once, at the end;
+//   * with a non-null `state` ([n_pairs / G, 5, 256] f32), each thread
+//     writes its four sums (rows 0-3) and T (row 4) as they stand at the
+//     start of every block it composites, at row base / G of the pair
+//     list. Autograd asks for it: the backward (raster_bwd.cu) then runs
+//     each composited block on its own. Serving passes null and writes
+//     nothing; blocks not composited are left unwritten.
 //
 // Arithmetic. Built with -fmad=false, and every expression is evaluated
 // in the plain version's order, so each (pair, pixel) alpha, T and
@@ -50,8 +56,8 @@ constexpr int kMaxG = 256;
 __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
     const float* __restrict__ feat, int n_pairs, int stride,
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
-    float* __restrict__ out, int tiles_x, int G, float chi2_clip,
-    float alpha_max, float alpha_cutoff, float t_min) {
+    float* __restrict__ out, float* __restrict__ state, int tiles_x, int G,
+    float chi2_clip, float alpha_max, float alpha_cutoff, float t_min) {
   __shared__ float sm[kRows * kMaxG];
 
   const int tile = blockIdx.x;
@@ -73,6 +79,14 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
     const int base = start + k * G;
     if (base + G > n_pairs) break;  // uniform over the CTA; never on a
                                     // binning-made layout
+    if (state != nullptr) {
+      float* s = state + (size_t)(base / G) * 5 * kPixels + p;
+      s[0 * kPixels] = acc_r;
+      s[1 * kPixels] = acc_g;
+      s[2 * kPixels] = acc_b;
+      s[3 * kPixels] = acc_d;
+      s[4 * kPixels] = T;
+    }
     for (int i = p; i < kRows * G; i += kPixels) {
       const int r = i / G;
       const int c = i - r * G;
@@ -123,10 +137,11 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
+// `state` may be null (nothing written).
 extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
                           const void* tile_start, const void* tile_count,
-                          void* out, int num_tiles, int tiles_x, int G,
-                          float chi2_clip, float alpha_max,
+                          void* out, void* state, int num_tiles, int tiles_x,
+                          int G, float chi2_clip, float alpha_max,
                           float alpha_cutoff, float t_min, void* stream) {
   if (G <= 0 || G > kMaxG || G % 32 != 0 || num_tiles < 0) {
     return (int)cudaErrorInvalidValue;
@@ -134,7 +149,7 @@ extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
   if (num_tiles == 0) return 0;
   raster_fwd_kernel<<<num_tiles, kPixels, 0, (cudaStream_t)stream>>>(
       (const float*)feat, n_pairs, stride, (const int*)tile_start,
-      (const int*)tile_count, (float*)out, tiles_x, G, chi2_clip, alpha_max,
-      alpha_cutoff, t_min);
+      (const int*)tile_count, (float*)out, (float*)state, tiles_x, G,
+      chi2_clip, alpha_max, alpha_cutoff, t_min);
   return (int)cudaGetLastError();
 }

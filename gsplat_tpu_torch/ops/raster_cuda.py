@@ -21,10 +21,18 @@ Output ``[num_tiles, 8, tile*tile]`` f32: rows 0-2 sum w*rgb, row 3 sum
 w*depth, row 4 final T, row 5 the number of blocks composited, rows 6-7
 zero. A tile with no pairs gets rgb = depth = 0, T = 1, count 0.
 
-The backward re-walks each tile's blocks front to back, rebuilding T and
-the colour prefix, and emits per-pair d(u, v, a, b, c, opacity, r, g, b,
-depth) ``[10, padded_pairs]``; blocks the forward skipped, dead blocks
-and padding get exact zeros. It reads the cotangent of rows 0-4 only.
+When autograd records, the forward also returns its block-start state
+``[padded_pairs / pair_block, 5, tile*tile]`` f32: for each block it
+composites, the four sums (rows 0-3) and T (row 4) at the block's start,
+at the block's index in the pair list (blocks it did not composite are
+left unwritten by the kernel, zero in the plain version). The backward
+runs each composited block on its own from that state (as the TPU kernel
+restarts its colour prefix at every block from its carry) and emits
+per-pair d(u, v, a, b, c, opacity, r, g, b, depth) ``[10, padded_pairs]``;
+blocks the forward skipped, dead blocks and padding get exact zeros. It
+reads the cotangent of rows 0-4 only. It needs binning's layout: each
+tile's run starts at a multiple of ``pair_block``, and ``tile_start`` is
+nondecreasing.
 
 Feature-major pair features ``[>= 10, padded_pairs]`` f32, rows
 0:u 1:v 2:conic_a 3:conic_b 4:conic_c 5:opacity 6:r 7:g 8:b 9:depth
@@ -56,6 +64,10 @@ META_DEAD = 2
 
 KERNEL_TILE = 16  # the only tile size the CUDA kernel takes for now
 MAX_PAIR_BLOCK = 256
+STATE_ROWS = 5  # block-start state: sums r g b depth, then T
+# Pixels per thread in the backward kernel (2, 4 or 8 are built), chosen by
+# measurement on the H100 (PERF.md, section 6).
+BWD_PIXELS_PER_THREAD = 4
 
 
 def pack_block_meta(block_tile, block_first):
@@ -120,7 +132,7 @@ def _running_sum(start, terms):
 
 
 def composite_pairs_plain(pair_feat, tile_start, tile_count, cfg: RenderConfig,
-                          tile_chunk: int = 0):
+                          tile_chunk: int = 0, with_state: bool = False):
     """Plain PyTorch compositor with the kernel's semantics (any device).
 
     Walks every tile's blocks in order, all tiles of a chunk at once:
@@ -131,7 +143,8 @@ def composite_pairs_plain(pair_feat, tile_start, tile_count, cfg: RenderConfig,
     dimension, which PyTorch evaluates in order on CPU and CUDA. So every
     rounding, and every ``T > transmittance_min`` decision, is the
     kernel's. ``tile_chunk`` > 0 bounds memory to that many tiles at a
-    time.
+    time. ``with_state`` also returns the block-start state (module
+    docstring; zero at blocks not composited): ``(out, state)``.
     """
     _check_cfg(cfg)
     dev = pair_feat.device
@@ -143,6 +156,9 @@ def composite_pairs_plain(pair_feat, tile_start, tile_count, cfg: RenderConfig,
     out[:, 4] = 1.0
     nblk = (tile_count.to(torch.int64) + G - 1) // G
     cols = torch.arange(G, device=dev)
+    if with_state:
+        state = torch.zeros(pair_feat.shape[1] // G, STATE_ROWS, P,
+                            dtype=f32, device=dev)
     chunk = tile_chunk if tile_chunk > 0 else max(num_tiles, 1)
     for c0 in range(0, num_tiles, chunk):
         tiles = torch.arange(c0, min(c0 + chunk, num_tiles), device=dev)
@@ -161,6 +177,10 @@ def composite_pairs_plain(pair_feat, tile_start, tile_count, cfg: RenderConfig,
             if idx.numel() == 0:
                 break
             pcol = start[idx, None] + k * G + cols  # [m, G]
+            if with_state:
+                blk = pcol[:, 0] // G
+                state[blk, 0:4] = acc[idx]
+                state[blk, 4] = T[idx]
             f = pair_feat[:FEAT_ROWS, pcol]  # [10, m, G]
             alpha = _block_alpha(f, px[idx], py[idx], cfg)[0]  # [m, G, P]
             prod = torch.cumprod(
@@ -180,17 +200,47 @@ def composite_pairs_plain(pair_feat, tile_start, tile_count, cfg: RenderConfig,
         out[tiles, 0:4] = acc
         out[tiles, 4] = T
         out[tiles, 5] = cnt[:, None]
-    return out
+    return (out, state) if with_state else out
+
+
+def tile_block_offsets(fwd_out):
+    """[num_tiles + 1] int32: the exclusive prefix over tiles of the blocks
+    the forward composited (its row 5), on the tensor's device with no host
+    sync. The backward's work list: composited block i belongs to the tile
+    t with ``off[t] <= i < off[t + 1]``; ``off[-1]`` is their number."""
+    off = torch.zeros(fwd_out.shape[0] + 1, dtype=torch.int32,
+                      device=fwd_out.device)
+    torch.cumsum(fwd_out[:, 5, 0].to(torch.int32), 0, dtype=torch.int32,
+                 out=off[1:])
+    return off
+
+
+def active_blocks(tile_start, tile_off, cfg: RenderConfig):
+    """The composited blocks listed by :func:`tile_block_offsets`, in list
+    order: ``(block, tile, rank)``, each ``[off[-1]]`` int64, where
+    ``block`` indexes the pair list's blocks and ``rank`` is the block's
+    place in its tile (the kernel finds the tile by a binary search in
+    ``tile_off``). Reads the list's length on the host."""
+    dev = tile_off.device
+    n = int(tile_off[-1])
+    item = torch.arange(n, device=dev)
+    tile = torch.searchsorted(tile_off.long(), item, right=True) - 1
+    rank = item - tile_off.long()[tile]
+    return tile_start.long()[tile] // cfg.pair_block + rank, tile, rank
 
 
 def composite_pairs_bwd_plain(pair_feat, tile_start, tile_count, fwd_out,
-                              gout, cfg: RenderConfig, tile_chunk: int = 0):
+                              state, gout, cfg: RenderConfig,
+                              block_chunk: int = 0):
     """Plain PyTorch backward with the kernel's semantics (any device).
 
     The VJP of :func:`composite_pairs_plain` as ``_bwd_kernel`` computes it
-    (``raster_pallas.py:243-346``). Walks the blocks exactly as the forward
-    does (same skip decisions, same T), and per (pair, pixel):
+    (``raster_pallas.py:243-346``). Every block the forward composited (the
+    list of :func:`active_blocks`) is run at once, from the forward's
+    block-start ``state`` (T_in and the four prefix sums), and per (pair,
+    pixel):
 
+    * T and ``w`` as the forward builds them from T_in;
     * ``gP`` = sum_c gC_c * prefix_c including this pair, a running sum
       that starts each block at ``gC . prefix`` and adds ``gdotc * w``;
     * the suffix ``gS = sum_c gC_c * C_final_c - gP``, with ``C_final`` the
@@ -202,79 +252,65 @@ def composite_pairs_bwd_plain(pair_feat, tile_start, tile_count, fwd_out,
     * the per-pair rows are sums over the tile's pixels.
 
     Every per-(pair, pixel) term is evaluated in the CUDA kernel's order;
-    only the order of the pixel sums differs (the kernel reduces by warp
-    shuffles, then over warps). Returns ``[10, padded_pairs]`` f32, exact
-    zeros outside the composited blocks. Reads rows 0-4 of ``gout``.
+    the kernel differs by the order of the pixel sums (each thread's
+    pixels, then across the warp by shuffles, then over warps), by fused
+    multiply-adds in the ten partials and by the division's fast path.
+    Returns ``[10, padded_pairs]`` f32, exact zeros outside the composited
+    blocks. Reads rows 0-4 of ``gout``; ``tile_count`` is not read (the
+    forward's row 5 names the blocks). ``block_chunk`` > 0 bounds memory
+    to that many blocks at a time.
     """
     _check_cfg(cfg)
     dev = pair_feat.device
     G = cfg.pair_block
-    P = cfg.tile * cfg.tile
-    num_tiles = tile_start.shape[0]
     f32 = torch.float32
     dfeat = torch.zeros(FEAT_ROWS, pair_feat.shape[1], dtype=f32, device=dev)
-    nblk = (tile_count.to(torch.int64) + G - 1) // G
+    blocks, tile, _ = active_blocks(tile_start, tile_block_offsets(fwd_out),
+                                    cfg)
     cols = torch.arange(G, device=dev)
     one_minus_max = 1.0 - cfg.alpha_max  # the kernel gets this same float
-    chunk = tile_chunk if tile_chunk > 0 else max(num_tiles, 1)
-    for c0 in range(0, num_tiles, chunk):
-        tiles = torch.arange(c0, min(c0 + chunk, num_tiles), device=dev)
-        m_all = tiles.shape[0]
+    chunk = block_chunk if block_chunk > 0 else max(blocks.shape[0], 1)
+    for c0 in range(0, blocks.shape[0], chunk):
+        blk = blocks[c0:c0 + chunk]
+        tiles = tile[c0:c0 + chunk]
         px, py = _tile_pixels(tiles, cfg)
         gC = gout[tiles, 0:4]  # [m, 4, P]
         fo = fwd_out[tiles]
         gS_full = (gC[:, 0] * fo[:, 0] + gC[:, 1] * fo[:, 1]
                    + gC[:, 2] * fo[:, 2] + gC[:, 3] * fo[:, 3])  # [m, P]
         gTT = gout[tiles, 4] * fo[:, 4]
-        T = torch.ones(m_all, P, dtype=f32, device=dev)
-        acc = torch.zeros(m_all, 4, P, dtype=f32, device=dev)
-        nb = nblk[tiles]
-        start = tile_start[tiles].to(torch.int64)
-        k = 0
-        while True:
-            go = k < nb
-            if k > 0:
-                go &= T.amax(dim=1) > cfg.transmittance_min
-            idx = torch.nonzero(go).squeeze(1)
-            if idx.numel() == 0:
-                break
-            pcol = start[idx, None] + k * G + cols  # [m, G]
-            f = pair_feat[:FEAT_ROWS, pcol]  # [10, m, G]
-            alpha, du, dv, g, a_raw, a = _block_alpha(f, px[idx], py[idx], cfg)
-            prod = torch.cumprod(
-                torch.cat([T[idx][:, None, :], 1.0 - alpha], dim=1), dim=1
-            )
-            T_excl = prod[:, :G]
-            alive = T_excl > cfg.transmittance_min
-            w = torch.where(alive, alpha * T_excl, 0.0)
-            gc = [gC[idx, ch][:, None, :] for ch in range(4)]  # [m, 1, P]
-            rgb = [f[6 + ch][:, :, None] for ch in range(4)]  # [m, G, 1]
-            gdotc = gc[0] * rgb[0] + gc[1] * rgb[1] + gc[2] * rgb[2] \
-                + gc[3] * rgb[3]
-            ai = acc[idx]
-            gP_in = (gc[0][:, 0] * ai[:, 0] + gc[1][:, 0] * ai[:, 1]
-                     + gc[2][:, 0] * ai[:, 2] + gc[3][:, 0] * ai[:, 3])
-            gS = gS_full[idx][:, None, :] - _running_sum(gP_in, gdotc * w)
-            one_minus = torch.clamp(1.0 - alpha, min=one_minus_max)
-            dalpha = torch.where(alive, gdotc * T_excl, 0.0) \
-                - (gS + gTT[idx][:, None, :]) / one_minus
-            gate = (a_raw < cfg.alpha_max) & (a >= cfg.alpha_cutoff)
-            ga = torch.where(gate, dalpha, 0.0)
-            ca, cb, cc, op = (f[r][:, :, None] for r in (2, 3, 4, 5))
-            dq = ga * op * (-0.5) * g
-            rows = [
-                -torch.sum(dq * (2.0 * ca * du + 2.0 * cb * dv), dim=2),
-                -torch.sum(dq * (2.0 * cc * dv + 2.0 * cb * du), dim=2),
-                torch.sum(dq * du * du, dim=2),
-                torch.sum(2.0 * dq * du * dv, dim=2),
-                torch.sum(dq * dv * dv, dim=2),
-                torch.sum(ga * g, dim=2),
-            ] + [torch.sum(gc[ch] * w, dim=2) for ch in range(4)]
-            dfeat[:, pcol] = torch.stack(rows)
-            for ch in range(4):
-                acc[idx, ch] = _running_sum(ai[:, ch], w * rgb[ch])[:, G - 1]
-            T[idx] = prod[:, G]
-            k += 1
+        st = state[blk]  # [m, 5, P]
+        pcol = blk[:, None] * G + cols  # [m, G]
+        f = pair_feat[:FEAT_ROWS, pcol]  # [10, m, G]
+        alpha, du, dv, g, a_raw, a = _block_alpha(f, px, py, cfg)
+        T_excl = torch.cumprod(
+            torch.cat([st[:, 4][:, None, :], 1.0 - alpha], dim=1), dim=1
+        )[:, :G]
+        alive = T_excl > cfg.transmittance_min
+        w = torch.where(alive, alpha * T_excl, 0.0)
+        gc = [gC[:, ch][:, None, :] for ch in range(4)]  # [m, 1, P]
+        rgb = [f[6 + ch][:, :, None] for ch in range(4)]  # [m, G, 1]
+        gdotc = gc[0] * rgb[0] + gc[1] * rgb[1] + gc[2] * rgb[2] \
+            + gc[3] * rgb[3]
+        gP_in = (gC[:, 0] * st[:, 0] + gC[:, 1] * st[:, 1]
+                 + gC[:, 2] * st[:, 2] + gC[:, 3] * st[:, 3])
+        gS = gS_full[:, None, :] - _running_sum(gP_in, gdotc * w)
+        one_minus = torch.clamp(1.0 - alpha, min=one_minus_max)
+        dalpha = torch.where(alive, gdotc * T_excl, 0.0) \
+            - (gS + gTT[:, None, :]) / one_minus
+        gate = (a_raw < cfg.alpha_max) & (a >= cfg.alpha_cutoff)
+        ga = torch.where(gate, dalpha, 0.0)
+        ca, cb, cc, op = (f[r][:, :, None] for r in (2, 3, 4, 5))
+        dq = ga * op * (-0.5) * g
+        rows = [
+            -torch.sum(dq * (2.0 * ca * du + 2.0 * cb * dv), dim=2),
+            -torch.sum(dq * (2.0 * cc * dv + 2.0 * cb * du), dim=2),
+            torch.sum(dq * du * du, dim=2),
+            torch.sum(2.0 * dq * du * dv, dim=2),
+            torch.sum(dq * dv * dv, dim=2),
+            torch.sum(ga * g, dim=2),
+        ] + [torch.sum(gc[ch] * w, dim=2) for ch in range(4)]
+        dfeat[:, pcol] = torch.stack(rows)
     return dfeat
 
 
@@ -302,50 +338,64 @@ def _check_inputs(pair_feat, tile_start, tile_count, cfg: RenderConfig):
         raise ValueError(f"unsupported device {pair_feat.device}")
 
 
-def _composite_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig):
+def _composite_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
+                   with_state: bool = False):
     if pair_feat.device.type == "cpu":
-        return composite_pairs_plain(pair_feat, tile_start, tile_count, cfg)
-    return _launch_fwd(pair_feat, tile_start, tile_count, cfg)
+        return composite_pairs_plain(pair_feat, tile_start, tile_count, cfg,
+                                     with_state=with_state)
+    return _launch_fwd(pair_feat, tile_start, tile_count, cfg, with_state)
 
 
-def composite_pairs_bwd(pair_feat, tile_start, tile_count, fwd_out, gout,
-                        cfg: RenderConfig):
+def composite_pairs_bwd(pair_feat, tile_start, tile_count, fwd_out, state,
+                        gout, cfg: RenderConfig):
     """d pair_feat rows 0-9, ``[10, padded_pairs]`` f32, for the cotangent
     ``gout`` ``[num_tiles, 8, tile*tile]`` (rows 0-4 read) of the forward
-    output ``fwd_out``. CPU tensors take :func:`composite_pairs_bwd_plain`;
-    CUDA tensors launch the backward kernel, counted in
+    output ``fwd_out``, from the forward's block-start ``state``
+    ``[padded_pairs / pair_block, 5, tile*tile]`` (required: nothing
+    rebuilds it). CPU tensors take :func:`composite_pairs_bwd_plain`; CUDA
+    tensors launch the backward kernel, counted in
     ``composite_pairs.bwd_launches``, or raise."""
     _check_inputs(pair_feat, tile_start, tile_count, cfg)
-    shape = (cfg.num_tiles, 8, cfg.tile * cfg.tile)
-    for name, a in (("fwd_out", fwd_out), ("gout", gout)):
-        if a.dtype != torch.float32 or tuple(a.shape) != shape:
-            raise ValueError(f"{name} must be {list(shape)} float32, got "
-                             f"{tuple(a.shape)} {a.dtype}")
+    P = cfg.tile * cfg.tile
+    shape = (cfg.num_tiles, 8, P)
+    for name, a, want in (
+            ("fwd_out", fwd_out, shape), ("gout", gout, shape),
+            ("state", state,
+             (pair_feat.shape[1] // cfg.pair_block, STATE_ROWS, P))):
+        if not isinstance(a, torch.Tensor) or a.dtype != torch.float32 \
+                or tuple(a.shape) != want:
+            got = (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) \
+                else type(a).__name__
+            raise ValueError(f"{name} must be {list(want)} float32, got "
+                             f"{got}")
         if a.device != pair_feat.device:
             raise ValueError(f"{name} is on {a.device}, pair_feat on "
                              f"{pair_feat.device}")
     if pair_feat.device.type == "cpu":
         return composite_pairs_bwd_plain(pair_feat, tile_start, tile_count,
-                                         fwd_out, gout, cfg)
-    return _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, gout, cfg)
+                                         fwd_out, state, gout, cfg)
+    return _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state,
+                       gout, cfg)
 
 
 class _CompositePairs(torch.autograd.Function):
-    """K1 forward, K2 backward (``raster_pallas.py:432-447``)."""
+    """K1 forward (with its block-start state), K2 backward
+    (``raster_pallas.py:432-447``)."""
 
     @staticmethod
     def forward(ctx, pair_feat, tile_start, tile_count, cfg):
-        out = _composite_fwd(pair_feat, tile_start, tile_count, cfg)
+        out, state = _composite_fwd(pair_feat, tile_start, tile_count, cfg,
+                                    with_state=True)
         ctx.cfg = cfg
-        ctx.save_for_backward(pair_feat, tile_start, tile_count, out)
+        ctx.save_for_backward(pair_feat, tile_start, tile_count, out, state)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
-        pair_feat, tile_start, tile_count, out = ctx.saved_tensors
+        pair_feat, tile_start, tile_count, out, state = ctx.saved_tensors
         d = composite_pairs_bwd(pair_feat, tile_start, tile_count, out,
-                                gout.contiguous(), ctx.cfg)
+                                state, gout.contiguous(), ctx.cfg)
         extra = pair_feat.shape[0] - FEAT_ROWS
         if extra:  # rows the compositor does not read carry no gradient
             d = torch.cat([d, d.new_zeros(extra, d.shape[1])])
@@ -369,10 +419,11 @@ def composite_pairs(pair_feat, tile_start, tile_count, cfg: RenderConfig):
     CPU tensors take the plain version. CUDA tensors launch the kernel,
     and count it in ``composite_pairs.launches``; anything the kernel does
     not take raises. With grad enabled and ``pair_feat`` requiring grad the
-    call is recorded for autograd: its backward is
+    call is recorded for autograd: the forward also writes its block-start
+    state, saved with its output, and the backward is
     :func:`composite_pairs_bwd` (the backward kernel on CUDA, counted in
     ``composite_pairs.bwd_launches``). Under ``torch.no_grad()`` nothing is
-    recorded or saved.
+    recorded or saved, and no state is written.
     """
     _check_inputs(pair_feat, tile_start, tile_count, cfg)
     if torch.is_grad_enabled() and pair_feat.requires_grad:
@@ -402,20 +453,26 @@ def _check_kernel_args(cfg: RenderConfig, **tensors):
         raise ValueError(f"{n_pairs} pairs exceed the kernel's int32 index")
 
 
-def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig):
+def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
+                with_state: bool = False):
     _check_kernel_args(cfg, pair_feat=pair_feat, tile_start=tile_start,
                        tile_count=tile_count)
     from ._build import load_library
 
     lib = load_library("raster_fwd")
     P = cfg.tile * cfg.tile
-    out = torch.empty(cfg.num_tiles, 8, P, dtype=torch.float32,
-                      device=pair_feat.device)
-    with torch.cuda.device(pair_feat.device):
+    dev = pair_feat.device
+    out = torch.empty(cfg.num_tiles, 8, P, dtype=torch.float32, device=dev)
+    # Only the composited blocks' rows are written (and read back).
+    state = torch.empty(pair_feat.shape[1] // cfg.pair_block, STATE_ROWS, P,
+                        dtype=torch.float32, device=dev) if with_state \
+        else None
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.raster_fwd(
             pair_feat.data_ptr(), pair_feat.shape[1], pair_feat.stride(0),
             tile_start.data_ptr(), tile_count.data_ptr(), out.data_ptr(),
+            None if state is None else state.data_ptr(),
             cfg.num_tiles, cfg.tiles_x, cfg.pair_block,
             ctypes.c_float(cfg.chi2_clip), ctypes.c_float(cfg.alpha_max),
             ctypes.c_float(cfg.alpha_cutoff),
@@ -424,29 +481,33 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig):
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
     composite_pairs.launches += 1
-    return out
+    return (out, state) if with_state else out
 
 
-def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, gout,
-                cfg: RenderConfig):
+def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,
+                cfg: RenderConfig, ppt: int = BWD_PIXELS_PER_THREAD):
     _check_kernel_args(cfg, pair_feat=pair_feat, tile_start=tile_start,
-                       tile_count=tile_count, fwd_out=fwd_out, gout=gout)
+                       tile_count=tile_count, fwd_out=fwd_out, state=state,
+                       gout=gout)
+    if ppt not in (2, 4, 8):
+        raise ValueError(f"pixels per thread must be 2, 4 or 8 (got {ppt})")
     from ._build import load_library
 
     lib = load_library("raster_bwd")
     n_pairs = pair_feat.shape[1]
-    # Zero-filled: blocks the kernel never visits (skipped, dead) read 0.
+    tile_off = tile_block_offsets(fwd_out)
+    # Zero-filled: the kernel writes only the composited blocks.
     dfeat = torch.zeros(FEAT_ROWS, n_pairs, dtype=torch.float32,
                         device=pair_feat.device)
     with torch.cuda.device(pair_feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.raster_bwd(
-            pair_feat.data_ptr(), n_pairs, pair_feat.stride(0),
-            tile_start.data_ptr(), tile_count.data_ptr(), fwd_out.data_ptr(),
-            gout.data_ptr(), dfeat.data_ptr(), dfeat.stride(0),
-            cfg.num_tiles, cfg.tiles_x, cfg.pair_block,
-            ctypes.c_float(cfg.chi2_clip), ctypes.c_float(cfg.alpha_max),
-            ctypes.c_float(cfg.alpha_cutoff),
+            ppt, pair_feat.data_ptr(), n_pairs // cfg.pair_block,
+            pair_feat.stride(0), tile_start.data_ptr(), tile_off.data_ptr(),
+            cfg.num_tiles, fwd_out.data_ptr(), gout.data_ptr(),
+            state.data_ptr(), dfeat.data_ptr(), dfeat.stride(0), cfg.tiles_x,
+            cfg.pair_block, ctypes.c_float(cfg.chi2_clip),
+            ctypes.c_float(cfg.alpha_max), ctypes.c_float(cfg.alpha_cutoff),
             ctypes.c_float(1.0 - cfg.alpha_max),
             ctypes.c_float(cfg.transmittance_min), stream,
         )
@@ -454,3 +515,21 @@ def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, gout,
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
     composite_pairs.bwd_launches += 1
     return dfeat
+
+
+def bwd_grid(cfg: RenderConfig, ppt: int = BWD_PIXELS_PER_THREAD,
+             device=None) -> int:
+    """CTAs of the backward kernel's persistent grid on the current card
+    (SMs x resident CTAs per SM; the launch caps it at the pair blocks)."""
+    from ._build import load_library
+
+    lib = load_library("raster_bwd")
+    fn = lib.raster_bwd_grid
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(ppt, cfg.pair_block, ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"raster_bwd_grid failed: CUDA error {err}")
+    return grid.value

@@ -23,6 +23,10 @@ from gsplat_tpu.ops import projection as jproj
 from gsplat_tpu_torch.ops import binning as tbin
 from gsplat_tpu_torch.ops import projection as tproj
 
+# One intra-op thread: the suite's xdist workers run side by side, and
+# torch's default of one thread per core each oversubscribes the CPU.
+torch.set_num_threads(1)
+
 CAM = (60.0, 58.0, 32.5, 31.5)
 # One XLA compile per shape instead of one per eager op (test time).
 _jit_project = jax.jit(jproj.project_gaussians, static_argnums=(8,))

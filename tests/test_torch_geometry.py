@@ -30,6 +30,10 @@ from gsplat_tpu_torch.ops import gaussian as tgau
 from gsplat_tpu_torch.ops import projection as tproj
 from gsplat_tpu_torch.ops import sh as tsh
 
+# One intra-op thread: the suite's xdist workers run side by side, and
+# torch's default of one thread per core each oversubscribes the CPU.
+torch.set_num_threads(1)
+
 REL = 1e-5
 
 

@@ -13,10 +13,13 @@ the same render on the CPU: 1e-4 abs with equal pair counts, because the
 projection runs on each device's own math library (a float one ulp apart
 can move one (pair, pixel) across the alpha cutoff).
 
-The backward kernel vs its plain version: rows 0-9 within 1e-5 of each
-row's max abs (only the order of the pixel sums differs), exact zeros
-outside the blocks the forward composited, and two runs bit-identical (no
-float atomics). A train step on the card vs on the CPU: gradients within
+The forward kernel writing its block-start state: its output bit-identical
+to the output without state, and the state at the composited blocks
+bit-identical to the plain forward's (same arithmetic, same order). The
+backward kernel, given that state, vs its plain version: rows 0-9 within
+1e-5 of each row's max abs (only the order of the pixel sums differs),
+exact zeros outside the blocks the forward composited, and two runs
+bit-identical (no float atomics). A train step on the card vs on the CPU: gradients within
 5e-4 of each leaf's largest, the render's own gradient tolerance.
 
 The eight K3 kernels of the profiler vs their plain versions: as the
@@ -39,6 +42,10 @@ from gsplat_tpu_torch.ops.projection import project_gaussians
 from gsplat_tpu_torch.ops.rasterize import _pair_features, gather_pair_features
 from gsplat_tpu_torch.ops.sh import evaluate_sh
 from gsplat_tpu_torch.profile_kernel import make_workload
+
+# One intra-op thread: the suite's xdist workers run side by side, and
+# torch's default of one thread per core each oversubscribes the CPU.
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.gpu
 
@@ -132,22 +139,42 @@ def test_render_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("pair_block", [32, 128, 256])
 @pytest.mark.parametrize("kind", ["plain", "saturated"])
-def test_backward_kernel_matches_plain(cuda, kind, pair_block):
+def test_forward_kernel_state_matches_plain(cuda, kind, pair_block):
+    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
+        else {}
+    params, c2w = _scene(600, 0, **shift)
+    cfg = gt.RenderConfig(**CFG, pair_block=pair_block)
+    pf, b = _inputs(params, c2w, cfg, cuda)
+    args = (pf, b.tile_start, b.tile_count, cfg)
+    bare = tras._composite_fwd(*args)
+    out, state = tras._composite_fwd(*args, with_state=True)
+    _, want = tras.composite_pairs_plain(*args, with_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare)
+    active = _active_slots(b, out, cfg)[::pair_block]
+    assert active.any()
+    assert torch.equal(state[active], want[active])
+
+
+@pytest.mark.parametrize("ppt", [2, 4, 8])
+@pytest.mark.parametrize("pair_block", [32, 128, 256])
+@pytest.mark.parametrize("kind", ["plain", "saturated"])
+def test_backward_kernel_matches_plain(cuda, kind, pair_block, ppt):
     shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
         else {}
     params, c2w = _scene(600, 0, **shift)
     cfg = gt.RenderConfig(**CFG, pair_block=pair_block)
     pf, b = _inputs(params, c2w, cfg, cuda)
     args = (pf, b.tile_start, b.tile_count)
-    fwd = tras.composite_pairs(*args, cfg)
+    fwd, state = tras._composite_fwd(*args, cfg, with_state=True)
     gen = torch.Generator(device=cuda).manual_seed(0)
     gout = torch.randn(cfg.num_tiles, 8, cfg.tile**2, generator=gen,
                        device=cuda)
     before = tras.composite_pairs.bwd_launches
-    got = tras.composite_pairs_bwd(*args, fwd, gout, cfg)
+    got = tras._launch_bwd(*args, fwd, state, gout, cfg, ppt=ppt)
     assert tras.composite_pairs.bwd_launches == before + 1
-    want = tras.composite_pairs_bwd_plain(*args, fwd, gout, cfg)
-    again = tras.composite_pairs_bwd(*args, fwd, gout, cfg)
+    want = tras.composite_pairs_bwd_plain(*args, fwd, state, gout, cfg)
+    again = tras._launch_bwd(*args, fwd, state, gout, cfg, ppt=ppt)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert torch.equal(got, again), "two runs differ"
@@ -172,25 +199,31 @@ def test_kernel_runs_backward_for_grad_and_refuses_other_tiles(cuda):
     out.backward(gout)
     assert tras.composite_pairs.launches == k1 + 1
     assert tras.composite_pairs.bwd_launches == k2 + 1
+    _, state = tras.composite_pairs_plain(pf.detach(), b.tile_start,
+                                          b.tile_count, cfg, with_state=True)
     want = tras.composite_pairs_bwd_plain(pf.detach(), b.tile_start,
-                                          b.tile_count, out.detach(), gout,
-                                          cfg)
+                                          b.tile_count, out.detach(), state,
+                                          gout, cfg)
     for r in range(10):
         scale = float(want[r].abs().max())
         assert float((pf.grad[r] - want[r]).abs().max()) <= 1e-5 * scale
+    with pytest.raises(ValueError, match="state"):  # no fallback
+        tras.composite_pairs_bwd(pf.detach(), b.tile_start, b.tile_count,
+                                 out.detach(), None, gout, cfg)
     cfg8 = cfg.with_(tile=8)
     ts8 = torch.zeros(cfg8.num_tiles, dtype=torch.int32, device=cuda)
     pf8 = torch.zeros(10, cfg8.padded_pairs, device=cuda)
     with pytest.raises(ValueError, match="tile=16"):
         tras.composite_pairs(pf8, ts8, ts8, cfg8)
     fo8 = torch.zeros(cfg8.num_tiles, 8, 64, device=cuda)
+    st8 = torch.zeros(cfg8.num_pair_blocks, 5, 64, device=cuda)
     with pytest.raises(ValueError, match="tile=16"):
-        tras.composite_pairs_bwd(pf8, ts8, ts8, fo8, fo8, cfg8)
+        tras.composite_pairs_bwd(pf8, ts8, ts8, fo8, st8, fo8, cfg8)
     ts = torch.zeros(cfg.num_tiles, dtype=torch.int32, device=cuda)
     empty = torch.zeros(10, cfg.padded_pairs, device=cuda)
-    out = tras.composite_pairs(empty, ts, ts, cfg)  # nothing to draw
-    d = tras.composite_pairs_bwd(empty, ts, ts, out, torch.ones_like(out),
-                                 cfg)
+    out, st = tras._composite_fwd(empty, ts, ts, cfg, with_state=True)
+    d = tras.composite_pairs_bwd(empty, ts, ts, out, st,
+                                 torch.ones_like(out), cfg)
     torch.cuda.synchronize()
     assert (out[:, 4] == 1).all() and (out[:, [0, 1, 2, 3, 5]] == 0).all()
     assert (d == 0).all()

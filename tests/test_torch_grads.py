@@ -40,6 +40,10 @@ from gsplat_tpu_torch.ops import sh as tsh
 from test_torch_raster import CFG, _jax_pairs
 from test_torch_render import _trained_subset
 
+# One intra-op thread: the suite's xdist workers run side by side, and
+# torch's default of one thread per core each oversubscribes the CPU.
+torch.set_num_threads(1)
+
 CAM = dict(fx=60.0, fy=58.0, cx=32.5, cy=31.5)
 TARGET_SEED = 0
 

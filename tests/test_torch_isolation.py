@@ -5,6 +5,11 @@ import ast
 import os
 
 import pytest
+import torch
+
+# One intra-op thread: the suite's xdist workers run side by side, and
+# torch's default of one thread per core each oversubscribes the CPU.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "gsplat_tpu"}

@@ -51,6 +51,10 @@ from gsplat_tpu_torch import profile_kernel as tprof
 from gsplat_tpu_torch.ops import raster_ablate as tabl
 from gsplat_tpu_torch.ops import raster_cuda as tras
 
+# One intra-op thread: the suite's xdist workers run side by side, and
+# torch's default of one thread per core each oversubscribes the CPU.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "scripts", "profile_kernel.py")
 
@@ -212,7 +216,8 @@ def test_profiler_digests_match_jax_script():
     whose rows 0-4 the JAX body writes."""
     flags = ["--height", "32", "--width", "48", "--blocks-per-tile", "2",
              "--iters", "1", "--only", ",".join(tprof.VARIANTS)]
-    env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_PLATFORM_NAME="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_PLATFORM_NAME="cpu",
+               OMP_NUM_THREADS="1")
     cmds = [[sys.executable, SCRIPT, *flags],
             [sys.executable, "-m", "gsplat_tpu_torch.profile_kernel",
              "--device", "cpu", *flags]]

@@ -35,6 +35,10 @@ from gsplat_tpu.ops.rasterize import _pair_features, gather_pair_features
 from gsplat_tpu_torch.ops import _build
 from gsplat_tpu_torch.ops import raster_cuda as tras
 
+# One intra-op thread: the suite's xdist workers run side by side, and
+# torch's default of one thread per core each oversubscribes the CPU.
+torch.set_num_threads(1)
+
 CFG = dict(height=64, width=64, max_pairs=4096, pair_block=32)
 CAM = (60.0, 58.0, 32.5, 31.5)
 TOL = 2e-5

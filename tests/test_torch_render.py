@@ -33,6 +33,10 @@ from gsplat_tpu.train.trainer import restore_pool as jax_restore_pool
 from gsplat_tpu_torch import render_trained
 from gsplat_tpu_torch.models.gaussians import PARAM_KEYS
 
+# One intra-op thread: the suite's xdist workers run side by side, and
+# torch's default of one thread per core each oversubscribes the CPU.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "bench_assets", "trained_ckpt.npz")
 CFG = dict(height=64, width=64, max_pairs=4096, pair_block=32)

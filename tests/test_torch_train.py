@@ -36,6 +36,10 @@ from gsplat_tpu_torch.models.gaussians import PARAM_KEYS
 from test_train import CFG as JCFG
 from test_train import _make_batch, _make_pool
 
+# One intra-op thread: the suite's xdist workers run side by side, and
+# torch's default of one thread per core each oversubscribes the CPU.
+torch.set_num_threads(1)
+
 RCFG = dict(height=64, width=64, max_pairs=4096)
 
 
