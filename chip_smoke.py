@@ -15,9 +15,8 @@ Phases (any failure exits non-zero, with no result line):
   3. K1, then K2 on a seeded cotangent, against their plain PyTorch versions
      on a seeded synthetic scene at 1920x1080 (K1 writing its block-start
      state: output bit-identical to K1 without it, state bit-identical to
-     the plain forward's; K2, given K1's state, at each pixels-per-thread
-     factor built: within BWD_TOL, exact zeros outside the composited
-     blocks, finite, a second call bit-identical);
+     the plain forward's; K2, given K1's state: within BWD_TOL, exact zeros
+     outside the composited blocks, finite, a second call bit-identical);
   4. the same on ``bench_assets/trained_ckpt.npz`` at 1920x1080 from the
      bench pose (camera at center + (0, -0.6R, -4.4R));
   5. serving: restore_pool -> make_render_fn -> render_trajectory over the
@@ -37,9 +36,8 @@ Phases (any failure exits non-zero, with no result line):
      skipped, dead slots do not move, K1 and K2 launch views x steps times,
      no pair overflow; step ms, per-view ms, peak device memory;
   9. timing of K2 alone (CUDA events) at the bench pose, on the inputs the
-     fwd+bwd of phase 7 gave it, at each pixels-per-thread factor, with
-     its registers, CTAs launched and active and the state's bytes, beside
-     its plain version and its bound;
+     fwd+bwd of phase 7 gave it, with its registers, CTAs launched and
+     active and the state's bytes, beside its plain version and its bound;
  10. the compositor-ablation profiler (K3): K1 and the eight K3 kernels
      (raster_ablate.cu: cumprod, pg-roll, pg-log, no-transc, no-mxu,
      no-compute, no-input, empty) against their plain versions on the
@@ -106,22 +104,6 @@ TRAIN_H, TRAIN_W = 540, 960  # the reference's training resolution
 TRAIN_PAIRS = 2**21
 TRAIN_BATCH = 4
 TRAIN_STEPS = 6
-
-
-def ptxas_registers(log):
-    """{pixels per thread: registers} of raster_bwd's instantiations, from
-    nvcc's -Xptxas -v report."""
-    regs, fn = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and fn:
-            k = re.search(r"raster_bwd_kernelILi(\d+)E", fn)
-            if k:
-                regs[int(k.group(1))] = int(m.group(1))
-    return regs
 
 
 def card_line() -> str:
@@ -215,12 +197,10 @@ def check_bwd(name, pf, binning, out, state_p, cfg, seed):
     """K1 writing its block-start state: output bit-identical to `out` (K1
     without state), state bit-identical to the plain forward's `state_p`
     at the composited blocks. Then K2, given K1's state, vs its plain
-    version on a seeded cotangent, at every pixels-per-thread factor: rows
-    0-9 within BWD_TOL of each row's max abs, exact zeros outside the
-    composited blocks, finite, and a second launch bit-identical. Returns
-    the max abs error."""
-    from gsplat_tpu_torch.ops.raster_cuda import (BWD_PIXELS_PER_THREAD,
-                                                  _composite_fwd, _launch_bwd,
+    version on a seeded cotangent: rows 0-9 within BWD_TOL of each row's
+    max abs, exact zeros outside the composited blocks, finite, and a
+    second launch bit-identical. Returns the max abs error."""
+    from gsplat_tpu_torch.ops.raster_cuda import (_composite_fwd,
                                                   composite_pairs_bwd,
                                                   composite_pairs_bwd_plain)
 
@@ -242,32 +222,26 @@ def check_bwd(name, pf, binning, out, state_p, cfg, seed):
     args = (pf, ts, tc, out, state, gout, cfg)
     d_p = composite_pairs_bwd_plain(*args, block_chunk=256)
     off = ~active_slots(binning, out, cfg)
-    errs = []
-    for ppt in (2, 4, 8):
-        launch = composite_pairs_bwd if ppt == BWD_PIXELS_PER_THREAD \
-            else functools.partial(_launch_bwd, ppt=ppt)
-        d_k = launch(*args)
-        d_k2 = launch(*args)
-        torch.cuda.synchronize()
-        rel = []
-        for r in range(FEAT_ROWS):
-            scale = float(d_p[r].abs().max())
-            err = float((d_k[r] - d_p[r]).abs().max())
-            rel.append(err / scale if scale > 0
-                       else (0.0 if err == 0 else 1.0))
-        zeros = bool((d_k[:, off] == 0).all())
-        finite = bool(torch.isfinite(d_k).all())
-        same = bool(torch.equal(d_k, d_k2))
-        errs.append(float((d_k - d_p).abs().max()))
-        print(f"[{name}] K2 ({ppt} pixels per thread) vs plain: max abs err "
-              f"{errs[-1]:.3e}, max per-row relative {max(rel):.3e} (tol "
-              f"{BWD_TOL}), zeros outside the {int((~off).sum()) // cfg.pair_block}"
-              f" composited blocks: {zeros}, finite: {finite}, two launches "
-              f"bit-identical: {same}", flush=True)
-        if not (max(rel) <= BWD_TOL and zeros and finite and same):
-            raise SystemExit(f"FAIL: {name}: K2 ({ppt} pixels per thread) "
-                             f"disagrees with its plain version")
-    return max(errs)
+    d_k = composite_pairs_bwd(*args)
+    d_k2 = composite_pairs_bwd(*args)
+    torch.cuda.synchronize()
+    rel = []
+    for r in range(FEAT_ROWS):
+        scale = float(d_p[r].abs().max())
+        err = float((d_k[r] - d_p[r]).abs().max())
+        rel.append(err / scale if scale > 0 else (0.0 if err == 0 else 1.0))
+    zeros = bool((d_k[:, off] == 0).all())
+    finite = bool(torch.isfinite(d_k).all())
+    same = bool(torch.equal(d_k, d_k2))
+    err = float((d_k - d_p).abs().max())
+    print(f"[{name}] K2 vs plain: max abs err {err:.3e}, max per-row "
+          f"relative {max(rel):.3e} (tol {BWD_TOL}), zeros outside the "
+          f"{int((~off).sum()) // cfg.pair_block} composited blocks: "
+          f"{zeros}, finite: {finite}, two launches bit-identical: {same}",
+          flush=True)
+    if not (max(rel) <= BWD_TOL and zeros and finite and same):
+        raise SystemExit(f"FAIL: {name}: K2 disagrees with its plain version")
+    return err
 
 
 def fwd_bwd_phase(pool, c2w, fx, fy, cx, cy, cfg, card, reps=5):
@@ -624,9 +598,8 @@ def main():
 
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch.ops import _build
-    from gsplat_tpu_torch.ops.raster_cuda import (BWD_PIXELS_PER_THREAD,
-                                                  _composite_fwd, _launch_bwd,
-                                                  bwd_grid, composite_pairs,
+    from gsplat_tpu_torch.ops.raster_cuda import (_composite_fwd,
+                                                  composite_pairs,
                                                   composite_pairs_bwd,
                                                   composite_pairs_bwd_plain,
                                                   composite_pairs_plain)
@@ -649,9 +622,8 @@ def main():
             spills = re.search(r"(\d+) bytes spill stores", line)
             if spills and int(spills.group(1)) > 0:
                 raise SystemExit(f"FAIL: {name} spills registers: {line}")
-    print("  raster_bwd dynamic shared memory: (10 + 10 x 256 / (32 x "
-          "pixels per thread)) x G x 4 B per CTA = 15360 B at pair_block 128 "
-          "and 4 pixels per thread")
+    print("  raster_bwd dynamic shared memory: (10 + 2 warps x 10) x G x 4 B "
+          "per CTA = 15360 B at pair_block 128")
     errs, bwd_errs = [], []
 
     # --- 3. kernel vs plain, synthetic scene ---
@@ -796,12 +768,8 @@ def main():
         composite_pairs_bwd(*bargs)
     torch.cuda.synchronize()
     bwd_ms = device_ms(lambda: composite_pairs_bwd(*bargs), 20)
-    ppt_ms = {}
-    for ppt in (2, 4, 8):
-        fn = functools.partial(_launch_bwd, *bargs, ppt=ppt)
-        fn()
-        ppt_ms[ppt] = device_ms(fn, 20)
-    regs = ptxas_registers(built["raster_bwd"]["ptxas"])
+    ctas = composite_pairs.bwd_ctas
+    regs = re.search(r"Used (\d+) registers", built["raster_bwd"]["ptxas"])
     composite_pairs_bwd_plain(*bargs, block_chunk=256)
     bwd_plain_ms = device_ms(
         lambda: composite_pairs_bwd_plain(*bargs, block_chunk=256), 2)
@@ -827,16 +795,12 @@ def main():
           f"{bbytes:.3e} bytes)", flush=True)
     n_blocks = bargs[0].shape[1] // G
     state = bargs[4]
-    print(f"[{card}] raster_bwd design: {BWD_PIXELS_PER_THREAD} pixels per "
-          f"thread ({P // BWD_PIXELS_PER_THREAD} threads per CTA), a "
-          f"persistent grid over the {bblocks} composited blocks of "
-          f"{n_blocks}; block-start state {state.numel() * 4} B allocated, "
-          f"{bblocks * 5 * P * 4} B written by K1; by pixels per thread "
-          f"(CUDA events, 20 launches): " + ", ".join(
-              f"{k}: {v:.4f} ms, {regs.get(k, '?')} registers, "
-              f"{min(bwd_grid(cfg, k), n_blocks)} CTAs launched, share of "
-              f"bound {bwd_bound_ms / v:.3f}" for k, v in ppt_ms.items()),
-          flush=True)
+    print(f"[{card}] raster_bwd design: 4 pixels per thread (64 threads "
+          f"per CTA), {regs.group(1) if regs else '?'} registers, a "
+          f"persistent grid of {ctas} CTAs over the {bblocks} composited "
+          f"blocks of {n_blocks}; block-start state {state.numel() * 4} B "
+          f"allocated, {bblocks * 5 * P * 4} B written by K1; share of bound "
+          f"{bwd_bound_ms / bwd_ms:.3f}", flush=True)
 
     # --- 10. the compositor-ablation profiler (K3) ---
     abl_errs, abl_plain_ms, prof, prof_counts = ablation_phase(card, dev)

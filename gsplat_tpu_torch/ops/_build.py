@@ -39,16 +39,17 @@ SIGNATURES = {
          ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
-    # raster_bwd(ppt, feat, n_blocks, stride, tile_start, tile_off,
-    #            num_tiles, fwd, gout, state, dfeat, dstride, tiles_x, G,
-    #            chi2_clip, alpha_max, alpha_cutoff, one_minus_max, t_min,
-    #            stream) -> cudaError_t
+    # raster_bwd(feat, n_blocks, stride, tile_start, tile_off, num_tiles,
+    #            fwd, gout, state, dfeat, dstride, tiles_x, G, chi2_clip,
+    #            alpha_max, alpha_cutoff, one_minus_max, t_min, ctas,
+    #            stream) -> cudaError_t   (ctas: CTAs launched, may be null)
     "raster_bwd": (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_float, ctypes.POINTER(ctypes.c_int),
+         ctypes.c_void_p],
         ctypes.c_int,
     ),
     # raster_ablate(variant, feat, n_pairs, stride, tile_start, tile_count,

@@ -65,9 +65,6 @@ META_DEAD = 2
 KERNEL_TILE = 16  # the only tile size the CUDA kernel takes for now
 MAX_PAIR_BLOCK = 256
 STATE_ROWS = 5  # block-start state: sums r g b depth, then T
-# Pixels per thread in the backward kernel (2, 4 or 8 are built), chosen by
-# measurement on the H100 (PERF.md, section 6).
-BWD_PIXELS_PER_THREAD = 4
 
 
 def pack_block_meta(block_tile, block_first):
@@ -433,6 +430,7 @@ def composite_pairs(pair_feat, tile_start, tile_count, cfg: RenderConfig):
 
 composite_pairs.launches = 0  # forward kernel (K1) launches
 composite_pairs.bwd_launches = 0  # backward kernel (K2) launches
+composite_pairs.bwd_ctas = 0  # CTAs of the last K2 launch (persistent grid)
 
 
 def _check_kernel_args(cfg: RenderConfig, **tensors):
@@ -485,12 +483,10 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
 
 
 def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,
-                cfg: RenderConfig, ppt: int = BWD_PIXELS_PER_THREAD):
+                cfg: RenderConfig):
     _check_kernel_args(cfg, pair_feat=pair_feat, tile_start=tile_start,
                        tile_count=tile_count, fwd_out=fwd_out, state=state,
                        gout=gout)
-    if ppt not in (2, 4, 8):
-        raise ValueError(f"pixels per thread must be 2, 4 or 8 (got {ppt})")
     from ._build import load_library
 
     lib = load_library("raster_bwd")
@@ -499,37 +495,23 @@ def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,
     # Zero-filled: the kernel writes only the composited blocks.
     dfeat = torch.zeros(FEAT_ROWS, n_pairs, dtype=torch.float32,
                         device=pair_feat.device)
+    ctas = ctypes.c_int(0)
     with torch.cuda.device(pair_feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.raster_bwd(
-            ppt, pair_feat.data_ptr(), n_pairs // cfg.pair_block,
+            pair_feat.data_ptr(), n_pairs // cfg.pair_block,
             pair_feat.stride(0), tile_start.data_ptr(), tile_off.data_ptr(),
             cfg.num_tiles, fwd_out.data_ptr(), gout.data_ptr(),
             state.data_ptr(), dfeat.data_ptr(), dfeat.stride(0), cfg.tiles_x,
             cfg.pair_block, ctypes.c_float(cfg.chi2_clip),
             ctypes.c_float(cfg.alpha_max), ctypes.c_float(cfg.alpha_cutoff),
             ctypes.c_float(1.0 - cfg.alpha_max),
-            ctypes.c_float(cfg.transmittance_min), stream,
+            ctypes.c_float(cfg.transmittance_min), ctypes.byref(ctas),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
     composite_pairs.bwd_launches += 1
+    composite_pairs.bwd_ctas = ctas.value
     return dfeat
 
-
-def bwd_grid(cfg: RenderConfig, ppt: int = BWD_PIXELS_PER_THREAD,
-             device=None) -> int:
-    """CTAs of the backward kernel's persistent grid on the current card
-    (SMs x resident CTAs per SM; the launch caps it at the pair blocks)."""
-    from ._build import load_library
-
-    lib = load_library("raster_bwd")
-    fn = lib.raster_bwd_grid
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    grid = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = fn(ppt, cfg.pair_block, ctypes.byref(grid))
-    if err != 0:
-        raise RuntimeError(f"raster_bwd_grid failed: CUDA error {err}")
-    return grid.value
