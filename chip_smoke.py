@@ -11,12 +11,16 @@ Phases (any failure exits non-zero, with no result line):
      ``gsplat_tpu_torch/ops/csrc`` (raster_fwd = K1, raster_bwd = K2,
      raster_ablate = K3's eight bodies in two templates; one nvcc per
      source, all started together), with ptxas registers/spills (a spill
-     fails the run);
+     fails the run) and K1's registers, shared memory and CTAs per SM;
   3. K1, then K2 on a seeded cotangent, against their plain PyTorch versions
-     on a seeded synthetic scene at 1920x1080 (K1 writing its block-start
-     state: output bit-identical to K1 without it, state bit-identical to
-     the plain forward's; K2, given K1's state: within BWD_TOL, exact zeros
-     outside the composited blocks, finite, a second call bit-identical);
+     on a seeded synthetic scene at 1920x1080 (K1 rows 0-5 bit-identical to
+     the plain version; K1 writing its block-start state: output
+     bit-identical to K1 without it, state bit-identical to the plain
+     forward's; K1's per-warp pair cull: the share of (pair, warp) the
+     plain test ``pair_warp_reach`` skips in the composited blocks, none
+     with a non-zero alpha, and the kernel's own count beside it; K2, given
+     K1's state: within BWD_TOL, exact zeros outside the composited blocks,
+     finite, a second call bit-identical);
   4. the same on ``bench_assets/trained_ckpt.npz`` at 1920x1080 from the
      bench pose (camera at center + (0, -0.6R, -4.4R));
   5. serving: restore_pool -> make_render_fn -> render_trajectory over the
@@ -41,8 +45,9 @@ Phases (any failure exits non-zero, with no result line):
  10. the compositor-ablation profiler (K3): K1 and the eight K3 kernels
      (raster_ablate.cu: cumprod, pg-roll, pg-log, no-transc, no-mxu,
      no-compute, no-input, empty) against their plain versions on the
-     profiler's 1080p workload, and cumprod and pg-* also against K1's plain
-     version (they compute K1's function), the plain versions' times, then
+     profiler's 1080p workload (K1 rows 0-5 bit for bit, and its cull as in
+     phase 3), and cumprod and pg-* also against K1's plain version (they
+     compute K1's function), the plain versions' times, then
      ``profile_kernel.main(["--iters", "20"])`` with the launch counts set to
      0 just before it: ms, ns/block and share of bound of each variant, each
      launch count, the tile-0 digests against the plain versions', and K1's
@@ -74,7 +79,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "bench_assets", "trained_ckpt.npz")
 H, W = 1080, 1920
 MAX_PAIRS = 2**22
-TOL = 2e-5  # kernel vs plain, rows 0-4 abs (both round alike: -fmad=false)
+# K3 kernels vs plain, rows 0-4 abs (both round alike: -fmad=false); K1
+# must equal its plain version bit for bit.
+TOL = 2e-5
 # K2 vs plain, rows 0-9, relative to each row's max abs: alpha, T and w
 # round alike; the pixel sums' order, fused multiply-adds in the ten
 # partials and the division's fast path (raster_bwd.cu) differ.
@@ -104,6 +111,25 @@ TRAIN_H, TRAIN_W = 540, 960  # the reference's training resolution
 TRAIN_PAIRS = 2**21
 TRAIN_BATCH = 4
 TRAIN_STEPS = 6
+
+
+def k1_resources(ptxas: str):
+    """(registers, static shared bytes) of K1's compositor from its ptxas
+    report (the library also holds the one-CTA tile-order kernel)."""
+    kernel = ptxas.split("raster_fwd_kernel", 1)[1]
+    m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", kernel)
+    return int(m.group(1)), int(m.group(2))
+
+
+def ctas_per_sm(regs, smem, threads=256):
+    """Resident CTAs per H100 SM: registers are allocated per warp in units
+    of 256 (65,536 per SM), at most 64 warps and 32 CTAs per SM, and 228 KiB
+    of shared memory with 1 KiB reserved per CTA."""
+    warps = threads // 32
+    per_warp = -(-regs * 32 // 256) * 256
+    by_regs = (65536 // per_warp) // warps
+    by_smem = (228 * 1024) // (smem + 1024)
+    return min(by_regs, 64 // warps, 32, by_smem)
 
 
 def card_line() -> str:
@@ -165,20 +191,60 @@ def serving_path(params, c2w, fx, fy, cx, cy, cfg, alive=None):
 
 
 def compare(name, out_k, out_p, tile_count):
-    """Kernel vs plain on every tile: rows 0-4 within TOL, row 5 exact."""
+    """K1 vs plain on every tile: rows 0-5 bit for bit."""
     occ = tile_count > 0
     err = float((out_k[:, 0:5] - out_p[:, 0:5]).abs().max())
-    err_occ = float((out_k[occ, 0:5] - out_p[occ, 0:5]).abs().max()) \
-        if bool(occ.any()) else 0.0
-    cnt_ok = bool(torch.equal(out_k[:, 5], out_p[:, 5]))
+    same = bool(torch.equal(out_k[:, 0:6], out_p[:, 0:6]))
     finite = bool(torch.isfinite(out_k).all())
-    print(f"[{name}] kernel vs plain: max abs err rows 0-4 {err:.3e} "
-          f"(occupied tiles {err_occ:.3e}, tol {TOL}), row 5 exact: "
-          f"{cnt_ok}, finite: {finite}, occupied tiles {int(occ.sum())}",
-          flush=True)
-    if not (err <= TOL and cnt_ok and finite):
-        raise SystemExit(f"FAIL: {name}: kernel disagrees with plain version")
+    print(f"[{name}] K1 vs plain: rows 0-5 bit-identical: {same} (max abs "
+          f"err rows 0-4 {err:.3e}), finite: {finite}, occupied tiles "
+          f"{int(occ.sum())}", flush=True)
+    if not (same and finite):
+        raise SystemExit(f"FAIL: {name}: K1 disagrees with its plain version")
     return err
+
+
+def check_cull(name, pf, ts, tc, out_p, cfg, chunk=512):
+    """K1's per-warp pair cull on the blocks the plain forward composited:
+    the share of (pair, warp) the plain test ``pair_warp_reach`` skips,
+    none of them with a non-zero alpha at any of the warp's 32 pixels, and
+    the count K1 reports for the same inputs (printed beside it; they
+    should be equal). Returns the plain share."""
+    from gsplat_tpu_torch.ops.raster_cuda import (_block_alpha, _launch_fwd,
+                                                  _tile_pixels, active_blocks,
+                                                  pair_warp_reach,
+                                                  tile_block_offsets,
+                                                  warp_pixels)
+
+    blk, tile, _ = active_blocks(ts, tile_block_offsets(out_p), cfg)
+    G = cfg.pair_block
+    cols = torch.arange(G, device=pf.device)
+    wpix = warp_pixels(cfg, pf.device)
+    skipped = total = unsafe = zero = 0
+    for c0 in range(0, blk.shape[0], chunk):
+        b, t = blk[c0:c0 + chunk], tile[c0:c0 + chunk]
+        f = pf[:FEAT_ROWS, b[:, None] * G + cols]
+        reach = pair_warp_reach(f, t, cfg)  # [m, G, 8]
+        px, py = _tile_pixels(t, cfg)
+        alpha = _block_alpha(f, px, py, cfg)[0][:, :, wpix]  # [m, G, 8, 32]
+        nonzero = (alpha != 0).any(dim=3)
+        unsafe += int((nonzero & ~reach).sum())
+        zero += int((~nonzero).sum())
+        skipped += int((~reach).sum())
+        total += reach.numel()
+    counter = torch.zeros(1, dtype=torch.int64, device=pf.device)
+    _launch_fwd(pf, ts, tc, cfg, skipped=counter)
+    kernel = int(counter.item())
+    print(f"[{name}] K1 cull: plain test skips {skipped} of {total} (pair, "
+          f"warp) = {skipped / max(total, 1):.4f} in {blk.shape[0]} "
+          f"composited blocks ({zero / max(total, 1):.4f} have alpha == 0 "
+          f"at all 32 pixels), {unsafe} with a non-zero alpha; the kernel "
+          f"reports {kernel} skipped (difference {kernel - skipped})",
+          flush=True)
+    if unsafe:
+        raise SystemExit(f"FAIL: {name}: the cull skips a pair with a "
+                         f"non-zero alpha")
+    return skipped / max(total, 1)
 
 
 def active_slots(binning, out, cfg):
@@ -452,13 +518,15 @@ def train_parts_ms(state, batch, cfg, tcfg, reps=3):
 
 def ablation_phase(card, dev):
     """Phase 10: K1 and the eight K3 kernels against their plain versions
-    on the profiler's 1080p workload (rows 0-4 within TOL, row 5 exact,
-    rows 6-7 zero, finite), cumprod and pg-* also against K1's plain
+    on the profiler's 1080p workload (K1 rows 0-5 bit for bit and its cull
+    checked; the K3 kernels rows 0-4 within TOL, row 5 exact; rows 6-7
+    zero, finite), cumprod and pg-* also against K1's plain
     version (rows 0-4 within TOL, row 5 exact), each plain version's time,
     then the profiler through its entry point with every launch count set
     to 0 just before.
     Returns ({variant: max abs error}, {variant: plain ms}, {variant: the
-    profiler's result}, {variant: launches in the profiler's run})."""
+    profiler's result}, {variant: launches in the profiler's run}, the
+    share of (pair, warp) K1's cull skips)."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch import profile_kernel
     from gsplat_tpu_torch.ops.raster_ablate import (K1_FUNCTION, ablate,
@@ -479,18 +547,23 @@ def ablation_phase(card, dev):
         out_p = plain_fn()
         torch.cuda.synchronize()
         errs[name] = float((out_k[:, 0:5] - out_p[:, 0:5]).abs().max())
-        same5 = bool(torch.equal(out_k[:, 5], out_p[:, 5]))
+        # K1 must equal its plain version bit for bit, rows 0-5.
+        tol, first, exact = (0.0, 0, "rows 0-5") if name == "full" else \
+            (TOL, 5, "row 5")
+        same5 = bool(torch.equal(out_k[:, first:6], out_p[:, first:6]))
         zero67 = bool((out_k[:, 6:] == 0).all())
         finite = bool(torch.isfinite(out_k).all())
         digests[name] = float(out_p[0, 0:5].sum())
         print(f"[profile workload 1080p] {name} vs plain: max abs err rows "
-              f"0-4 {errs[name]:.3e} (tol {TOL}), row 5 exact: {same5}, "
-              f"rows 6-7 zero: {zero67}, finite: {finite}, blocks "
-              f"composited {int(out_k[:, 5, 0].sum())}", flush=True)
-        if not (errs[name] <= TOL and same5 and zero67 and finite):
+              f"0-4 {errs[name]:.3e} (tol {tol}), {exact} exact: {same5}, "
+              f"rows 6-7 zero: {zero67}, finite: {finite}, blocks composited "
+              f"{int(out_k[:, 5, 0].sum())}", flush=True)
+        if not (errs[name] <= tol and same5 and zero67 and finite):
             raise SystemExit(f"FAIL: {name} disagrees with its plain version")
         if name == "full":
             k1_plain = out_p
+            cull = check_cull("profile workload 1080p", pf, ts, tc, out_p,
+                              cfg)
         else:
             plain_ms[name] = device_ms(plain_fn, 1)
         if name in K1_FUNCTION:
@@ -514,7 +587,10 @@ def ablation_phase(card, dev):
     counts = {name: profile_kernel.launch_count(name) for name in pairs}
     print(f"[{card}] profiler launches (counts set to 0 before it): "
           + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
-    print(f"[{card}] K1 minus each variant (CUDA events, one call): "
+    # K1 has its per-warp cull and the K3 bodies keep its older skeleton, so
+    # each difference mixes the redesign with the class the variant removes.
+    print(f"[{card}] K1 minus each variant (CUDA events, one call; K1's "
+          f"redesign and the removed class together): "
           + ", ".join(f"{v} {res['full']['ms'] - res[v]['ms']:+.4f} ms"
                       for v in pairs if v != "full"), flush=True)
     for name in pairs:
@@ -524,7 +600,7 @@ def ablation_phase(card, dev):
             raise SystemExit(f"FAIL: profiler variant {name}: {r}, plain "
                              f"digest {digests[name]}, {counts[name]} "
                              f"launches")
-    return errs, plain_ms, res, counts
+    return errs, plain_ms, res, counts, cull
 
 
 def image_from_tiles(out, tile_count, cfg):
@@ -624,6 +700,10 @@ def main():
                 raise SystemExit(f"FAIL: {name} spills registers: {line}")
     print("  raster_bwd dynamic shared memory: (10 + 2 warps x 10) x G x 4 B "
           "per CTA = 15360 B at pair_block 128")
+    regs, smem = k1_resources(built["raster_fwd"]["ptxas"])
+    print(f"[{card}] raster_fwd (K1) design: 8x4-pixel warps, per-warp pair "
+          f"cull, heavy tiles first; {regs} registers, {smem} B shared, "
+          f"{ctas_per_sm(regs, smem)} CTAs of 256 threads per SM", flush=True)
     errs, bwd_errs = [], []
 
     # --- 3. kernel vs plain, synthetic scene ---
@@ -641,6 +721,8 @@ def main():
     torch.cuda.synchronize()
     print(f"synthetic: 32768 gaussians, {int(binning.num_pairs)} pairs")
     errs.append(compare("synthetic 1080p", out_k, out_p, binning.tile_count))
+    check_cull("synthetic 1080p", pf, binning.tile_start, binning.tile_count,
+               out_p, cfg)
     bwd_errs.append(check_bwd("synthetic 1080p", pf, binning, out_k, state_p,
                               cfg, seed=1))
     del state_p
@@ -661,6 +743,9 @@ def main():
           f"{n_pairs} pairs of capacity {cfg.max_pairs}")
     errs.append(compare("trained 1080p bench pose", out_k, out_p,
                         binning.tile_count))
+    bench_cull = check_cull("trained 1080p bench pose", pf,
+                            binning.tile_start, binning.tile_count, out_p,
+                            cfg)
     bwd_errs.append(check_bwd("trained 1080p bench pose", pf, binning, out_k,
                               state_p, cfg, seed=2))
     del state_p
@@ -803,7 +888,11 @@ def main():
           f"{bwd_bound_ms / bwd_ms:.3f}", flush=True)
 
     # --- 10. the compositor-ablation profiler (K3) ---
-    abl_errs, abl_plain_ms, prof, prof_counts = ablation_phase(card, dev)
+    abl_errs, abl_plain_ms, prof, prof_counts, prof_cull = ablation_phase(
+        card, dev)
+    print(f"[{card}] K1's cull skips {bench_cull:.4f} of the (pair, warp) of "
+          f"the composited blocks at the bench pose, {prof_cull:.4f} on the "
+          f"profiler workload", flush=True)
     errs.append(abl_errs["full"])
 
     # --- 11. result lines ---

@@ -29,14 +29,16 @@ NVCC_FLAGS = (
 )
 
 SIGNATURES = {
-    # raster_fwd(feat, n_pairs, stride, tile_start, tile_count, out, state,
-    #            num_tiles, tiles_x, G, chi2_clip, alpha_max, alpha_cutoff,
-    #            t_min, stream) -> cudaError_t   (state may be null)
+    # raster_fwd(feat, n_pairs, stride, tile_start, tile_count, order, out,
+    #            state, skipped, num_tiles, tiles_x, G, chi2_clip, alpha_max,
+    #            alpha_cutoff, t_min, stream) -> cudaError_t
+    #            (order: scratch; state, skipped: may be null)
     "raster_fwd": (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+         ctypes.c_void_p],
         ctypes.c_int,
     ),
     # raster_bwd(feat, n_blocks, stride, tile_start, tile_off, num_tiles,

@@ -41,7 +41,9 @@ Feature-major pair features ``[>= 10, padded_pairs]`` f32, rows
 :func:`composite_pairs` chooses by the tensors' device: CPU tensors take
 :func:`composite_pairs_plain` / :func:`composite_pairs_bwd_plain`; CUDA
 tensors launch the kernels (``csrc/raster_fwd.cu``, ``csrc/raster_bwd.cu``)
-or raise. With grad enabled and ``pair_feat`` requiring grad it is a
+or raise. The forward kernel equals :func:`composite_pairs_plain` bit for
+bit; :func:`pair_warp_reach` is the plain version of its per-warp pair
+cull. With grad enabled and ``pair_feat`` requiring grad it is a
 ``torch.autograd.Function`` whose backward is the backward kernel.
 """
 
@@ -65,6 +67,13 @@ META_DEAD = 2
 KERNEL_TILE = 16  # the only tile size the CUDA kernel takes for now
 MAX_PAIR_BLOCK = 256
 STATE_ROWS = 5  # block-start state: sums r g b depth, then T
+KERNEL_WARPS = 8  # K1's warps per tile
+WARP_W, WARP_H = 8, 4  # the pixel patch of one K1 warp
+# Margins of K1's per-warp pair cull (_reach_threshold; raster_fwd.cu)
+CULL_MARGIN_REL = 1e-3
+CULL_MARGIN_EPS = 2.0**-17  # 128 units of float32 roundoff, over kappa
+CULL_MARGIN_ABS = 1e-3
+CULL_KAPPA_MIN = 1e-4
 
 
 def pack_block_meta(block_tile, block_first):
@@ -109,6 +118,90 @@ def _block_alpha(f, px, py, cfg: RenderConfig):
     a_raw = op * g
     a = torch.clamp(a_raw, max=cfg.alpha_max)
     return torch.where(a >= cfg.alpha_cutoff, a, 0.0), du, dv, g, a_raw, a
+
+
+def warp_pixels(cfg: RenderConfig, device=None):
+    """[8, 32] int64: the pixel ``p = py*tile + px`` of lane l of warp w in
+    K1, whose warp w takes the 8x4 patch at column (w % 2)*8, row
+    (w // 2)*4 of its tile, lane l at (l % 8, l // 8) within it."""
+    w = torch.arange(KERNEL_WARPS, device=device)[:, None]
+    lane = torch.arange(32, device=device)[None, :]
+    x = (w % 2) * WARP_W + lane % WARP_W
+    y = (w // 2) * WARP_H + lane // WARP_W
+    return y * cfg.tile + x
+
+
+def _reach_threshold(f, cfg: RenderConfig):
+    """K1's per-pair cull values for features f [>= 10, m, G]: ``(t, m)``,
+    each [m, G] f32, in the kernel's order of operations.
+
+    A pair's alpha is non-zero at a pixel only where the pixel's q (as
+    rounded) is at most ``min(chi2_clip, 2 ln(opacity / alpha_cutoff))``
+    (``op * exp(-q/2)`` must reach the cutoff; ``expf``'s 2 ulp move that by
+    about 1e-6). ``t`` widens it by 1e-3 absolute and ``1e-3 + 2^-17 /
+    kappa`` relative, ``kappa = det / (a c)``: a rounded q lies within
+    ``28 u / kappa`` of the exact quadratic form (u = 2^-24; the three
+    terms' magnitudes sum to at most ``4 / kappa`` times q), and the test's
+    own roundings add as much again. ``t = -inf`` skips the pair at every
+    pixel (opacity <= 0, so ``a_raw <= 0``); ``t = +inf`` never skips it: a
+    non-finite value among the 10 rows (then ``0 * x`` need not be 0),
+    ``alpha_cutoff <= 0``, or a conic that is not positive definite with
+    ``kappa >= 1e-4``. ``m = -b / a`` (0 where not tested) is the slope of
+    the line where q is least along x for a given row.
+    """
+    a, b, c, op = f[2], f[3], f[4], f[5]
+    inf = torch.tensor(float("inf"), dtype=f.dtype, device=f.device)
+    finite = torch.isfinite(f[:FEAT_ROWS]).all(dim=0)
+    ac = a * c
+    det = ac - b * b
+    kappa = det / ac
+    tested = (a > 0.0) & (c > 0.0) & (kappa >= CULL_KAPPA_MIN)
+    # Divisions by tensors: PyTorch divides by a Python float as a product
+    # with its reciprocal (on CUDA), and a Python float over a tensor as a
+    # reciprocal and a product; the kernel divides once.
+    t = torch.fmin(2.0 * torch.log(op / torch.full_like(op, cfg.alpha_cutoff)),
+                   torch.full_like(op, cfg.chi2_clip))
+    t = t + t.abs() * (CULL_MARGIN_REL + torch.full_like(op, CULL_MARGIN_EPS)
+                       / kappa) + CULL_MARGIN_ABS
+    t = torch.where(tested, t, inf)
+    t = torch.where(op <= 0.0, -inf, t)
+    finite &= cfg.alpha_cutoff > 0.0
+    t = torch.where(finite, t, inf)
+    live = finite & (op > 0.0) & tested
+    m = torch.where(live, -b / a, 0.0)
+    return t, m
+
+
+def pair_warp_reach(f, tiles, cfg: RenderConfig):
+    """K1's per-warp pair cull as plain PyTorch: [m, G, 8] bool, False
+    where the kernel's warp w skips pair j of block i (features f
+    [>= 10, m, G] of blocks in tiles ``tiles`` [m]).
+
+    For each of the patch's 4 pixel rows (dv = row - v), q is least along
+    the row at du = m dv, clamped to the patch's columns; the warp skips the
+    pair when that q exceeds ``t`` (:func:`_reach_threshold`) on every row.
+    Conservative: a skipped pair has alpha == 0 at all 32 pixels of the
+    warp, so skipping it changes no bit of K1's output. Nothing on the main
+    path calls this; the tests and ``chip_smoke.py`` do.
+    """
+    t, m = _reach_threshold(f, cfg)
+    t, m = t[..., None], m[..., None]
+    u, v, a, b, c = (f[r][..., None] for r in range(5))
+    w = torch.arange(KERNEL_WARPS, device=f.device)
+    tx = ((tiles % cfg.tiles_x) * cfg.tile)[:, None]
+    ty = ((tiles // cfg.tiles_x) * cfg.tile)[:, None]
+    x0 = (tx + (w % 2) * WARP_W).to(f.dtype)[:, None, :]  # [m, 1, 8]
+    x1 = (tx + (w % 2) * WARP_W + WARP_W - 1).to(f.dtype)[:, None, :]
+    y0 = (ty + (w // 2) * WARP_H).to(f.dtype)[:, None, :]
+    lo = x0 - u
+    hi = x1 - u
+    reach = torch.zeros(lo.shape, dtype=torch.bool, device=f.device)
+    for r in range(WARP_H):
+        dv = (y0 + float(r)) - v
+        du = torch.fmin(torch.fmax(m * dv, lo), hi)
+        q = a * du * du + 2.0 * b * du * dv + c * dv * dv
+        reach |= ~(q > t)
+    return reach
 
 
 def _tile_pixels(tiles, cfg: RenderConfig):
@@ -413,9 +506,12 @@ def composite_pairs(pair_feat, tile_start, tile_count, cfg: RenderConfig):
     Returns:
         [num_tiles, 8, tile*tile] f32 (see the module docstring).
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel,
-    and count it in ``composite_pairs.launches``; anything the kernel does
-    not take raises. With grad enabled and ``pair_feat`` requiring grad the
+    CPU tensors take the plain version. CUDA tensors launch the kernel
+    (``csrc/raster_fwd.cu``: each warp skips the pairs that cannot reach
+    its 8x4 pixels, :func:`pair_warp_reach`, and the result equals the
+    plain version bit for bit), and count it in
+    ``composite_pairs.launches``; anything the kernel does not take raises.
+    With grad enabled and ``pair_feat`` requiring grad the
     call is recorded for autograd: the forward also writes its block-start
     state, saved with its output, and the backward is
     :func:`composite_pairs_bwd` (the backward kernel on CUDA, counted in
@@ -452,15 +548,22 @@ def _check_kernel_args(cfg: RenderConfig, **tensors):
 
 
 def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
-                with_state: bool = False):
+                with_state: bool = False, skipped=None):
+    """K1. ``skipped``: None (the main path), or a [1] int64 tensor on the
+    card to which the kernel adds the (pair, warp) its cull skipped."""
     _check_kernel_args(cfg, pair_feat=pair_feat, tile_start=tile_start,
                        tile_count=tile_count)
+    if skipped is not None and (skipped.dtype != torch.int64
+                                or skipped.device != pair_feat.device
+                                or skipped.numel() != 1):
+        raise ValueError("skipped must be one int64 on pair_feat's device")
     from ._build import load_library
 
     lib = load_library("raster_fwd")
     P = cfg.tile * cfg.tile
     dev = pair_feat.device
     out = torch.empty(cfg.num_tiles, 8, P, dtype=torch.float32, device=dev)
+    order = torch.empty(cfg.num_tiles, dtype=torch.int32, device=dev)
     # Only the composited blocks' rows are written (and read back).
     state = torch.empty(pair_feat.shape[1] // cfg.pair_block, STATE_ROWS, P,
                         dtype=torch.float32, device=dev) if with_state \
@@ -469,8 +572,9 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.raster_fwd(
             pair_feat.data_ptr(), pair_feat.shape[1], pair_feat.stride(0),
-            tile_start.data_ptr(), tile_count.data_ptr(), out.data_ptr(),
-            None if state is None else state.data_ptr(),
+            tile_start.data_ptr(), tile_count.data_ptr(), order.data_ptr(),
+            out.data_ptr(), None if state is None else state.data_ptr(),
+            None if skipped is None else skipped.data_ptr(),
             cfg.num_tiles, cfg.tiles_x, cfg.pair_block,
             ctypes.c_float(cfg.chi2_clip), ctypes.c_float(cfg.alpha_max),
             ctypes.c_float(cfg.alpha_cutoff),

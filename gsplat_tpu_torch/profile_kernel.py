@@ -16,8 +16,13 @@ each take one class of work out of it (``ops/raster_ablate.py``):
   no-input    K1's arithmetic on iota features with log-space T, no read
   empty       the tile's output written, nothing read (launch floor)
 
-``full`` minus an ablation is what that class of work costs K1; ``full``
-minus cumprod or pg-* is what that design saves. Each line prints the time
+The ablations and the other designs keep the skeleton K1 had before its
+per-warp pair cull (``ops/csrc/raster_ablate.cu``), so ``full`` minus one
+of them mixes K1's redesign with the class of work the variant removes or
+the design it tries; among themselves they still compare class by class.
+The bounds count every (pair, pixel) of a composited block, as the TPU
+kernel computes them, so K1's cull shows as a larger share of its bound.
+Each line prints the time
 per launch, per block of the workload, the tile-0 digest (the sum of
 out[0, 0:5], which agrees with the JAX script's) and, on the card, the
 variant's bound and its share of it.

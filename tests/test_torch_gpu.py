@@ -6,9 +6,12 @@ nor the suite's conftest (the GPU machine has no JAX), so run it with
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
 
-Tolerances: kernel vs plain compositor on the same inputs, rows 0-4 within
-2e-5 abs and row 5 exact (the kernel is built with -fmad=false and keeps
-the plain version's order of operations). A whole render on the card vs
+Tolerances: the forward kernel vs the plain compositor on the same inputs,
+rows 0-5 bit for bit (the kernel is built with -fmad=false and keeps the
+plain version's order of operations; the (pair, warp) its cull skips have
+alpha == 0 at every pixel of the warp, where they change nothing), and the
+count of skipped (pair, warp) it reports equal to the plain test's
+(``pair_warp_reach``, same arithmetic). A whole render on the card vs
 the same render on the CPU: 1e-4 abs with equal pair counts, because the
 projection runs on each device's own math library (a float one ulp apart
 can move one (pair, pixel) across the alpha cutoff).
@@ -24,11 +27,11 @@ and two runs bit-identical (no float atomics). A train step on the card vs
 on the CPU: gradients within 5e-4 of each leaf's largest, the render's own
 gradient tolerance.
 
-The eight K3 kernels of the profiler vs their plain versions: as the
-forward compositor (rows 0-4 within 2e-5 abs, row 5 exact, rows 6-7 zero),
-for the same reason. cumprod, pg-roll and pg-log compute the forward
-compositor's function, so they are also held against its plain version
-within the same 2e-5 (their T is rounded in another association).
+The eight K3 kernels of the profiler vs their plain versions: rows 0-4
+within 2e-5 abs, row 5 exact, rows 6-7 zero (built and ordered alike).
+cumprod, pg-roll and pg-log compute the forward compositor's function, so
+they are also held against its plain version within the same 2e-5 (their
+T is rounded in another association).
 """
 
 import numpy as np
@@ -116,12 +119,24 @@ def test_kernel_matches_plain(cuda, kind, pair_block):
     assert tras.composite_pairs.launches == before + 1
     want = tras.composite_pairs_plain(pf, b.tile_start, b.tile_count, cfg)
     torch.cuda.synchronize()
-    assert float((got[:, :5] - want[:, :5]).abs().max()) <= TOL
-    assert torch.equal(got[:, 5], want[:, 5])
+    assert torch.equal(got[:, :6], want[:, :6])
     assert (got[:, 6:] == 0).all()
     if kind == "saturated":
         nblk = (b.tile_count + pair_block - 1) // pair_block
         assert (got[:, 5, 0] < nblk).any(), "no tile was skipped"
+    # The (pair, warp) the kernel's cull skipped, against the plain test on
+    # the composited blocks.
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    again = tras._launch_fwd(pf, b.tile_start, b.tile_count, cfg,
+                             skipped=skipped)
+    blk, tile, _ = tras.active_blocks(b.tile_start,
+                                      tras.tile_block_offsets(want), cfg)
+    f = pf[:10, blk[:, None] * pair_block + torch.arange(pair_block,
+                                                         device=cuda)]
+    reach = tras.pair_warp_reach(f, tile, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+    assert int(skipped.item()) == int((~reach).sum()) > 0
 
 
 def test_render_on_card_matches_cpu(cuda):
