@@ -28,8 +28,10 @@ Phases (any failure exits non-zero, with no result line):
      launch count read around the run, and the served bench-pose frame held
      against the image assembled from the plain compositor's output;
   6. timing of K1 alone (CUDA events), without and with state writing,
-     beside its plain version and its bound, and the device time of each
-     stage of one frame;
+     beside its plain version, its bound (the (pair, pixel) its cull
+     reaches and the cull's own operations, against the bytes) and the
+     TPU kernel's work (every (pair, pixel) of a composited block), and the
+     device time of each stage of one frame;
   7. fwd+bwd at 1080p at the bench pose (render_from_params, loss
      mean(im) + mean(im^2), .backward()): one K1 and one K2 launch per call,
      finite gradients, dead slots' gradients 0, ms per call, and the device
@@ -70,10 +72,10 @@ import time
 import numpy as np
 import torch
 
-# One definition of the card's peak rates, K1's operation count and the
-# device timer (CUDA events behind a busy stream), shared with the profiler.
-from gsplat_tpu_torch.profile_kernel import (OPS_PER_PAIR_PIXEL, PEAK_BYTES,
-                                             PEAK_F32_FLOPS, device_ms)
+# One definition of the card's peak rates, K1's bound and the device timer
+# (CUDA events behind a busy stream), shared with the profiler.
+from gsplat_tpu_torch.profile_kernel import (PEAK_BYTES, PEAK_F32_FLOPS,
+                                             bound_ms, device_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "bench_assets", "trained_ckpt.npz")
@@ -119,17 +121,6 @@ def k1_resources(ptxas: str):
     kernel = ptxas.split("raster_fwd_kernel", 1)[1]
     m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", kernel)
     return int(m.group(1)), int(m.group(2))
-
-
-def ctas_per_sm(regs, smem, threads=256):
-    """Resident CTAs per H100 SM: registers are allocated per warp in units
-    of 256 (65,536 per SM), at most 64 warps and 32 CTAs per SM, and 228 KiB
-    of shared memory with 1 KiB reserved per CTA."""
-    warps = threads // 32
-    per_warp = -(-regs * 32 // 256) * 256
-    by_regs = (65536 // per_warp) // warps
-    by_smem = (228 * 1024) // (smem + 1024)
-    return min(by_regs, 64 // warps, 32, by_smem)
 
 
 def card_line() -> str:
@@ -204,47 +195,32 @@ def compare(name, out_k, out_p, tile_count):
     return err
 
 
-def check_cull(name, pf, ts, tc, out_p, cfg, chunk=512):
+def check_cull(name, pf, ts, tc, out_p, cfg):
     """K1's per-warp pair cull on the blocks the plain forward composited:
     the share of (pair, warp) the plain test ``pair_warp_reach`` skips,
     none of them with a non-zero alpha at any of the warp's 32 pixels, and
     the count K1 reports for the same inputs (printed beside it; they
-    should be equal). Returns the plain share."""
-    from gsplat_tpu_torch.ops.raster_cuda import (_block_alpha, _launch_fwd,
-                                                  _tile_pixels, active_blocks,
-                                                  pair_warp_reach,
-                                                  tile_block_offsets,
-                                                  warp_pixels)
+    should be equal). Returns ``raster_cuda.cull_audit``'s counts."""
+    from gsplat_tpu_torch.ops.raster_cuda import (_launch_fwd, active_blocks,
+                                                  cull_audit,
+                                                  tile_block_offsets)
 
     blk, tile, _ = active_blocks(ts, tile_block_offsets(out_p), cfg)
-    G = cfg.pair_block
-    cols = torch.arange(G, device=pf.device)
-    wpix = warp_pixels(cfg, pf.device)
-    skipped = total = unsafe = zero = 0
-    for c0 in range(0, blk.shape[0], chunk):
-        b, t = blk[c0:c0 + chunk], tile[c0:c0 + chunk]
-        f = pf[:FEAT_ROWS, b[:, None] * G + cols]
-        reach = pair_warp_reach(f, t, cfg)  # [m, G, 8]
-        px, py = _tile_pixels(t, cfg)
-        alpha = _block_alpha(f, px, py, cfg)[0][:, :, wpix]  # [m, G, 8, 32]
-        nonzero = (alpha != 0).any(dim=3)
-        unsafe += int((nonzero & ~reach).sum())
-        zero += int((~nonzero).sum())
-        skipped += int((~reach).sum())
-        total += reach.numel()
+    n = cull_audit(pf, blk, tile, cfg)
     counter = torch.zeros(1, dtype=torch.int64, device=pf.device)
     _launch_fwd(pf, ts, tc, cfg, skipped=counter)
     kernel = int(counter.item())
-    print(f"[{name}] K1 cull: plain test skips {skipped} of {total} (pair, "
-          f"warp) = {skipped / max(total, 1):.4f} in {blk.shape[0]} "
-          f"composited blocks ({zero / max(total, 1):.4f} have alpha == 0 "
-          f"at all 32 pixels), {unsafe} with a non-zero alpha; the kernel "
-          f"reports {kernel} skipped (difference {kernel - skipped})",
-          flush=True)
-    if unsafe:
+    total = max(n["total"], 1)
+    print(f"[{name}] K1 cull: plain test skips {n['skipped']} of "
+          f"{n['total']} (pair, warp) = {n['skipped'] / total:.4f} in "
+          f"{blk.shape[0]} composited blocks ({n['zero'] / total:.4f} have "
+          f"alpha == 0 at all 32 pixels), {n['unsafe']} with a non-zero "
+          f"alpha; the kernel reports {kernel} skipped (difference "
+          f"{kernel - n['skipped']})", flush=True)
+    if n["unsafe"]:
         raise SystemExit(f"FAIL: {name}: the cull skips a pair with a "
                          f"non-zero alpha")
-    return skipped / max(total, 1)
+    return n
 
 
 def active_slots(binning, out, cfg):
@@ -562,8 +538,8 @@ def ablation_phase(card, dev):
             raise SystemExit(f"FAIL: {name} disagrees with its plain version")
         if name == "full":
             k1_plain = out_p
-            cull = check_cull("profile workload 1080p", pf, ts, tc, out_p,
-                              cfg)
+            n = check_cull("profile workload 1080p", pf, ts, tc, out_p, cfg)
+            cull = n["skipped"] / n["total"]
         else:
             plain_ms[name] = device_ms(plain_fn, 1)
         if name in K1_FUNCTION:
@@ -678,7 +654,8 @@ def main():
                                                   composite_pairs,
                                                   composite_pairs_bwd,
                                                   composite_pairs_bwd_plain,
-                                                  composite_pairs_plain)
+                                                  composite_pairs_plain,
+                                                  fwd_ctas_per_sm)
     from gsplat_tpu_torch.viewer import (create_orbit_trajectory,
                                          make_render_fn, render_trajectory)
 
@@ -703,7 +680,8 @@ def main():
     regs, smem = k1_resources(built["raster_fwd"]["ptxas"])
     print(f"[{card}] raster_fwd (K1) design: 8x4-pixel warps, per-warp pair "
           f"cull, heavy tiles first; {regs} registers, {smem} B shared, "
-          f"{ctas_per_sm(regs, smem)} CTAs of 256 threads per SM", flush=True)
+          f"{fwd_ctas_per_sm(dev)} CTAs of 256 threads per SM (occupancy "
+          f"API)", flush=True)
     errs, bwd_errs = [], []
 
     # --- 3. kernel vs plain, synthetic scene ---
@@ -746,6 +724,7 @@ def main():
     bench_cull = check_cull("trained 1080p bench pose", pf,
                             binning.tile_start, binning.tile_count, out_p,
                             cfg)
+    bench_reached = bench_cull["total"] - bench_cull["skipped"]
     bwd_errs.append(check_bwd("trained 1080p bench pose", pf, binning, out_k,
                               state_p, cfg, seed=2))
     del state_p
@@ -815,21 +794,22 @@ def main():
         lambda: composite_pairs_plain(pf, ts, tc, cfg, tile_chunk=1024), 2)
     G, P = cfg.pair_block, cfg.tile * cfg.tile
     blocks = int(torch.where(tc > 0, out_k[:, 5, 0], 0.0).sum())
-    ops = blocks * G * P * OPS_PER_PAIR_PIXEL["full"]
-    nbytes = blocks * FEAT_ROWS * G * 4 + cfg.num_tiles * 8 * P * 4 \
-        + 2 * cfg.num_tiles * 4
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    # The reached (pair, pixel) and the cull's own operations, against the
+    # bytes; the TPU kernel's work (every (pair, pixel) of a composited
+    # block) beside it, which the bound counted before K1 had its cull.
+    k1_bound_ms, k1_bound_by = bound_ms("full", blocks, cfg, bench_reached)
+    tpu_bound_ms, tpu_bound_by = bound_ms("full", blocks, cfg)
     per_frame = launches / calls[0]
     print(f"[{card}] raster_fwd at the bench pose: {kernel_ms:.4f} ms "
           f"(CUDA events, 20 launches; again after the state timing "
           f"{kernel_ms2:.4f} ms; writing the block-start state, as autograd "
           f"asks, {state_ms:.4f} ms), plain {plain_ms:.3f} ms, "
           f"{per_frame:.0f} launch/frame; {blocks} active blocks of "
-          f"{cfg.num_pair_blocks}; bound {bound_ms:.4f} ms by {bound_by} "
-          f"({ops:.3e} ops, {nbytes:.3e} bytes)", flush=True)
+          f"{cfg.num_pair_blocks}; bound {k1_bound_ms:.4f} ms by "
+          f"{k1_bound_by} ({bench_reached} of {bench_cull['total']} (pair, "
+          f"warp) reached; share of bound {k1_bound_ms / kernel_ms:.3f}); "
+          f"TPU work (every (pair, pixel)) {tpu_bound_ms:.4f} ms by "
+          f"{tpu_bound_by}", flush=True)
     stages = stage_ms(pool.params, c2w, fx, fy, cx, cy, cfg, pool.alive)
     print(f"[{card}] stages of one bench-pose frame (CUDA events, median "
           f"of 5): " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()),
@@ -890,9 +870,10 @@ def main():
     # --- 10. the compositor-ablation profiler (K3) ---
     abl_errs, abl_plain_ms, prof, prof_counts, prof_cull = ablation_phase(
         card, dev)
-    print(f"[{card}] K1's cull skips {bench_cull:.4f} of the (pair, warp) of "
-          f"the composited blocks at the bench pose, {prof_cull:.4f} on the "
-          f"profiler workload", flush=True)
+    print(f"[{card}] K1's cull skips "
+          f"{bench_cull['skipped'] / bench_cull['total']:.4f} of the (pair, "
+          f"warp) of the composited blocks at the bench pose, "
+          f"{prof_cull:.4f} on the profiler workload", flush=True)
     errs.append(abl_errs["full"])
 
     # --- 11. result lines ---
@@ -905,8 +886,8 @@ def main():
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_ms": k1_bound_ms,
+        "bound_by": k1_bound_by,
         "library_ms": None,
     }, {
         "name": "raster_bwd",

@@ -31,12 +31,14 @@ NVCC_FLAGS = (
 SIGNATURES = {
     # raster_fwd(feat, n_pairs, stride, tile_start, tile_count, order, out,
     #            state, skipped, num_tiles, tiles_x, G, chi2_clip, alpha_max,
-    #            alpha_cutoff, t_min, stream) -> cudaError_t
+    #            alpha_cutoff, t_min, margin_rel, margin_eps, margin_abs,
+    #            kappa_min, stream) -> cudaError_t
     #            (order: scratch; state, skipped: may be null)
     "raster_fwd": (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
          ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
          ctypes.c_void_p],
         ctypes.c_int,
@@ -64,6 +66,16 @@ SIGNATURES = {
          ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
+}
+
+# The other functions a library exports: {library: {function: signature}}.
+EXTRA_FUNCTIONS = {
+    # raster_fwd_ctas_per_sm(int* n) -> cudaError_t: K1's resident CTAs per
+    # SM on the current device (the occupancy API)
+    "raster_fwd": {
+        "raster_fwd_ctas_per_sm": ([ctypes.POINTER(ctypes.c_int)],
+                                   ctypes.c_int),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -135,7 +147,9 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         path = build((name,))[name]["lib"]
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = SIGNATURES[name]
+        sigs = {name: SIGNATURES[name], **EXTRA_FUNCTIONS.get(name, {})}
+        for fname, sig in sigs.items():
+            fn = getattr(lib, fname)
+            fn.argtypes, fn.restype = sig
         _loaded[name] = lib
     return lib

@@ -53,9 +53,10 @@
 //
 // The cull test. Pair j can give a non-zero alpha at a pixel only where
 // the pixel's rounded q is at most min(chi2_clip, 2 ln(op / cutoff)):
-// staging widens that to t (reach_threshold: 1e-3 absolute, 1e-3 + 2^-17
-// / kappa relative, kappa = det / (a c), which bounds the float rounding
-// of q and of the test itself), t = -inf where op <= 0 (skip everywhere:
+// staging widens that to t (reach_threshold, with the margins the
+// launcher passes: 1e-3 absolute, 1e-3 + 2^-17 / kappa relative, kappa =
+// det / (a c), which bounds the float rounding of q and of the test
+// itself), t = -inf where op <= 0 (skip everywhere:
 // a_raw <= 0), t = +inf where a value is not finite, the cutoff is not
 // positive, or the conic is not positive definite with kappa >= 1e-4
 // (never skip). For each of the patch's 4 pixel rows, q is least along
@@ -73,15 +74,18 @@
 // the plain version's bit for bit. exp(-q/2) is computed on every lane and
 // then selected by q <= chi2_clip (the same value as a branch around it).
 //
-// Bound. The bound counts every (pair, pixel) of a composited block, as
-// the TPU kernel computes them: about 26 f32 operations and one exp each,
-// active_blocks * G * 256 * 26 / 67 TFLOP/s. Bytes are the active feature
+// Bound. The operations the function needs on a run's data: the (pair,
+// pixel) of the (pair, warp) the cull reaches, about 26 f32 operations and
+// one exp each, plus the cull itself (58 per (pair, warp) of a composited
+// block, 14 per staged pair), over 67 TFLOP/s; bytes are the active feature
 // blocks (10 x G x 4 B each) plus the 8 KiB output of every tile, empty
-// ones included, which come close at 1080p but stay under: the kernel is
-// bound by operations. The cull is K1 doing less of
-// that work: it skips the (pair, warp) whose alphas are all zero. Tiles
-// stay unbalanced (a CTA's time grows with its tile's active depth); the
-// tile order only starts the deepest first.
+// ones included (gsplat_tpu_torch/profile_kernel.py: bound_ms). The bytes
+// bind at the trained scene's 1080p bench pose, the operations on the
+// profiler's denser workload. The TPU kernel computes every (pair, pixel)
+// of a composited block; chip_smoke.py and the profiler print that figure
+// beside the bound.
+// Tiles stay unbalanced (a CTA's time grows with its tile's active depth);
+// the tile order only starts the deepest first.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,13 +99,14 @@ constexpr int kRows = 10;               // u v a b c op r g b depth
 constexpr int kMaxG = 256;
 constexpr int kSlots = 3;               // float4s per staged pair
 constexpr int kWarpW = 8, kWarpH = 4;   // a warp's pixel patch
-// Cull margins (raster_cuda.py: CULL_MARGIN_*, CULL_KAPPA_MIN).
-constexpr float kMarginRel = 1e-3f;
-constexpr float kMarginEps = 7.62939453125e-06f;  // 2^-17
-constexpr float kMarginAbs = 1e-3f;
-constexpr float kKappaMin = 1e-4f;
 constexpr int kOrderThreads = 1024;
 constexpr int kBuckets = 32;  // tile_order: block counts 0..30, 31 and up
+
+// The cull's margins, passed by the launcher from raster_cuda.py's
+// CULL_MARGIN_REL, CULL_MARGIN_EPS, CULL_MARGIN_ABS and CULL_KAPPA_MIN.
+struct CullMargins {
+  float rel, eps, abs, kappa_min;
+};
 
 // The widened threshold t on a pixel's q beyond which pair f (10 rows)
 // has alpha == 0, and the slope m = -b / a; see the header. Operation
@@ -109,6 +114,7 @@ constexpr int kBuckets = 32;  // tile_order: block counts 0..30, 31 and up
 __device__ __forceinline__ float reach_threshold(const float* f,
                                                  float chi2_clip,
                                                  float alpha_cutoff,
+                                                 const CullMargins& cm,
                                                  float* m) {
   *m = 0.0f;
   bool finite = true;
@@ -120,10 +126,10 @@ __device__ __forceinline__ float reach_threshold(const float* f,
   const float ac = a * c;
   const float det = ac - b * b;
   const float kappa = det / ac;
-  if (!(a > 0.0f && c > 0.0f && kappa >= kKappaMin)) return INFINITY;
+  if (!(a > 0.0f && c > 0.0f && kappa >= cm.kappa_min)) return INFINITY;
   *m = -b / a;
   const float t = fminf(2.0f * logf(op / alpha_cutoff), chi2_clip);
-  return t + fabsf(t) * (kMarginRel + kMarginEps / kappa) + kMarginAbs;
+  return t + fabsf(t) * (cm.rel + cm.eps / kappa) + cm.abs;
 }
 
 // Bucket of a tile in tile_order: 0 for the most blocks.
@@ -165,7 +171,7 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
     const int* __restrict__ order, float* __restrict__ out,
     float* __restrict__ state, unsigned long long* __restrict__ skipped,
     int tiles_x, int G, float chi2_clip, float alpha_max,
-    float alpha_cutoff, float t_min) {
+    float alpha_cutoff, float t_min, CullMargins cm) {
   __shared__ float4 sm[kSlots * kMaxG];
 
   const int tile = order[blockIdx.x];
@@ -213,7 +219,7 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
     }
     if (tid < G) {
       float m;
-      const float t = reach_threshold(f, chi2_clip, alpha_cutoff, &m);
+      const float t = reach_threshold(f, chi2_clip, alpha_cutoff, cm, &m);
       sm[kSlots * tid + 0] = make_float4(f[0], f[1], f[2], f[3]);
       sm[kSlots * tid + 1] = make_float4(f[4], f[5], f[6], f[7]);
       sm[kSlots * tid + 2] = make_float4(f[8], f[9], t, m);
@@ -286,13 +292,15 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
 // cudaGetLastError() (0 on success). `order` is scratch for num_tiles
 // ints. `state` may be null (nothing written); `skipped` may be null
 // (nothing counted), else the kernel adds the (pair, warp) it skipped to
-// *skipped.
+// *skipped. margin_rel, margin_eps, margin_abs and kappa_min are the
+// cull's (see the header).
 extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
                           const void* tile_start, const void* tile_count,
                           void* order, void* out, void* state, void* skipped,
                           int num_tiles, int tiles_x, int G, float chi2_clip,
                           float alpha_max, float alpha_cutoff, float t_min,
-                          void* stream) {
+                          float margin_rel, float margin_eps,
+                          float margin_abs, float kappa_min, void* stream) {
   if (G <= 0 || G > kMaxG || G % 32 != 0 || num_tiles < 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -302,10 +310,18 @@ extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
       (const int*)tile_count, num_tiles, G, (int*)order);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  const CullMargins cm = {margin_rel, margin_eps, margin_abs, kappa_min};
   raster_fwd_kernel<<<num_tiles, kPixels, 0, s>>>(
       (const float*)feat, n_pairs, stride, (const int*)tile_start,
       (const int*)tile_count, (const int*)order, (float*)out, (float*)state,
       (unsigned long long*)skipped, tiles_x, G, chi2_clip, alpha_max,
-      alpha_cutoff, t_min);
+      alpha_cutoff, t_min, cm);
   return (int)cudaGetLastError();
+}
+
+// The compositor's resident CTAs per SM on the current device, from the
+// occupancy API, into *n; returns the CUDA error (0 on success).
+extern "C" int raster_fwd_ctas_per_sm(int* n) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, raster_fwd_kernel, kPixels, 0);
 }

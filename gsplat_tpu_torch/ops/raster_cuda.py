@@ -69,7 +69,8 @@ MAX_PAIR_BLOCK = 256
 STATE_ROWS = 5  # block-start state: sums r g b depth, then T
 KERNEL_WARPS = 8  # K1's warps per tile
 WARP_W, WARP_H = 8, 4  # the pixel patch of one K1 warp
-# Margins of K1's per-warp pair cull (_reach_threshold; raster_fwd.cu)
+# Margins of K1's per-warp pair cull (_reach_threshold), which _launch_fwd
+# passes to raster_fwd.cu
 CULL_MARGIN_REL = 1e-3
 CULL_MARGIN_EPS = 2.0**-17  # 128 units of float32 roundoff, over kappa
 CULL_MARGIN_ABS = 1e-3
@@ -181,8 +182,9 @@ def pair_warp_reach(f, tiles, cfg: RenderConfig):
     the row at du = m dv, clamped to the patch's columns; the warp skips the
     pair when that q exceeds ``t`` (:func:`_reach_threshold`) on every row.
     Conservative: a skipped pair has alpha == 0 at all 32 pixels of the
-    warp, so skipping it changes no bit of K1's output. Nothing on the main
-    path calls this; the tests and ``chip_smoke.py`` do.
+    warp, so skipping it changes no bit of K1's output. Serving and
+    training never call this; the tests, ``chip_smoke.py`` and the
+    profiler's bounds do (through :func:`cull_audit`).
     """
     t, m = _reach_threshold(f, cfg)
     t, m = t[..., None], m[..., None]
@@ -202,6 +204,32 @@ def pair_warp_reach(f, tiles, cfg: RenderConfig):
         q = a * du * du + 2.0 * b * du * dv + c * dv * dv
         reach |= ~(q > t)
     return reach
+
+
+def cull_audit(pair_feat, blocks, tiles, cfg: RenderConfig, chunk: int = 256):
+    """K1's cull over the listed blocks (``blocks``, ``tiles`` [m] int64:
+    the pair list's block and its tile), ``chunk`` blocks at a time: a dict
+    of (pair, warp) counts, ``total``, ``skipped`` (dropped by
+    :func:`pair_warp_reach`), ``zero`` (alpha == 0 at all 32 of the warp's
+    pixels) and ``unsafe`` (dropped with a non-zero alpha somewhere: 0 if
+    the cull is conservative)."""
+    G = cfg.pair_block
+    dev = pair_feat.device
+    cols = torch.arange(G, device=dev)
+    wpix = warp_pixels(cfg, dev)
+    n = {"total": 0, "skipped": 0, "zero": 0, "unsafe": 0}
+    for c0 in range(0, blocks.shape[0], chunk):
+        blk, tile = blocks[c0:c0 + chunk], tiles[c0:c0 + chunk]
+        f = pair_feat[:FEAT_ROWS, blk[:, None] * G + cols]
+        reach = pair_warp_reach(f, tile, cfg)  # [m, G, 8]
+        px, py = _tile_pixels(tile, cfg)
+        alpha = _block_alpha(f, px, py, cfg)[0][:, :, wpix]  # [m, G, 8, 32]
+        nonzero = (alpha != 0).any(dim=3)
+        n["total"] += reach.numel()
+        n["skipped"] += int((~reach).sum())
+        n["zero"] += int((~nonzero).sum())
+        n["unsafe"] += int((nonzero & ~reach).sum())
+    return n
 
 
 def _tile_pixels(tiles, cfg: RenderConfig):
@@ -578,12 +606,30 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
             cfg.num_tiles, cfg.tiles_x, cfg.pair_block,
             ctypes.c_float(cfg.chi2_clip), ctypes.c_float(cfg.alpha_max),
             ctypes.c_float(cfg.alpha_cutoff),
-            ctypes.c_float(cfg.transmittance_min), stream,
+            ctypes.c_float(cfg.transmittance_min),
+            ctypes.c_float(CULL_MARGIN_REL), ctypes.c_float(CULL_MARGIN_EPS),
+            ctypes.c_float(CULL_MARGIN_ABS), ctypes.c_float(CULL_KAPPA_MIN),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
     composite_pairs.launches += 1
     return (out, state) if with_state else out
+
+
+def fwd_ctas_per_sm(device) -> int:
+    """K1's resident CTAs per SM on the CUDA ``device``, from the occupancy
+    API (``raster_fwd_ctas_per_sm``)."""
+    from ._build import load_library
+
+    lib = load_library("raster_fwd")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.raster_fwd_ctas_per_sm(ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"raster_fwd occupancy query failed: CUDA error "
+                           f"{err}")
+    return n.value
 
 
 def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,

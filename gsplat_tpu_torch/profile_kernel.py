@@ -20,9 +20,11 @@ The ablations and the other designs keep the skeleton K1 had before its
 per-warp pair cull (``ops/csrc/raster_ablate.cu``), so ``full`` minus one
 of them mixes K1's redesign with the class of work the variant removes or
 the design it tries; among themselves they still compare class by class.
-The bounds count every (pair, pixel) of a composited block, as the TPU
-kernel computes them, so K1's cull shows as a larger share of its bound.
-Each line prints the time
+The bound of K1's function (full, cumprod, pg-roll, pg-log) counts the
+(pair, pixel) that K1's cull reaches on the workload plus the cull's own
+operations; each such line also prints the TPU kernel's work, every
+(pair, pixel) of a composited block, which the bound counted before K1
+had its cull. Each line prints the time
 per launch, per block of the workload, the tile-0 digest (the sum of
 out[0, 0:5], which agrees with the JAX script's) and, on the card, the
 variant's bound and its share of it.
@@ -49,7 +51,9 @@ import torch
 from .config import RenderConfig
 from .device import resolve_device
 from .ops.raster_ablate import K1_FUNCTION, ablate
-from .ops.raster_cuda import FEAT_ROWS, FEAT_WIDTH, composite_pairs
+from .ops.raster_cuda import (FEAT_ROWS, FEAT_WIDTH, KERNEL_WARPS,
+                              active_blocks, composite_pairs, cull_audit,
+                              tile_block_offsets)
 
 # The JAX script's VARIANTS, in its order.
 VARIANTS = {"full": composite_pairs}
@@ -62,8 +66,9 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # f32 operations per composited (pair, pixel), counted from each kernel's
 # body; compares, selects, sign flips and the once-per-block T update are
 # not counted. A variant that computes K1's function (K1_FUNCTION: cumprod,
-# pg-roll, pg-log) is held to K1's count, the least that function needs;
-# what its design adds on top is its cost, not its bound.
+# pg-roll, pg-log) is held to K1's count and, where the reached (pair, warp)
+# are known, to K1's bound (bound_ms), the least that function needs; what
+# its design adds on top is its cost, not its bound.
 OPS_PER_PAIR_PIXEL = {
     # du, dv (2), q (9), -q/2 (1), exp (1), op*g (1), min (1), alpha*T (1),
     # four sums (8), T*(1-alpha) (2)
@@ -82,6 +87,14 @@ OPS_PER_PAIR_PIXEL = {
 }
 OPS_PER_PAIR_PIXEL.update((name, OPS_PER_PAIR_PIXEL["full"])
                           for name in K1_FUNCTION)
+# K1's per-warp pair cull (ops/csrc/raster_fwd.cu), which the function's
+# least work includes: per (pair, warp) of a composited block, lo and hi (2)
+# and for each of the 4 pixel rows dv (2), m dv (1), the clamp (2) and q
+# (9); per staged pair its threshold: a c, det (3), kappa (1), -b/a (1),
+# op/cutoff (1), log (1), 2x (1), min (1), the margin (4), t + (1).
+OPS_CULL_PER_PAIR_WARP = 58
+OPS_CULL_PER_PAIR = 14
+CULLED = ("full",) + K1_FUNCTION  # K1's function: bound by reached work
 
 
 def make_workload(cfg: RenderConfig, blocks_per_tile: int, seed: int = 0):
@@ -119,14 +132,18 @@ def make_workload(cfg: RenderConfig, blocks_per_tile: int, seed: int = 0):
     return torch.from_numpy(feat), tile_start, tile_count
 
 
-def bound_ms(name: str, blocks: int, cfg: RenderConfig):
+def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None):
     """(least time on one H100 in ms, "bytes" or "operations") for the
     variant over ``blocks`` composited blocks: each input byte read once
     and each output byte written once at 3.35 TB/s, against the operations
     at 67 TFLOP/s f32. ``no-compute`` counts the 10 staged rows it is
     defined to read (the TPU body reads the whole feature block) and one
     add per staged u and per pixel; ``no-input`` reads no feature; ``empty``
-    only writes its output."""
+    only writes its output. For K1's function, ``reached`` (the (pair,
+    warp) of those blocks that K1's cull does not skip, from
+    ``raster_cuda.cull_audit``) counts 32 pixels for each reached (pair,
+    warp) plus the cull's operations; without it every (pair, pixel)
+    counts, the TPU kernel's work."""
     G, P = cfg.pair_block, cfg.tile * cfg.tile
     out_bytes = cfg.num_tiles * 8 * P * 4
     if name == "empty":
@@ -134,12 +151,26 @@ def bound_ms(name: str, blocks: int, cfg: RenderConfig):
     else:
         feat_bytes = 0 if name == "no-input" else blocks * FEAT_ROWS * G * 4
         nbytes = feat_bytes + out_bytes + 2 * cfg.num_tiles * 4
-        ops = blocks * (G + P) if name == "no-compute" else \
-            blocks * G * P * OPS_PER_PAIR_PIXEL[name]
+        if name == "no-compute":
+            ops = blocks * (G + P)
+        elif reached is not None and name in CULLED:
+            ops = reached * (P // KERNEL_WARPS) * OPS_PER_PAIR_PIXEL[name] \
+                + blocks * G * (KERNEL_WARPS * OPS_CULL_PER_PAIR_WARP
+                                + OPS_CULL_PER_PAIR)
+        else:
+            ops = blocks * G * P * OPS_PER_PAIR_PIXEL[name]
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def reached_pair_warps(out, pair_feat, tile_start, cfg: RenderConfig):
+    """The (pair, warp) of the blocks a compositor output ``out`` composited
+    (its row 5) that K1's cull does not skip, and their total."""
+    blk, tile, _ = active_blocks(tile_start, tile_block_offsets(out), cfg)
+    n = cull_audit(pair_feat, blk, tile, cfg)
+    return n["total"] - n["skipped"], n["total"]
 
 
 def launch_count(name: str) -> int:
@@ -188,11 +219,22 @@ def run_variant(name, fn, pair_feat, tile_start, tile_count,
     line = (f"{name:11s} {ms:9.4f} ms  {res['ns_per_block']:7.1f} ns/block  "
             f"tile0-digest {digest:.4f}")
     if on_card:
-        res["bound_ms"], res["bound_by"] = bound_ms(name, res["blocks"], cfg)
+        reached = None
+        if name in CULLED:
+            reached, total = reached_pair_warps(out, pair_feat, tile_start,
+                                                cfg)
+            res["cull_skips"] = 1.0 - reached / max(total, 1)
+            res["tpu_work_bound_ms"] = bound_ms(name, res["blocks"], cfg)[0]
+        res["bound_ms"], res["bound_by"] = bound_ms(name, res["blocks"], cfg,
+                                                    reached)
         res["share"] = res["bound_ms"] / ms
         line += (f"  bound {res['bound_ms']:.4f} ms by {res['bound_by']} "
                  f"({res['share']:.1%} of it; {res['blocks']} blocks "
                  f"composited, {res['launches']} launches)")
+        if reached is not None:
+            line += (f"; K1's cull skips {res['cull_skips']:.4f} of (pair, "
+                     f"warp); TPU work (every (pair, pixel)) "
+                     f"{res['tpu_work_bound_ms']:.4f} ms")
     print(line, flush=True)
     return res
 

@@ -81,22 +81,10 @@ def _all_blocks(tile_start, tile_count, cfg):
 def _check_blocks(pair_feat, blocks, tiles, cfg, chunk=64):
     """Every (pair, warp) pair_warp_reach drops has alpha == 0 at all 32 of
     the warp's pixels. Returns the share of (pair, warp) dropped."""
-    G = cfg.pair_block
-    wpix = tras.warp_pixels(cfg)
-    dropped = total = 0
-    for c0 in range(0, blocks.shape[0], chunk):
-        blk, tile = blocks[c0:c0 + chunk], tiles[c0:c0 + chunk]
-        f = pair_feat[:tras.FEAT_ROWS, blk[:, None] * G + torch.arange(G)]
-        reach = tras.pair_warp_reach(f, tile, cfg)  # [m, G, 8]
-        px, py = tras._tile_pixels(tile, cfg)
-        alpha = tras._block_alpha(f, px, py, cfg)[0][:, :, wpix]
-        nonzero = (alpha != 0).any(dim=3)
-        assert not bool((nonzero & ~reach).any()), \
-            "a dropped (pair, warp) has a non-zero alpha"
-        dropped += int((~reach).sum())
-        total += reach.numel()
-    assert total > 0
-    return dropped / total
+    n = tras.cull_audit(pair_feat, blocks, tiles, cfg, chunk=chunk)
+    assert n["unsafe"] == 0, "a dropped (pair, warp) has a non-zero alpha"
+    assert n["total"] > 0
+    return n["skipped"] / n["total"]
 
 
 @pytest.mark.parametrize("kind", ["seed0", "seed3", "saturated"])

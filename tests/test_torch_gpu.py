@@ -131,12 +131,11 @@ def test_kernel_matches_plain(cuda, kind, pair_block):
                              skipped=skipped)
     blk, tile, _ = tras.active_blocks(b.tile_start,
                                       tras.tile_block_offsets(want), cfg)
-    f = pf[:10, blk[:, None] * pair_block + torch.arange(pair_block,
-                                                         device=cuda)]
-    reach = tras.pair_warp_reach(f, tile, cfg)
+    n = tras.cull_audit(pf, blk, tile, cfg)
     torch.cuda.synchronize()
     assert torch.equal(again, got)
-    assert int(skipped.item()) == int((~reach).sum()) > 0
+    assert n["unsafe"] == 0
+    assert int(skipped.item()) == n["skipped"] > 0
 
 
 def test_render_on_card_matches_cpu(cuda):

@@ -294,6 +294,45 @@ def test_bounds():
             assert tprof.bound_ms(name, 12, small) == full
 
 
+def test_k1_bound_counts_reached_work():
+    """K1's function (full, cumprod, pg-*) given the (pair, warp) its cull
+    reaches: 26 operations per reached (pair, pixel) plus the cull's own
+    (58 per (pair, warp), 14 per pair), against the bytes; without them,
+    every (pair, pixel), the TPU kernel's work. Other variants ignore it."""
+    cfg = tconfig.RenderConfig(height=1080, width=1920, max_pairs=2**18)
+    blocks = cfg.num_tiles * 4
+    pw = blocks * 128 * 8
+    cull = blocks * 128 * (8 * 58 + 14)
+    nbytes = blocks * 10 * 128 * 4 + cfg.num_tiles * (8 * 256 * 4 + 8)
+    for reached, by in ((pw, "operations"), (pw // 2, "operations"),
+                        (0, "bytes")):
+        ms = max((reached * 32 * 26 + cull) / 67e12, nbytes / 3.35e12) * 1e3
+        for name in ("full",) + tabl.K1_FUNCTION:
+            got, got_by = tprof.bound_ms(name, blocks, cfg, reached)
+            assert got_by == by and got == pytest.approx(ms)
+    assert tprof.bound_ms("full", blocks, cfg, pw)[0] \
+        > tprof.bound_ms("full", blocks, cfg)[0]
+    for name in ("no-transc", "no-mxu", "no-input", "no-compute", "empty"):
+        assert tprof.bound_ms(name, blocks, cfg, 0) == \
+            tprof.bound_ms(name, blocks, cfg)
+
+
+def test_reached_pair_warps_on_cpu():
+    """The reached (pair, warp) of the profiler's workload are those
+    pair_warp_reach keeps, over every block the compositor composited."""
+    cfg = tconfig.RenderConfig(height=32, width=48, max_pairs=2**12,
+                               pair_block=32)
+    pf, ts, tc = tprof.make_workload(cfg, 2)
+    out = tras.composite_pairs_plain(pf, ts, tc, cfg)
+    reached, total = tprof.reached_pair_warps(out, pf, ts, cfg)
+    blocks = cfg.num_tiles * 2
+    assert total == blocks * 32 * 8
+    f = pf[:10].reshape(10, blocks, 32)
+    tiles = torch.arange(blocks) // 2
+    assert reached == int(tras.pair_warp_reach(f, tiles, cfg).sum())
+    assert 0 < reached < total
+
+
 def test_ablate_wrapper_on_cpu():
     cfg = tconfig.RenderConfig(height=32, width=48, max_pairs=2**12,
                                pair_block=32)
