@@ -41,6 +41,22 @@ Phases (any failure exits non-zero, with no result line):
      rendered from the unperturbed checkpoint: the loss falls, no step is
      skipped, dead slots do not move, K1 and K2 launch views x steps times,
      no pair overflow; step ms, per-view ms, peak device memory;
+ 8b. fit(): four runs of 12 iterations on the batch of phase 8, each
+     resumed from the perturbed checkpoint that the port's save_checkpoint
+     wrote: (a) reference ADC at the JAX defaults, (b) as (a) with
+     max_grad 1e-9, which must grow the pool past 131,072 slots (and
+     max_pairs where a logged pair demand exceeds it), (c) paper ADC, (d)
+     as (a) from max_pairs 2**20, which must grow max_pairs. Each:
+     finite losses, no skipped step, K1 and K2 launched views x iterations
+     times; (a), (c) the final loss below the first logged after the last
+     densification. Then (a)'s iteration-6 checkpoint reloaded bit for bit,
+     direct adc_step_paper and adc_step calls on (a)'s state, the latter at
+     (b)'s max_grad, each of which must spawn (alive count; counts, reset
+     mask and every child row as the rule gives them; moments zeroed on
+     the reset slots and unchanged elsewhere, rows outside them
+     unchanged), and (c)'s uv_grad_sum through K2 within
+     BWD_TOL of the plain backward compositor. ADC counts, capacities,
+     max_pairs, step ms, ADC ms and peak memory per run;
   9. timing of K2 alone (CUDA events) at the bench pose, on the inputs the
      fwd+bwd of phase 7 gave it, with its registers, CTAs launched and
      active and the state's bytes, beside its plain version and its bound;
@@ -76,6 +92,7 @@ import torch
 # (CUDA events behind a busy stream), shared with the profiler.
 from gsplat_tpu_torch.profile_kernel import (PEAK_BYTES, PEAK_F32_FLOPS,
                                              bound_ms, device_ms)
+from gsplat_tpu_torch.models.gaussians import PARAM_KEYS
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "bench_assets", "trained_ckpt.npz")
@@ -113,6 +130,7 @@ TRAIN_H, TRAIN_W = 540, 960  # the reference's training resolution
 TRAIN_PAIRS = 2**21
 TRAIN_BATCH = 4
 TRAIN_STEPS = 6
+FIT_ITERS = 12  # iterations of each fit() run of phase 8b
 
 
 def k1_resources(ptxas: str):
@@ -380,11 +398,12 @@ def bwd_parts_ms(params, c2w, fx, fy, cx, cy, cfg, alive, seen, reps=5):
     return out
 
 
-def train_phase(pool, bench_c2w, center, radius, card):
-    """TRAIN_STEPS steps of the port's train step at 960x540, batch 4.
-    Returns (K1 launches, K2 launches) of the steps."""
+def train_views(pool, bench_c2w, center, radius):
+    """The training workload at 960x540: (cfg, batch of the bench pose and
+    3 orbit poses with ground truth rendered from the unperturbed
+    checkpoint, the checkpoint's parameters as numpy with f_dc and
+    opacity_raw + N(0, 0.1))."""
     import gsplat_tpu_torch as gt
-    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
     from gsplat_tpu_torch.viewer import create_orbit_trajectory
 
     dev = pool.pos.device
@@ -407,6 +426,17 @@ def train_phase(pool, bench_c2w, center, radius, card):
     for k in ("f_dc", "opacity_raw"):
         start[k] = start[k] + rng.normal(0, 0.1, start[k].shape).astype(
             np.float32)
+    return cfg, batch, start
+
+
+def train_phase(pool, bench_c2w, center, radius, card):
+    """TRAIN_STEPS steps of the port's train step at 960x540, batch 4.
+    Returns (K1 launches, K2 launches) of the steps."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+
+    dev = pool.pos.device
+    cfg, batch, start = train_views(pool, bench_c2w, center, radius)
     tpool = gt.pool_from_numpy(start, pool.alive.cpu().numpy(), device=dev)
     tcfg = gt.TrainConfig(capacity=tpool.capacity, batch_size=TRAIN_BATCH,
                           densification_interval=10**9,
@@ -490,6 +520,446 @@ def train_parts_ms(state, batch, cfg, tcfg, reps=3):
     return {"step": t["step"], "forward (4 views + loss)": t["fwd"],
             "backward": t["fwd+bwd"] - t["fwd"], "Adam": t["adam"],
             "clip + mask + guard": t["step"] - t["fwd+bwd"] - t["adam"]}
+
+
+def _state_snapshot(state) -> dict:
+    """Clones of everything a checkpoint holds: step, alive, the six
+    parameters, and each leaf's Adam step count and moments."""
+    snap = {"step": state.step.clone(), "alive": state.pool.alive.clone()}
+    for k, p in state.pool.params.items():
+        st = state.opt_state.state[p]
+        snap[k] = p.detach().clone()
+        for f in ("step", "exp_avg", "exp_avg_sq"):
+            snap[f"{k}.{f}"] = st[f].clone()
+    return snap
+
+
+def _instrument_fit(fit_mod, rec):
+    """Wrap the names fit() calls (make_train_step, adc_step,
+    adc_step_paper) to record, per run: each step's host ms (to
+    synchronize()) and pair demand, the max_pairs of each step it builds,
+    the state after step ``rec["snapshot_at"]``, and each ADC call's
+    result, capacity before it and CUDA events around it. Returns the
+    originals, for :func:`_restore_fit`."""
+    real = (fit_mod.make_train_step, fit_mod.adc_step, fit_mod.adc_step_paper)
+
+    def make(render_cfg, train_cfg):
+        rec["max_pairs"].append(render_cfg.max_pairs)
+        step = real[0](render_cfg, train_cfg)
+
+        def timed(state, batch):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["steps"] += 1
+            rec["demand"].append((rec["steps"], int(m["pair_demand"]),
+                                  int(m["pair_capacity"])))
+            rec["last_metrics"] = m
+            if rec["steps"] == rec["snapshot_at"]:
+                rec["snapshot"] = _state_snapshot(state)
+            return state, m
+        return timed
+
+    def adc(fn):
+        def timed(state, *args, **kw):
+            cap = state.pool.capacity
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, res = fn(state, *args, **kw)
+            ev[1].record()
+            rec["adc"].append((rec["steps"], cap, ev, res))
+            return state, res
+        return timed
+
+    fit_mod.make_train_step = make
+    fit_mod.adc_step = adc(real[1])
+    fit_mod.adc_step_paper = adc(real[2])
+    return real
+
+
+def _restore_fit(fit_mod, real):
+    fit_mod.make_train_step, fit_mod.adc_step, fit_mod.adc_step_paper = real
+
+
+def expected_spawns(before, prune, split, clone, child, parent=None):
+    """What an ADC call must write, from its masks and child rows as the
+    rule defines them (not from models/adc.py): the r-th spawner in slot
+    order takes the r-th slot that is free after pruning, spawners past
+    the free slots are dropped. Returns (parents, children, overflowed,
+    reset mask, {param: (slots, rows)}): each child slot holds its
+    parent's child row; with ``parent`` (the paper split's child A), each
+    fitting split's own slot holds that row."""
+    alive = before["alive"] & ~prune
+    spawners = torch.nonzero(split | clone)[:, 0]
+    free = torch.nonzero(~alive)[:, 0]
+    k = min(len(spawners), len(free))
+    parents, children = spawners[:k], free[:k]
+    reset = prune.clone()
+    reset[children] = True
+    rows = {key: (children, child[key][parents]) for key in child}
+    if parent is not None:
+        rep = parents[split[parents]]
+        reset[rep] = True
+        for key, v in parent.items():
+            rows[key] = (torch.cat([children, rep]),
+                         torch.cat([rows[key][1], v[rep]]))
+    return parents, children, len(spawners) - k, reset, rows
+
+
+def reference_spawns(before, grad, noise, tcfg):
+    """The reference form's masks and child rows (reference
+    train.py:89-195): prune below the opacity threshold; among the
+    survivors with a gradient norm above max_grad, split the large (one
+    child at pos + noise * scale * 0.1, scale_raw - 0.5) and clone the
+    small (an exact copy)."""
+    g = grad if grad.dim() == 1 else torch.sqrt(
+        grad[:, 0] * grad[:, 0] + grad[:, 1] * grad[:, 1]
+        + grad[:, 2] * grad[:, 2])
+    prune = before["alive"] & (
+        torch.sigmoid(before["opacity_raw"]) < tcfg.prune_opacity_threshold)
+    alive = before["alive"] & ~prune
+    scales = torch.exp(before["scale_raw"])
+    big = torch.amax(scales, dim=-1) > tcfg.scale_threshold
+    high = g > tcfg.max_grad
+    split, clone = alive & big & high, alive & ~big & high
+    child = {k: before[k] for k in PARAM_KEYS}
+    child["pos"] = before["pos"] + torch.where(
+        split[:, None], noise * scales * 0.1, 0.0)
+    child["scale_raw"] = before["scale_raw"] - torch.where(
+        split[:, None], 0.5, 0.0)
+    return expected_spawns(before, prune, split, clone, child)
+
+
+def paper_spawns(before, avg_uv, rad, noise, tcfg):
+    """The paper form's masks and child rows (Kerbl et al. 2023, 5.2): a
+    split writes pos + R (eps_b * scales) to a free slot and pos + R
+    (eps_a * scales) over its parent, both with the scales / 1.6; a clone
+    writes a copy."""
+    from gsplat_tpu_torch.ops.gaussian import quat_to_rotmat
+
+    scales = torch.exp(before["scale_raw"])
+    max_scale = torch.amax(scales, dim=-1)
+    alive0 = before["alive"]
+    prune = alive0 & (torch.sigmoid(before["opacity_raw"]) < tcfg.min_opacity)
+    if tcfg.max_screen_size > 0:
+        prune |= alive0 & (rad > tcfg.max_screen_size)
+        prune |= alive0 & (max_scale > 0.1 * tcfg.scene_extent)
+    alive = alive0 & ~prune
+    big = max_scale > tcfg.percent_dense * tcfg.scene_extent
+    high = avg_uv >= tcfg.densify_grad_threshold
+    split, clone = alive & big & high, alive & ~big & high
+    q = before["q_raw"]
+    R = quat_to_rotmat(q / (torch.linalg.vector_norm(q, dim=-1,
+                                                     keepdim=True) + 1e-12))
+    pos = before["pos"]
+    scale_raw = before["scale_raw"] - torch.log(torch.tensor(
+        1.6, dtype=torch.float32, device=pos.device))
+    child = {k: before[k] for k in PARAM_KEYS}
+    child["pos"] = torch.where(split[:, None], pos + (
+        R * (noise[1] * scales)[:, None, :]).sum(-1), pos)
+    child["scale_raw"] = torch.where(split[:, None], scale_raw,
+                                     before["scale_raw"])
+    parent = {"pos": pos + (R * (noise[0] * scales)[:, None, :]).sum(-1),
+              "scale_raw": scale_raw}
+    return expected_spawns(before, prune, split, clone, child, parent)
+
+
+def check_adc_identities(name, state, call, expect, card):
+    """One direct ADC call on ``state``, timed (profile_kernel.device_ms;
+    the call waits for the device where it indexes by a mask, so that
+    wait is inside the time), against ``expect(before)`` (reference_spawns
+    or paper_spawns on the state before the call, with the call's noise):
+    it must spawn; its counts, new_slot_mask and every written row are
+    what the rule gives (positions within 1e-6 of their largest value,
+    since the paper form's rotation is summed in another order; the rest
+    exact); alive after = before - pruned + split + cloned; exp_avg and
+    exp_avg_sq exactly 0 on new_slot_mask and unchanged elsewhere, step
+    counts unchanged; every parameter row outside new_slot_mask
+    unchanged, the dead slots that received no spawn among them. Returns
+    the ms."""
+    before = _state_snapshot(state)
+    parents, children, overflow, reset, rows = expect(before)
+    out = {}
+    ms = device_ms(lambda: out.setdefault("r", call()), 1)
+    state, res = out["r"]
+    pool = state.pool
+    n0, n1 = int(before["alive"].sum()), int(pool.alive.sum())
+    counts = [int(getattr(res, f)) for f in (
+        "num_pruned", "num_split", "num_cloned", "num_overflowed")]
+    mask = res.new_slot_mask
+    kept = ~mask
+    spawned = counts[1] + counts[2]
+    ok_alive = n1 == n0 - counts[0] + spawned
+    ok_spawn = (spawned > 0 and spawned == len(children)
+                and counts[3] == overflow and torch.equal(mask, reset))
+    ok_moments = ok_rows = True
+    for k, p in pool.params.items():
+        st = state.opt_state.state[p]
+        for f in ("exp_avg", "exp_avg_sq"):
+            ok_moments &= bool((st[f][mask] == 0).all()) and bool(
+                torch.equal(st[f][kept], before[f"{k}.{f}"][kept]))
+        ok_moments &= bool(torch.equal(st["step"], before[f"{k}.step"]))
+        ok_rows &= bool(torch.equal(p.detach()[kept], before[k][kept]))
+        slots, want = rows[k]
+        got = p.detach()[slots]
+        if k == "pos":
+            ok_spawn &= bool((got - want).abs().max() <= 1e-6 * max(
+                1.0, float(want.abs().max())))
+        else:
+            ok_spawn &= bool(torch.equal(got, want))
+    print(f"[{card}] {name} on the state run (a) returned: {ms:.3f} ms "
+          f"(CUDA events); pruned {counts[0]}, split {counts[1]}, cloned "
+          f"{counts[2]}, overflowed {counts[3]}; alive {n0} -> {n1} "
+          f"(= before - pruned + split + cloned: {ok_alive}); spawned, and "
+          f"counts, reset mask and the {len(children)} child slots (each "
+          f"holding its parent's row, split offset applied) as the rule "
+          f"gives: {ok_spawn}; moments 0 on the {int(mask.sum())} reset "
+          f"slots and unchanged elsewhere, counts unchanged: {ok_moments}; "
+          f"rows outside the reset slots unchanged (among them "
+          f"{int((~before['alive'] & kept).sum())} dead slots that received "
+          f"no spawn): {ok_rows}", flush=True)
+    if not (ok_alive and ok_spawn and ok_moments and ok_rows):
+        raise SystemExit(f"FAIL: {name} identities")
+    return ms
+
+
+def uv_statistics(state, batch, cfg, tcfg, plain=False):
+    """(uv_grad_sum, visible, max_radius) of one paper-mode step on
+    ``state`` without its update; with ``plain`` the backward compositor
+    is its plain version (composite_pairs_bwd_plain) in place of K2."""
+    from gsplat_tpu_torch.ops import raster_cuda
+    from gsplat_tpu_torch.train.trainer import value_and_grads
+
+    real = raster_cuda.composite_pairs_bwd
+    if plain:
+        raster_cuda.composite_pairs_bwd = functools.partial(
+            raster_cuda.composite_pairs_bwd_plain, block_chunk=256)
+    try:
+        _, m, _ = value_and_grads(state, batch, cfg, tcfg)
+    finally:
+        raster_cuda.composite_pairs_bwd = real
+    torch.cuda.synchronize()
+    return m["uv_grad_sum"], m["visible"], m["max_radius"]
+
+
+def fit_checks_a(res, runs, batch, dev, card):
+    """Run (a)'s iteration-6 checkpoint, loaded into a fresh state, equals
+    the state after step 6 bit for bit; then one direct adc_step_paper and
+    one adc_step (at (b)'s max_grad) on the state (a) returned, each
+    spawning, with their identities and child rows.
+    Returns the two calls' ms."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.train import trainer
+
+    state, report, rec = res["state"], res["report"], res["rec"]
+    path = next(c for c in report.checkpoints if c.endswith("000006.npz"))
+    fresh = gt.init_train_state(gt.init_pool_from_points(
+        np.zeros((4, 3), np.float32), 8, device=dev), runs["a"])
+    loaded = _state_snapshot(trainer.load_checkpoint(path, fresh))
+    saved = rec["snapshot"]
+    same = loaded.keys() == saved.keys() and all(
+        torch.equal(loaded[k], saved[k]) for k in saved)
+    print(f"[{card}] fit (a): the iteration-6 checkpoint loaded into a fresh "
+          f"state equals the state after step 6 bit for bit (step, alive, "
+          f"params, moments, counts; {len(saved)} tensors): {same}",
+          flush=True)
+    if not same:
+        raise SystemExit("FAIL: checkpoint reload")
+    # The paper call first, on (a)'s state as it came back; then the
+    # reference call with (b)'s max_grad, so that it spawns (at (a)'s
+    # max_grad it only prunes) and runs out of free slots.
+    gen = torch.Generator(device=dev).manual_seed(1)
+    uv, vis, rad = uv_statistics(state, batch, res["cfg"], runs["c"])
+    avg = uv / torch.clamp(vis, min=1).to(torch.float32)
+    eps = tuple(torch.randn(state.pool.pos.shape, generator=gen, device=dev)
+                for _ in range(2))
+    paper_ms = check_adc_identities(
+        "adc_step_paper", state, lambda: trainer.adc_step_paper(
+            state, avg, rad, None, runs["c"], noise=eps),
+        lambda b: paper_spawns(b, avg, rad, eps, runs["c"]), card)
+    tcfg = runs["b"]
+    grad = rec["last_metrics"]["pos_grad"]
+    noise = torch.randn(state.pool.pos.shape, generator=gen, device=dev)
+    adc_ms = check_adc_identities(
+        "adc_step", state, lambda: trainer.adc_step(
+            state, grad, None, (tcfg.prune_opacity_threshold, tcfg.max_grad,
+                                tcfg.scale_threshold), noise=noise),
+        lambda b: reference_spawns(b, grad, noise, tcfg), card)
+    return adc_ms, paper_ms
+
+
+def fit_run(fit_mod, name, tcfg, cfg, batch, points, start_ckpt, out_dir,
+            card):
+    """One fit() run with the launch counts set to 0 just before it and
+    read just after, its record (_instrument_fit) and its checks: finite
+    losses, no skipped step, K1 and K2 launched views x iterations times;
+    (a), (c): the final loss below the first logged after the last
+    densification; (b): the pool grew past its capacity; (d): max_pairs
+    grew and the last step's demand fits it; (b), (d): "growing max_pairs"
+    was logged wherever a logged pair demand exceeded the capacity.
+    Returns a dict of what the later checks read."""
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+
+    rec = {"max_pairs": [], "ms": [], "demand": [], "adc": [], "steps": 0,
+           "snapshot_at": 6 if name == "a" else None}
+    lines = []
+
+    def log(msg):
+        lines.append(msg)
+        print(f"  [fit {name}] {msg}", flush=True)
+
+    def batches():
+        while True:
+            yield batch
+
+    cap0 = tcfg.capacity
+    real = _instrument_fit(fit_mod, rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    composite_pairs.launches = 0
+    composite_pairs.bwd_launches = 0
+    try:
+        state, report = fit_mod.fit(
+            batches(), cfg, tcfg, output_dir=out_dir, initial_points=points,
+            resume_from=start_ckpt, log_every=2, log_fn=log,
+            device=batch["image"].device)
+    finally:
+        _restore_fit(fit_mod, real)
+    k1, k2 = composite_pairs.launches, composite_pairs.bwd_launches
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    views = TRAIN_BATCH * FIT_ITERS
+    adc = [(it, capb, ev[0].elapsed_time(ev[1]), [int(getattr(r, f)) for f in (
+        "num_pruned", "num_split", "num_cloned", "num_overflowed")])
+        for it, capb, ev, r in rec["adc"]]
+    print(f"[{card}] fit ({name}) {tcfg.adc_mode} ADC, {FIT_ITERS} "
+          f"iterations of batch {TRAIN_BATCH} at {TRAIN_W}x{TRAIN_H}: logged "
+          f"losses " + ", ".join(f"{it}: {v:.6f}" for it, v in report.losses)
+          + f"; nonfinite steps {report.nonfinite_steps}; overflow events "
+          f"{report.overflow_events}; K1 launches {k1}, K2 launches {k2} "
+          f"(views x iterations = {views})", flush=True)
+    for it, capb, ms, c in adc:
+        print(f"  [{card}] fit ({name}) densification at iteration {it}: "
+              f"pruned {c[0]}, split {c[1]}, cloned {c[2]}, overflowed "
+              f"{c[3]} (capacity {capb}); {ms:.3f} ms (CUDA events around "
+              f"the ADC call)", flush=True)
+    print(f"  [{card}] fit ({name}): capacity {cap0} -> "
+          f"{state.pool.capacity}, {report.num_gaussians} alive at the end; "
+          f"max_pairs {rec['max_pairs'][0]} -> {rec['max_pairs'][-1]}; pair "
+          f"demand per step " + ", ".join(
+              f"{it}: {d}/{c}" for it, d, c in rec["demand"])
+          + f"; step ms (host clock to synchronize) median "
+          f"{float(np.median(rec['ms'])):.3f} (" + ", ".join(
+              f"{t:.1f}" for t in rec["ms"]) + f"); peak device memory "
+          f"{peak_gib:.2f} GiB; wall {report.wall_time_s:.2f} s", flush=True)
+    losses = [v for _, v in report.losses]
+    ok = (all(np.isfinite(losses)) and report.nonfinite_steps == 0
+          and k1 == k2 == views and len(rec["ms"]) == FIT_ITERS)
+    if name in ("a", "c"):
+        last = max(it for it, *_ in adc)
+        after = [v for it, v in report.losses if it > last][0]
+        ok &= report.final_loss < after
+        print(f"  [{card}] fit ({name}): final loss {report.final_loss:.6f} "
+              f"below the first logged after the last densification "
+              f"({after:.6f}): {report.final_loss < after}", flush=True)
+    if name == "b":
+        grew = any("growing pool capacity" in m for m in lines)
+        ok &= (report.overflow_events >= 1 and grew
+               and state.pool.capacity > cap0 and report.num_gaussians > cap0)
+    if name == "d":
+        ok &= (rec["max_pairs"][-1] > cfg.max_pairs
+               and rec["demand"][-1][1] <= rec["demand"][-1][2])
+    if name in ("b", "d"):
+        logged = {it for it, _ in report.losses}
+        for it, d, c in rec["demand"]:
+            if it in logged and d > c:
+                ok &= any(m.startswith(f"iter {it}: pair overflow")
+                          and "growing max_pairs" in m for m in lines)
+    if not ok:
+        raise SystemExit(f"FAIL: fit run ({name})")
+    return dict(state=state, report=report, rec=rec, k1=k1, k2=k2,
+                cfg=cfg.with_(max_pairs=rec["max_pairs"][-1]))
+
+
+def fit_phase(pool, bench_c2w, center, radius, card):
+    """Phase 8b: fit() at full width from the perturbed checkpoint, four
+    runs of FIT_ITERS iterations on the batch of phase 8, each resumed from
+    one file the port's save_checkpoint wrote (the perturbed pool, a fresh
+    optimizer state): (a) reference ADC at the JAX defaults; (b) as (a)
+    with max_grad 1e-9, so that the pool must grow; (c) paper ADC; (d) as
+    (a) from max_pairs 2**20, so that max_pairs must grow. Then the
+    iteration-6 checkpoint of (a) against the state after step 6, direct
+    adc_step and adc_step_paper calls on (a)'s state, and (c)'s
+    uv_grad_sum through K2 against the plain backward compositor.
+    Returns (K1 launches, K2 launches) of the runs."""
+    import importlib
+    import tempfile
+
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.train import trainer
+
+    fit_mod = importlib.import_module("gsplat_tpu_torch.train.fit")
+    dev = pool.pos.device
+    cfg, batch, start = train_views(pool, bench_c2w, center, radius)
+    points = pool.pos.detach()[pool.alive].cpu().numpy()
+    common = dict(iterations=FIT_ITERS, batch_size=TRAIN_BATCH,
+                  capacity=pool.capacity, checkpoint_interval=6)
+    ref = dict(common, densification_interval=4, densify_until_iter=12,
+               opacity_reset_interval=8)
+    runs = {
+        "a": gt.TrainConfig(**ref),
+        "b": gt.TrainConfig(**ref, max_grad=1e-9),
+        "c": gt.TrainConfig(**common, adc_mode="paper",
+                            densify_grad_threshold=2e-4,
+                            scene_extent=float(radius), max_screen_size=0,
+                            densification_interval=6, densify_until_iter=12,
+                            opacity_reset_interval=10**9),
+        # (d) starts at max_pairs TRAIN_PAIRS / 2 = 2**20, below the 1.22 M
+        # pairs a view needs.
+        "d": gt.TrainConfig(**ref),
+    }
+    k1 = k2 = 0
+    tmp = tempfile.mkdtemp(prefix="gsplat_fit_")
+    try:
+        start_ckpt = os.path.join(tmp, "start.npz")
+        trainer.save_checkpoint(start_ckpt, gt.init_train_state(
+            gt.pool_from_numpy(start, pool.alive.cpu().numpy(), device=dev),
+            runs["a"]))
+        for name, tcfg in runs.items():
+            rcfg = cfg.with_(max_pairs=TRAIN_PAIRS // 2) if name == "d" \
+                else cfg
+            res = fit_run(fit_mod, name, tcfg, rcfg, batch, points,
+                          start_ckpt, os.path.join(tmp, name), card)
+            k1 += res["k1"]
+            k2 += res["k2"]
+            if name == "a":
+                fit_checks_a(res, runs, batch, dev, card)
+            if name == "c":
+                paper = res
+            shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+            del res
+
+        # (c): uv_grad_sum through K2 against the plain backward compositor.
+        uv_k, vis_k, rad_k = uv_statistics(paper["state"], batch,
+                                           paper["cfg"], runs["c"])
+        uv_p, vis_p, rad_p = uv_statistics(paper["state"], batch,
+                                           paper["cfg"], runs["c"],
+                                           plain=True)
+        scale = float(uv_p.abs().max())
+        err = float((uv_k - uv_p).abs().max())
+        same = bool(torch.equal(vis_k, vis_p) and torch.equal(rad_k, rad_p))
+        print(f"[{card}] fit (c): one paper step's uv_grad_sum through K2 vs "
+              f"the plain backward compositor: max abs {err:.3e} of max "
+              f"{scale:.3e} (relative {err / max(scale, 1e-30):.3e}, tol "
+              f"{BWD_TOL}); {int((vis_k > 0).sum())} gaussians visible; "
+              f"visible and max_radius exact: {same}", flush=True)
+        if not (scale > 0 and err <= BWD_TOL * scale and same):
+            raise SystemExit("FAIL: uv_grad_sum through K2 disagrees with "
+                             "the plain backward compositor")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return k1, k2
 
 
 def ablation_phase(card, dev):
@@ -826,6 +1296,9 @@ def main():
     # --- 8. training through the port's entry points ---
     train_k1, train_k2 = train_phase(pool, c2w, center, radius, card)
 
+    # --- 8b. fit(): density control, checkpoints, growth ---
+    fit_k1, fit_k2 = fit_phase(pool, c2w, center, radius, card)
+
     # --- 9. K2 timing at the bench pose (launches here are not counted) ---
     # (pair_feat, tile_start, tile_count, out, state, gout, cfg)
     bargs = seen["args"]
@@ -882,7 +1355,7 @@ def main():
         "route": "cuda",
         "source": "gsplat_tpu_torch/ops/csrc/raster_fwd.cu",
         "replaces": "gsplat_tpu/ops/raster_pallas.py:192",
-        "launches": launches,
+        "launches": launches + fit_k1,
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -894,7 +1367,7 @@ def main():
         "route": "cuda",
         "source": "gsplat_tpu_torch/ops/csrc/raster_bwd.cu",
         "replaces": "gsplat_tpu/ops/raster_pallas.py:243",
-        "launches": train_k2,
+        "launches": train_k2 + fit_k2,
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

@@ -9,14 +9,17 @@ nvcc at first use. Importing the package needs neither CUDA nor nvcc.
 
 from .config import RenderConfig, TrainConfig, cdiv, parse_background
 from .device import resolve_device
-from .models.gaussians import GaussianPool, pool_from_numpy
+from .models.gaussians import (GaussianPool, init_pool_from_points,
+                               pool_from_numpy)
 from .ops.binning import TileBinning, bin_gaussians
 from .ops.losses import compute_loss
 from .ops.projection import ProjectedGaussians, project_gaussians
 from .ops.rasterize import RenderAux, rasterize
 from .render import pair_demand, render, render_from_params
-from .train.trainer import (TrainState, init_train_state, make_train_step,
-                            position_lr, restore_pool)
+from .train.fit import FitReport, fit
+from .train.trainer import (TrainState, init_train_state, load_checkpoint,
+                            make_train_step, position_lr, restore_pool,
+                            save_checkpoint)
 
 __all__ = [
     "RenderConfig",
@@ -25,6 +28,7 @@ __all__ = [
     "parse_background",
     "resolve_device",
     "GaussianPool",
+    "init_pool_from_points",
     "pool_from_numpy",
     "TileBinning",
     "bin_gaussians",
@@ -37,6 +41,10 @@ __all__ = [
     "render",
     "render_from_params",
     "restore_pool",
+    "save_checkpoint",
+    "load_checkpoint",
+    "FitReport",
+    "fit",
     "TrainState",
     "init_train_state",
     "make_train_step",

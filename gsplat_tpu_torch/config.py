@@ -10,9 +10,7 @@ must match) and raise ``NotImplementedError`` where they are used:
 ``cull_mode="ellipse"``, ``tile_rank_cap > 0`` (and with it
 ``occlusion_cull``), ``bwd_pairs > 0``, ``view_tile_rows > 0``,
 ``transmittance_math="log"`` and ``backend="xla"``; in ``TrainConfig``,
-``adc_mode="paper"`` and ``batched_render=True`` (``make_train_step``
-raises). The ADC schedule fields are carried as they are; nothing reads
-them until ``fit()`` is ported.
+``batched_render=True`` (``make_train_step`` raises).
 """
 
 from __future__ import annotations

@@ -72,6 +72,7 @@ def project_gaussians(
     cy,
     cfg: RenderConfig,
     extra_valid: torch.Tensor | None = None,
+    uv_tap: torch.Tensor | None = None,
 ) -> ProjectedGaussians:
     """Project N world-space Gaussians into screen space (static shapes).
 
@@ -84,6 +85,9 @@ def project_gaussians(
         cfg: static render config.
         extra_valid: optional [N] bool mask (e.g. the pool's alive mask);
             invalid slots are culled exactly like off-frustum Gaussians.
+        uv_tap: optional [N, 2] zeros added to the projected pixel centers:
+            a differentiation tap, whose gradient is the view-space
+            positional gradient (the paper-ADC statistic).
     """
     dtype = pos.dtype
     H, W = cfg.height, cfg.width
@@ -118,6 +122,9 @@ def project_gaussians(
     # --- projection (render.py:146) ---
     u = fx * x / z + cx
     v = fy * y / z + cy
+    if uv_tap is not None:
+        u = u + uv_tap[:, 0]
+        v = v + uv_tap[:, 1]
 
     # --- EWA: Sigma2D = (J Rwc) Sigma (J Rwc)^T, rows (J Rwc)_r = J_r R^T ---
     invz = 1.0 / maximum(z, 1e-6)

@@ -2,7 +2,7 @@
 
 Counterpart of ``gsplat_tpu/render.py``: ``render`` with the reference
 signature (``:25-75``), ``pair_demand`` (``:78-107``) and
-``render_from_params`` (``:110-136``). Batched views come in a later
+``render_from_params`` (``:110-136``, with its ``uv_tap``). Batched views come in a later
 slice. Inputs are tensors on one device; the compositor runs the CUDA
 kernel for CUDA tensors and its plain version for CPU tensors.
 """
@@ -88,7 +88,8 @@ def pair_demand(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
 
 
 def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
-                       alive: torch.Tensor | None = None):
+                       alive: torch.Tensor | None = None,
+                       uv_tap: torch.Tensor | None = None):
     """Raw parameter dict -> (image [H, W, 3], RenderAux).
 
     Args:
@@ -97,6 +98,8 @@ def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
             device (e.g. ``GaussianPool.params``).
         c2w: [4, 4] camera-to-world (tensor or array), moved to that device.
         alive: optional [N] bool pool-slot mask.
+        uv_tap: optional [N, 2] zeros; the gradient w.r.t. it is the
+            view-space positional gradient (paper-style ADC statistic).
     """
     pos = params["pos"]
     c2w = _c2w(c2w, pos)
@@ -104,6 +107,6 @@ def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
     colors = evaluate_sh(params["f_dc"], params["f_rest"], pos, c2w)
     proj = project_gaussians(
         pos, cov3d, params["opacity_raw"], c2w, fx, fy, cx, cy, cfg,
-        extra_valid=alive,
+        extra_valid=alive, uv_tap=uv_tap,
     )
     return rasterize(proj, colors, cfg)

@@ -1,0 +1,321 @@
+"""Host-side training loop: it glues the batches, the train
+step, the ADC schedule, opacity raises, checkpoints and metrics logging.
+
+Counterpart of ``gsplat_tpu/train/fit.py`` (``FitReport`` :42, ``fit``
+:55) for one device:
+* one train step for the whole run, updating the pool in place; the ADC
+  runs on the device on the schedule's boundaries (``adc_step`` /
+  ``adc_step_paper``), and zeroes only the moments of the slots it
+  rewrote;
+* the reference-mode statistic is an EMA of per-step position-gradient
+  NORMS between ADC boundaries; the paper mode sums per-view view-space
+  gradient norms, visibility counts and the largest screen radius;
+* checkpoints hold the optimizer state, in the JAX package's ``.npz``
+  layout;
+* ``max_pairs`` and the pool capacity grow from the observed demand.
+
+The host waits for the device where the JAX ``fit()`` does: at ``log_every``
+boundaries (loss, alive count, pair demand) and on each densification
+(the overflow count, and the ADC's own allocation of free slots).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig, TrainConfig
+from ..device import resolve_device
+from ..models.adc import pos_grad_norm
+from ..models.gaussians import init_pool_from_points
+from ..utils.logging import MetricsLogger
+from ..utils.memory import estimate_train_memory
+from .trainer import (
+    TrainState,
+    adc_step,
+    adc_step_paper,
+    grow_state_capacity,
+    init_train_state,
+    load_checkpoint,
+    make_train_step,
+    opacity_raise_step,
+    save_checkpoint,
+)
+
+
+@dataclass
+class FitReport:
+    """Summary of a fit() run (losses are host floats)."""
+
+    iterations: int = 0
+    final_loss: float = float("nan")
+    losses: list = field(default_factory=list)
+    num_gaussians: int = 0
+    checkpoints: list = field(default_factory=list)
+    wall_time_s: float = 0.0
+    overflow_events: int = 0
+    nonfinite_steps: int = 0  # updates skipped by the NaN guard
+
+
+def _to_device(batch: dict, dev: torch.device) -> dict:
+    """Batch arrays or tensors on ``dev``; floating ones as float32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(dev, torch.float32 if t.is_floating_point() else None)
+    return out
+
+
+def fit(
+    dataset,
+    render_cfg: RenderConfig,
+    train_cfg: TrainConfig,
+    output_dir: str | None = None,
+    initial_points: np.ndarray | None = None,
+    resume_from: str | None = None,
+    mesh=None,
+    gauss_sharded: bool = False,
+    log_every: int = 50,
+    log_fn: Callable[[str], None] = print,
+    seed: int = 0,
+    device="cuda",
+) -> tuple[TrainState, FitReport]:
+    """Train a Gaussian pool on a dataset. Returns (state, report).
+
+    Args:
+        dataset: an iterator of batch dicts ('image' [B,H,W,3], 'c2w'
+            [B,4,4], 'fx','fy','cx','cy' [B], arrays or tensors), or any
+            object with ``.batches(batch_size, seed=...)`` returning one.
+        initial_points: [N, 3|6] cloud; without it, a seeded random
+            10k-point cloud like reference train.py:351-370. A dataset that
+            offers a point cloud (``pointcloud_path()``) raises instead:
+            the data layer is not ported.
+        resume_from: a checkpoint (either package's ``.npz``) to continue
+            from; it replaces the initial pool.
+        device: ``"cuda"`` (default; raises without a card) or ``"cpu"``.
+
+    Static capacities grow from the observed demand: a pair-capacity
+    overflow (checked at log_every boundaries; the steps between are still
+    correct, farthest pairs dropped and reported) grows
+    ``RenderConfig.max_pairs``, and an ADC spawn overflow grows the pool
+    capacity. Both ratchet geometrically (>= 1.5x). The JAX ``fit()``'s
+    ``auto_capacity=False``, which only logs the overflow, is not ported.
+
+    Not ported, and raising ``NotImplementedError``: ``mesh`` and
+    ``gauss_sharded`` (multi-device training). The JAX ``fit()``'s device
+    image cache (``device_cache_bytes``) belongs to its dataset and is not
+    an argument here. The row, truncation, compacted-backward and ring
+    capacities that the JAX ``fit()`` also grows belong to render modes the
+    port raises on (``ops/binning.py``, ``ops/rasterize.py``), so their
+    branches are left out.
+    """
+    if mesh is not None or gauss_sharded:
+        raise NotImplementedError(
+            "mesh / gauss_sharded (multi-device training) are not ported")
+    dev = resolve_device(device)
+    t0 = time.time()
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+
+    # --- initialization cloud (train.py:341-370) ---
+    if initial_points is None:
+        pc_path = getattr(dataset, "pointcloud_path", lambda: None)()
+        if pc_path:
+            raise NotImplementedError(
+                f"the dataset offers a point cloud ({pc_path}), but the data "
+                f"layer (point-cloud loading) is not ported; pass "
+                f"initial_points")
+        rng = np.random.default_rng(seed)
+        pts = rng.normal(0.0, 1.5, (10_000, 3))
+        pts[:, 2] += 4.0
+        initial_points = pts.astype(np.float32)
+        log_fn("no point cloud found; random 10k-point init")
+
+    if initial_points.shape[0] > train_cfg.capacity:
+        rng = np.random.default_rng(seed)
+        keep = rng.choice(
+            initial_points.shape[0], train_cfg.capacity // 2, replace=False
+        )
+        initial_points = initial_points[keep]
+        log_fn(
+            f"subsampled init cloud to {initial_points.shape[0]} "
+            f"(capacity {train_cfg.capacity})"
+        )
+
+    pool = init_pool_from_points(
+        initial_points,
+        capacity=train_cfg.capacity,
+        num_sh_bands=train_cfg.num_sh_bands,
+        seed=seed,
+        device=dev,
+    )
+    state = init_train_state(pool, train_cfg)
+
+    if resume_from:
+        state = load_checkpoint(resume_from, state)
+        log_fn(f"resumed from {resume_from} at step {int(state.step)}")
+
+    step_fn = make_train_step(render_cfg, train_cfg)
+
+    if hasattr(dataset, "__next__"):
+        batches = dataset
+    else:
+        batches = dataset.batches(train_cfg.batch_size, seed=seed)
+
+    report = FitReport()
+    metrics_log = None
+    if output_dir:
+        metrics_log = MetricsLogger(log_dir=output_dir, name="train")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # Accumulated position-gradient NORMS between ADC boundaries (an EMA of
+    # per-step ||g||; norms, so oscillating gradients don't cancel).
+    pos_grad_accum = None
+    # Paper-mode ADC statistics: running sums of per-view view-space
+    # gradient norms / visibility counts / max screen radius.
+    paper_adc = train_cfg.adc_mode == "paper"
+    uv_sum = vis_sum = rad_max = None
+    skip_sum = None  # device-side accumulator (no per-step host sync)
+    start = int(state.step)
+    log_fn(
+        f"training: {train_cfg.iterations} iters, batch "
+        f"{train_cfg.batch_size}, capacity {train_cfg.capacity}, "
+        f"{render_cfg.width}x{render_cfg.height}"
+    )
+
+    for it in range(start + 1, train_cfg.iterations + 1):
+        batch = _to_device(next(batches), dev)
+        state, metrics = step_fn(state, batch)
+
+        if paper_adc:
+            if uv_sum is None:
+                uv_sum = metrics["uv_grad_sum"]
+                vis_sum = metrics["visible"]
+                rad_max = metrics["max_radius"]
+            else:
+                uv_sum = uv_sum + metrics["uv_grad_sum"]
+                vis_sum = vis_sum + metrics["visible"]
+                rad_max = torch.maximum(rad_max, metrics["max_radius"])
+        else:
+            g = pos_grad_norm(metrics["pos_grad"])
+            pos_grad_accum = g if pos_grad_accum is None else (
+                0.5 * pos_grad_accum + 0.5 * g
+            )
+
+        if "nonfinite_skipped" in metrics:
+            s = metrics["nonfinite_skipped"]
+            skip_sum = s if skip_sum is None else skip_sum + s
+
+        if it % log_every == 0 or it == train_cfg.iterations:
+            loss = float(metrics["total"])
+            report.losses.append((it, loss))
+            n_alive = int(state.pool.num_alive())
+            # Pair-capacity overflow is never silent; it also grows
+            # max_pairs, so capacities need no hand-tuning.
+            demand = int(metrics["pair_demand"])
+            cap_pairs = int(metrics["pair_capacity"])
+            if demand > cap_pairs:
+                report.overflow_events += 1
+                ratio = max(demand / cap_pairs * 1.25, 1.5)
+                new_mp = -(-int(render_cfg.max_pairs * ratio) // 1024) * 1024
+                est = estimate_train_memory(
+                    render_cfg.with_(max_pairs=new_mp), train_cfg
+                )
+                log_fn(
+                    f"iter {it}: pair overflow (demand {demand}, "
+                    f"capacity {cap_pairs}) — growing max_pairs "
+                    f"{render_cfg.max_pairs} -> {new_mp} (recompile; "
+                    f"~{est['total_mb']:.0f} MB estimated step footprint)"
+                )
+                render_cfg = render_cfg.with_(max_pairs=new_mp)
+                step_fn = make_train_step(render_cfg, train_cfg)
+            log_fn(
+                f"iter {it:6d}  loss {loss:.5f}  l1 {float(metrics['l1']):.5f}"
+                f"  ssim {float(metrics['ssim']):.5f}  gaussians {n_alive}"
+            )
+            if metrics_log is not None:
+                metrics_log.log(
+                    it,
+                    total=loss,
+                    l1=float(metrics["l1"]),
+                    ssim=float(metrics["ssim"]),
+                    gaussians=n_alive,
+                )
+
+        # --- ADC schedule (train.py:543-574) ---
+        if (
+            it % train_cfg.densification_interval == 0
+            and it < train_cfg.densify_until_iter
+        ):
+            if paper_adc:
+                avg_uv = uv_sum / torch.clamp(vis_sum, min=1).to(torch.float32)
+                state, adc_result = adc_step_paper(
+                    state, avg_uv, rad_max, gen, train_cfg
+                )
+                uv_sum = vis_sum = rad_max = None
+            else:
+                state, adc_result = adc_step(
+                    state,
+                    pos_grad_accum,
+                    gen,
+                    (
+                        train_cfg.prune_opacity_threshold,
+                        train_cfg.max_grad,
+                        train_cfg.scale_threshold,
+                    ),
+                )
+                pos_grad_accum = None
+            overflow = int(adc_result.num_overflowed)
+            if overflow:
+                report.overflow_events += 1
+                cap_now = state.pool.capacity
+                new_cap = max(2 * cap_now, cap_now + 2 * overflow)
+                log_fn(
+                    f"iter {it}: ADC overflow, {overflow} spawns "
+                    f"dropped — growing pool capacity {cap_now} -> "
+                    f"{new_cap} (recompile; dropped spawns re-fire at "
+                    f"the next densification)"
+                )
+                state = grow_state_capacity(state, new_cap)
+
+        if it % train_cfg.opacity_reset_interval == 0:
+            state = opacity_raise_step(state)
+
+        if output_dir and it % train_cfg.checkpoint_interval == 0:
+            path = os.path.join(output_dir, f"checkpoint_{it:06d}.npz")
+            save_checkpoint(path, state)
+            report.checkpoints.append(path)
+
+    if metrics_log is not None:
+        metrics_log.close()
+    if output_dir:
+        path = os.path.join(output_dir, "checkpoint_final.npz")
+        save_checkpoint(path, state)
+        report.checkpoints.append(path)
+        with open(os.path.join(output_dir, "train_log.json"), "w") as f:
+            json.dump(
+                {
+                    "losses": report.losses,
+                    "iterations": train_cfg.iterations,
+                    "overflow_events": report.overflow_events,
+                },
+                f,
+            )
+
+    report.iterations = train_cfg.iterations
+    if skip_sum is not None:
+        report.nonfinite_steps = int(skip_sum)
+        if report.nonfinite_steps:
+            log_fn(
+                f"NaN guard skipped {report.nonfinite_steps} "
+                f"non-finite update(s)"
+            )
+    report.final_loss = report.losses[-1][1] if report.losses else float("nan")
+    report.num_gaussians = int(state.pool.num_alive())
+    report.wall_time_s = time.time() - t0
+    return state, report

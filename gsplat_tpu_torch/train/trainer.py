@@ -1,8 +1,8 @@
-"""Training: optimizer, LR schedule, the train step; checkpoint loading.
+"""Training: optimizer, LR schedule, the train step, the ADC steps and
+checkpoints.
 
-Counterpart of ``gsplat_tpu/train/trainer.py:43-374`` for
-``adc_mode="reference"`` in the per-view form, and of ``restore_pool``
-(``:508-516``):
+Counterpart of ``gsplat_tpu/train/trainer.py:43-547`` in the per-view
+form (the orbax pair waits for the multi-device slice):
 
 * per-parameter Adam groups (eps = ``adam_eps``) with the reference LRs
   (pos on the exponential schedule with its 1 %-delay phase, opacity,
@@ -16,18 +16,21 @@ Counterpart of ``gsplat_tpu/train/trainer.py:43-374`` for
   parameters, the Adam moments and the Adam step counts on the device,
   with no host sync, and the step reports ``nonfinite_skipped``;
 * the views of a batch are rendered one after the other (``lax.scan``
-  becomes a Python loop); the loss is the mean of the per-view losses.
+  becomes a Python loop); the loss is the mean of the per-view losses;
+* with ``adc_mode="paper"`` the step also differentiates a zero
+  view-space tap per view and returns ``uv_grad_sum``, ``visible`` and
+  ``max_radius``, the paper's densification statistics;
+* ``adc_step``/``adc_step_paper``/``opacity_raise_step`` run the ADC on
+  the pool in place and zero the moments of the slots it rewrote;
+  ``grow_state_capacity`` makes a larger pool and optimizer;
+* ``save_checkpoint``/``load_checkpoint``: the JAX package's ``.npz``
+  layout, readable by both packages (optax's 19 leaves, below).
 
 PyTorch idiom: ``step_fn`` updates the pool's parameters and the optimizer
 in place (the JAX step donates its input state) and returns a
 ``TrainState`` that shares them. On CUDA the optimizer is ``capturable``,
 so its step counts and the position LR stay on the device; on the CPU
-they are host tensors.
-
-Checkpoint writing (``save_checkpoint``/``load_checkpoint`` with the
-optimizer state), the ADC steps and ``fit()`` come with a later slice;
-``adc_mode="paper"``, ``batched_render`` and ``uv_taps`` raise
-``NotImplementedError``.
+they are host tensors. ``batched_render`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ import torch
 
 from ..config import RenderConfig, TrainConfig
 from ..device import resolve_device
+from ..models.adc import (densify_and_prune, densify_and_prune_paper,
+                          raise_low_opacity)
 from ..models.gaussians import PARAM_KEYS, GaussianPool, pool_from_numpy
 from ..ops.losses import compute_loss
 from ..render import render_from_params
@@ -70,21 +75,21 @@ def _fixed_lrs(cfg: TrainConfig) -> dict:
     }
 
 
-def make_optimizer(params: dict, cfg: TrainConfig) -> torch.optim.Adam:
-    """Per-parameter Adam groups matching reference train.py:394-401.
-
-    One group per leaf, named by ``group["name"]``. Its state is created
-    here, zeroed, so the first update reads step count 0 like every other.
-    """
+def _count_device(params: dict) -> torch.device:
+    """Where Adam's step counts live: the card when it is capturable."""
     dev = params["pos"].device
-    capturable = dev.type == "cuda"
-    count_dev = dev if capturable else torch.device("cpu")
-    lr0 = position_lr(torch.zeros((), device=count_dev), cfg)
-    lrs = dict(_fixed_lrs(cfg), pos=lr0 if capturable else float(lr0))
+    return dev if dev.type == "cuda" else torch.device("cpu")
+
+
+def _build_adam(params: dict, lrs: dict, eps: float) -> torch.optim.Adam:
+    """One Adam group per leaf, named by ``group["name"]``, with its state
+    created here, zeroed, so the first update reads step count 0 like
+    every other. On CUDA it is ``capturable``."""
+    count_dev = _count_device(params)
     opt = torch.optim.Adam(
         [{"params": [params[k]], "lr": lrs[k], "name": k} for k in PARAM_KEYS],
-        betas=(0.9, 0.999), eps=cfg.adam_eps, foreach=False, fused=False,
-        capturable=capturable,
+        betas=(0.9, 0.999), eps=eps, foreach=False, fused=False,
+        capturable=count_dev.type == "cuda",
     )
     for k in PARAM_KEYS:
         p = params[k]
@@ -95,6 +100,24 @@ def make_optimizer(params: dict, cfg: TrainConfig) -> torch.optim.Adam:
                 p, memory_format=torch.preserve_format),
         }
     return opt
+
+
+def make_optimizer(params: dict, cfg: TrainConfig) -> torch.optim.Adam:
+    """Per-parameter Adam groups matching reference train.py:394-401."""
+    count_dev = _count_device(params)
+    lr0 = position_lr(torch.zeros((), device=count_dev), cfg)
+    lrs = dict(_fixed_lrs(cfg),
+               pos=lr0 if count_dev.type == "cuda" else float(lr0))
+    return _build_adam(params, lrs, cfg.adam_eps)
+
+
+def _rebuild_optimizer(old: torch.optim.Adam,
+                       params: dict) -> torch.optim.Adam:
+    """A zeroed optimizer for new parameter tensors with ``old``'s LRs
+    (the capturable position-LR tensor stays on the card) and eps."""
+    lrs = {g["name"]: (g["lr"].clone() if isinstance(g["lr"], torch.Tensor)
+                       else g["lr"]) for g in old.param_groups}
+    return _build_adam(params, lrs, old.defaults["eps"])
 
 
 class TrainState(NamedTuple):
@@ -170,22 +193,23 @@ def batch_loss_fn(
     """Mean L1+SSIM loss over a batch of views, rendered one after another.
 
     batch: dict with 'image' [B,H,W,3], 'c2w' [B,4,4], 'fx','fy','cx','cy'
-    [B], tensors on the pool's device. Returns (loss, metrics) with the
-    metrics as 0-d tensors (``pair_capacity`` an int): nothing here waits
-    for the device.
+    [B], tensors on the pool's device. uv_taps: optional [B, N, 2] zeros
+    (the paper-ADC view-space tap, one per view). Returns (loss, metrics)
+    with the metrics as tensors (``pair_capacity`` an int): nothing here
+    waits for the device. With ``uv_taps`` the metrics gain per-gaussian
+    ``visible`` (views with a non-zero screen radius) and ``max_radius``
+    ([N] int32, detached).
     """
     if train_cfg.batched_render:
         raise NotImplementedError(
             "batched_render (one shared binning for the batch) is not "
             "ported yet")
-    if uv_taps is not None:
-        raise NotImplementedError(
-            "uv_taps (the paper-ADC view-space tap) comes with the ADC slice")
-    totals, l1s, ssims, pairs = [], [], [], []
+    totals, l1s, ssims, pairs, radii = [], [], [], [], []
     for i in range(batch["c2w"].shape[0]):
         img, aux = render_from_params(
             params, batch["c2w"][i], batch["fx"][i], batch["fy"][i],
             batch["cx"][i], batch["cy"][i], render_cfg, alive=alive,
+            uv_tap=None if uv_taps is None else uv_taps[i],
         )
         total, comps = compute_loss(img, batch["image"][i],
                                     train_cfg.lambda_l1,
@@ -194,12 +218,20 @@ def batch_loss_fn(
         l1s.append(comps["l1"])
         ssims.append(comps["ssim"])
         pairs.append(aux.num_pairs)
-    return torch.mean(torch.stack(totals)), {
+        if uv_taps is not None:
+            radii.append(aux.screen_radius.detach())
+    metrics = {
         "l1": torch.mean(torch.stack(l1s)).detach(),
         "ssim": torch.mean(torch.stack(ssims)).detach(),
         "pair_demand": torch.max(torch.stack(pairs)),
         "pair_capacity": render_cfg.max_pairs,
     }
+    if uv_taps is not None:
+        radii = torch.stack(radii)  # [B, N]
+        metrics["visible"] = torch.sum((radii > 0).to(torch.int32), dim=0,
+                                       dtype=torch.int32)
+        metrics["max_radius"] = torch.amax(radii, dim=0)
+    return torch.mean(torch.stack(totals)), metrics
 
 
 def _optimizer_tensors(opt: torch.optim.Adam) -> list:
@@ -212,15 +244,56 @@ def _optimizer_tensors(opt: torch.optim.Adam) -> list:
     return out
 
 
+def value_and_grads(state: TrainState, batch: dict,
+                    render_cfg: RenderConfig, train_cfg: TrainConfig):
+    """The batch loss and its gradients, without the update: returns
+    (loss, metrics, grads) and leaves each parameter's ``.grad`` set.
+
+    With ``adc_mode == "paper"`` it also differentiates a zero view-space
+    tap per view and adds ``uv_grad_sum`` to the metrics: the batch sum
+    of per-view ``||d loss / d uv * (W/2, H/2)||`` ([N]). The tap is in
+    pixels; the paper thresholds its statistic in NDC units (INRIA's
+    ndc2Pix: d pix / d ndc = size / 2), so the scale keeps
+    ``densify_grad_threshold`` at the paper's 2e-4 meaning.
+    """
+    pool = state.pool
+    params = pool.params
+    for p in params.values():
+        p.grad = None
+    taps = None
+    if train_cfg.adc_mode == "paper":
+        taps = torch.zeros((batch["c2w"].shape[0], pool.capacity, 2),
+                           dtype=torch.float32, device=pool.pos.device,
+                           requires_grad=True)
+    loss, metrics = batch_loss_fn(
+        apply_sh_warmup(params, state.step, train_cfg), pool.alive,
+        batch, render_cfg, train_cfg, uv_taps=taps,
+    )
+    loss.backward()
+    with torch.no_grad():
+        if taps is not None:
+            g = taps.grad if taps.grad is not None else torch.zeros_like(taps)
+            ndc = torch.tensor([render_cfg.width * 0.5,
+                                render_cfg.height * 0.5],
+                               dtype=torch.float32, device=g.device)
+            g = g * ndc
+            metrics["uv_grad_sum"] = torch.sum(
+                torch.sqrt(g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]),
+                dim=0)  # [N]
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+    return loss.detach(), metrics, grads
+
+
 def make_train_step(render_cfg: RenderConfig, train_cfg: TrainConfig):
     """Build the single-step update. Returns step_fn(state, batch) ->
     (new_state, metrics), updating the state's pool and optimizer in place.
+
+    With ``train_cfg.adc_mode == "paper"`` the metrics also hold
+    ``uv_grad_sum``, ``visible`` and ``max_radius`` (see
+    :func:`value_and_grads`).
     """
-    if train_cfg.adc_mode == "paper":
-        raise NotImplementedError(
-            "adc_mode='paper' (view-space tap statistics) comes with the "
-            "ADC slice")
-    if train_cfg.adc_mode != "reference":
+    if train_cfg.adc_mode not in ("reference", "paper"):
         raise ValueError(f"unknown adc_mode {train_cfg.adc_mode!r}")
     if train_cfg.batched_render:
         raise NotImplementedError(
@@ -230,16 +303,9 @@ def make_train_step(render_cfg: RenderConfig, train_cfg: TrainConfig):
     def step_fn(state: TrainState, batch: dict):
         pool, opt = state.pool, state.opt_state
         params = pool.params
-        for p in params.values():
-            p.grad = None
-        loss, metrics = batch_loss_fn(
-            apply_sh_warmup(params, state.step, train_cfg), pool.alive,
-            batch, render_cfg, train_cfg,
-        )
-        loss.backward()
+        loss, metrics, grads = value_and_grads(state, batch, render_cfg,
+                                               train_cfg)
         with torch.no_grad():
-            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for k, p in params.items()}
             grads = _clip_pos_grad(grads, train_cfg.grad_clip_pos)
             # Dead slots must not drift.
             grads = {
@@ -266,18 +332,150 @@ def make_train_step(render_cfg: RenderConfig, train_cfg: TrainConfig):
                 opt.step()
             if train_cfg.nan_guard:
                 metrics["nonfinite_skipped"] = _guard_nonfinite(
-                    loss.detach(), grads, tensors, saved)
+                    loss, grads, tensors, saved)
         new_state = TrainState(pool=pool, opt_state=opt,
                                step=state.step + 1)
-        metrics.update(total=loss.detach(), pos_grad=grads["pos"])
+        metrics.update(total=loss, pos_grad=grads["pos"])
         return new_state, metrics
 
     return step_fn
 
 
+# --------------------------------------------------------------------------
+# ADC on the train state.
+# --------------------------------------------------------------------------
+
+
+def reset_opt_state_slots(opt: torch.optim.Adam,
+                          slot_mask: torch.Tensor) -> torch.optim.Adam:
+    """Zero the Adam moments (``exp_avg``, ``exp_avg_sq``) of the slots
+    the ADC rewrote, in every leaf; the step counts stay, as optax leaves
+    ``count``. In place; returns ``opt``."""
+    with torch.no_grad():
+        for st in opt.state.values():
+            for key in ("exp_avg", "exp_avg_sq"):
+                m = st[key]
+                m.masked_fill_(slot_mask.reshape((-1,) + (1,) * (m.dim() - 1)),
+                               0.0)
+    return opt
+
+
+def grow_state_capacity(state: TrainState, new_capacity: int) -> TrainState:
+    """Grow the pool and the optimizer to a larger slot capacity.
+
+    Growth changes shapes, so this builds a new ``GaussianPool`` (the old
+    rows first; new rows zero, opacity_raw -10, dead) and a new optimizer
+    with the same LRs, whose moments are the old ones followed by zero rows
+    (the fresh-Adam state the ADC's moment reset would give them) and whose
+    step counts are the old ones. ``fit()`` calls this when the ADC reports
+    dropped spawns.
+    """
+    cap = state.pool.capacity
+    if new_capacity <= cap:
+        return state
+    pad = new_capacity - cap
+
+    def grow(x, fill=0.0):
+        return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+
+    old = state.opt_state
+    with torch.no_grad():
+        params = {k: grow(v.detach(), -10.0 if k == "opacity_raw" else 0.0)
+                  for k, v in state.pool.params.items()}
+        pool = GaussianPool(params, grow(state.pool.alive, False))
+        opt = _rebuild_optimizer(old, pool.params)
+        for k, p_old in state.pool.params.items():
+            src, dst = old.state[p_old], opt.state[pool.params[k]]
+            dst["step"].copy_(src["step"])
+            dst["exp_avg"][:cap] = src["exp_avg"]
+            dst["exp_avg_sq"][:cap] = src["exp_avg_sq"]
+    return TrainState(pool=pool, opt_state=opt, step=state.step)
+
+
+def adc_step(state: TrainState, pos_grad: torch.Tensor,
+             generator: torch.Generator | None, thresholds,
+             noise: torch.Tensor | None = None):
+    """Densify/prune (reference form) + optimizer-moment reset, in place.
+    ``thresholds`` = (opacity_threshold, max_grad, scale_threshold).
+    Returns (state, AdcResult)."""
+    opacity_threshold, max_grad, scale_threshold = thresholds
+    result = densify_and_prune(
+        state.pool, pos_grad, generator,
+        opacity_threshold=opacity_threshold,
+        max_grad=max_grad,
+        scale_threshold=scale_threshold,
+        noise=noise,
+    )
+    reset_opt_state_slots(state.opt_state, result.new_slot_mask)
+    return state, result
+
+
+def adc_step_paper(state: TrainState, avg_uv_grad: torch.Tensor,
+                   max_radius: torch.Tensor,
+                   generator: torch.Generator | None, cfg: TrainConfig,
+                   noise: tuple | None = None):
+    """Original-paper densify/prune + optimizer-moment reset, in place.
+    Returns (state, AdcResult)."""
+    result = densify_and_prune_paper(
+        state.pool, avg_uv_grad, max_radius, generator,
+        grad_threshold=cfg.densify_grad_threshold,
+        min_opacity=cfg.min_opacity,
+        percent_dense=cfg.percent_dense,
+        scene_extent=cfg.scene_extent,
+        max_screen_size=cfg.max_screen_size,
+        noise=noise,
+    )
+    reset_opt_state_slots(state.opt_state, result.new_slot_mask)
+    return state, result
+
+
+def opacity_raise_step(state: TrainState) -> TrainState:
+    raise_low_opacity(state.pool)
+    return state
+
+
+# --------------------------------------------------------------------------
+# Checkpointing (params + optimizer state + alive + step).
+# --------------------------------------------------------------------------
+
+# optax's leaf order of the JAX package's optimizer state (multi_transform
+# over the sorted leaf names; each an Adam (count, mu, nu), pos with its
+# schedule's count after them). The port's float32 step counts are written
+# as int32, Adam's count in both pos count slots.
+OPT_LEAVES = tuple(
+    (k, field)
+    for k in sorted(PARAM_KEYS)
+    for field in ("step", "exp_avg", "exp_avg_sq")
+    + (("schedule_step",) if k == "pos" else ())
+)
+
+
+def save_checkpoint(path, state: TrainState):
+    """Single-file ``.npz`` checkpoint in the JAX package's layout:
+    ``__step__``, ``__alive__``, ``__num_opt_leaves__`` (19),
+    ``param_<name>`` and ``opt_0`` .. ``opt_18`` (``OPT_LEAVES``)."""
+    pool, opt = state.pool, state.opt_state
+    leaves = []
+    for k, field in OPT_LEAVES:
+        st = opt.state[getattr(pool, k)]
+        if field in ("step", "schedule_step"):
+            leaves.append(np.asarray(int(st["step"]), np.int32))
+        else:
+            leaves.append(st[field].detach().cpu().numpy())
+    np.savez(
+        path,
+        __step__=np.asarray(int(state.step), np.int32),
+        __alive__=pool.alive.cpu().numpy(),
+        __num_opt_leaves__=len(leaves),
+        **{f"param_{k}": v.detach().cpu().numpy()
+           for k, v in pool.params.items()},
+        **{f"opt_{i}": x for i, x in enumerate(leaves)},
+    )
+
+
 def restore_pool(path, device="cuda") -> GaussianPool:
     """Load only the Gaussian pool (params + alive) from a checkpoint
-    (the single-file ``.npz`` of the JAX trainer's ``save_checkpoint``)."""
+    (the single-file ``.npz`` of either package's ``save_checkpoint``)."""
     with np.load(path) as data:
         params = {
             k[len("param_"):]: data[k]
@@ -286,3 +484,38 @@ def restore_pool(path, device="cuda") -> GaussianPool:
         }
         alive = data["__alive__"]
     return pool_from_numpy(params, alive, device)
+
+
+def load_checkpoint(path, state: TrainState) -> TrainState:
+    """Restore a checkpoint on ``state``'s device: a new pool (of the
+    file's capacity) and a new optimizer with ``state``'s LRs, holding the
+    file's moments and step counts. Refuses a file whose optimizer leaves
+    do not match (``OPT_LEAVES``) or whose two pos counts differ."""
+    with np.load(path) as data:
+        n = int(data["__num_opt_leaves__"])
+        if n != len(OPT_LEAVES):
+            raise ValueError(
+                f"checkpoint has {n} optimizer leaves, expected "
+                f"{len(OPT_LEAVES)} (optimizer config changed?)")
+        leaves = dict(zip(OPT_LEAVES, (data[f"opt_{i}"] for i in range(n))))
+        step = int(data["__step__"])
+    if int(leaves["pos", "step"]) != int(leaves["pos", "schedule_step"]):
+        raise ValueError(
+            f"checkpoint's pos Adam count {int(leaves['pos', 'step'])} and "
+            f"schedule count {int(leaves['pos', 'schedule_step'])} differ; "
+            f"the port keeps one count")
+    dev = state.pool.pos.device
+    pool = restore_pool(path, device=dev)
+    opt = _rebuild_optimizer(state.opt_state, pool.params)
+    with torch.no_grad():
+        for k, p in pool.params.items():
+            st = opt.state[p]
+            st["step"].fill_(float(leaves[k, "step"]))
+            for field in ("exp_avg", "exp_avg_sq"):
+                m = leaves[k, field]
+                if m.shape != tuple(p.shape):
+                    raise ValueError(f"checkpoint's {k} {field} has shape "
+                                     f"{m.shape}, the parameter {tuple(p.shape)}")
+                st[field].copy_(torch.from_numpy(m))
+    return TrainState(pool=pool, opt_state=opt,
+                      step=torch.tensor(step, dtype=torch.int32, device=dev))

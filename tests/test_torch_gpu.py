@@ -319,3 +319,125 @@ def test_render_gradients_are_bit_identical_across_runs(cuda):
         grads.append({k: v.grad for k, v in t.items()})
     for k in params:
         assert torch.equal(grads[0][k], grads[1][k]), k
+
+
+def _adc_pool(dev, cap=400, seed=5):
+    """A random pool with scattered alive slots, opacities and scales
+    across the thresholds, and its host copy."""
+    r = np.random.default_rng(seed)
+    params = {
+        "pos": r.normal(0, 2, (cap, 3)),
+        "opacity_raw": r.normal(-3.0, 2.0, cap),
+        "f_dc": r.normal(0, 1, (cap, 3)),
+        "f_rest": r.normal(0, 0.1, (cap, 45)),
+        "scale_raw": r.normal(-4.5, 1.0, (cap, 3)),
+        "q_raw": r.normal(0, 1, (cap, 4)),
+    }
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    alive = r.uniform(0, 1, cap) < 0.7
+    return gt.pool_from_numpy(params, alive, device=dev), r
+
+
+@pytest.mark.parametrize("form", ["reference", "paper"])
+def test_adc_on_card_matches_cpu(cuda, form):
+    """Both ADC forms on the card and on the CPU, given the same draws:
+    masks, counts, alive and every copied row exact; the values computed
+    from exp(scale) (split offsets) within 1 ulp (reference) or 1e-6 abs
+    (paper, through the rotation), since each device rounds exp with its
+    own math library."""
+    from gsplat_tpu_torch.models import adc
+
+    out = {}
+    for side, dev in (("host", "cpu"), ("card", cuda)):
+        pool, r = _adc_pool(dev)
+        cap = pool.capacity
+        if form == "reference":
+            grad = torch.from_numpy(r.normal(0, 0.01, (cap, 3)).astype(
+                np.float32)).to(dev)
+            noise = torch.from_numpy(r.normal(0, 1, (cap, 3)).astype(
+                np.float32)).to(dev)
+            res = adc.densify_and_prune(pool, grad, noise=noise)
+        else:
+            uv = torch.from_numpy(np.abs(r.normal(0, 3e-4, cap)).astype(
+                np.float32)).to(dev)
+            radius = torch.from_numpy(r.integers(0, 40, cap).astype(
+                np.int32)).to(dev)
+            noise = tuple(torch.from_numpy(r.normal(0, 1, (cap, 3)).astype(
+                np.float32)).to(dev) for _ in range(2))
+            res = adc.densify_and_prune_paper(
+                pool, uv, radius, noise=noise, scene_extent=2.5,
+                max_screen_size=30)
+        out[side] = (pool, res)
+    (p_cpu, r_cpu), (p_gpu, r_gpu) = out["host"], out["card"]
+    for f in ("num_pruned", "num_split", "num_cloned", "num_overflowed"):
+        assert int(getattr(r_gpu, f)) == int(getattr(r_cpu, f)), f
+    assert int(r_cpu.num_split) > 0 and int(r_cpu.num_cloned) > 0
+    assert torch.equal(r_gpu.new_slot_mask.cpu(), r_cpu.new_slot_mask)
+    assert torch.equal(p_gpu.alive.cpu(), p_cpu.alive)
+    for k in ("opacity_raw", "f_dc", "f_rest", "q_raw"):
+        assert torch.equal(getattr(p_gpu, k).detach().cpu(),
+                           getattr(p_cpu, k).detach()), k
+    for k in ("pos", "scale_raw"):
+        got = getattr(p_gpu, k).detach().cpu().numpy()
+        want = getattr(p_cpu, k).detach().numpy()
+        if form == "reference":
+            np.testing.assert_array_max_ulp(got, want, maxulp=1)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_fit_on_card_grows_the_pool_and_round_trips_a_checkpoint(cuda,
+                                                                  tmp_path):
+    """A small fit() on the card: a clone-only ADC overflows a 64-slot pool,
+    which grows, and a 64-pair max_pairs overflows and grows; every step
+    launches K1 and K2 once per view; the final checkpoint, loaded into a
+    fresh state, equals the returned state bit for bit."""
+    import importlib
+
+    from gsplat_tpu_torch.train import trainer
+    fit_mod = importlib.import_module("gsplat_tpu_torch.train.fit")
+
+    params, c2w = _scene(48, 7)
+    cfg = gt.RenderConfig(**CFG)
+    poses = np.stack([c2w, c2w])
+    poses[1, 0, 3] = 0.2
+    with torch.no_grad():
+        imgs = torch.stack([gt.render_from_params(
+            {k: torch.from_numpy(v).to(cuda) for k, v in params.items()},
+            p, *CAM.values(), cfg)[0] for p in poses])
+    batch = {"image": imgs, "c2w": torch.from_numpy(poses).to(cuda)}
+    batch.update({k: torch.full((2,), v, device=cuda)
+                  for k, v in CAM.items()})
+
+    def batches():
+        while True:
+            yield batch
+
+    tcfg = gt.TrainConfig(iterations=8, batch_size=2, capacity=64,
+                          densification_interval=4, densify_until_iter=9,
+                          max_grad=1e-9, scale_threshold=1e3,
+                          opacity_reset_interval=10_000,
+                          checkpoint_interval=4)
+    pts = np.concatenate([params["pos"], np.clip(params["f_dc"], 0, 1)], -1)
+    k1, k2 = tras.composite_pairs.launches, tras.composite_pairs.bwd_launches
+    logs = []
+    state, report = fit_mod.fit(batches(), cfg.with_(max_pairs=64), tcfg,
+                                output_dir=str(tmp_path), initial_points=pts,
+                                log_every=2, log_fn=logs.append)
+    assert tras.composite_pairs.launches - k1 == 16
+    assert tras.composite_pairs.bwd_launches - k2 == 16
+    assert any("growing pool capacity" in m for m in logs), logs
+    assert any("growing max_pairs" in m for m in logs), logs
+    assert state.pool.capacity == 128 and report.num_gaussians > 64
+    assert report.nonfinite_steps == 0 and np.isfinite(report.final_loss)
+    fresh = gt.init_train_state(gt.init_pool_from_points(pts, 64), tcfg)
+    back = trainer.load_checkpoint(report.checkpoints[-1], fresh)
+    assert back.pool.pos.device.type == "cuda"
+    assert int(back.step) == int(state.step) == 8
+    assert torch.equal(back.pool.alive, state.pool.alive)
+    for k in gt.models.PARAM_KEYS:
+        assert torch.equal(getattr(back.pool, k), getattr(state.pool, k)), k
+        a = back.opt_state.state[getattr(back.pool, k)]
+        b = state.opt_state.state[getattr(state.pool, k)]
+        for f in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(a[f], b[f]), (k, f)

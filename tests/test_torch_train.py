@@ -254,10 +254,16 @@ def test_sh_warmup_freezes_f_rest_until_activation():
 
 def test_unported_training_options_raise():
     rcfg = gt.RenderConfig(**RCFG)
-    with pytest.raises(NotImplementedError, match="paper"):
-        gt.make_train_step(rcfg, gt.TrainConfig(adc_mode="paper"))
     with pytest.raises(NotImplementedError, match="batched_render"):
         gt.make_train_step(rcfg, gt.TrainConfig(batched_render=True))
-    with pytest.raises(NotImplementedError, match="uv_taps"):
-        ttrainer.batch_loss_fn({}, None, {}, rcfg, gt.TrainConfig(),
-                               uv_taps=torch.zeros(1, 2, 2))
+    with pytest.raises(NotImplementedError, match="mesh"):
+        gt.fit(iter(()), rcfg, gt.TrainConfig(), mesh=object(),
+               device="cpu")
+
+    class WithPointCloud:
+        def pointcloud_path(self):
+            return "scene/pointcloud.ply"
+
+    with pytest.raises(NotImplementedError, match="point cloud"):
+        gt.fit(WithPointCloud(), rcfg, gt.TrainConfig(capacity=64),
+               device="cpu")
