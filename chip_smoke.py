@@ -70,8 +70,34 @@ Phases (any failure exits non-zero, with no result line):
      0 just before it: ms, ns/block and share of bound of each variant, each
      launch count, the tile-0 digests against the plain versions', and K1's
      time minus each variant's;
- 11. one JSON line {"kernels": [...]}, the card line, and the final line
-     {"ok": true, "device": {...}}.
+ 11. the serving levers on the checkpoint at 1920x1080: the SASS
+     instructions of expf and log1pf (probe kernels, cuobjdump), which the
+     log kernels' bounds count;
+     (a) transmittance_math="log" at the bench pose: K1-log against its
+         plain version (rows 0-5 and state bit for bit, its cull's count
+         beside the plain test's), K2-log given K1-log's state (BWD_TOL,
+         zeros off the composited blocks, two launches bit-identical), the
+         log image against the cumprod one; the bench pose and the orbit
+         served and one fwd+bwd, with both log counts set to 0 before;
+         times, plain times and bounds of both;
+     (b) truncation at the bench pose (tile_rank_cap 1024, cull_chunks 64,
+         trunc_pairs sized from pair_demand as --auto_pairs does): the
+         demand with and without the occlusion cull, K1 on the truncated
+         list bit for bit with its plain version and K2 on it as in phase
+         4, the cull on against off bit-identical with equal kept pairs,
+         the image against the exact one, frame times with and without
+         the lever (capacities sized over the trajectory) and the lever's
+         stage times, one fwd+bwd;
+     (c) overflow (trunc_pairs at half the demand): reported, finite, the
+         image equal to the plain compositor's on the same list, no block
+         read past the list's end;
+     (d) render_trained --orbit_scale 1.0 --num_frames 8 --tile_rank_cap
+         1024 --bucket_pairs 4 --max_pairs 2**24: each pose's demand and
+         rung, overflow frames, and at every pose (the one of highest
+         demand first) the PSNR of the served truncated frame against an
+         exact render sized to its demand;
+ 12. one JSON line {"kernels": [...]} (twelve kernels), the card line, and
+     the final line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -91,7 +117,8 @@ import torch
 # One definition of the card's peak rates, K1's bound and the device timer
 # (CUDA events behind a busy stream), shared with the profiler.
 from gsplat_tpu_torch.profile_kernel import (PEAK_BYTES, PEAK_F32_FLOPS,
-                                             bound_ms, device_ms)
+                                             bound_ms, device_ms,
+                                             transcendental_instructions)
 from gsplat_tpu_torch.models.gaussians import PARAM_KEYS
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -131,14 +158,19 @@ TRAIN_PAIRS = 2**21
 TRAIN_BATCH = 4
 TRAIN_STEPS = 6
 FIT_ITERS = 12  # iterations of each fit() run of phase 8b
+LEVER_CAP = 1024  # tile_rank_cap of phase 11 (the README's K)
+LEVER_CHUNKS = 64  # cull_chunks of phase 11 (the JAX default)
+CLOSE_PAIRS = 2**24  # --max_pairs of phase 11d's bucketed close-in orbit
 
 
-def k1_resources(ptxas: str):
-    """(registers, static shared bytes) of K1's compositor from its ptxas
-    report (the library also holds the one-CTA tile-order kernel)."""
-    kernel = ptxas.split("raster_fwd_kernel", 1)[1]
-    m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", kernel)
-    return int(m.group(1)), int(m.group(2))
+def kernel_resources(ptxas: str, kernel: str, log: bool = False):
+    """(registers, static shared bytes) of one instantiation of a
+    compositor (``raster_fwd_kernel`` or ``raster_bwd_kernel``, the "cumprod"
+    form or, with ``log``, the "log" one) from its library's ptxas report."""
+    part = ptxas.split(f"{kernel}ILb{int(log)}E", 1)[1]
+    m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                  part.split("Compiling entry", 1)[0])
+    return int(m.group(1)), int(m.group(2) or 0)
 
 
 def card_line() -> str:
@@ -1049,6 +1081,377 @@ def ablation_phase(card, dev):
     return errs, plain_ms, res, counts, cull
 
 
+def rup(x):
+    """--auto_pairs' sizing (render_trained.py): the demand + 20 %, rounded
+    up to 4,096."""
+    return max(4096, -(-int(x * 1.2) // 4096) * 4096)
+
+
+def bwd_bound(bargs, cfg, ops_per_pair_pixel):
+    """K2's bound on the inputs autograd handed it (pair_feat, tile_start,
+    tile_count, out, state, gout, cfg): (ms, "bytes" or "operations",
+    operations, bytes, composited blocks). Read once: the tile ranges and
+    each tile's block count (row 5), the active blocks' feature rows and
+    block-start state, rows 0-4 of the forward output and of the cotangent
+    of the tiles with active blocks; written once: the whole [10, pairs]
+    gradient, zeros included."""
+    G, P = cfg.pair_block, cfg.tile * cfg.tile
+    bblocks = int(torch.where(bargs[2] > 0, bargs[3][:, 5, 0], 0.0).sum())
+    bops = bblocks * G * P * ops_per_pair_pixel
+    btiles = int(((bargs[2] > 0) & (bargs[3][:, 5, 0] > 0)).sum())
+    bbytes = cfg.num_tiles * 3 * 4 + bblocks * (FEAT_ROWS * G + 5 * P) * 4 \
+        + btiles * 2 * 5 * P * 4 + FEAT_ROWS * bargs[0].shape[1] * 4
+    bt_ops = bops / PEAK_F32_FLOPS * 1e3
+    bt_bytes = bbytes / PEAK_BYTES * 1e3
+    return (max(bt_ops, bt_bytes), "operations" if bt_ops >= bt_bytes
+            else "bytes", bops, bbytes, bblocks)
+
+
+def grads_of(pool, c2w, fx, fy, cx, cy, cfg):
+    """One fwd+bwd of render_from_params (loss mean(im) + mean(im^2)):
+    (the inputs autograd handed K2, whether every gradient is finite)."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops import raster_cuda
+
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in pool.params.items()}
+    seen = {}
+    plain_bwd = raster_cuda.composite_pairs_bwd
+
+    def seen_bwd(*args):
+        seen["args"] = args
+        return plain_bwd(*args)
+
+    raster_cuda.composite_pairs_bwd = seen_bwd
+    try:
+        img, _ = gt.render_from_params(params, c2w, fx, fy, cx, cy, cfg,
+                                       alive=pool.alive)
+        (torch.mean(img) + torch.mean(img * img)).backward()
+        torch.cuda.synchronize()
+    finally:
+        raster_cuda.composite_pairs_bwd = plain_bwd
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in params.values())
+    return seen["args"], finite
+
+
+def log_phase(pool, c2w, traj, fx, fy, cx, cy, cfg, pf, binning, plain_img,
+              card, instr):
+    """Phase 11a: transmittance_math="log" at the bench pose. K1-log
+    against its plain version (rows 0-5 and state bit for bit, the cull's
+    count), K2-log given K1-log's state (BWD_TOL, zeros, two launches
+    equal), the log image against the cumprod one; then the main path with
+    both counts set to 0: the bench pose and the orbit served through
+    make_render_fn, and one fwd+bwd of render_from_params. Times and bounds
+    of both kernels. Returns the two kernels' entries of the kernels line.
+    """
+    from gsplat_tpu_torch.ops.raster_cuda import (_composite_fwd,
+                                                  composite_pairs,
+                                                  composite_pairs_bwd,
+                                                  composite_pairs_bwd_plain,
+                                                  composite_pairs_plain)
+    from gsplat_tpu_torch.profile_kernel import log_ops_per_pair_pixel
+    from gsplat_tpu_torch.viewer import make_render_fn, render_trajectory
+
+    cfg_l = cfg.with_(transmittance_math="log")
+    ts, tc = binning.tile_start, binning.tile_count
+    name = "log, trained 1080p bench pose"
+    out_k = composite_pairs(pf, ts, tc, cfg_l)
+    out_p, state_p = composite_pairs_plain(pf, ts, tc, cfg_l,
+                                           tile_chunk=1024, with_state=True)
+    torch.cuda.synchronize()
+    err = compare(name, out_k, out_p, tc)
+    cull = check_cull(name, pf, ts, tc, out_p, cfg_l)
+    bwd_err = check_bwd(name, pf, binning, out_k, state_p, cfg_l, seed=3)
+    del state_p
+    d_img = float((image_from_tiles(out_p, tc, cfg_l) - plain_img).abs()
+                  .max())
+    print(f"[{name}] log image vs cumprod image (plain compositors, same "
+          f"pairs): max abs {d_img:.3e} (the JAX package's gate on its "
+          f"64x64 scene: 2e-6)", flush=True)
+
+    # The main path: serving, then one fwd+bwd, in the log form.
+    composite_pairs.log_launches = 0
+    composite_pairs.bwd_log_launches = 0
+    render_fn = make_render_fn(pool.params, cfg_l, fx, fy, cx, cy,
+                               alive=pool.alive, report_demand=True)
+    _, stats = render_trajectory(render_fn, traj, keep_frames=False,
+                                 pair_capacity=cfg.max_pairs)
+    bargs, finite = grads_of(pool, c2w, fx, fy, cx, cy, cfg_l)
+    k1n = composite_pairs.log_launches
+    k2n = composite_pairs.bwd_log_launches
+    print(f"[{card}] log served {len(traj)} poses: mean "
+          f"{stats['mean_ms']:.3f} ms, median {stats['median_ms']:.3f} ms, "
+          f"pipelined {stats['pipelined_ms']:.3f} ms/frame (host clock), "
+          f"overflow frames {stats['pair_overflow_frames']}; one fwd+bwd, "
+          f"grads finite {finite}; K1-log launches {k1n}, K2-log launches "
+          f"{k2n} (counts set to 0 before)", flush=True)
+    if not (finite and k1n == 2 * len(traj) + 2 and k2n == 1
+            and stats["pair_overflow_frames"] == 0):
+        raise SystemExit("FAIL: the log path's launches or gradients")
+
+    G = cfg.pair_block
+    blocks = int(torch.where(tc > 0, out_k[:, 5, 0], 0.0).sum())
+    fwd_ms = device_ms(lambda: composite_pairs(pf, ts, tc, cfg_l), 20)
+    fwd_plain_ms = device_ms(lambda: composite_pairs_plain(
+        pf, ts, tc, cfg_l, tile_chunk=1024), 2)
+    ops1 = log_ops_per_pair_pixel(26, instr)
+    f_bound, f_by = bound_ms("full", blocks, cfg_l,
+                             cull["total"] - cull["skipped"], ops1)
+    bwd_ms = device_ms(lambda: composite_pairs_bwd(*bargs), 20)
+    bwd_plain_ms = device_ms(lambda: composite_pairs_bwd_plain(
+        *bargs, block_chunk=256), 2)
+    ops2 = log_ops_per_pair_pixel(OPS_BWD_PER_PAIR_PIXEL, instr)
+    b_bound, b_by, bops, bbytes, bblocks = bwd_bound(bargs, cfg_l, ops2)
+    state_ms = device_ms(lambda: _composite_fwd(pf, ts, tc, cfg_l,
+                                                with_state=True), 20)
+    print(f"[{card}] raster_fwd[log] at the bench pose: {fwd_ms:.4f} ms "
+          f"(CUDA events, 20 launches; writing the state {state_ms:.4f} "
+          f"ms), plain {fwd_plain_ms:.3f} ms; {blocks} active blocks; "
+          f"bound {f_bound:.4f} ms by {f_by} ({ops1} operations per reached "
+          f"(pair, pixel): log1pf {instr['log1pf']} and expf "
+          f"{instr['expf']} SASS instructions; share {f_bound / fwd_ms:.3f})"
+          f"; raster_bwd[log]: {bwd_ms:.4f} ms (20 launches), plain "
+          f"{bwd_plain_ms:.3f} ms; {bblocks} active blocks; bound "
+          f"{b_bound:.4f} ms by {b_by} ({ops2} per (pair, pixel), "
+          f"{bops:.3e} ops, {bbytes:.3e} bytes; share "
+          f"{b_bound / bwd_ms:.3f})", flush=True)
+    entry = dict(route="cuda", library_ms=None)
+    return [dict(entry, name="raster_fwd[log]",
+                 source="gsplat_tpu_torch/ops/csrc/raster_fwd.cu",
+                 replaces="gsplat_tpu/ops/raster_pallas.py:192 (log)",
+                 launches=k1n, max_abs_err=err, ms=fwd_ms,
+                 plain_ms=fwd_plain_ms, bound_ms=f_bound, bound_by=f_by),
+            dict(entry, name="raster_bwd[log]",
+                 source="gsplat_tpu_torch/ops/csrc/raster_bwd.cu",
+                 replaces="gsplat_tpu/ops/raster_pallas.py:243 (log)",
+                 launches=k2n, max_abs_err=bwd_err, ms=bwd_ms,
+                 plain_ms=bwd_plain_ms, bound_ms=b_bound, bound_by=b_by)]
+
+
+def trunc_phase(pool, c2w, traj, fx, fy, cx, cy, cfg, exact_img, card):
+    """Phases 11b and 11c: per-tile rank truncation at the bench pose
+    (tile_rank_cap LEVER_CAP, LEVER_CHUNKS depth chunks, trunc_pairs sized
+    as --auto_pairs does): K1 on the truncated list bit for bit with its
+    plain version, K2 on it as in phase 4; the cull on against off
+    bit-identical with equal kept pairs and a lower demand; the image
+    against the exact one; frame times with and without the lever over the
+    served trajectory (exact, lever, lever, exact; the counts set to 0
+    around the lever's runs); one fwd+bwd. Then overflow, trunc_pairs at
+    half the demand: reported, finite, equal to the plain version on the
+    same list, no block read past the list's end. Returns (K1, K2)
+    launches of the lever's main-path runs."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs,
+                                                  composite_pairs_plain)
+    from gsplat_tpu_torch.render import pair_demand
+    from gsplat_tpu_torch.viewer import make_render_fn, render_trajectory
+
+    cfg_t = cfg.with_(tile_rank_cap=LEVER_CAP, cull_chunks=LEVER_CHUNKS)
+
+    def demand(c, k):
+        with torch.no_grad():
+            return tuple(int(x) for x in pair_demand(
+                pool.params, c, fx, fy, cx, cy, k, alive=pool.alive))
+
+    dem = [demand(c, cfg_t) for c in traj]  # traj[0] is the bench pose
+    pk, _, tk = dem[0]
+    nocull = demand(c2w, cfg_t.with_(occlusion_cull=False))[0]
+    print(f"[{card}] truncation K={LEVER_CAP} at the bench pose: pair "
+          f"demand {pk} with the occlusion cull ({LEVER_CHUNKS} chunks), "
+          f"{nocull} without ({pk / nocull - 1:+.1%}); truncated demand "
+          f"{tk} slots; orbit poses (pairs, truncated): "
+          + ", ".join(f"({d[0]}, {d[2]})" for d in dem[1:]), flush=True)
+    if not pk < nocull:
+        raise SystemExit("FAIL: the occlusion cull removed no pair")
+
+    cfg_b = cfg_t.with_(trunc_pairs=rup(tk))
+    name = f"truncated K={LEVER_CAP}, bench pose"
+    sp = serving_path(pool.params, c2w, fx, fy, cx, cy, cfg_b,
+                      alive=pool.alive)
+    pf, b = sp["pair_feat"], sp["bin"]
+    out_k = composite_pairs(pf, b.tile_start, b.tile_count, cfg_b)
+    out_p, state_p = composite_pairs_plain(pf, b.tile_start, b.tile_count,
+                                           cfg_b, tile_chunk=1024,
+                                           with_state=True)
+    torch.cuda.synchronize()
+    print(f"[{name}] list of {pf.shape[1]} slots (trunc_pairs "
+          f"{cfg_b.trunc_pairs}), {int(b.num_pairs_kept)} pairs kept of "
+          f"{int(b.num_pairs)}", flush=True)
+    compare(name, out_k, out_p, b.tile_count)
+    check_cull(name, pf, b.tile_start, b.tile_count, out_p, cfg_b)
+    check_bwd(name, pf, b, out_k, state_p, cfg_b, seed=4)
+    del state_p, out_p
+
+    with torch.no_grad():
+        img_on, aux_on = gt.render_from_params(
+            pool.params, c2w, fx, fy, cx, cy, cfg_b, alive=pool.alive)
+        img_off, aux_off = gt.render_from_params(
+            pool.params, c2w, fx, fy, cx, cy,
+            cfg_b.with_(occlusion_cull=False), alive=pool.alive)
+    same = bool(torch.equal(img_on, img_off))
+    kept = (int(aux_on.num_pairs_kept), int(aux_off.num_pairs_kept))
+    d_exact = float((img_on - exact_img).abs().max())
+    print(f"[{name}] cull on vs off: image bit-identical {same}, pairs kept "
+          f"{kept[0]} / {kept[1]}, pair demand {int(aux_on.num_pairs)} / "
+          f"{int(aux_off.num_pairs)}; truncated image vs the exact served "
+          f"frame: max abs {d_exact:.3e}", flush=True)
+    if not (same and kept[0] == kept[1]
+            and int(aux_on.num_pairs) < int(aux_off.num_pairs)):
+        raise SystemExit("FAIL: the occlusion cull changed the image")
+
+    # Frame time with and without the lever, capacities as --auto_pairs
+    # sizes them over the trajectory.
+    cfg_auto = cfg_t.with_(
+        max_pairs=min(rup(max(d[0] for d in dem)), cfg.max_pairs),
+        trunc_pairs=rup(max(d[2] for d in dem)))
+    exact_fn = make_render_fn(pool.params, cfg, fx, fy, cx, cy,
+                              alive=pool.alive, report_demand=True)
+    lever_fn = make_render_fn(pool.params, cfg_auto, fx, fy, cx, cy,
+                              alive=pool.alive, report_demand=True)
+    runs = []
+    for i, fn in enumerate((exact_fn, lever_fn, lever_fn, exact_fn)):
+        if i == 1:
+            composite_pairs.launches = 0
+            composite_pairs.bwd_launches = 0
+        runs.append(render_trajectory(fn, traj, keep_frames=False,
+                                      pair_capacity=cfg.max_pairs)[1])
+        if i == 2:
+            bargs, finite = grads_of(pool, c2w, fx, fy, cx, cy, cfg_b)
+            k1, k2 = composite_pairs.launches, composite_pairs.bwd_launches
+    print(f"[{card}] served {len(traj)} poses, exact (max_pairs "
+          f"{cfg.max_pairs}) / with the lever (max_pairs "
+          f"{cfg_auto.max_pairs}, trunc_pairs {cfg_auto.trunc_pairs}), host "
+          f"clock: median " + " / ".join(f"{r['median_ms']:.3f}"
+                                         for r in runs)
+          + " ms; mean " + " / ".join(f"{r['mean_ms']:.3f}" for r in runs)
+          + " ms; pipelined " + " / ".join(f"{r['pipelined_ms']:.3f}"
+                                           for r in runs)
+          + f" ms/frame (runs exact, lever, lever, exact); one truncated "
+          f"fwd+bwd: grads finite {finite}; K1 launches {k1}, K2 launches "
+          f"{k2} in the lever's runs", flush=True)
+    G = cfg.pair_block
+    if not (finite and k1 == 2 * (2 * len(traj) + 1) + 1 and k2 == 1
+            and all(r["pair_overflow_frames"] == 0 for r in runs)):
+        raise SystemExit("FAIL: the truncated path's launches or gradients")
+    del bargs
+    stages = stage_ms(pool.params, c2w, fx, fy, cx, cy, cfg_auto, pool.alive)
+    print(f"[{card}] stages of one bench-pose frame with the lever (CUDA "
+          f"events, median of 5): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in stages.items()), flush=True)
+
+    # --- 11c. overflow: trunc_pairs at half the demand ---
+    cfg_c = cfg_t.with_(trunc_pairs=tk // 2)
+    name = f"truncated K={LEVER_CAP}, trunc_pairs {tk // 2}"
+    sp = serving_path(pool.params, c2w, fx, fy, cx, cy, cfg_c,
+                      alive=pool.alive)
+    pf, b = sp["pair_feat"], sp["bin"]
+    out_k = composite_pairs(pf, b.tile_start, b.tile_count, cfg_c)
+    out_p = composite_pairs_plain(pf, b.tile_start, b.tile_count, cfg_c,
+                                  tile_chunk=1024)
+    with torch.no_grad():
+        img_c, aux_c = gt.render_from_params(
+            pool.params, c2w, fx, fy, cx, cy, cfg_c, alive=pool.alive)
+    torch.cuda.synchronize()
+    compare(name, out_k, out_p, b.tile_count)
+    n = pf.shape[1]
+    ts = b.tile_start.long()
+    walked = ts + out_k[:, 5, 0].long() * G
+    nblk = (b.tile_count.long() + G - 1) // G
+    cut = int(((ts + nblk * G > n) & (nblk > 0)).sum())
+    inside = bool((walked <= n).all())
+    d_plain = float((img_c - image_from_tiles(out_p, b.tile_count, cfg_c))
+                    .abs().max())
+    reported = int(aux_c.trunc_demand) > aux_c.trunc_capacity
+    finite = bool(torch.isfinite(img_c).all())
+    print(f"[{name}] overflow reported: {reported} (trunc_demand "
+          f"{int(aux_c.trunc_demand)} > capacity {aux_c.trunc_capacity}); "
+          f"image finite {finite}, vs the plain compositor on the same list "
+          f"max abs {d_plain:.3e}; every walk inside the list's {n} slots: "
+          f"{inside} ({cut} tiles cut at the end); vs the exact frame max "
+          f"abs {float((img_c - exact_img).abs().max()):.3e}", flush=True)
+    if not (reported and finite and d_plain == 0.0 and inside):
+        raise SystemExit("FAIL: truncated-list overflow")
+    return k1, k2
+
+
+def bucket_phase(pool, fx, fy, cx, cy, cfg, center, radius, card):
+    """Phase 11d: a bucketed close-in orbit through the CLI, as a user runs
+    it (render_trained --orbit_scale 1.0 --num_frames 8 --tile_rank_cap
+    LEVER_CAP --bucket_pairs 4 --max_pairs CLOSE_PAIRS), with the K1 count
+    set to 0 before: each pose's demand and rung, the overflow frames, and
+    at every pose, the one of highest demand first, the PSNR of the served
+    (truncated) frame against an exact render sized to the pose's demand.
+    Returns the K1 launches."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch import render_trained
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+    from gsplat_tpu_torch.render import pair_demand
+    from gsplat_tpu_torch.viewer import create_orbit_trajectory
+
+    argv = ["--checkpoint", CKPT, "--num_frames", "8", "--orbit_scale", "1.0",
+            "--tile_rank_cap", str(LEVER_CAP), "--cull_chunks",
+            str(LEVER_CHUNKS), "--bucket_pairs", "4", "--max_pairs",
+            str(CLOSE_PAIRS), "--benchmark_only"]
+    print(f"[{card}] python -m gsplat_tpu_torch.render_trained "
+          + " ".join(argv), flush=True)
+    composite_pairs.launches = 0
+    stats = render_trained.main(argv)
+    k1 = composite_pairs.launches
+    print(f"[{card}] bucketed close-in orbit: rungs {stats['rungs']}; per "
+          f"pose (pairs, truncated slots, rung): " + ", ".join(
+              f"({d}, {t}, {stats['rungs'][r]})" for d, t, r in zip(
+                  stats["frame_demand"], stats["frame_trunc_demand"],
+                  stats["rung_of_frame"]))
+          + f"; overflow frames {stats['pair_overflow_frames']} (demand "
+          f"above {CLOSE_PAIRS}); median {stats['median_ms']:.3f} ms, mean "
+          f"{stats['mean_ms']:.3f} ms, pipelined "
+          f"{stats['pipelined_ms']:.3f} ms/frame; K1 launches {k1}",
+          flush=True)
+    if k1 < 8 or stats["frames"] != 8:
+        raise SystemExit("FAIL: the bucketed orbit")
+
+    # Every pose: the served (truncated) frame against an exact render
+    # sized to the pose's demand; the pose of highest demand printed first.
+    traj = create_orbit_trajectory(center, radius * 1.0, num_frames=8,
+                                   elevation_deg=15.0)
+    order = np.argsort(stats["frame_demand"])[::-1]
+    psnrs = {}
+    for i in order:
+        cfg_r = stats["rung_cfgs"][stats["rung_of_frame"][i]]
+        with torch.no_grad():
+            exact_demand = int(pair_demand(pool.params, traj[i], fx, fy, cx,
+                                           cy, cfg, alive=pool.alive)[0])
+            cfg_x = cfg.with_(max_pairs=rup(exact_demand))
+            img_t, aux_t = gt.render_from_params(
+                pool.params, traj[i], fx, fy, cx, cy, cfg_r,
+                alive=pool.alive)
+            img_x, aux_x = gt.render_from_params(
+                pool.params, traj[i], fx, fy, cx, cy, cfg_x,
+                alive=pool.alive)
+            tc = serving_path(pool.params, traj[i], fx, fy, cx, cy, cfg_x,
+                              alive=pool.alive)["bin"].tile_count.float()
+        mse = float(torch.mean((img_t - img_x) ** 2))
+        psnrs[int(i)] = float("inf") if mse == 0 \
+            else 10.0 * np.log10(1.0 / mse)
+        print(f"[{card}] close-in pose {i}: exact demand {exact_demand} "
+              f"pairs (max_pairs {cfg_x.max_pairs}; pairs per tile: median "
+              f"{float(torch.median(tc)):.0f}, largest "
+              f"{int(aux_x.max_tile_count)}), served truncated at rung "
+              f"{cfg_r.max_pairs} (trunc_pairs {cfg_r.trunc_pairs}, demand "
+              f"{int(aux_t.num_pairs)}, truncated {int(aux_t.trunc_demand)}"
+              f"): PSNR {psnrs[int(i)]:.2f} dB against the exact render, "
+              f"max abs {float((img_t - img_x).abs().max()):.3e}",
+              flush=True)
+        if not (bool(torch.isfinite(img_t).all())
+                and int(aux_x.num_pairs) <= cfg_x.max_pairs):
+            raise SystemExit("FAIL: the close-in comparison")
+        del img_x, aux_x, tc
+    print(f"[{card}] close-in orbit, K={LEVER_CAP}: PSNR at the pose of "
+          f"highest demand ({int(order[0])}) {psnrs[int(order[0])]:.2f} dB, "
+          f"worst over the 8 poses {min(psnrs.values()):.2f} dB", flush=True)
+    return k1
+
+
 def image_from_tiles(out, tile_count, cfg):
     """[num_tiles, 8, P] compositor output -> [H, W, 3] image, as
     rasterize_binned assembles it."""
@@ -1147,11 +1550,21 @@ def main():
                 raise SystemExit(f"FAIL: {name} spills registers: {line}")
     print("  raster_bwd dynamic shared memory: (10 + 2 warps x 10) x G x 4 B "
           "per CTA = 15360 B at pair_block 128")
-    regs, smem = k1_resources(built["raster_fwd"]["ptxas"])
+    regs, smem = kernel_resources(built["raster_fwd"]["ptxas"],
+                                  "raster_fwd_kernel")
     print(f"[{card}] raster_fwd (K1) design: 8x4-pixel warps, per-warp pair "
           f"cull, heavy tiles first; {regs} registers, {smem} B shared, "
           f"{fwd_ctas_per_sm(dev)} CTAs of 256 threads per SM (occupancy "
           f"API)", flush=True)
+    regs, smem = kernel_resources(built["raster_fwd"]["ptxas"],
+                                  "raster_fwd_kernel", log=True)
+    bregs = [kernel_resources(built["raster_bwd"]["ptxas"],
+                              "raster_bwd_kernel", log)[0]
+             for log in (False, True)]
+    print(f"[{card}] the log transmittance: raster_fwd[log] {regs} "
+          f"registers, {smem} B shared, {fwd_ctas_per_sm(dev, log=True)} "
+          f"CTAs per SM; raster_bwd {bregs[0]} registers, raster_bwd[log] "
+          f"{bregs[1]}", flush=True)
     errs, bwd_errs = [], []
 
     # --- 3. kernel vs plain, synthetic scene ---
@@ -1307,23 +1720,11 @@ def main():
     torch.cuda.synchronize()
     bwd_ms = device_ms(lambda: composite_pairs_bwd(*bargs), 20)
     ctas = composite_pairs.bwd_ctas
-    regs = re.search(r"Used (\d+) registers", built["raster_bwd"]["ptxas"])
     composite_pairs_bwd_plain(*bargs, block_chunk=256)
     bwd_plain_ms = device_ms(
         lambda: composite_pairs_bwd_plain(*bargs, block_chunk=256), 2)
-    bblocks = int(torch.where(bargs[2] > 0, bargs[3][:, 5, 0], 0.0).sum())
-    bops = bblocks * G * P * OPS_BWD_PER_PAIR_PIXEL
-    # Read once: the tile ranges and each tile's block count (row 5), the
-    # active blocks' feature rows and block-start state, rows 0-4 of the
-    # forward output and of the cotangent of the tiles with active blocks;
-    # written once: the whole [10, pairs] gradient, zeros included.
-    btiles = int(((bargs[2] > 0) & (bargs[3][:, 5, 0] > 0)).sum())
-    bbytes = cfg.num_tiles * 3 * 4 + bblocks * (FEAT_ROWS * G + 5 * P) * 4 \
-        + btiles * 2 * 5 * P * 4 + FEAT_ROWS * bargs[0].shape[1] * 4
-    bt_ops = bops / PEAK_F32_FLOPS * 1e3
-    bt_bytes = bbytes / PEAK_BYTES * 1e3
-    bwd_bound_ms = max(bt_ops, bt_bytes)
-    bwd_bound_by = "operations" if bt_ops >= bt_bytes else "bytes"
+    bwd_bound_ms, bwd_bound_by, bops, bbytes, bblocks = bwd_bound(
+        bargs, cfg, OPS_BWD_PER_PAIR_PIXEL)
     print(f"[{card}] raster_bwd at the bench pose: {bwd_ms:.4f} ms (CUDA "
           f"events, 20 launches), plain {bwd_plain_ms:.3f} ms, "
           f"{train_k2 // (TRAIN_BATCH * TRAIN_STEPS)} launch/view in "
@@ -1334,7 +1735,7 @@ def main():
     n_blocks = bargs[0].shape[1] // G
     state = bargs[4]
     print(f"[{card}] raster_bwd design: 4 pixels per thread (64 threads "
-          f"per CTA), {regs.group(1) if regs else '?'} registers, a "
+          f"per CTA), {bregs[0]} registers, a "
           f"persistent grid of {ctas} CTAs over the {bblocks} composited "
           f"blocks of {n_blocks}; block-start state {state.numel() * 4} B "
           f"allocated, {bblocks * 5 * P * 4} B written by K1; share of bound "
@@ -1349,13 +1750,25 @@ def main():
           f"{prof_cull:.4f} on the profiler workload", flush=True)
     errs.append(abl_errs["full"])
 
-    # --- 11. result lines ---
+    # --- 11. the serving levers ---
+    instr = transcendental_instructions()
+    print(f"[{card}] SASS instructions with the kernels' flags (cuobjdump of "
+          f"probe kernels): expf {instr['expf']}, log1pf {instr['log1pf']}",
+          flush=True)
+    log_entries = log_phase(pool, c2w, traj, fx, fy, cx, cy, cfg, pf,
+                            binning, plain_img, card, instr)
+    trunc_k1, trunc_k2 = trunc_phase(pool, c2w, traj, fx, fy, cx, cy, cfg,
+                                     served["first"], card)
+    bucket_k1 = bucket_phase(pool, fx, fy, cx, cy, cfg, center, radius,
+                             card)
+
+    # --- 12. result lines ---
     kernels = [{
         "name": "raster_fwd",
         "route": "cuda",
         "source": "gsplat_tpu_torch/ops/csrc/raster_fwd.cu",
         "replaces": "gsplat_tpu/ops/raster_pallas.py:192",
-        "launches": launches + fit_k1,
+        "launches": launches + fit_k1 + trunc_k1 + bucket_k1,
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1367,14 +1780,14 @@ def main():
         "route": "cuda",
         "source": "gsplat_tpu_torch/ops/csrc/raster_bwd.cu",
         "replaces": "gsplat_tpu/ops/raster_pallas.py:243",
-        "launches": train_k2 + fit_k2,
+        "launches": train_k2 + fit_k2 + trunc_k2,
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
         "library_ms": None,
-    }]
+    }] + log_entries
     kernels += [{
         "name": f"raster_ablate[{v}]",
         "route": "cuda",

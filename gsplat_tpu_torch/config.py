@@ -7,10 +7,12 @@ in the other.
 
 Options the port does not implement yet are accepted here (the fields
 must match) and raise ``NotImplementedError`` where they are used:
-``cull_mode="ellipse"``, ``tile_rank_cap > 0`` (and with it
-``occlusion_cull``), ``bwd_pairs > 0``, ``view_tile_rows > 0``,
-``transmittance_math="log"`` and ``backend="xla"``; in ``TrainConfig``,
-``batched_render=True`` (``make_train_step`` raises).
+``cull_mode="ellipse"`` (with or without ``tile_rank_cap``),
+``bwd_pairs > 0``, ``view_tile_rows > 0`` and ``backend="xla"``; in
+``TrainConfig``, ``batched_render=True`` (``make_train_step`` raises). On
+the card the compositor kernels take ``tile=16`` only (``ValueError``).
+``tile_rank_cap`` (with ``occlusion_cull``, ``cull_chunks`` and
+``trunc_pairs``) and ``transmittance_math="log"`` are ported.
 """
 
 from __future__ import annotations

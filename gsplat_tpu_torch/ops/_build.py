@@ -30,30 +30,32 @@ NVCC_FLAGS = (
 
 SIGNATURES = {
     # raster_fwd(feat, n_pairs, stride, tile_start, tile_count, order, out,
-    #            state, skipped, num_tiles, tiles_x, G, chi2_clip, alpha_max,
-    #            alpha_cutoff, t_min, margin_rel, margin_eps, margin_abs,
-    #            kappa_min, stream) -> cudaError_t
-    #            (order: scratch; state, skipped: may be null)
+    #            state, skipped, log_t, num_tiles, tiles_x, G, chi2_clip,
+    #            alpha_max, alpha_cutoff, t_min, margin_rel, margin_eps,
+    #            margin_abs, kappa_min, stream) -> cudaError_t
+    #            (order: scratch; state, skipped: may be null; log_t: 1 for
+    #            transmittance_math="log", 0 for "cumprod")
     "raster_fwd": (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
          ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_void_p],
+         ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
     # raster_bwd(feat, n_blocks, stride, tile_start, tile_off, num_tiles,
-    #            fwd, gout, state, dfeat, dstride, tiles_x, G, chi2_clip,
-    #            alpha_max, alpha_cutoff, one_minus_max, t_min, ctas,
-    #            stream) -> cudaError_t   (ctas: CTAs launched, may be null)
+    #            fwd, gout, state, dfeat, dstride, log_t, tiles_x, G,
+    #            chi2_clip, alpha_max, alpha_cutoff, one_minus_max, t_min,
+    #            ctas, stream) -> cudaError_t   (ctas: CTAs launched, may be
+    #            null; log_t as raster_fwd's)
     "raster_bwd": (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.POINTER(ctypes.c_int),
-         ctypes.c_void_p],
+         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_float, ctypes.c_float,
+         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
         ctypes.c_int,
     ),
     # raster_ablate(variant, feat, n_pairs, stride, tile_start, tile_count,
@@ -70,10 +72,11 @@ SIGNATURES = {
 
 # The other functions a library exports: {library: {function: signature}}.
 EXTRA_FUNCTIONS = {
-    # raster_fwd_ctas_per_sm(int* n) -> cudaError_t: K1's resident CTAs per
-    # SM on the current device (the occupancy API)
+    # raster_fwd_ctas_per_sm(int log_t, int* n) -> cudaError_t: K1's
+    # resident CTAs per SM on the current device (the occupancy API)
     "raster_fwd": {
-        "raster_fwd_ctas_per_sm": ([ctypes.POINTER(ctypes.c_int)],
+        "raster_fwd_ctas_per_sm": ([ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int)],
                                    ctypes.c_int),
     },
 }

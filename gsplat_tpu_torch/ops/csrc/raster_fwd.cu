@@ -68,6 +68,20 @@
 // shares); a bounding-box test skips fewer. Its plain version is
 // raster_cuda.py::pair_warp_reach.
 //
+// Transmittance, a compile-time template parameter (kLog), so the
+// "cumprod" kernel keeps its own code:
+//   * "cumprod": T is the running product, T = T * (1 - alpha) after each
+//     pair; w = alpha * T before it;
+//   * "log" (transmittance_math="log", the TPU kernel's _transmittance):
+//     within a block s = log1pf(-alpha), S the running inclusive sum of s
+//     from 0, T_excl = expf(S - s) * T_in and w = alpha * T_excl; at the
+//     block's end T = T_in * expf(S). T carries by product from block to
+//     block, so the block-start state and the saturation test keep their
+//     meaning (T at the block's start). The cull stays exact: a skipped
+//     pair has alpha == 0, so s = log1pf(-0.f) = -0.f, and S + -0.f == S
+//     bit for bit; skipping it leaves S, and every later T_excl, as the
+//     full walk has them.
+//
 // Arithmetic. Built with -fmad=false, and every expression of alpha, T,
 // w and the sums is evaluated in the plain version's order, so each
 // (pair, pixel) rounds as it does there: rows 0-5 and the state equal
@@ -86,6 +100,12 @@
 // beside the bound.
 // Tiles stay unbalanced (a CTA's time grows with its tile's active depth);
 // the tile order only starts the deepest first.
+//
+// The pair list's end. A tile walks cdiv(tile_count, G) blocks from
+// tile_start and stops at the first block that does not lie wholly inside
+// the n_pairs of the list: a rank-truncated list whose capacity overflowed
+// (ops/binning.py) keeps a tile's first blocks only, as the TPU kernel
+// walks only the blocks its block_meta lists.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -165,6 +185,7 @@ __global__ void __launch_bounds__(kOrderThreads) tile_order_kernel(
   }
 }
 
+template <bool kLog>
 __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
     const float* __restrict__ feat, int n_pairs, int stride,
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
@@ -189,7 +210,8 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
   const int count = tile_count[tile];
   const int nblk = count > 0 ? (count + G - 1) / G : 0;
 
-  float T = 1.0f;
+  float T = 1.0f;  // "log": T at the block's start, while in a block
+  float S = 0.0f;  // "log": the block's running sum of log1pf(-alpha)
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
   int blocks = 0;
   int reached = 0;  // (pair, warp) walked, uniform over the warp
@@ -207,8 +229,8 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
     // previous block's shared pairs until every warp has walked them.
     if (k > 0 && !__syncthreads_or(T > t_min)) break;
     const int base = start + k * G;
-    if (base + G > n_pairs) break;  // uniform over the CTA; never on a
-                                    // binning-made layout
+    if (base + G > n_pairs) break;  // uniform over the CTA: the list's
+                                    // end (see the header)
     if (state != nullptr) {
       float* s = state + (size_t)(base / G) * 5 * kPixels + p;
       s[0 * kPixels] = acc_r;
@@ -261,13 +283,23 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
         const float a_raw = Q.y * g;
         const float a = a_raw > alpha_max ? alpha_max : a_raw;
         const float alpha = a >= alpha_cutoff ? a : 0.0f;
-        const float w = T > t_min ? alpha * T : 0.0f;
+        float Te = T;
+        if (kLog) {
+          const float sl = log1pf(-alpha);
+          S = S + sl;
+          Te = expf(S - sl) * T;
+        }
+        const float w = Te > t_min ? alpha * Te : 0.0f;
         acc_r = acc_r + w * Q.z;
         acc_g = acc_g + w * Q.w;
         acc_b = acc_b + w * R.x;
         acc_d = acc_d + w * R.y;
-        T = T * (1.0f - alpha);
+        if (!kLog) T = T * (1.0f - alpha);
       }
+    }
+    if (kLog) {
+      T = T * expf(S);
+      S = 0.0f;
     }
     blocks += 1;
   }
@@ -292,12 +324,14 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
 // cudaGetLastError() (0 on success). `order` is scratch for num_tiles
 // ints. `state` may be null (nothing written); `skipped` may be null
 // (nothing counted), else the kernel adds the (pair, warp) it skipped to
-// *skipped. margin_rel, margin_eps, margin_abs and kappa_min are the
-// cull's (see the header).
+// *skipped. log_t selects the transmittance: 1 "log", 0 "cumprod".
+// margin_rel, margin_eps, margin_abs and kappa_min are the cull's (see the
+// header).
 extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
                           const void* tile_start, const void* tile_count,
                           void* order, void* out, void* state, void* skipped,
-                          int num_tiles, int tiles_x, int G, float chi2_clip,
+                          int log_t, int num_tiles, int tiles_x, int G,
+                          float chi2_clip,
                           float alpha_max, float alpha_cutoff, float t_min,
                           float margin_rel, float margin_eps,
                           float margin_abs, float kappa_min, void* stream) {
@@ -311,7 +345,8 @@ extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const CullMargins cm = {margin_rel, margin_eps, margin_abs, kappa_min};
-  raster_fwd_kernel<<<num_tiles, kPixels, 0, s>>>(
+  auto kernel = log_t ? raster_fwd_kernel<true> : raster_fwd_kernel<false>;
+  kernel<<<num_tiles, kPixels, 0, s>>>(
       (const float*)feat, n_pairs, stride, (const int*)tile_start,
       (const int*)tile_count, (const int*)order, (float*)out, (float*)state,
       (unsigned long long*)skipped, tiles_x, G, chi2_clip, alpha_max,
@@ -319,9 +354,11 @@ extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
   return (int)cudaGetLastError();
 }
 
-// The compositor's resident CTAs per SM on the current device, from the
-// occupancy API, into *n; returns the CUDA error (0 on success).
-extern "C" int raster_fwd_ctas_per_sm(int* n) {
+// The compositor's resident CTAs per SM on the current device (log_t as
+// raster_fwd's), from the occupancy API, into *n; returns the CUDA error
+// (0 on success).
+extern "C" int raster_fwd_ctas_per_sm(int log_t, int* n) {
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      n, raster_fwd_kernel, kPixels, 0);
+      n, log_t ? raster_fwd_kernel<true> : raster_fwd_kernel<false>, kPixels,
+      0);
 }

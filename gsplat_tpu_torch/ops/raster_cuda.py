@@ -11,15 +11,23 @@ emits:
   ``g = exp(-q/2)`` where ``q <= chi2_clip`` else 0,
   ``alpha = min(op g, alpha_max)``, zeroed below ``alpha_cutoff``;
 * ``w = alpha T_excl`` where ``T_excl > transmittance_min``, with
-  ``T_excl`` the product of ``(1 - alpha)`` over the pairs in front
-  (the "cumprod" transmittance, computed as a sequential product);
+  ``T_excl`` the product of ``(1 - alpha)`` over the pairs in front.
+  ``transmittance_math="cumprod"`` computes it as a sequential product;
+  ``"log"`` as the TPU kernel's log form (``raster_pallas.py:161-164``):
+  within a block, ``s = log1p(-alpha)`` and its running inclusive sum
+  ``S`` from 0, ``T_excl = exp(S - s) * T_in`` and ``T_out = T_in *
+  exp(S_total)``, T carried by product from block to block;
 * a tile's continuation block is skipped when the largest T over its
   pixels is ``<= transmittance_min`` (block-granular, as on the TPU: T
   keeps multiplying through every pair of a composited block).
 
 Output ``[num_tiles, 8, tile*tile]`` f32: rows 0-2 sum w*rgb, row 3 sum
 w*depth, row 4 final T, row 5 the number of blocks composited, rows 6-7
-zero. A tile with no pairs gets rgb = depth = 0, T = 1, count 0.
+zero. A tile with no pairs gets rgb = depth = 0, T = 1, count 0. A tile
+walks ``ceil(tile_count / pair_block)`` blocks from ``tile_start`` and
+stops at the end of the pair list: a truncated list whose capacity
+overflowed (``ops/binning.py``) keeps only the blocks that fit, as the
+TPU kernel walks only the blocks its ``block_meta`` lists.
 
 When autograd records, the forward also returns its block-start state
 ``[padded_pairs / pair_block, 5, tile*tile]`` f32: for each block it
@@ -86,11 +94,7 @@ def pack_block_meta(block_tile, block_first):
 
 
 def _check_cfg(cfg: RenderConfig):
-    if cfg.transmittance_math == "log":
-        raise NotImplementedError(
-            "transmittance_math='log' is not ported (the port composites "
-            "with the exact 'cumprod' product)")
-    if cfg.transmittance_math != "cumprod":
+    if cfg.transmittance_math not in ("cumprod", "log"):
         raise ValueError(
             f"unknown transmittance_math {cfg.transmittance_math!r}")
     if cfg.view_tile_rows:
@@ -249,23 +253,41 @@ def _running_sum(start, terms):
                         dim=1)[:, 1:]
 
 
+def _block_transmittance(alpha, T_in, cfg: RenderConfig):
+    """``(T_excl [m, G, P], T_out [m, P])`` of one block of each of m tiles
+    for alpha [m, G, P] and the block-start T_in [m, P], in the kernels'
+    order of operations: "cumprod" is the sequential product ``T_in * (1 -
+    a_0) * (1 - a_1) ...``; "log" takes ``s = log1p(-alpha)``, its
+    sequential running sum S from 0, ``T_excl = exp(S - s) * T_in`` and
+    ``T_out = T_in * exp(S_total)``. Cumulative ops along a non-innermost
+    dimension, which PyTorch evaluates in order on CPU and CUDA."""
+    if cfg.transmittance_math == "log":
+        s = torch.log1p(-alpha)
+        S = _running_sum(torch.zeros_like(T_in), s)
+        return torch.exp(S - s) * T_in[:, None, :], T_in * torch.exp(S[:, -1])
+    prod = torch.cumprod(torch.cat([T_in[:, None, :], 1.0 - alpha], dim=1),
+                         dim=1)
+    return prod[:, :-1], prod[:, -1]
+
+
 def composite_pairs_plain(pair_feat, tile_start, tile_count, cfg: RenderConfig,
                           tile_chunk: int = 0, with_state: bool = False):
     """Plain PyTorch compositor with the kernel's semantics (any device).
 
     Walks every tile's blocks in order, all tiles of a chunk at once:
-    step k composites the k-th block of each tile that still has one and
-    is not saturated. Within a block T is the sequential product
-    ``T_in * (1 - a_0) * (1 - a_1) ...`` and each sum the sequential
-    ``acc + w_0 c_0 + w_1 c_1 ...``: cumulative ops along a non-innermost
-    dimension, which PyTorch evaluates in order on CPU and CUDA. So every
-    rounding, and every ``T > transmittance_min`` decision, is the
-    kernel's. ``tile_chunk`` > 0 bounds memory to that many tiles at a
-    time. ``with_state`` also returns the block-start state (module
-    docstring; zero at blocks not composited): ``(out, state)``.
+    step k composites the k-th block of each tile that still has one, is
+    not saturated and lies inside the pair list. Within a block T is
+    :func:`_block_transmittance` and each sum the sequential ``acc + w_0
+    c_0 + w_1 c_1 ...``: cumulative ops along a non-innermost dimension,
+    which PyTorch evaluates in order on CPU and CUDA. So every rounding,
+    and every ``T > transmittance_min`` decision, is the kernel's.
+    ``tile_chunk`` > 0 bounds memory to that many tiles at a time.
+    ``with_state`` also returns the block-start state (module docstring;
+    zero at blocks not composited): ``(out, state)``.
     """
     _check_cfg(cfg)
     dev = pair_feat.device
+    n_pairs = pair_feat.shape[1]
     G = cfg.pair_block
     P = cfg.tile * cfg.tile
     num_tiles = tile_start.shape[0]
@@ -288,7 +310,7 @@ def composite_pairs_plain(pair_feat, tile_start, tile_count, cfg: RenderConfig,
         start = tile_start[tiles].to(torch.int64)
         k = 0
         while True:
-            go = k < nb
+            go = (k < nb) & (start + (k + 1) * G <= n_pairs)
             if k > 0:
                 go &= T.amax(dim=1) > cfg.transmittance_min
             idx = torch.nonzero(go).squeeze(1)
@@ -301,10 +323,7 @@ def composite_pairs_plain(pair_feat, tile_start, tile_count, cfg: RenderConfig,
                 state[blk, 4] = T[idx]
             f = pair_feat[:FEAT_ROWS, pcol]  # [10, m, G]
             alpha = _block_alpha(f, px[idx], py[idx], cfg)[0]  # [m, G, P]
-            prod = torch.cumprod(
-                torch.cat([T[idx][:, None, :], 1.0 - alpha], dim=1), dim=1
-            )
-            T_excl = prod[:, :G]
+            T_excl, T_out = _block_transmittance(alpha, T[idx], cfg)
             w = torch.where(T_excl > cfg.transmittance_min,
                             alpha * T_excl, 0.0)
             for ch in range(4):
@@ -312,7 +331,7 @@ def composite_pairs_plain(pair_feat, tile_start, tile_count, cfg: RenderConfig,
                 # the kernel's order (same cumulative-op argument as T).
                 acc[idx, ch] = _running_sum(
                     acc[idx, ch], w * f[6 + ch][:, :, None])[:, G - 1]
-            T[idx] = prod[:, G]
+            T[idx] = T_out
             cnt[idx] += 1.0
             k += 1
         out[tiles, 0:4] = acc
@@ -358,7 +377,8 @@ def composite_pairs_bwd_plain(pair_feat, tile_start, tile_count, fwd_out,
     block-start ``state`` (T_in and the four prefix sums), and per (pair,
     pixel):
 
-    * T and ``w`` as the forward builds them from T_in;
+    * T and ``w`` as the forward builds them from T_in, in either
+      ``transmittance_math`` (:func:`_block_transmittance`);
     * ``gP`` = sum_c gC_c * prefix_c including this pair, a running sum
       that starts each block at ``gC . prefix`` and adds ``gdotc * w``;
     * the suffix ``gS = sum_c gC_c * C_final_c - gP``, with ``C_final`` the
@@ -401,9 +421,7 @@ def composite_pairs_bwd_plain(pair_feat, tile_start, tile_count, fwd_out,
         pcol = blk[:, None] * G + cols  # [m, G]
         f = pair_feat[:FEAT_ROWS, pcol]  # [10, m, G]
         alpha, du, dv, g, a_raw, a = _block_alpha(f, px, py, cfg)
-        T_excl = torch.cumprod(
-            torch.cat([st[:, 4][:, None, :], 1.0 - alpha], dim=1), dim=1
-        )[:, :G]
+        T_excl = _block_transmittance(alpha, st[:, 4], cfg)[0]
         alive = T_excl > cfg.transmittance_min
         w = torch.where(alive, alpha * T_excl, 0.0)
         gc = [gC[:, ch][:, None, :] for ch in range(4)]  # [m, 1, P]
@@ -472,7 +490,8 @@ def composite_pairs_bwd(pair_feat, tile_start, tile_count, fwd_out, state,
     ``[padded_pairs / pair_block, 5, tile*tile]`` (required: nothing
     rebuilds it). CPU tensors take :func:`composite_pairs_bwd_plain`; CUDA
     tensors launch the backward kernel, counted in
-    ``composite_pairs.bwd_launches``, or raise."""
+    ``composite_pairs.bwd_launches`` (``bwd_log_launches`` for
+    ``transmittance_math="log"``), or raise."""
     _check_inputs(pair_feat, tile_start, tile_count, cfg)
     P = cfg.tile * cfg.tile
     shape = (cfg.num_tiles, 8, P)
@@ -538,13 +557,15 @@ def composite_pairs(pair_feat, tile_start, tile_count, cfg: RenderConfig):
     (``csrc/raster_fwd.cu``: each warp skips the pairs that cannot reach
     its 8x4 pixels, :func:`pair_warp_reach`, and the result equals the
     plain version bit for bit), and count it in
-    ``composite_pairs.launches``; anything the kernel does not take raises.
+    ``composite_pairs.launches`` (``log_launches`` for
+    ``transmittance_math="log"``); anything the kernel does not take raises.
     With grad enabled and ``pair_feat`` requiring grad the
     call is recorded for autograd: the forward also writes its block-start
     state, saved with its output, and the backward is
     :func:`composite_pairs_bwd` (the backward kernel on CUDA, counted in
-    ``composite_pairs.bwd_launches``). Under ``torch.no_grad()`` nothing is
-    recorded or saved, and no state is written.
+    ``composite_pairs.bwd_launches`` or ``bwd_log_launches``). Under
+    ``torch.no_grad()`` nothing is recorded or saved, and no state is
+    written.
     """
     _check_inputs(pair_feat, tile_start, tile_count, cfg)
     if torch.is_grad_enabled() and pair_feat.requires_grad:
@@ -552,8 +573,10 @@ def composite_pairs(pair_feat, tile_start, tile_count, cfg: RenderConfig):
     return _composite_fwd(pair_feat, tile_start, tile_count, cfg)
 
 
-composite_pairs.launches = 0  # forward kernel (K1) launches
-composite_pairs.bwd_launches = 0  # backward kernel (K2) launches
+composite_pairs.launches = 0  # forward kernel (K1) launches, "cumprod"
+composite_pairs.bwd_launches = 0  # backward kernel (K2) launches, "cumprod"
+composite_pairs.log_launches = 0  # K1 launches, transmittance_math="log"
+composite_pairs.bwd_log_launches = 0  # K2 launches, "log"
 composite_pairs.bwd_ctas = 0  # CTAs of the last K2 launch (persistent grid)
 
 
@@ -603,6 +626,7 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
             tile_start.data_ptr(), tile_count.data_ptr(), order.data_ptr(),
             out.data_ptr(), None if state is None else state.data_ptr(),
             None if skipped is None else skipped.data_ptr(),
+            int(cfg.transmittance_math == "log"),
             cfg.num_tiles, cfg.tiles_x, cfg.pair_block,
             ctypes.c_float(cfg.chi2_clip), ctypes.c_float(cfg.alpha_max),
             ctypes.c_float(cfg.alpha_cutoff),
@@ -613,19 +637,23 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
         )
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
-    composite_pairs.launches += 1
+    if cfg.transmittance_math == "log":
+        composite_pairs.log_launches += 1
+    else:
+        composite_pairs.launches += 1
     return (out, state) if with_state else out
 
 
-def fwd_ctas_per_sm(device) -> int:
+def fwd_ctas_per_sm(device, log: bool = False) -> int:
     """K1's resident CTAs per SM on the CUDA ``device``, from the occupancy
-    API (``raster_fwd_ctas_per_sm``)."""
+    API (``raster_fwd_ctas_per_sm``), for the "cumprod" kernel or, with
+    ``log``, the "log" one."""
     from ._build import load_library
 
     lib = load_library("raster_fwd")
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.raster_fwd_ctas_per_sm(ctypes.byref(n))
+        err = lib.raster_fwd_ctas_per_sm(int(log), ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"raster_fwd occupancy query failed: CUDA error "
                            f"{err}")
@@ -652,7 +680,8 @@ def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,
             pair_feat.data_ptr(), n_pairs // cfg.pair_block,
             pair_feat.stride(0), tile_start.data_ptr(), tile_off.data_ptr(),
             cfg.num_tiles, fwd_out.data_ptr(), gout.data_ptr(),
-            state.data_ptr(), dfeat.data_ptr(), dfeat.stride(0), cfg.tiles_x,
+            state.data_ptr(), dfeat.data_ptr(), dfeat.stride(0),
+            int(cfg.transmittance_math == "log"), cfg.tiles_x,
             cfg.pair_block, ctypes.c_float(cfg.chi2_clip),
             ctypes.c_float(cfg.alpha_max), ctypes.c_float(cfg.alpha_cutoff),
             ctypes.c_float(1.0 - cfg.alpha_max),
@@ -661,7 +690,10 @@ def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,
         )
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
-    composite_pairs.bwd_launches += 1
+    if cfg.transmittance_math == "log":
+        composite_pairs.bwd_log_launches += 1
+    else:
+        composite_pairs.bwd_launches += 1
     composite_pairs.bwd_ctas = ctas.value
     return dfeat
 

@@ -2,15 +2,14 @@
 
 Counterpart of ``gsplat_tpu/ops/rasterize.py``: ``RenderAux`` (``:44-75``),
 ``_pair_features`` (``:133-147``), ``gather_pair_features`` with its
-backward (``:150-264``, the untruncated, uncompacted branch),
-``rasterize_binned_pallas`` (``:462-560``) and ``rasterize``
-(``:592-609``). The compositing itself is ``ops/raster_cuda.py``: the
-Hopper kernels for CUDA tensors, their plain PyTorch versions for CPU
-tensors, forward and backward.
+backward (``:150-264``, the uncompacted branches: untruncated, and
+truncated by ``tile_rank_cap``), ``rasterize_binned_pallas``
+(``:462-560``) and ``rasterize`` (``:592-609``). The compositing itself
+is ``ops/raster_cuda.py``: the Hopper kernels for CUDA tensors, their
+plain PyTorch versions for CPU tensors, forward and backward.
 
-``backend="xla"`` (the ``max_per_tile`` ``lax.map`` compositor),
-``bwd_pairs > 0`` (the compacted backward) and the truncated gather
-raise NotImplementedError.
+``backend="xla"`` (the ``max_per_tile`` ``lax.map`` compositor) and
+``bwd_pairs > 0`` (the compacted backward) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -96,18 +95,22 @@ def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
 
 class _GatherPairFeatures(torch.autograd.Function):
     """The gather with the JAX package's backward (``_gpf_bwd``,
-    ``gsplat_tpu/ops/rasterize.py:217-261``, untruncated and uncompacted):
-    key each pair's cotangent rows by ``pair_slot`` (padding keyed to
-    ``n``, so it sorts last), one stable sort that carries the rows, a
-    cumulative sum along the pairs (two-level, :func:`_cumsum_rows`), and
-    the per-gaussian segment
-    difference at ``gauss_offsets`` (each gaussian's pairs are exactly its
-    footprint count). No atomics: autograd through ``index_select`` would
-    be an ``index_add_``, whose order on CUDA varies from run to run."""
+    ``gsplat_tpu/ops/rasterize.py:217-261``, uncompacted): key each pair's
+    cotangent rows by ``pair_slot`` (padding keyed to ``n``, so it sorts
+    last), one stable sort that carries the rows, a cumulative sum along
+    the pairs (two-level, :func:`_cumsum_rows`), and the per-gaussian
+    segment difference at the group bounds: ``gauss_offsets`` (each
+    gaussian's pairs are exactly its footprint count), or, for a truncated
+    list, which holds a subset of each gaussian's pairs,
+    ``searchsorted(sorted_key, arange(n + 1), side="left")`` (the pairs
+    truncation dropped get no gradient, as they add nothing to the
+    image). No atomics: autograd through ``index_select`` would be an
+    ``index_add_``, whose order on CUDA varies from run to run."""
 
     @staticmethod
-    def forward(ctx, feat10, pair_slot, gauss_offsets):
+    def forward(ctx, feat10, pair_slot, gauss_offsets, truncated):
         ctx.n = feat10.shape[0]
+        ctx.truncated = truncated
         ctx.save_for_backward(pair_slot, gauss_offsets)
         return _gather(feat10, pair_slot)
 
@@ -117,12 +120,17 @@ class _GatherPairFeatures(torch.autograd.Function):
         pair_slot, gauss_offsets = ctx.saved_tensors
         n = ctx.n
         key = torch.where(pair_slot >= 0, pair_slot, n)
-        perm = torch.sort(key, stable=True).indices
+        sorted_key, perm = torch.sort(key, stable=True)
         c = _cumsum_rows(g.index_select(1, perm))
         cpad = torch.cat([c.new_zeros(g.shape[0], 1), c], dim=1)
-        bounds = gauss_offsets.to(torch.int64)
+        if ctx.truncated:
+            bounds = torch.searchsorted(
+                sorted_key, torch.arange(n + 1, dtype=sorted_key.dtype,
+                                         device=sorted_key.device))
+        else:
+            bounds = gauss_offsets.to(torch.int64)
         seg = cpad[:, bounds[1:]] - cpad[:, bounds[:-1]]  # [10, N]
-        return seg.T, None, None
+        return seg.T, None, None, None
 
 
 def gather_pair_features(feat10: torch.Tensor, pair_slot: torch.Tensor,
@@ -134,19 +142,17 @@ def gather_pair_features(feat10: torch.Tensor, pair_slot: torch.Tensor,
     Forward: one pairs-sized gather. Backward (recorded when grad is
     enabled and ``feat10`` requires it): the sort-based per-gaussian sum of
     :class:`_GatherPairFeatures`. ``gauss_offsets`` [N+1] are the binning's
-    per-gaussian pair offsets (``TileBinning.gauss_offsets``).
-    ``truncated`` (per-tile rank truncation) and ``bwd_cap > 0`` (the
-    compacted backward) are not ported and raise.
+    per-gaussian pair offsets (``TileBinning.gauss_offsets``), the group
+    bounds unless ``truncated`` (a per-tile rank-truncated list: the bounds
+    come from the sorted keys). ``bwd_cap > 0`` (the compacted backward) is
+    not ported and raises.
     """
-    if truncated:
-        raise NotImplementedError(
-            "the truncated gather backward (tile_rank_cap > 0) is not "
-            "ported yet")
     if bwd_cap:
         raise NotImplementedError(
             "bwd_cap > 0 (the compacted gather backward) is not ported yet")
     if torch.is_grad_enabled() and feat10.requires_grad:
-        return _GatherPairFeatures.apply(feat10, pair_slot, gauss_offsets)
+        return _GatherPairFeatures.apply(feat10, pair_slot, gauss_offsets,
+                                         bool(truncated))
     return _gather(feat10, pair_slot)
 
 
@@ -164,7 +170,8 @@ def rasterize_binned(
     feat10 = _pair_features(proj, colors, torch.float32)[
         binning.depth_order.to(torch.int64)]
     pair_feat = gather_pair_features(feat10, binning.pair_slot,
-                                     binning.gauss_offsets)
+                                     binning.gauss_offsets,
+                                     truncated=cfg.tile_rank_cap > 0)
     out = composite_pairs(
         pair_feat, binning.tile_start, binning.tile_count, cfg
     )  # [num_tiles, 8, P]: rows 0-2 rgb, 3 depth, 4 transmittance
@@ -193,7 +200,7 @@ def rasterize_binned(
         row_capacity=0,
         num_pairs_kept=binning.num_pairs_kept,
         trunc_demand=binning.trunc_demand,
-        trunc_capacity=0,
+        trunc_capacity=cfg.trunc_padded_pairs if cfg.tile_rank_cap else 0,
         bwd_demand=torch.where(
             binning.tile_count > 0, out[:, 5, 0], 0.0).to(torch.int32).sum()
         * cfg.pair_block,

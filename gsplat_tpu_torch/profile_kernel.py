@@ -43,6 +43,9 @@ from __future__ import annotations
 
 import argparse
 import functools
+import os
+import re
+import subprocess
 import time
 
 import numpy as np
@@ -96,6 +99,60 @@ OPS_CULL_PER_PAIR_WARP = 58
 OPS_CULL_PER_PAIR = 14
 CULLED = ("full",) + K1_FUNCTION  # K1's function: bound by reached work
 
+# The probe kernels that transcendental_instructions compiles: each
+# function alone between a load and a store, and a bare copy.
+_PROBE_SRC = r"""
+extern "C" __global__ void probe_copy(const float* x, float* y) {
+  y[threadIdx.x] = x[threadIdx.x];
+}
+extern "C" __global__ void probe_expf(const float* x, float* y) {
+  y[threadIdx.x] = expf(x[threadIdx.x]);
+}
+extern "C" __global__ void probe_log1pf(const float* x, float* y) {
+  y[threadIdx.x] = log1pf(x[threadIdx.x]);
+}
+"""
+
+
+def transcendental_instructions() -> dict:
+    """{"expf": n, "log1pf": n}: the SASS instructions each function
+    compiles to with the kernels' flags (``nvcc -cubin`` of a probe kernel
+    per function, ``cuobjdump -sass``, the copy probe's count subtracted;
+    NOPs not counted). The "log" transmittance's bound counts them so.
+    Needs ``nvcc`` and ``cuobjdump`` (the card's machine)."""
+    from .ops import _build
+
+    nvcc = _build.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    d = _build.BUILD_ROOT / "probe_transc"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "probe.cu").write_text(_PROBE_SRC)
+    subprocess.run([nvcc, "-cubin", *_build.NVCC_FLAGS[:2], "-O3",
+                    "-fmad=false", "-o", str(d / "probe.cubin"),
+                    str(d / "probe.cu")], check=True, capture_output=True,
+                   timeout=300)
+    sass = subprocess.run([cuobjdump, "-sass", str(d / "probe.cubin")],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                         part)
+        counts[name] = sum(op != "NOP" for op in ops)
+    return {f: counts[f"probe_{f}"] - counts["probe_copy"]
+            for f in ("expf", "log1pf")}
+
+
+def log_ops_per_pair_pixel(base: int, instr: dict) -> int:
+    """Operations per (pair, pixel) of a compositor with the "log"
+    transmittance (``transmittance_math="log"``) whose "cumprod" form
+    counts ``base``: the product T * (1 - alpha) (2) out; log1pf and a
+    second expf in, each as the instructions it compiles to (``instr``,
+    from :func:`transcendental_instructions`), and S + s, S - s and the
+    product with T_in (3)."""
+    return base - 2 + 3 + instr["log1pf"] + instr["expf"]
+
 
 def make_workload(cfg: RenderConfig, blocks_per_tile: int, seed: int = 0):
     """The JAX script's synthetic workload (``scripts/profile_kernel.py``,
@@ -132,7 +189,8 @@ def make_workload(cfg: RenderConfig, blocks_per_tile: int, seed: int = 0):
     return torch.from_numpy(feat), tile_start, tile_count
 
 
-def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None):
+def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None,
+             ops_per_pair_pixel=None):
     """(least time on one H100 in ms, "bytes" or "operations") for the
     variant over ``blocks`` composited blocks: each input byte read once
     and each output byte written once at 3.35 TB/s, against the operations
@@ -143,8 +201,11 @@ def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None):
     warp) of those blocks that K1's cull does not skip, from
     ``raster_cuda.cull_audit``) counts 32 pixels for each reached (pair,
     warp) plus the cull's operations; without it every (pair, pixel)
-    counts, the TPU kernel's work."""
+    counts, the TPU kernel's work. ``ops_per_pair_pixel`` replaces the
+    variant's count (K1 in the "log" form: :func:`log_ops_per_pair_pixel`).
+    """
     G, P = cfg.pair_block, cfg.tile * cfg.tile
+    per = ops_per_pair_pixel or OPS_PER_PAIR_PIXEL.get(name)
     out_bytes = cfg.num_tiles * 8 * P * 4
     if name == "empty":
         ops, nbytes = 0, out_bytes
@@ -154,11 +215,11 @@ def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None):
         if name == "no-compute":
             ops = blocks * (G + P)
         elif reached is not None and name in CULLED:
-            ops = reached * (P // KERNEL_WARPS) * OPS_PER_PAIR_PIXEL[name] \
+            ops = reached * (P // KERNEL_WARPS) * per \
                 + blocks * G * (KERNEL_WARPS * OPS_CULL_PER_PAIR_WARP
                                 + OPS_CULL_PER_PAIR)
         else:
-            ops = blocks * G * P * OPS_PER_PAIR_PIXEL[name]
+            ops = blocks * G * P * per
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes

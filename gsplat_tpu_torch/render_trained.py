@@ -1,11 +1,16 @@
 """Serve a trained scene: orbit render with per-frame timing and demand.
 
 Counterpart of ``scripts/render_trained.py:78-409``, restricted to what
-this slice of the port supports (single-view rendering, rect binning, no
-truncation, the default camera without a dataset). Run as
+the port supports (single-view rendering, rect binning, the default camera
+without a dataset), with the serving levers: per-tile rank truncation
+(``--tile_rank_cap``, with the pre-sort occlusion cull in
+``--cull_chunks`` depth chunks), demand-sized capacities
+(``--auto_pairs``), per-frame capacity bucketing (``--bucket_pairs``),
+``--transmittance_math``, ``--background`` and ``--aa_mode``. Run as
 
     python -m gsplat_tpu_torch.render_trained \\
-        --checkpoint bench_assets/trained_ckpt.npz --benchmark_only
+        --checkpoint bench_assets/trained_ckpt.npz --benchmark_only \\
+        --tile_rank_cap 1024 --bucket_pairs 4
 
 Without ``--benchmark_only`` the orbit frames are written as one uint8
 array to ``renders/orbit.npy`` (video export comes with a later slice).
@@ -18,6 +23,7 @@ import glob
 import os
 
 import numpy as np
+import torch
 
 
 def resolve_checkpoint(path_or_dir: str) -> str:
@@ -34,6 +40,10 @@ def resolve_checkpoint(path_or_dir: str) -> str:
 
 
 def main(argv=None):
+    """Parse ``argv``, serve the orbit and return ``render_trajectory``'s
+    stats. With ``--bucket_pairs`` they also hold the ladder (``rungs``,
+    ``rung_cfgs``), each frame's rung (``rung_of_frame``) and its probed
+    demands (``frame_demand``, ``frame_trunc_demand``)."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint", required=True,
                    help=".npz checkpoint file or output dir")
@@ -47,15 +57,43 @@ def main(argv=None):
     p.add_argument("--max_pairs", type=int, default=2**21)
     p.add_argument("--benchmark_only", action="store_true",
                    help="skip image IO, print FPS stats only")
+    p.add_argument("--auto_pairs", action="store_true",
+                   help="probe the orbit's true pair demand (projection and "
+                        "binning only) and shrink max_pairs (and "
+                        "trunc_pairs) to demand +20%% before rendering; "
+                        "--max_pairs becomes the upper bound")
+    p.add_argument("--bucket_pairs", type=int, default=0,
+                   help="per-frame capacity bucketing: probe every orbit "
+                        "pose's demand, build a /2 ladder of N demand-sized "
+                        "configs (clamped at --max_pairs) and render each "
+                        "frame at the smallest rung that fits. Subsumes "
+                        "--auto_pairs. 0 = off")
+    p.add_argument("--cull_chunks", type=int, default=64,
+                   help="depth chunks of the pre-sort occlusion cull's rank "
+                        "bound (more = tighter bound, bigger count grids)")
+    p.add_argument("--tile_rank_cap", type=int, default=0,
+                   help="keep only the front-most K pairs per tile; combine "
+                        "with --auto_pairs to shrink the capacities to the "
+                        "truncated demand. 0 = exact")
+    p.add_argument("--transmittance_math", default="cumprod",
+                   choices=("log", "cumprod"))
+    p.add_argument("--background", default="black",
+                   help="render background: 'black', 'white', or 'r,g,b'")
+    p.add_argument("--aa_mode", default="none",
+                   choices=("none", "dilate", "mip"),
+                   help="screen-space antialiasing: 'dilate' adds the 0.3 px "
+                        "low-pass, 'mip' also compensates opacity")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
 
-    from .config import RenderConfig
+    from .config import RenderConfig, parse_background
+    from .render import pair_demand
     from .train.trainer import restore_pool
     from .viewer import (
         create_orbit_trajectory,
         estimate_scene_center_radius,
+        make_bucketed_render_fn,
         make_render_fn,
         render_trajectory,
     )
@@ -72,7 +110,12 @@ def main(argv=None):
     W = args.width or 1920
     fx = fy = 0.85 * W
     cx, cy = W / 2.0, H / 2.0
-    cfg = RenderConfig(height=H, width=W, max_pairs=args.max_pairs)
+    cfg = RenderConfig(height=H, width=W, max_pairs=args.max_pairs,
+                       tile_rank_cap=args.tile_rank_cap,
+                       cull_chunks=args.cull_chunks,
+                       transmittance_math=args.transmittance_math,
+                       aa_mode=args.aa_mode,
+                       background=parse_background(args.background))
 
     center, radius = estimate_scene_center_radius(
         positions=pool.pos.detach().cpu().numpy()[alive]
@@ -83,10 +126,49 @@ def main(argv=None):
         elevation_deg=args.elevation,
     )
 
-    orbit_fn = make_render_fn(
-        pool.params, cfg, fx, fy, cx, cy, alive=pool.alive,
-        report_demand=True,
-    )
+    if args.auto_pairs:
+        # Probe the orbit's demand (projection and binning, no compositor)
+        # and shrink the capacities to demand + 20 %: every pairs-sized
+        # stage then runs at the workload's size, not the CLI's bound.
+        probe_traj = create_orbit_trajectory(
+            center, radius * args.orbit_scale,
+            num_frames=min(args.num_frames, 16),
+            elevation_deg=args.elevation)
+        with torch.no_grad():
+            demands = [tuple(int(x) for x in pair_demand(
+                pool.params, c, fx, fy, cx, cy, cfg, alive=pool.alive))
+                for c in probe_traj]
+        pk = max(d[0] for d in demands)
+        tk = max(d[2] for d in demands)
+        new_pairs = max(4096, -(-int(pk * 1.2) // 4096) * 4096)
+        if new_pairs > args.max_pairs:
+            # Never grow past the CLI bound: overflow frames drop their
+            # farthest splats and are reported by the render loop.
+            print(f"auto_pairs: demand {pk} exceeds --max_pairs "
+                  f"{args.max_pairs}; clamping (farthest splats drop on "
+                  f"overflow frames — raise --max_pairs for exactness)")
+            new_pairs = args.max_pairs
+        kw = {"max_pairs": new_pairs}
+        if cfg.tile_rank_cap:
+            # The truncated demand sizes the compacted list the gather and
+            # the compositor run on.
+            kw["trunc_pairs"] = max(4096, -(-int(tk * 1.2) // 4096) * 4096)
+        print(f"auto_pairs: demand {pk} pairs"
+              + (f" / {tk} truncated" if cfg.tile_rank_cap else "")
+              + f" -> capacities {kw}")
+        cfg = cfg.with_(**kw)
+
+    if args.bucket_pairs:
+        orbit_fn = make_bucketed_render_fn(
+            pool.params, cfg, fx, fy, cx, cy, alive=pool.alive,
+            trajectory=traj, num_buckets=args.bucket_pairs,
+            report_demand=True,
+        )
+    else:
+        orbit_fn = make_render_fn(
+            pool.params, cfg, fx, fy, cx, cy, alive=pool.alive,
+            report_demand=True,
+        )
     frames, stats = render_trajectory(
         orbit_fn, traj, keep_frames=not args.benchmark_only,
         pair_capacity=cfg.max_pairs,
@@ -107,8 +189,13 @@ def main(argv=None):
         print(
             f"WARNING: {stats['pair_overflow_frames']} frame(s) exceeded "
             f"pair capacity — the farthest splats were dropped; raise "
-            f"--max_pairs"
+            f"--max_pairs or use --auto_pairs"
         )
+    if args.bucket_pairs:
+        stats.update(rungs=orbit_fn.rungs, rung_of_frame=orbit_fn.assign,
+                     rung_cfgs=orbit_fn.cfgs,
+                     frame_demand=[d[0] for d in orbit_fn.demands],
+                     frame_trunc_demand=[d[2] for d in orbit_fn.demands])
     if not args.benchmark_only:
         os.makedirs("renders", exist_ok=True)
         out = os.path.join("renders", "orbit.npy")

@@ -12,7 +12,8 @@ Counterpart of ``gsplat_tpu/train/fit.py`` (``FitReport`` :42, ``fit``
   gradient norms, visibility counts and the largest screen radius;
 * checkpoints hold the optimizer state, in the JAX package's ``.npz``
   layout;
-* ``max_pairs`` and the pool capacity grow from the observed demand.
+* ``max_pairs``, the pool capacity and, with ``tile_rank_cap``, the
+  truncated list's ``trunc_pairs`` grow from the observed demand.
 
 The host waits for the device where the JAX ``fit()`` does: at ``log_every``
 boundaries (loss, alive count, pair demand) and on each densification
@@ -104,16 +105,20 @@ def fit(
     overflow (checked at log_every boundaries; the steps between are still
     correct, farthest pairs dropped and reported) grows
     ``RenderConfig.max_pairs``, and an ADC spawn overflow grows the pool
-    capacity. Both ratchet geometrically (>= 1.5x). The JAX ``fit()``'s
-    ``auto_capacity=False``, which only logs the overflow, is not ported.
+    capacity. Both ratchet geometrically (>= 1.5x). With
+    ``tile_rank_cap``, a truncated-list overflow (``trunc_demand`` above
+    ``trunc_capacity``; whole trailing blocks dropped, reported) grows
+    ``RenderConfig.trunc_pairs`` to 1.25x the demand, rounded up to 1,024.
+    The JAX ``fit()``'s ``auto_capacity=False``, which only logs the
+    overflow, is not ported.
 
     Not ported, and raising ``NotImplementedError``: ``mesh`` and
     ``gauss_sharded`` (multi-device training). The JAX ``fit()``'s device
     image cache (``device_cache_bytes``) belongs to its dataset and is not
-    an argument here. The row, truncation, compacted-backward and ring
-    capacities that the JAX ``fit()`` also grows belong to render modes the
-    port raises on (``ops/binning.py``, ``ops/rasterize.py``), so their
-    branches are left out.
+    an argument here. The row, compacted-backward and ring capacities that
+    the JAX ``fit()`` also grows belong to render modes the port raises on
+    (``ops/binning.py``, ``ops/rasterize.py``), so their branches are left
+    out.
     """
     if mesh is not None or gauss_sharded:
         raise NotImplementedError(
@@ -234,6 +239,21 @@ def fit(
                 )
                 render_cfg = render_cfg.with_(max_pairs=new_mp)
                 step_fn = make_train_step(render_cfg, train_cfg)
+            # The truncated list has its own capacity (trunc_pairs): the
+            # same never-silent growth (overflow drops trailing blocks).
+            if "trunc_demand" in metrics:
+                tdemand = int(metrics["trunc_demand"])
+                tcap = int(metrics["trunc_capacity"])
+                if tdemand > tcap:
+                    report.overflow_events += 1
+                    new_tp = -(-int(tdemand * 1.25) // 1024) * 1024
+                    log_fn(
+                        f"iter {it}: truncated-list overflow (demand "
+                        f"{tdemand}, capacity {tcap}) — growing "
+                        f"trunc_pairs -> {new_tp} (recompile)"
+                    )
+                    render_cfg = render_cfg.with_(trunc_pairs=new_tp)
+                    step_fn = make_train_step(render_cfg, train_cfg)
             log_fn(
                 f"iter {it:6d}  loss {loss:.5f}  l1 {float(metrics['l1']):.5f}"
                 f"  ssim {float(metrics['ssim']):.5f}  gaussians {n_alive}"

@@ -196,15 +196,17 @@ def batch_loss_fn(
     [B], tensors on the pool's device. uv_taps: optional [B, N, 2] zeros
     (the paper-ADC view-space tap, one per view). Returns (loss, metrics)
     with the metrics as tensors (``pair_capacity`` an int): nothing here
-    waits for the device. With ``uv_taps`` the metrics gain per-gaussian
-    ``visible`` (views with a non-zero screen radius) and ``max_radius``
-    ([N] int32, detached).
+    waits for the device. With ``tile_rank_cap`` the metrics gain the
+    largest view's ``trunc_demand`` and ``trunc_capacity`` (an int, the
+    truncated list's ``trunc_padded_pairs``). With ``uv_taps`` they gain
+    per-gaussian ``visible`` (views with a non-zero screen radius) and
+    ``max_radius`` ([N] int32, detached).
     """
     if train_cfg.batched_render:
         raise NotImplementedError(
             "batched_render (one shared binning for the batch) is not "
             "ported yet")
-    totals, l1s, ssims, pairs, radii = [], [], [], [], []
+    totals, l1s, ssims, pairs, tds, radii = [], [], [], [], [], []
     for i in range(batch["c2w"].shape[0]):
         img, aux = render_from_params(
             params, batch["c2w"][i], batch["fx"][i], batch["fy"][i],
@@ -218,6 +220,7 @@ def batch_loss_fn(
         l1s.append(comps["l1"])
         ssims.append(comps["ssim"])
         pairs.append(aux.num_pairs)
+        tds.append(aux.trunc_demand)
         if uv_taps is not None:
             radii.append(aux.screen_radius.detach())
     metrics = {
@@ -226,6 +229,11 @@ def batch_loss_fn(
         "pair_demand": torch.max(torch.stack(pairs)),
         "pair_capacity": render_cfg.max_pairs,
     }
+    if render_cfg.tile_rank_cap:
+        # The truncated list's own capacity (trunc_pairs): its overflow
+        # drops whole trailing blocks, so fit() reads and grows it.
+        metrics["trunc_demand"] = torch.max(torch.stack(tds))
+        metrics["trunc_capacity"] = render_cfg.trunc_padded_pairs
     if uv_taps is not None:
         radii = torch.stack(radii)  # [B, N]
         metrics["visible"] = torch.sum((radii > 0).to(torch.int32), dim=0,

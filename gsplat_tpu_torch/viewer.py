@@ -2,9 +2,11 @@
 
 Counterpart of ``gsplat_tpu/viewer.py``: ``look_at``,
 ``create_orbit_trajectory``, ``estimate_scene_center_radius`` (``:25-90``),
-``_demand_probe`` and ``make_render_fn`` (``:383-424``) and
-``render_trajectory`` (``:225-340``). Camera convention: forward =
-normalize(target - pos), right = normalize(forward x up), camera y = -up.
+``_traj_stats`` (``:102-123``), ``make_bucketed_render_fn``
+(``:126-222``), ``render_trajectory`` (``:225-340``, one pose per call),
+``_demand_probe`` and ``make_render_fn`` (``:383-424``). Camera
+convention: forward = normalize(target - pos), right = normalize(forward
+x up), camera y = -up.
 
 Timing: every timed frame ends in ``torch.cuda.synchronize()`` on a card
 (the host clock runs from dispatch to that sync), and frames whose pair
@@ -97,7 +99,7 @@ def _sync(t: torch.Tensor):
         torch.cuda.synchronize(t.device)
 
 
-def _traj_stats(times, n_frames, probes, pair_capacity):
+def _traj_stats(times, n_frames, probes, pair_capacity, extra=None):
     times_ms = np.asarray(times) * 1e3
     stats = {
         "frames": n_frames,
@@ -109,6 +111,8 @@ def _traj_stats(times, n_frames, probes, pair_capacity):
         "fps": float(1e3 / times_ms.mean()),
         "frame_ms": [float(t) for t in times_ms],
     }
+    if extra:
+        stats.update(extra)
     if probes:
         pv = np.stack(probes)  # [K, 3]
         stats["frame_mean"] = [float(x) for x in pv[:, 0]]
@@ -119,6 +123,97 @@ def _traj_stats(times, n_frames, probes, pair_capacity):
             int((pv[:, 1] > pair_capacity).sum()) if pair_capacity else 0
         )
     return stats
+
+
+def make_bucketed_render_fn(params: dict, cfg: RenderConfig, fx, fy, cx, cy,
+                            alive=None, trajectory=None,
+                            num_buckets: int = 4,
+                            report_demand: bool = False, verbose=print):
+    """Per-frame capacity bucketing for a known trajectory.
+
+    Probes every pose's demand with :func:`render.pair_demand` (projection
+    and binning only), builds a ladder of at most ``num_buckets``
+    capacities halved down from the top rung (the largest demand + 20 %,
+    rounded up to 4,096 and clamped at ``cfg.max_pairs``; no rung below
+    the smallest demand's), gives each pose the smallest rung that fits
+    (a pose above the top rung takes the top rung: its farthest pairs drop
+    and the probe reports it), and sizes each rung's ``trunc_pairs`` (with
+    ``tile_rank_cap``) from the truncated demands of the poses it serves.
+    Every rung renders once before this returns, so the timed loop meets
+    no first call. The closure looks poses up by their float32 bytes; an
+    unknown pose takes the top rung. Same contract as
+    :func:`make_render_fn`.
+
+    The closure carries the ladder: ``fn.demands`` (per pose,
+    ``(num_pairs, num_rows, trunc_demand)``), ``fn.rungs`` (ascending
+    ``max_pairs``), ``fn.assign`` (each pose's rung) and ``fn.cfgs`` (each
+    rung's config, None where no pose uses it). ``cull_mode="ellipse"``
+    (a rung's ``max_rows``) is not ported and raises in the binning.
+    """
+    from .render import pair_demand
+
+    if trajectory is None or len(trajectory) == 0:
+        raise ValueError("bucketed rendering needs the trajectory up front")
+
+    with torch.no_grad():
+        demands = [tuple(int(x) for x in pair_demand(
+            params, np.asarray(c), fx, fy, cx, cy, cfg, alive=alive))
+            for c in trajectory]
+
+    def rup(x):
+        return max(4096, -(-int(x * 1.2) // 4096) * 4096)
+
+    top = min(rup(max(d[0] for d in demands)), cfg.max_pairs)
+    lo = rup(min(d[0] for d in demands))
+    rungs = [top]
+    while len(rungs) < num_buckets and rungs[-1] // 2 >= lo:
+        rungs.append(-(-(rungs[-1] // 2) // 4096) * 4096)
+    rungs = sorted(rungs)  # ascending capacities
+
+    def rung_of(d):
+        need = rup(d)
+        for k, r in enumerate(rungs):
+            if r >= need:
+                return k
+        return len(rungs) - 1  # over the top rung: clamped, reported
+
+    assign = [rung_of(d[0]) for d in demands]
+    cfgs, fns = [], []
+    for k, r in enumerate(rungs):
+        members = [demands[i] for i in range(len(demands)) if assign[i] == k]
+        if not members:
+            cfgs.append(None)
+            fns.append(None)
+            continue
+        kw = {"max_pairs": r}
+        if cfg.cull_mode == "ellipse":
+            kw["max_rows"] = rup(max(m[1] for m in members))
+        if cfg.tile_rank_cap:
+            kw["trunc_pairs"] = rup(max(m[2] for m in members))
+        cfgs.append(cfg.with_(**kw))
+        fns.append(make_render_fn(params, cfgs[-1], fx, fy, cx, cy,
+                                  alive=alive, report_demand=report_demand))
+    counts = [sum(1 for a in assign if a == k) for k in range(len(rungs))]
+    verbose("bucketed orbit: " + "  ".join(
+        f"rung {r} x{c}" for r, c in zip(rungs, counts) if c))
+
+    table = {np.asarray(c2w, np.float32).tobytes(): assign[i]
+             for i, c2w in enumerate(trajectory)}
+    top_k = max(k for k in range(len(rungs)) if fns[k] is not None)
+
+    # Render every used rung once, outside the timed loop.
+    for k in range(len(rungs)):
+        if fns[k] is not None:
+            img, _ = _split_render_out(
+                fns[k](np.asarray(trajectory[assign.index(k)])))
+            _sync(img)
+
+    def fn(c2w):
+        k = table.get(np.asarray(c2w, np.float32).tobytes(), top_k)
+        return (fns[k] or fns[top_k])(c2w)
+
+    fn.demands, fn.rungs, fn.assign, fn.cfgs = demands, rungs, assign, cfgs
+    return fn
 
 
 def render_trajectory(

@@ -114,7 +114,9 @@ def test_depth_order_stable():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(cull_mode="ellipse"), "ellipse"),
-    (dict(tile_rank_cap=64), "tile_rank_cap"),
+    # Truncation is ported; with the ellipse cull it still raises.
+    pytest.param(dict(tile_rank_cap=64, cull_mode="ellipse"), "ellipse",
+                 id="kw1-tile_rank_cap"),
 ])
 def test_unported_binning_modes_raise(kw, match):
     s = make_scene(None, n=32, seed_offset=0)

@@ -138,6 +138,107 @@ def test_kernel_matches_plain(cuda, kind, pair_block):
     assert int(skipped.item()) == n["skipped"] > 0
 
 
+def _dense_scene(n=1200, seed=11):
+    """Dim, overlapping splats in a small patch: tiles far deeper than a
+    rank cap of 64, and few saturate."""
+    r = np.random.default_rng(seed)
+    p = {"pos": np.stack([r.uniform(-0.4, 0.4, n), r.uniform(-0.4, 0.4, n),
+                          r.uniform(3, 8, n)], -1).astype(np.float32)}
+    p["scale_raw"] = (r.normal(0, 0.3, (n, 3)) - 1.4).astype(np.float32)
+    p["q_raw"] = (r.normal(0, 1, (n, 4)) + [0, 0, 0, 2]).astype(np.float32)
+    p["opacity_raw"] = r.normal(-1.5, 0.8, n).astype(np.float32)
+    p["f_dc"] = r.normal(0, 0.8, (n, 3)).astype(np.float32)
+    p["f_rest"] = r.normal(0, 0.05, (n, 45)).astype(np.float32)
+    return p, np.eye(4, dtype=np.float32)
+
+
+def _check_fwd_bwd(cuda, pf, b, cfg, counter, bwd_counter):
+    """Both kernels against their plain versions on one layout: the
+    forward's rows 0-5 and state bit for bit, the backward within 1e-5 of
+    each row's max, zeros off the composited blocks, two runs equal; each
+    launch counted once in its own counter. Returns the forward output."""
+    args = (pf, b.tile_start, b.tile_count)
+    before = getattr(tras.composite_pairs, counter)
+    fwd, state = tras._composite_fwd(*args, cfg, with_state=True)
+    assert getattr(tras.composite_pairs, counter) == before + 1
+    want, want_state = tras.composite_pairs_plain(*args, cfg,
+                                                  with_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd[:, :6], want[:, :6])
+    active = _active_slots(b, fwd, cfg)
+    assert active.any()
+    blocks = active[::cfg.pair_block]
+    assert torch.equal(state[blocks], want_state[blocks])
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    gout = torch.randn(cfg.num_tiles, 8, cfg.tile**2, generator=gen,
+                       device=cuda)
+    before = getattr(tras.composite_pairs, bwd_counter)
+    got = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg)
+    assert getattr(tras.composite_pairs, bwd_counter) == before + 1
+    want_d = tras.composite_pairs_bwd_plain(*args, fwd, state, gout, cfg)
+    again = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again), "two runs differ"
+    for r in range(10):
+        scale = float(want_d[r].abs().max())
+        assert float((got[r] - want_d[r]).abs().max()) <= 1e-5 * scale, r
+    assert (got[:, ~active] == 0).all()
+    return fwd
+
+
+@pytest.mark.parametrize("pair_block", [32, 128])
+@pytest.mark.parametrize("kind", ["plain", "saturated"])
+def test_log_kernels_match_plain(cuda, kind, pair_block):
+    """transmittance_math="log": K1 bit for bit with its plain version, its
+    cull's count equal to the plain test's; K2 from K1's state."""
+    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
+        else {}
+    params, c2w = _scene(600, 0, **shift)
+    cfg = gt.RenderConfig(**CFG, pair_block=pair_block,
+                          transmittance_math="log")
+    pf, b = _inputs(params, c2w, cfg, cuda)
+    fwd = _check_fwd_bwd(cuda, pf, b, cfg, "log_launches",
+                         "bwd_log_launches")
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    tras._launch_fwd(pf, b.tile_start, b.tile_count, cfg, skipped=skipped)
+    blk, tile, _ = tras.active_blocks(b.tile_start,
+                                      tras.tile_block_offsets(fwd), cfg)
+    n = tras.cull_audit(pf, blk, tile, cfg)
+    torch.cuda.synchronize()
+    assert n["unsafe"] == 0 and int(skipped.item()) == n["skipped"] > 0
+    # The colour rows against the cumprod kernel's: the JAX package's 2e-6
+    # gate between its two modes, held on the image.
+    cum = tras.composite_pairs(pf, b.tile_start, b.tile_count,
+                               cfg.with_(transmittance_math="cumprod"))
+    assert float((cum[:, 0:3] - fwd[:, 0:3]).abs().max()) <= 2e-6
+    if kind == "saturated":
+        nblk = (b.tile_count + pair_block - 1) // pair_block
+        assert (fwd[:, 5, 0] < nblk).any(), "no tile was skipped"
+
+
+@pytest.mark.parametrize("trunc_pairs", [0, 10 * 32])
+def test_truncated_kernels_match_plain(cuda, trunc_pairs):
+    """A rank-truncated list (tile_rank_cap 64, the occlusion cull on), and
+    one whose capacity overflows (trunc_pairs 320, where one tile's second
+    block lies past the end): the forward stops at the list's end as its
+    plain version does, the backward follows it."""
+    params, c2w = _dense_scene()
+    cfg = gt.RenderConfig(**CFG, pair_block=32, tile_rank_cap=64,
+                          trunc_pairs=trunc_pairs)
+    pf, b = _inputs(params, c2w, cfg, cuda)
+    assert pf.shape[1] == cfg.trunc_padded_pairs
+    assert int(b.num_pairs_kept) < int(b.num_pairs)
+    overflow = int(b.trunc_demand) > cfg.trunc_padded_pairs
+    assert overflow == bool(trunc_pairs)
+    fwd = _check_fwd_bwd(cuda, pf, b, cfg, "launches", "bwd_launches")
+    nblk = (b.tile_count.long() + 31) // 32
+    walked = (b.tile_start.long() + nblk * 32 <= pf.shape[1]) | (nblk == 0)
+    # Overflow: some tile's blocks run past the end and it stops there.
+    assert bool((~walked).any()) == overflow
+    assert torch.isfinite(fwd).all()
+
+
 def test_render_on_card_matches_cpu(cuda):
     params, c2w = _scene(600, 3)
     cfg = gt.RenderConfig(**CFG)

@@ -100,8 +100,17 @@ def test_gather_backward_matches_jax_vjp():
     assert _rel_err(f_t.grad.numpy(), want) <= 1e-6
     # Padding slots (-1) carry nothing back; the forward zeroes them.
     assert (out.detach().numpy()[:, np.asarray(b.pair_slot) < 0] == 0).all()
-    with pytest.raises(NotImplementedError, match="truncated"):
-        trast.gather_pair_features(f_t, slot, offs, truncated=True)
+    # The truncated form finds its group bounds from the sorted keys; on
+    # this list they are the offsets, and JAX's truncated VJP agrees.
+    _, vjp_t = jax.vjp(
+        lambda f: jgather(CFG["max_pairs"], True, 0, f, b.pair_slot,
+                          b.gauss_offsets),
+        jnp.asarray(feat10))
+    (want_t,) = vjp_t(jnp.asarray(g))
+    f_tt = _t(feat10, True)
+    trast.gather_pair_features(f_tt, slot, offs, truncated=True).backward(
+        _t(g))
+    assert _rel_err(f_tt.grad.numpy(), want_t) <= 1e-6
     with pytest.raises(NotImplementedError, match="bwd_cap"):
         trast.gather_pair_features(f_t, slot, offs, bwd_cap=4096)
 

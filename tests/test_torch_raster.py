@@ -146,12 +146,14 @@ def test_wrapper_rejects_bad_inputs():
         tras.composite_pairs(pf, ts, tc[:-1], cfg)
     with pytest.raises(ValueError, match="multiple of pair_block"):
         tras.composite_pairs(pf[:, :-1], ts, tc, cfg)
-    with pytest.raises(NotImplementedError, match="log"):
-        tras.composite_pairs(pf, ts, tc, cfg.with_(transmittance_math="log"))
+    with pytest.raises(ValueError, match="transmittance_math"):
+        tras.composite_pairs(pf, ts, tc, cfg.with_(transmittance_math="exp"))
     with pytest.raises(NotImplementedError, match="view_tile_rows"):
         tras.composite_pairs(pf, ts, tc, cfg.with_(view_tile_rows=4))
-    out = tras.composite_pairs(pf, ts, tc, cfg)  # empty scene
-    assert (out[:, 4] == 1).all() and (out[:, [0, 1, 2, 3, 5]] == 0).all()
+    for mode in ("cumprod", "log"):  # empty scene
+        out = tras.composite_pairs(pf, ts, tc,
+                                   cfg.with_(transmittance_math=mode))
+        assert (out[:, 4] == 1).all() and (out[:, [0, 1, 2, 3, 5]] == 0).all()
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

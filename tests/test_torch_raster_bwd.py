@@ -221,8 +221,10 @@ def test_backward_wrapper_rejects_bad_inputs():
         tras.composite_pairs_bwd(pf, ts, ts, fo, None, fo, cfg)
     with pytest.raises(ValueError, match="state"):
         tras.composite_pairs_bwd(pf, ts, ts, fo, st[1:], fo, cfg)
-    with pytest.raises(NotImplementedError, match="log"):
+    with pytest.raises(ValueError, match="transmittance_math"):
         tras.composite_pairs_bwd(pf, ts, ts, fo, st, fo,
-                                 cfg.with_(transmittance_math="log"))
-    d = tras.composite_pairs_bwd(pf, ts, ts, fo, st, fo, cfg)  # empty scene
-    assert d.shape == (10, npairs) and (d == 0).all()
+                                 cfg.with_(transmittance_math="exp"))
+    for mode in ("cumprod", "log"):  # empty scene
+        d = tras.composite_pairs_bwd(pf, ts, ts, fo, st, fo,
+                                     cfg.with_(transmittance_math=mode))
+        assert d.shape == (10, npairs) and (d == 0).all()

@@ -167,9 +167,13 @@ def test_pair_demand_matches_jax():
 @pytest.mark.parametrize("kw,match", [
     (dict(backend="xla"), "xla"),
     (dict(bwd_pairs=256), "bwd_pairs"),
-    (dict(transmittance_math="log"), "log"),
+    # The log transmittance and truncation are ported (test_torch_logT.py,
+    # test_torch_trunc.py); what they still meet unported raises.
+    pytest.param(dict(transmittance_math="log", bwd_pairs=256), "bwd_pairs",
+                 id="kw2-log"),
     (dict(cull_mode="ellipse"), "ellipse"),
-    (dict(tile_rank_cap=64), "tile_rank_cap"),
+    pytest.param(dict(tile_rank_cap=64, cull_mode="ellipse"), "ellipse",
+                 id="kw4-tile_rank_cap"),
 ])
 def test_unported_options_raise(kw, match):
     s = _scene("seed0")
