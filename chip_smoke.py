@@ -35,7 +35,8 @@ Phases (any failure exits non-zero, with no result line):
   7. fwd+bwd at 1080p at the bench pose (render_from_params, loss
      mean(im) + mean(im^2), .backward()): one K1 and one K2 launch per call,
      finite gradients, dead slots' gradients 0, ms per call, and the device
-     time of the backward's parts;
+     time of the backward's parts (K2, the reduction to per-gaussian
+     gradients, autograd through projection, SH and covariance);
   8. training: init_train_state -> make_train_step -> 6 steps of batch 4 at
      960x540 on the checkpoint with f_dc and opacity perturbed, ground truth
      rendered from the unperturbed checkpoint: the loss falls, no step is
@@ -96,8 +97,36 @@ Phases (any failure exits non-zero, with no result line):
          rung, overflow frames, and at every pose (the one of highest
          demand first) the PSNR of the served truncated frame against an
          exact render sized to its demand;
- 12. one JSON line {"kernels": [...]} (twelve kernels), the card line, and
-     the final line {"ok": true, "device": {...}}.
+ 12. the training levers on the checkpoint:
+     (a) the batch of phase 8 (4 views at 960x540) stacked into one list
+         (view_tile_rows = the view's tile rows): K1 with rows_mod bit for
+         bit with its plain version and its cull's count beside the plain
+         test's; the batch image bit for bit against the 4 per-view K1
+         images fed the same projections; render_batch_from_params within
+         1e-5 of the per-view renders; K1's time over the batch and over
+         the 4 views;
+     (b) K2 with rows_mod on that list, as in phase 4;
+     (c) K2 in compact mode at the 1080p bench pose on phase 7's inputs,
+         bwd_pairs grown from the demand as fit() grows it (1.25 x,
+         rounded to 1,024): against its plain version (BWD_TOL, zeros past
+         the kept blocks, two launches bit-identical, the kept columns
+         equal to K2's), its time beside K2's and its bound, the
+         reduction's time at both sizes; the gradients with bwd_pairs
+         against bwd_pairs = 0 bit for bit (the bench pose, and the batch
+         batched), and at half the demand the overflow reported and the
+         gradients finite;
+     (d) 6 batched train steps (batched_render), without and with the
+         compacted backward, each with the counts set to 0 before: the loss
+         falls, no step skipped, one K1 and one K2 launch per step; step
+         ms beside phase 8's, peak memory, the batched step's parts;
+     (e) one fit() of 12 iterations, batched, from bwd_pairs 1,024, which
+         must grow;
+     (f) batched serving at 1080p, 4 poses a launch: phase 5's poses
+         through make_batch_render_fn (the bench-pose frame within 1e-5 of
+         phase 5's) and render_trained --render_batch 4 over the orbit;
+         frame ms beside phase 5's;
+ 13. one JSON line {"kernels": [...]} (thirteen kernels), the card line,
+     and the final line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -336,6 +365,13 @@ def check_bwd(name, pf, binning, out, state_p, cfg, seed):
     return err
 
 
+def detached(args):
+    """The arguments autograd hands K2, tensors detached (its saved forward
+    output is the graph's), so the checks that reuse them record nothing."""
+    return tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
 def fwd_bwd_phase(pool, c2w, fx, fy, cx, cy, cfg, card, reps=5):
     """fwd+bwd of render_from_params at the bench pose (the port's
     counterpart of bench.py:202-222). Returns the inputs K2 was given on
@@ -348,9 +384,9 @@ def fwd_bwd_phase(pool, c2w, fx, fy, cx, cy, cfg, card, reps=5):
     seen = {}
     plain_bwd = raster_cuda.composite_pairs_bwd
 
-    def seen_bwd(*args):  # records what autograd hands K2
-        seen["args"] = args
-        seen["d"] = plain_bwd(*args)
+    def seen_bwd(*args, **kw):  # records what autograd hands K2
+        seen["args"] = detached(args)
+        seen["d"] = plain_bwd(*args, **kw)
         return seen["d"]
 
     def call():
@@ -391,15 +427,18 @@ def fwd_bwd_phase(pool, c2w, fx, fy, cx, cy, cfg, card, reps=5):
 
 def bwd_parts_ms(params, c2w, fx, fy, cx, cy, cfg, alive, seen, reps=5):
     """Device time (CUDA events, median of reps) of each part of the
-    backward, on the cotangents the fwd+bwd produced: K2, the pair-feature
-    gather's backward, and autograd through projection, SH and covariance
-    (down from the per-gaussian features to the six parameters)."""
+    backward, on the cotangents the fwd+bwd produced: K2, the reduction of
+    its pair gradients to per-gaussian ones (keys of the composited
+    blocks, stable sort, segmented sum), and autograd through projection,
+    SH and covariance (down from the per-gaussian features to the six
+    parameters)."""
     from gsplat_tpu_torch.ops.binning import bin_gaussians
     from gsplat_tpu_torch.ops.gaussian import build_cov3d_packed
     from gsplat_tpu_torch.ops.projection import project_gaussians
     from gsplat_tpu_torch.ops.raster_cuda import composite_pairs_bwd
     from gsplat_tpu_torch.ops.rasterize import (_pair_features,
-                                                gather_pair_features)
+                                                _reduce_pair_grads,
+                                                composited_pair_keys)
     from gsplat_tpu_torch.ops.sh import evaluate_sh
 
     c2w_t = torch.as_tensor(c2w, dtype=torch.float32, device=alive.device)
@@ -412,14 +451,17 @@ def bwd_parts_ms(params, c2w, fx, fy, cx, cy, cfg, alive, seen, reps=5):
     b = bin_gaussians(proj, cfg)
     feat10 = _pair_features(proj, colors, torch.float32)[
         b.depth_order.long()]
-    f10 = feat10.detach().requires_grad_(True)
-    pf = gather_pair_features(f10, b.pair_slot, b.gauss_offsets)
-    d_pf = seen["d"]
-    g_f10 = torch.autograd.grad(pf, f10, d_pf, retain_graph=True)[0]
+    n = feat10.shape[0]
+
+    def reduction():
+        return _reduce_pair_grads(composited_pair_keys(
+            b.pair_slot, b.tile_start, seen["args"][3], n, 0, cfg),
+            seen["d"], n)
+
+    g_f10 = reduction()
     parts = {
         "K2": lambda: composite_pairs_bwd(*seen["args"]),
-        "gather_bwd": lambda: torch.autograd.grad(pf, f10, d_pf,
-                                                  retain_graph=True),
+        "reduction": reduction,
         "proj+sh+cov_bwd": lambda: torch.autograd.grad(
             feat10, leaves, g_f10, retain_graph=True),
     }
@@ -518,7 +560,7 @@ def train_phase(pool, bench_c2w, center, radius, card):
           f"checked steps): " + ", ".join(f"{k} {v:.3f} ms"
                                          for k, v in parts.items()),
           flush=True)
-    return k1, k2
+    return k1, k2, step_ms
 
 
 def train_parts_ms(state, batch, cfg, tcfg, reps=3):
@@ -1087,20 +1129,21 @@ def rup(x):
     return max(4096, -(-int(x * 1.2) // 4096) * 4096)
 
 
-def bwd_bound(bargs, cfg, ops_per_pair_pixel):
+def bwd_bound(bargs, cfg, ops_per_pair_pixel, out_cols=None):
     """K2's bound on the inputs autograd handed it (pair_feat, tile_start,
     tile_count, out, state, gout, cfg): (ms, "bytes" or "operations",
     operations, bytes, composited blocks). Read once: the tile ranges and
     each tile's block count (row 5), the active blocks' feature rows and
     block-start state, rows 0-4 of the forward output and of the cotangent
     of the tiles with active blocks; written once: the whole [10, pairs]
-    gradient, zeros included."""
+    gradient, zeros included, or in compact mode its [10, out_cols]."""
     G, P = cfg.pair_block, cfg.tile * cfg.tile
     bblocks = int(torch.where(bargs[2] > 0, bargs[3][:, 5, 0], 0.0).sum())
     bops = bblocks * G * P * ops_per_pair_pixel
     btiles = int(((bargs[2] > 0) & (bargs[3][:, 5, 0] > 0)).sum())
     bbytes = cfg.num_tiles * 3 * 4 + bblocks * (FEAT_ROWS * G + 5 * P) * 4 \
-        + btiles * 2 * 5 * P * 4 + FEAT_ROWS * bargs[0].shape[1] * 4
+        + btiles * 2 * 5 * P * 4 \
+        + FEAT_ROWS * (out_cols or bargs[0].shape[1]) * 4
     bt_ops = bops / PEAK_F32_FLOPS * 1e3
     bt_bytes = bbytes / PEAK_BYTES * 1e3
     return (max(bt_ops, bt_bytes), "operations" if bt_ops >= bt_bytes
@@ -1118,9 +1161,9 @@ def grads_of(pool, c2w, fx, fy, cx, cy, cfg):
     seen = {}
     plain_bwd = raster_cuda.composite_pairs_bwd
 
-    def seen_bwd(*args):
-        seen["args"] = args
-        return plain_bwd(*args)
+    def seen_bwd(*args, **kw):
+        seen["args"] = detached(args)
+        return plain_bwd(*args, **kw)
 
     raster_cuda.composite_pairs_bwd = seen_bwd
     try:
@@ -1452,6 +1495,452 @@ def bucket_phase(pool, fx, fy, cx, cy, cfg, center, radius, card):
     return k1
 
 
+def stacked_views(pool, batch, cfg):
+    """The batch's per-view projections and colours, made with the calls
+    render_batch_from_params makes, and their stacking: (stacked
+    projections, their colours [B*N, 3], the stacked config, per-view
+    projections, per-view colours)."""
+    from gsplat_tpu_torch.ops.gaussian import build_cov3d_packed
+    from gsplat_tpu_torch.ops.projection import (ProjectedGaussians,
+                                                 project_gaussians)
+    from gsplat_tpu_torch.ops.sh import evaluate_sh
+    from gsplat_tpu_torch.render import stack_view_projections
+
+    p = pool.params
+    views = range(batch["c2w"].shape[0])
+    with torch.no_grad():
+        cov = build_cov3d_packed(p["scale_raw"], p["q_raw"])
+        projs = [project_gaussians(
+            p["pos"], cov, p["opacity_raw"], batch["c2w"][v], batch["fx"][v],
+            batch["fy"][v], batch["cx"][v], batch["cy"][v], cfg,
+            extra_valid=pool.alive) for v in views]
+        colors = [evaluate_sh(p["f_dc"], p["f_rest"], p["pos"],
+                              batch["c2w"][v]) for v in views]
+        stacked, bcfg = stack_view_projections(
+            ProjectedGaussians(*(torch.stack(f) for f in zip(*projs))), cfg)
+    return stacked, torch.cat(colors), bcfg, projs, colors
+
+
+def binned(proj, colors, cfg):
+    """(pair features [10, pairs], binning) of a projection, as
+    rasterize_binned gathers them."""
+    from gsplat_tpu_torch.ops.binning import bin_gaussians
+    from gsplat_tpu_torch.ops.rasterize import _gather, _pair_features
+
+    with torch.no_grad():
+        b = bin_gaussians(proj, cfg)
+        feat10 = _pair_features(proj, colors, torch.float32)[
+            b.depth_order.long()]
+        return _gather(feat10, b.pair_slot), b
+
+
+def param_grads(pool, cfg, c2w, fx, fy, cx, cy, batched=False):
+    """One fwd+bwd (loss mean(im) + mean(im^2)) of render_from_params, or
+    with ``batched`` of render_batch_from_params over the poses ``c2w``
+    [B, 4, 4]: (aux, {leaf: gradient})."""
+    import gsplat_tpu_torch as gt
+
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in pool.params.items()}
+    render = gt.render_batch_from_params if batched else gt.render_from_params
+    img, aux = render(params, c2w, fx, fy, cx, cy, cfg, alive=pool.alive)
+    (torch.mean(img) + torch.mean(img * img)).backward()
+    return aux, {k: p.grad for k, p in params.items()}
+
+
+def grown_bwd_pairs(demand):
+    """bwd_pairs as fit() grows it from an observed demand: 1.25 x the
+    demand, rounded up to 1,024."""
+    return -(-int(demand * 1.25) // 1024) * 1024
+
+
+def levers_batch_phase(pool, batch, cfg, card):
+    """Phase 12a-b: the training batch of phase 8 (B views at 960x540) as
+    one stacked list: K1 with rows_mod against its plain version (rows 0-5
+    bit for bit, its cull's count beside the plain test's), K2 with
+    rows_mod from K1's state as in phase 4, the batch image against the B
+    per-view K1 images fed the same projections (bit for bit), and
+    render_batch_from_params against per-view renders (within 1e-5). K1
+    times, batched and per view. Returns (K1 max abs err, K2 max abs err).
+    """
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs,
+                                                  composite_pairs_plain)
+
+    B = batch["c2w"].shape[0]
+    stacked, colors, bcfg, projs, vcolors = stacked_views(pool, batch, cfg)
+    pf, b = binned(stacked, colors, bcfg)
+    ts, tc = b.tile_start, b.tile_count
+    name = f"batch of {B} at {TRAIN_W}x{TRAIN_H}, view_tile_rows " \
+           f"{bcfg.view_tile_rows}"
+    out_k = composite_pairs(pf, ts, tc, bcfg)
+    out_p, state_p = composite_pairs_plain(pf, ts, tc, bcfg, tile_chunk=1024,
+                                           with_state=True)
+    torch.cuda.synchronize()
+    print(f"[{name}] one list of {pf.shape[1]} slots for {int(b.num_pairs)} "
+          f"pairs ({bcfg.num_tiles} tiles, max_pairs {bcfg.max_pairs})",
+          flush=True)
+    err = compare(name, out_k, out_p, tc)
+    cull = check_cull(name, pf, ts, tc, out_p, bcfg)
+    bwd_err = check_bwd(name, pf, b, out_k, state_p, bcfg, seed=6)
+    del state_p, out_p
+    img_b = image_from_tiles(out_k, tc, bcfg).reshape(
+        B, cfg.padded_height, cfg.width, 3)[:, :cfg.height]
+    views, same = [], []
+    for v in range(B):
+        pf_v, b_v = binned(projs[v], vcolors[v], cfg)
+        out_v = composite_pairs(pf_v, b_v.tile_start, b_v.tile_count, cfg)
+        same.append(bool(torch.equal(
+            image_from_tiles(out_v, b_v.tile_count, cfg), img_b[v])))
+        views.append((pf_v, b_v.tile_start, b_v.tile_count))
+    with torch.no_grad():
+        imgs, aux = gt.render_batch_from_params(
+            pool.params, batch["c2w"], batch["fx"], batch["fy"], batch["cx"],
+            batch["cy"], cfg, alive=pool.alive)
+        d_rb = max(float((imgs[v] - gt.render_from_params(
+            pool.params, batch["c2w"][v], batch["fx"][v], batch["fy"][v],
+            batch["cx"][v], batch["cy"][v], cfg, alive=pool.alive)[0])
+            .abs().max()) for v in range(B))
+    blocks = int(torch.where(tc > 0, out_k[:, 5, 0], 0.0).sum())
+    k1_ms = device_ms(lambda: composite_pairs(pf, ts, tc, bcfg), 20)
+    k1_views_ms = device_ms(lambda: [composite_pairs(*a, cfg) for a in views],
+                            20)
+    bound, by = bound_ms("full", blocks, bcfg,
+                         cull["total"] - cull["skipped"])
+    print(f"[{name}] batch image vs the {B} per-view K1 images on the same "
+          f"projections: bit-identical {same}; render_batch_from_params vs "
+          f"per-view render_from_params: max abs {d_rb:.3e} (tol 1e-5); "
+          f"batch pair demand {int(aux.num_pairs)} of {aux.pair_capacity}; "
+          f"K1 over the batch {k1_ms:.4f} ms (CUDA events, 20 launches; "
+          f"{blocks} composited blocks; bound {bound:.4f} ms by {by}) vs "
+          f"{B} per-view launches {k1_views_ms:.4f} ms", flush=True)
+    if not (all(same) and d_rb <= 1e-5
+            and int(aux.num_pairs) <= aux.pair_capacity):
+        raise SystemExit("FAIL: the batch disagrees with its views")
+    return err, bwd_err
+
+
+def levers_compact_phase(pool, c2w, fx, fy, cx, cy, cfg, batch, train_cfg,
+                         bargs, slot, card):
+    """Phase 12c: K2 in compact mode at the 1080p bench pose, on the inputs
+    the fwd+bwd of phase 7 handed K2 (``bargs``; ``slot`` the bench pose's
+    pair_slot; ``batch`` and ``train_cfg`` phase 8's): bwd_pairs sized
+    from the demand as fit() grows it, K2 compact against its plain
+    version (BWD_TOL, zeros past the kept blocks, two launches
+    bit-identical, the kept columns equal to K2's),
+    times beside K2's and the reduction's at both sizes; the gradients
+    sized against bwd_pairs = 0 bit for bit, at the bench pose and for the
+    training batch; overflow at half the demand reported and finite.
+    Returns a dict of the numbers the kernels line and phase 12d read."""
+    from gsplat_tpu_torch.ops import raster_cuda as rc
+    from gsplat_tpu_torch.ops.rasterize import (_reduce_pair_grads,
+                                                composited_pair_keys)
+
+    G = cfg.pair_block
+    nb = bargs[0].shape[1] // G
+    out, ts = bargs[3], bargs[1]
+    if not (slot.shape[0] == nb * G and torch.equal(ts, bargs[1])):
+        raise SystemExit("FAIL: the bench pose's binning changed")
+    demand = int(torch.where(bargs[2] > 0, out[:, 5, 0], 0.0).sum()) * G
+    bp = grown_bwd_pairs(demand)
+    kb = min(-(-bp // G), nb)
+    name = f"K2 compact, bench pose, bwd_pairs {bp}"
+    d_full = rc.composite_pairs_bwd(*bargs)
+    d_k = rc.composite_pairs_bwd(*bargs, kb=kb)
+    d_k2 = rc.composite_pairs_bwd(*bargs, kb=kb)
+    d_p = rc.composite_pairs_bwd_plain(*bargs, block_chunk=256, kb=kb)
+    off = rc.tile_block_offsets(out)
+    blk, _, _, valid = rc.composited_blocks(ts, off, kb, cfg)
+    kept = int(valid.sum())
+    cols = (blk[valid, None] * G + torch.arange(G, device=blk.device)
+            ).reshape(-1)
+    torch.cuda.synchronize()
+    rel = []
+    for r in range(FEAT_ROWS):
+        scale = float(d_p[r].abs().max())
+        e = float((d_k[r] - d_p[r]).abs().max())
+        rel.append(e / scale if scale > 0 else (0.0 if e == 0 else 1.0))
+    err = float((d_k - d_p).abs().max())
+    zeros = bool((d_k[:, kept * G:] == 0).all())
+    same = bool(torch.equal(d_k, d_k2))
+    as_k2 = bool(torch.equal(d_k[:, :kept * G], d_full[:, cols]))
+    print(f"[{name}] demand {demand} pair slots ({demand // G} blocks) of "
+          f"{nb * G}; kb {kb}, {kept} blocks kept; K2 compact vs plain: max "
+          f"abs {err:.3e}, max per-row relative {max(rel):.3e} (tol "
+          f"{BWD_TOL}); zeros past the kept blocks: {zeros}; two launches "
+          f"bit-identical: {same}; kept columns equal to K2's: {as_k2}",
+          flush=True)
+    if not (max(rel) <= BWD_TOL and zeros and same and as_k2
+            and kept == demand // G):
+        raise SystemExit("FAIL: K2 compact disagrees with its plain version")
+    k2_ms = device_ms(lambda: rc.composite_pairs_bwd(*bargs), 20)
+    k2c_ms = device_ms(lambda: rc.composite_pairs_bwd(*bargs, kb=kb), 20)
+    plain_ms = device_ms(lambda: rc.composite_pairs_bwd_plain(
+        *bargs, block_chunk=256, kb=kb), 2)
+    bound, by, bops, bbytes, _ = bwd_bound(bargs, cfg, OPS_BWD_PER_PAIR_PIXEL,
+                                           out_cols=kb * G)
+    n = pool.capacity
+
+    def reduce(k, d):
+        return lambda: _reduce_pair_grads(
+            composited_pair_keys(slot, ts, out, n, k, cfg), d, n)
+
+    red_full = device_ms(reduce(0, d_full), 5)
+    red_comp = device_ms(reduce(kb, d_k), 5)
+    del d_full, d_k, d_k2, d_p
+    print(f"[{card}] raster_bwd[compact] at the bench pose: {k2c_ms:.4f} ms "
+          f"(CUDA events, 20 launches) against raster_bwd {k2_ms:.4f} ms on "
+          f"the same inputs; plain {plain_ms:.3f} ms; bound {bound:.4f} ms "
+          f"by {by} ({bops:.3e} ops, {bbytes:.3e} bytes; share "
+          f"{bound / k2c_ms:.3f}); the reduction (keys, stable sort of "
+          f"{nb * G} / {kb * G} slots, segmented sum) {red_full:.3f} / "
+          f"{red_comp:.3f} ms (whole list / compact, CUDA events, median "
+          f"of 5)", flush=True)
+
+    # Gradients: sized against bwd_pairs = 0, bit for bit; half: reported.
+    fwdbwd = {}
+    for label, c in (("0", cfg), ("sized", cfg.with_(bwd_pairs=bp))):
+        param_grads(pool, c, c2w, fx, fy, cx, cy)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            aux, g = param_grads(pool, c, c2w, fx, fy, cx, cy)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        fwdbwd[label] = (aux, g, float(np.median(ms)))
+    g0, gs = fwdbwd["0"][1], fwdbwd["sized"][1]
+    bit = all(torch.equal(g0[k], gs[k]) for k in g0)
+    aux_h, g_h = param_grads(pool, cfg.with_(bwd_pairs=demand // 2), c2w, fx,
+                             fy, cx, cy)
+    reported = int(aux_h.bwd_demand) > aux_h.bwd_capacity
+    finite = all(bool(torch.isfinite(v).all()) for v in g_h.values())
+    # The training batch, batched, sized from its own demand.
+    args = (batch["c2w"], batch["fx"], batch["fy"], batch["cx"], batch["cy"])
+    aux_b0, gb0 = param_grads(pool, train_cfg, *args, batched=True)
+    bdemand = int(aux_b0.bwd_demand)
+    bbp = grown_bwd_pairs(bdemand)
+    aux_bs, gbs = param_grads(pool, train_cfg.with_(bwd_pairs=bbp), *args,
+                              batched=True)
+    bit_b = all(torch.equal(gb0[k], gbs[k]) for k in gb0)
+    print(f"[{card}] bench-pose fwd+bwd with bwd_pairs {bp} vs 0: gradients "
+          f"bit-identical {bit} (demand {int(fwdbwd['sized'][0].bwd_demand)} "
+          f"of capacity {fwdbwd['sized'][0].bwd_capacity}); host clock to "
+          f"synchronize, median of 5: {fwdbwd['sized'][2]:.3f} ms vs "
+          f"{fwdbwd['0'][2]:.3f} ms; at half the demand (bwd_pairs "
+          f"{demand // 2}): overflow reported {reported}, gradients finite "
+          f"{finite}; the training batch ({batch['c2w'].shape[0]} views "
+          f"batched, demand {bdemand}, bwd_pairs {bbp}, capacity "
+          f"{aux_bs.bwd_capacity}): gradients bit-identical to bwd_pairs 0: "
+          f"{bit_b}", flush=True)
+    if not (bit and reported and finite and bit_b
+            and int(fwdbwd["sized"][0].bwd_demand)
+            <= fwdbwd["sized"][0].bwd_capacity):
+        raise SystemExit("FAIL: the compacted backward's gradients")
+    return dict(err=err, ms=k2c_ms, plain_ms=plain_ms, bound=bound, by=by,
+                batch_bwd_pairs=bbp, k2_ms=k2_ms)
+
+
+def levers_train_phase(pool, batch, start, cfg, bwd_pairs, train_ms, card):
+    """Phase 12d: TRAIN_STEPS steps with batched_render, without and with
+    the compacted backward (bwd_pairs from phase 12c), each with the launch
+    counts set to 0 just before it: the loss falls, no step is skipped,
+    one K1 and one K2 launch per step (compact with bwd_pairs), no
+    overflow; step ms beside phase 8's per-view step, peak memory, and the
+    parts of the batched step. Returns the launches {counter: n}."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+
+    B = batch["c2w"].shape[0]
+    tcfg = gt.TrainConfig(capacity=pool.capacity, batch_size=B,
+                          densification_interval=10**9,
+                          opacity_reset_interval=10**9, batched_render=True)
+    counters = ("launches", "bwd_launches", "bwd_compact_launches")
+    total = dict.fromkeys(counters, 0)
+    for label, rcfg in (("batched", cfg),
+                        (f"batched, bwd_pairs {bwd_pairs}",
+                         cfg.with_(bwd_pairs=bwd_pairs))):
+        tpool = gt.pool_from_numpy(start, pool.alive.cpu().numpy(),
+                                   device=pool.pos.device)
+        state = gt.init_train_state(tpool, tcfg)
+        step = gt.make_train_step(rcfg, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            setattr(composite_pairs, c, 0)
+        ms, metrics = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+        n = {c: getattr(composite_pairs, c) for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(m["total"]) for m in metrics]
+        skipped = [int(m["nonfinite_skipped"]) for m in metrics]
+        over = [int(m["pair_demand"]) > int(m["pair_capacity"])
+                or int(m.get("bwd_demand", 0)) > int(m.get("bwd_capacity", 0))
+                for m in metrics]
+        med = float(np.median(ms[1:]))
+        compact = rcfg.bwd_pairs > 0
+        print(f"[{card}] train {TRAIN_STEPS} steps, {label}, batch {B} at "
+              f"{TRAIN_W}x{TRAIN_H}: losses " + ", ".join(
+                  f"{v:.6f}" for v in losses) + f"; skipped {skipped}; pair "
+              f"demand {[int(m['pair_demand']) for m in metrics]} of "
+              f"{metrics[0]['pair_capacity']}"
+              + (f"; bwd demand {[int(m['bwd_demand']) for m in metrics]} of "
+                 f"{metrics[0]['bwd_capacity']}" if compact else "")
+              + f"; launches {n}; step ms (host clock to synchronize) "
+              + ", ".join(f"{t:.3f}" for t in ms) + f"; median of steps 2-"
+              f"{TRAIN_STEPS} {med:.3f} ms against {train_ms:.3f} ms per "
+              f"view-by-view step (phase 8); peak device memory {peak:.2f} "
+              f"GiB", flush=True)
+        want = dict(launches=TRAIN_STEPS,
+                    bwd_launches=0 if compact else TRAIN_STEPS,
+                    bwd_compact_launches=TRAIN_STEPS if compact else 0)
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and skipped == [0] * TRAIN_STEPS and not any(over)
+                and n == want):
+            raise SystemExit(f"FAIL: batched training ({label})")
+        for c in counters:
+            total[c] += n[c]
+    parts = train_parts_ms(state, batch, rcfg, tcfg)
+    print(f"[{card}] batched step parts ({label}; CUDA events, median of 3): "
+          + ", ".join(f"{k.replace('4 views', f'{B} views batched')} "
+                      f"{v:.3f} ms" for k, v in parts.items()), flush=True)
+    return total
+
+
+def levers_fit_phase(pool, batch, start, cfg, card):
+    """Phase 12e: one fit() of FIT_ITERS iterations with batched_render,
+    the reference ADC of phase 8b (a) and bwd_pairs 1,024, far below the
+    batch's demand, with the launch counts set to 0 just before it: the
+    overflow is logged and grows bwd_pairs, the losses stay finite, no
+    step is skipped, one K1 and one compact K2 launch per iteration, and
+    the last step's demand fits. Returns the launches {counter: n}."""
+    import importlib
+    import tempfile
+
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+    from gsplat_tpu_torch.train import trainer
+
+    fit_mod = importlib.import_module("gsplat_tpu_torch.train.fit")
+    B = batch["c2w"].shape[0]
+    tcfg = gt.TrainConfig(iterations=FIT_ITERS, batch_size=B,
+                          capacity=pool.capacity, checkpoint_interval=10**9,
+                          densification_interval=4, densify_until_iter=12,
+                          opacity_reset_interval=8, batched_render=True)
+    rcfg = cfg.with_(bwd_pairs=1024)
+    rec = {"max_pairs": [], "ms": [], "demand": [], "adc": [], "steps": 0,
+           "snapshot_at": None}
+    lines = []
+
+    def log(msg):
+        lines.append(msg)
+        print(f"  [fit e] {msg}", flush=True)
+
+    def batches():
+        while True:
+            yield batch
+
+    counters = ("launches", "bwd_launches", "bwd_compact_launches")
+    tmp = tempfile.mkdtemp(prefix="gsplat_fit_")
+    try:
+        ckpt = os.path.join(tmp, "start.npz")
+        trainer.save_checkpoint(ckpt, gt.init_train_state(
+            gt.pool_from_numpy(start, pool.alive.cpu().numpy(),
+                               device=pool.pos.device), tcfg))
+        points = pool.pos.detach()[pool.alive].cpu().numpy()
+        real = _instrument_fit(fit_mod, rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            setattr(composite_pairs, c, 0)
+        try:
+            state, report = fit_mod.fit(
+                batches(), rcfg, tcfg, initial_points=points,
+                resume_from=ckpt, log_every=2, log_fn=log,
+                device=pool.pos.device)
+        finally:
+            _restore_fit(fit_mod, real)
+        n = {c: getattr(composite_pairs, c) for c in counters}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m = rec["last_metrics"]
+    grew = [x for x in lines if "growing bwd_pairs" in x]
+    losses = [v for _, v in report.losses]
+    print(f"[{card}] fit (e) batched, bwd_pairs from 1024: logged losses "
+          + ", ".join(f"{it}: {v:.6f}" for it, v in report.losses)
+          + f"; overflow events {report.overflow_events}; growth lines "
+          f"{len(grew)}; last step's bwd demand {int(m['bwd_demand'])} of "
+          f"{int(m['bwd_capacity'])}; launches {n}; step ms median "
+          f"{float(np.median(rec['ms'])):.3f} (" + ", ".join(
+              f"{t:.1f}" for t in rec["ms"]) + f"); peak device memory "
+          f"{peak:.2f} GiB; {report.num_gaussians} alive", flush=True)
+    if not (grew and all(np.isfinite(losses)) and report.nonfinite_steps == 0
+            and n == dict(launches=FIT_ITERS, bwd_launches=0,
+                          bwd_compact_launches=FIT_ITERS)
+            and int(m["bwd_demand"]) <= int(m["bwd_capacity"])):
+        raise SystemExit("FAIL: fit (e), batched with bwd_pairs growth")
+    return n
+
+
+def levers_serve_phase(pool, traj, fx, fy, cx, cy, cfg, served_first,
+                       serve_stats, card):
+    """Phase 12f: batched serving at 1080p, 4 poses per launch, with the K1
+    count set to 0 just before each run: make_batch_render_fn over phase
+    5's poses (bench pose + 8-frame orbit; the last batch padded), its
+    bench-pose frame against phase 5's served frame (within 1e-5), and
+    ``render_trained --render_batch 4`` over the 8-frame orbit. Frame ms
+    beside phase 5's. Returns the K1 launches."""
+    from gsplat_tpu_torch import render_trained
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+    from gsplat_tpu_torch.viewer import (make_batch_render_fn,
+                                         render_trajectory)
+
+    B = 4
+    fn = make_batch_render_fn(pool.params, cfg, fx, fy, cx, cy,
+                              alive=pool.alive, batch=B, report_demand=True)
+    d_first = float((fn(traj[:B])[0][0] - served_first).abs().max())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    composite_pairs.launches = 0
+    _, st = render_trajectory(fn, traj, batch_size=B, keep_frames=False,
+                              pair_capacity=B * cfg.max_pairs)
+    k1 = composite_pairs.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    argv = ["--checkpoint", CKPT, "--num_frames", "8", "--orbit_scale", "4.4",
+            "--render_batch", str(B), "--max_pairs", str(cfg.max_pairs),
+            "--benchmark_only"]
+    composite_pairs.launches = 0
+    cli = render_trained.main(argv)
+    k1_cli = composite_pairs.launches
+    print(f"[{card}] batched serving, {B} poses per launch over phase 5's "
+          f"{len(traj)} poses: per frame mean {st['mean_ms']:.3f} ms, median "
+          f"{st['median_ms']:.3f} ms (host clock to synchronize over a batch, "
+          f"/ {B}) against phase 5's per-pose mean "
+          f"{serve_stats['mean_ms']:.3f}, median "
+          f"{serve_stats['median_ms']:.3f}, pipelined "
+          f"{serve_stats['pipelined_ms']:.3f} ms; batch demands "
+          f"{st['frame_pairs']} of {B * cfg.max_pairs}, overflow batches "
+          f"{st['pair_overflow_frames']}; K1 launches {k1}; peak device "
+          f"memory {peak:.2f} GiB; bench-pose frame vs phase 5's: max abs "
+          f"{d_first:.3e}", flush=True)
+    print(f"[{card}] python -m gsplat_tpu_torch.render_trained "
+          + " ".join(argv) + f": per frame mean {cli['mean_ms']:.3f} ms, "
+          f"median {cli['median_ms']:.3f} ms, overflow batches "
+          f"{cli['pair_overflow_frames']}; K1 launches {k1_cli}", flush=True)
+    n_batches = -(-len(traj) // B)
+    if not (d_first <= 1e-5 and k1 == n_batches + 1
+            and st["pair_overflow_frames"] == 0 and k1_cli == 8 // B + 1
+            and cli["pair_overflow_frames"] == 0 and cli["frames"] == 8):
+        raise SystemExit("FAIL: batched serving")
+    return k1 + k1_cli
+
+
 def image_from_tiles(out, tile_count, cfg):
     """[num_tiles, 8, P] compositor output -> [H, W, 3] image, as
     rasterize_binned assembles it."""
@@ -1707,7 +2196,8 @@ def main():
     del gparams
 
     # --- 8. training through the port's entry points ---
-    train_k1, train_k2 = train_phase(pool, c2w, center, radius, card)
+    train_k1, train_k2, train_ms = train_phase(pool, c2w, center, radius,
+                                               card)
 
     # --- 8b. fit(): density control, checkpoints, growth ---
     fit_k1, fit_k2 = fit_phase(pool, c2w, center, radius, card)
@@ -1762,13 +2252,27 @@ def main():
     bucket_k1 = bucket_phase(pool, fx, fy, cx, cy, cfg, center, radius,
                              card)
 
-    # --- 12. result lines ---
+    # --- 12. the training levers ---
+    train_cfg, tbatch, tstart = train_views(pool, c2w, center, radius)
+    b_err, b_bwd_err = levers_batch_phase(pool, tbatch, train_cfg, card)
+    errs.append(b_err)
+    bwd_errs.append(b_bwd_err)
+    comp = levers_compact_phase(pool, c2w, fx, fy, cx, cy, cfg, tbatch,
+                                train_cfg, bargs, binning.pair_slot, card)
+    lever_n = levers_train_phase(pool, tbatch, tstart, train_cfg,
+                                 comp["batch_bwd_pairs"], train_ms, card)
+    fit_n = levers_fit_phase(pool, tbatch, tstart, train_cfg, card)
+    serve_k1 = levers_serve_phase(pool, traj, fx, fy, cx, cy, cfg,
+                                  served["first"], stats, card)
+
+    # --- 13. result lines ---
     kernels = [{
         "name": "raster_fwd",
         "route": "cuda",
         "source": "gsplat_tpu_torch/ops/csrc/raster_fwd.cu",
         "replaces": "gsplat_tpu/ops/raster_pallas.py:192",
-        "launches": launches + fit_k1 + trunc_k1 + bucket_k1,
+        "launches": launches + fit_k1 + trunc_k1 + bucket_k1
+        + lever_n["launches"] + fit_n["launches"] + serve_k1,
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1780,12 +2284,26 @@ def main():
         "route": "cuda",
         "source": "gsplat_tpu_torch/ops/csrc/raster_bwd.cu",
         "replaces": "gsplat_tpu/ops/raster_pallas.py:243",
-        "launches": train_k2 + fit_k2 + trunc_k2,
+        "launches": train_k2 + fit_k2 + trunc_k2 + lever_n["bwd_launches"],
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "raster_bwd[compact]",
+        "route": "cuda",
+        "source": "gsplat_tpu_torch/ops/csrc/raster_bwd.cu",
+        "replaces": "gsplat_tpu/ops/raster_pallas.py:243 (over the "
+                    "compacted block list of rasterize.py:331)",
+        "launches": lever_n["bwd_compact_launches"]
+        + fit_n["bwd_compact_launches"],
+        "max_abs_err": comp["err"],
+        "ms": comp["ms"],
+        "plain_ms": comp["plain_ms"],
+        "bound_ms": comp["bound"],
+        "bound_by": comp["by"],
         "library_ms": None,
     }] + log_entries
     kernels += [{

@@ -15,7 +15,8 @@ from .ops.binning import TileBinning, bin_gaussians
 from .ops.losses import compute_loss
 from .ops.projection import ProjectedGaussians, project_gaussians
 from .ops.rasterize import RenderAux, rasterize
-from .render import pair_demand, render, render_from_params
+from .render import (pair_demand, render, render_batch_from_params,
+                     render_from_params)
 from .train.fit import FitReport, fit
 from .train.trainer import (TrainState, init_train_state, load_checkpoint,
                             make_train_step, position_lr, restore_pool,
@@ -40,6 +41,7 @@ __all__ = [
     "pair_demand",
     "render",
     "render_from_params",
+    "render_batch_from_params",
     "restore_pool",
     "save_checkpoint",
     "load_checkpoint",

@@ -7,12 +7,13 @@ in the other.
 
 Options the port does not implement yet are accepted here (the fields
 must match) and raise ``NotImplementedError`` where they are used:
-``cull_mode="ellipse"`` (with or without ``tile_rank_cap``),
-``bwd_pairs > 0``, ``view_tile_rows > 0`` and ``backend="xla"``; in
-``TrainConfig``, ``batched_render=True`` (``make_train_step`` raises). On
-the card the compositor kernels take ``tile=16`` only (``ValueError``).
-``tile_rank_cap`` (with ``occlusion_cull``, ``cull_chunks`` and
-``trunc_pairs``) and ``transmittance_math="log"`` are ported.
+``cull_mode="ellipse"`` (with or without ``tile_rank_cap``) and
+``backend="xla"``. On the card the compositor kernels take ``tile=16``
+only (``ValueError``). ``tile_rank_cap`` (with ``occlusion_cull``,
+``cull_chunks`` and ``trunc_pairs``), ``transmittance_math="log"``,
+``bwd_pairs > 0`` (the compacted backward), ``view_tile_rows > 0`` (batched
+views, set by ``render.stack_view_projections``) and, in ``TrainConfig``,
+``batched_render=True`` are ported.
 """
 
 from __future__ import annotations
@@ -121,6 +122,13 @@ class RenderConfig:
     @property
     def num_trunc_blocks(self) -> int:
         return self.trunc_padded_pairs // self.pair_block
+
+    @property
+    def bwd_capacity(self) -> int:
+        """Pair slots the compacted backward keeps (0 = off): ``bwd_pairs``
+        rounded up to whole blocks, as the JAX package reports it
+        (``RenderAux.bwd_capacity``)."""
+        return cdiv(self.bwd_pairs, self.pair_block) * self.pair_block
 
     @property
     def tiles_x(self) -> int:

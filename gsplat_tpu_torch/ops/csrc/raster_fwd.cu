@@ -101,6 +101,14 @@
 // Tiles stay unbalanced (a CTA's time grows with its tile's active depth);
 // the tile order only starts the deepest first.
 //
+// Batched views (rows_mod > 0, RenderConfig.view_tile_rows). The views'
+// tile rows are stacked, view v at rows [v * rows_mod, (v + 1) * rows_mod),
+// and their uv stay view-local, so a tile's pixel row is its tile row
+// modulo rows_mod (integers, as the TPU kernel's _pixel_grid wraps it).
+// That row gives both the pixel centres and the warp patch the cull tests,
+// so the cull stays exact and each view's tiles composite as the view alone
+// would. rows_mod = 0 leaves the row as it is.
+//
 // The pair list's end. A tile walks cdiv(tile_count, G) blocks from
 // tile_start and stops at the first block that does not lie wholly inside
 // the n_pairs of the list: a rank-truncated list whose capacity overflowed
@@ -191,15 +199,16 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
     const int* __restrict__ order, float* __restrict__ out,
     float* __restrict__ state, unsigned long long* __restrict__ skipped,
-    int tiles_x, int G, float chi2_clip, float alpha_max,
+    int tiles_x, int rows_mod, int G, float chi2_clip, float alpha_max,
     float alpha_cutoff, float t_min, CullMargins cm) {
   __shared__ float4 sm[kSlots * kMaxG];
 
   const int tile = order[blockIdx.x];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const int trow = rows_mod > 0 ? (tile / tiles_x) % rows_mod : tile / tiles_x;
   const int tx = (tile % tiles_x) * kTile + (warp % 2) * kWarpW;
-  const int ty = (tile / tiles_x) * kTile + (warp / 2) * kWarpH;
+  const int ty = trow * kTile + (warp / 2) * kWarpH;
   const int p = ((warp / 2) * kWarpH + lane / kWarpW) * kTile +
                 (warp % 2) * kWarpW + lane % kWarpW;
   const float px = (float)(tx + lane % kWarpW);
@@ -325,17 +334,20 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
 // ints. `state` may be null (nothing written); `skipped` may be null
 // (nothing counted), else the kernel adds the (pair, warp) it skipped to
 // *skipped. log_t selects the transmittance: 1 "log", 0 "cumprod".
+// rows_mod: the tile rows of one view for batched views, else 0 (see the
+// header).
 // margin_rel, margin_eps, margin_abs and kappa_min are the cull's (see the
 // header).
 extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
                           const void* tile_start, const void* tile_count,
                           void* order, void* out, void* state, void* skipped,
-                          int log_t, int num_tiles, int tiles_x, int G,
+                          int log_t, int num_tiles, int tiles_x,
+                          int rows_mod, int G,
                           float chi2_clip,
                           float alpha_max, float alpha_cutoff, float t_min,
                           float margin_rel, float margin_eps,
                           float margin_abs, float kappa_min, void* stream) {
-  if (G <= 0 || G > kMaxG || G % 32 != 0 || num_tiles < 0) {
+  if (G <= 0 || G > kMaxG || G % 32 != 0 || num_tiles < 0 || rows_mod < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (num_tiles == 0) return 0;
@@ -349,7 +361,8 @@ extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
   kernel<<<num_tiles, kPixels, 0, s>>>(
       (const float*)feat, n_pairs, stride, (const int*)tile_start,
       (const int*)tile_count, (const int*)order, (float*)out, (float*)state,
-      (unsigned long long*)skipped, tiles_x, G, chi2_clip, alpha_max,
+      (unsigned long long*)skipped, tiles_x, rows_mod, G, chi2_clip,
+      alpha_max,
       alpha_cutoff, t_min, cm);
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,20 @@ reads the cotangent of rows 0-4 only. It needs binning's layout: each
 tile's run starts at a multiple of ``pair_block``, and ``tile_start`` is
 nondecreasing.
 
+``cfg.view_tile_rows`` > 0 (batched views, ``render.stack_view_projections``:
+the views' tile rows stacked, uv view-local) wraps every tile row to
+``row % view_tile_rows`` before it becomes a pixel row
+(``raster_pallas.py::_pixel_grid``, ``rows_mod``), in exact integers, in
+the kernels, their plain versions and the cull's plain test alike.
+
+The backward has a compact mode (``kb`` > 0, ``cfg.bwd_pairs``: the JAX
+package's ``_cg_bwd``, ``gsplat_tpu/ops/rasterize.py:331-373``): it writes
+the gradient of the i-th composited block, in the order of
+:func:`tile_block_offsets` (ascending block index), to columns ``[i*G,
+(i+1)*G)`` of a ``[10, kb*G]`` output, for the first ``min(n, kb)`` of the
+``n`` composited blocks; the blocks past ``kb`` (trailing tiles') are
+dropped and the unused columns are zero.
+
 Feature-major pair features ``[>= 10, padded_pairs]`` f32, rows
 0:u 1:v 2:conic_a 3:conic_b 4:conic_c 5:opacity 6:r 7:g 8:b 9:depth
 (the JAX layout's rows 10-15 are zero padding that nothing reads).
@@ -97,9 +111,17 @@ def _check_cfg(cfg: RenderConfig):
     if cfg.transmittance_math not in ("cumprod", "log"):
         raise ValueError(
             f"unknown transmittance_math {cfg.transmittance_math!r}")
-    if cfg.view_tile_rows:
-        raise NotImplementedError(
-            "view_tile_rows > 0 (batched views) is not ported yet")
+    if cfg.view_tile_rows < 0:
+        raise ValueError(f"view_tile_rows must be >= 0, got "
+                         f"{cfg.view_tile_rows}")
+
+
+def tile_rows(tiles, cfg: RenderConfig):
+    """The pixel-grid tile row of each tile in ``tiles``: ``tile //
+    tiles_x``, wrapped to ``% view_tile_rows`` for batched views (exact
+    integers, as ``raster_pallas.py::_pixel_grid`` wraps them)."""
+    ty = tiles // cfg.tiles_x
+    return ty % cfg.view_tile_rows if cfg.view_tile_rows else ty
 
 
 def _block_alpha(f, px, py, cfg: RenderConfig):
@@ -128,7 +150,8 @@ def _block_alpha(f, px, py, cfg: RenderConfig):
 def warp_pixels(cfg: RenderConfig, device=None):
     """[8, 32] int64: the pixel ``p = py*tile + px`` of lane l of warp w in
     K1, whose warp w takes the 8x4 patch at column (w % 2)*8, row
-    (w // 2)*4 of its tile, lane l at (l % 8, l // 8) within it."""
+    (w // 2)*4 of its tile, lane l at (l % 8, l // 8) within it. Local to
+    the tile, so ``view_tile_rows`` does not enter."""
     w = torch.arange(KERNEL_WARPS, device=device)[:, None]
     lane = torch.arange(32, device=device)[None, :]
     x = (w % 2) * WARP_W + lane % WARP_W
@@ -195,7 +218,7 @@ def pair_warp_reach(f, tiles, cfg: RenderConfig):
     u, v, a, b, c = (f[r][..., None] for r in range(5))
     w = torch.arange(KERNEL_WARPS, device=f.device)
     tx = ((tiles % cfg.tiles_x) * cfg.tile)[:, None]
-    ty = ((tiles // cfg.tiles_x) * cfg.tile)[:, None]
+    ty = (tile_rows(tiles, cfg) * cfg.tile)[:, None]
     x0 = (tx + (w % 2) * WARP_W).to(f.dtype)[:, None, :]  # [m, 1, 8]
     x1 = (tx + (w % 2) * WARP_W + WARP_W - 1).to(f.dtype)[:, None, :]
     y0 = (ty + (w // 2) * WARP_H).to(f.dtype)[:, None, :]
@@ -241,7 +264,7 @@ def _tile_pixels(tiles, cfg: RenderConfig):
     t = cfg.tile
     lane = torch.arange(t * t, device=tiles.device)
     px = ((tiles % cfg.tiles_x) * t)[:, None] + lane % t
-    py = ((tiles // cfg.tiles_x) * t)[:, None] + lane // t
+    py = (tile_rows(tiles, cfg) * t)[:, None] + lane // t
     return px.to(torch.float32), py.to(torch.float32)
 
 
@@ -352,23 +375,36 @@ def tile_block_offsets(fwd_out):
     return off
 
 
+def composited_blocks(tile_start, tile_off, n: int, cfg: RenderConfig):
+    """The first ``n`` entries of the composited-block list of
+    :func:`tile_block_offsets`, in list order (ascending block index), on
+    the device with no host sync: ``(block, tile, rank, valid)``, each
+    ``[n]``, where ``block`` indexes the pair list's blocks (0 where not
+    ``valid``), ``rank`` is the block's place in its tile and ``valid`` is
+    True for the entries that exist (``i < off[-1]``). Entry i is the block
+    the backward kernel's item i runs (the kernel finds its tile by a
+    binary search in ``tile_off``)."""
+    item = torch.arange(n, device=tile_off.device)
+    off = tile_off.long()
+    valid = item < off[-1]
+    tile = torch.clamp(torch.searchsorted(off, item, right=True) - 1, 0,
+                       tile_start.shape[0] - 1)
+    rank = item - off[tile]
+    block = tile_start.long()[tile] // cfg.pair_block + rank
+    return torch.where(valid, block, 0), tile, rank, valid
+
+
 def active_blocks(tile_start, tile_off, cfg: RenderConfig):
-    """The composited blocks listed by :func:`tile_block_offsets`, in list
-    order: ``(block, tile, rank)``, each ``[off[-1]]`` int64, where
-    ``block`` indexes the pair list's blocks and ``rank`` is the block's
-    place in its tile (the kernel finds the tile by a binary search in
-    ``tile_off``). Reads the list's length on the host."""
-    dev = tile_off.device
-    n = int(tile_off[-1])
-    item = torch.arange(n, device=dev)
-    tile = torch.searchsorted(tile_off.long(), item, right=True) - 1
-    rank = item - tile_off.long()[tile]
-    return tile_start.long()[tile] // cfg.pair_block + rank, tile, rank
+    """Every composited block (:func:`composited_blocks`): ``(block, tile,
+    rank)``, each ``[off[-1]]`` int64. Reads the list's length on the
+    host."""
+    return composited_blocks(tile_start, tile_off, int(tile_off[-1]),
+                             cfg)[:3]
 
 
 def composite_pairs_bwd_plain(pair_feat, tile_start, tile_count, fwd_out,
                               state, gout, cfg: RenderConfig,
-                              block_chunk: int = 0):
+                              block_chunk: int = 0, kb: int = 0):
     """Plain PyTorch backward with the kernel's semantics (any device).
 
     The VJP of :func:`composite_pairs_plain` as ``_bwd_kernel`` computes it
@@ -394,7 +430,8 @@ def composite_pairs_bwd_plain(pair_feat, tile_start, tile_count, fwd_out,
     pixels, then across the warp by shuffles, then over warps), by fused
     multiply-adds in the ten partials and by the division's fast path.
     Returns ``[10, padded_pairs]`` f32, exact zeros outside the composited
-    blocks. Reads rows 0-4 of ``gout``; ``tile_count`` is not read (the
+    blocks; with ``kb`` > 0 the compact layout (module docstring), ``[10,
+    kb*G]``. Reads rows 0-4 of ``gout``; ``tile_count`` is not read (the
     forward's row 5 names the blocks). ``block_chunk`` > 0 bounds memory
     to that many blocks at a time.
     """
@@ -402,9 +439,15 @@ def composite_pairs_bwd_plain(pair_feat, tile_start, tile_count, fwd_out,
     dev = pair_feat.device
     G = cfg.pair_block
     f32 = torch.float32
-    dfeat = torch.zeros(FEAT_ROWS, pair_feat.shape[1], dtype=f32, device=dev)
     blocks, tile, _ = active_blocks(tile_start, tile_block_offsets(fwd_out),
                                     cfg)
+    if kb > 0:  # item i at columns i*G: the first kb composited blocks
+        blocks, tile = blocks[:kb], tile[:kb]
+        dest = torch.arange(blocks.shape[0], device=dev)
+    else:
+        dest = blocks
+    dfeat = torch.zeros(FEAT_ROWS, kb * G if kb > 0 else pair_feat.shape[1],
+                        dtype=f32, device=dev)
     cols = torch.arange(G, device=dev)
     one_minus_max = 1.0 - cfg.alpha_max  # the kernel gets this same float
     chunk = block_chunk if block_chunk > 0 else max(blocks.shape[0], 1)
@@ -419,6 +462,7 @@ def composite_pairs_bwd_plain(pair_feat, tile_start, tile_count, fwd_out,
         gTT = gout[tiles, 4] * fo[:, 4]
         st = state[blk]  # [m, 5, P]
         pcol = blk[:, None] * G + cols  # [m, G]
+        dcol = dest[c0:c0 + chunk, None] * G + cols
         f = pair_feat[:FEAT_ROWS, pcol]  # [10, m, G]
         alpha, du, dv, g, a_raw, a = _block_alpha(f, px, py, cfg)
         T_excl = _block_transmittance(alpha, st[:, 4], cfg)[0]
@@ -446,7 +490,7 @@ def composite_pairs_bwd_plain(pair_feat, tile_start, tile_count, fwd_out,
             torch.sum(dq * dv * dv, dim=2),
             torch.sum(ga * g, dim=2),
         ] + [torch.sum(gc[ch] * w, dim=2) for ch in range(4)]
-        dfeat[:, pcol] = torch.stack(rows)
+        dfeat[:, dcol] = torch.stack(rows)
     return dfeat
 
 
@@ -483,15 +527,17 @@ def _composite_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
 
 
 def composite_pairs_bwd(pair_feat, tile_start, tile_count, fwd_out, state,
-                        gout, cfg: RenderConfig):
+                        gout, cfg: RenderConfig, kb: int = 0):
     """d pair_feat rows 0-9, ``[10, padded_pairs]`` f32, for the cotangent
     ``gout`` ``[num_tiles, 8, tile*tile]`` (rows 0-4 read) of the forward
     output ``fwd_out``, from the forward's block-start ``state``
     ``[padded_pairs / pair_block, 5, tile*tile]`` (required: nothing
-    rebuilds it). CPU tensors take :func:`composite_pairs_bwd_plain`; CUDA
-    tensors launch the backward kernel, counted in
+    rebuilds it); with ``kb`` > 0, the compact layout ``[10, kb*G]``
+    (module docstring). CPU tensors take :func:`composite_pairs_bwd_plain`;
+    CUDA tensors launch the backward kernel, counted in
     ``composite_pairs.bwd_launches`` (``bwd_log_launches`` for
-    ``transmittance_math="log"``), or raise."""
+    ``transmittance_math="log"``; ``bwd_compact_launches`` in compact
+    mode, either transmittance), or raise."""
     _check_inputs(pair_feat, tile_start, tile_count, cfg)
     P = cfg.tile * cfg.tile
     shape = (cfg.num_tiles, 8, P)
@@ -508,11 +554,13 @@ def composite_pairs_bwd(pair_feat, tile_start, tile_count, fwd_out, state,
         if a.device != pair_feat.device:
             raise ValueError(f"{name} is on {a.device}, pair_feat on "
                              f"{pair_feat.device}")
+    if kb < 0:
+        raise ValueError(f"kb must be >= 0, got {kb}")
     if pair_feat.device.type == "cpu":
         return composite_pairs_bwd_plain(pair_feat, tile_start, tile_count,
-                                         fwd_out, state, gout, cfg)
+                                         fwd_out, state, gout, cfg, kb=kb)
     return _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state,
-                       gout, cfg)
+                       gout, cfg, kb)
 
 
 class _CompositePairs(torch.autograd.Function):
@@ -577,6 +625,7 @@ composite_pairs.launches = 0  # forward kernel (K1) launches, "cumprod"
 composite_pairs.bwd_launches = 0  # backward kernel (K2) launches, "cumprod"
 composite_pairs.log_launches = 0  # K1 launches, transmittance_math="log"
 composite_pairs.bwd_log_launches = 0  # K2 launches, "log"
+composite_pairs.bwd_compact_launches = 0  # K2 launches in compact mode
 composite_pairs.bwd_ctas = 0  # CTAs of the last K2 launch (persistent grid)
 
 
@@ -627,7 +676,7 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
             out.data_ptr(), None if state is None else state.data_ptr(),
             None if skipped is None else skipped.data_ptr(),
             int(cfg.transmittance_math == "log"),
-            cfg.num_tiles, cfg.tiles_x, cfg.pair_block,
+            cfg.num_tiles, cfg.tiles_x, cfg.view_tile_rows, cfg.pair_block,
             ctypes.c_float(cfg.chi2_clip), ctypes.c_float(cfg.alpha_max),
             ctypes.c_float(cfg.alpha_cutoff),
             ctypes.c_float(cfg.transmittance_min),
@@ -661,7 +710,7 @@ def fwd_ctas_per_sm(device, log: bool = False) -> int:
 
 
 def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,
-                cfg: RenderConfig):
+                cfg: RenderConfig, kb: int = 0):
     _check_kernel_args(cfg, pair_feat=pair_feat, tile_start=tile_start,
                        tile_count=tile_count, fwd_out=fwd_out, state=state,
                        gout=gout)
@@ -670,9 +719,10 @@ def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,
     lib = load_library("raster_bwd")
     n_pairs = pair_feat.shape[1]
     tile_off = tile_block_offsets(fwd_out)
-    # Zero-filled: the kernel writes only the composited blocks.
-    dfeat = torch.zeros(FEAT_ROWS, n_pairs, dtype=torch.float32,
-                        device=pair_feat.device)
+    # Zero-filled: the kernel writes only the composited blocks (in compact
+    # mode, the first min(n, kb) blocks of columns).
+    dfeat = torch.zeros(FEAT_ROWS, kb * cfg.pair_block if kb else n_pairs,
+                        dtype=torch.float32, device=pair_feat.device)
     ctas = ctypes.c_int(0)
     with torch.cuda.device(pair_feat.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -682,7 +732,8 @@ def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,
             cfg.num_tiles, fwd_out.data_ptr(), gout.data_ptr(),
             state.data_ptr(), dfeat.data_ptr(), dfeat.stride(0),
             int(cfg.transmittance_math == "log"), cfg.tiles_x,
-            cfg.pair_block, ctypes.c_float(cfg.chi2_clip),
+            cfg.view_tile_rows, kb, cfg.pair_block,
+            ctypes.c_float(cfg.chi2_clip),
             ctypes.c_float(cfg.alpha_max), ctypes.c_float(cfg.alpha_cutoff),
             ctypes.c_float(1.0 - cfg.alpha_max),
             ctypes.c_float(cfg.transmittance_min), ctypes.byref(ctas),
@@ -690,7 +741,9 @@ def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,
         )
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
-    if cfg.transmittance_math == "log":
+    if kb:
+        composite_pairs.bwd_compact_launches += 1
+    elif cfg.transmittance_math == "log":
         composite_pairs.bwd_log_launches += 1
     else:
         composite_pairs.bwd_launches += 1

@@ -1,10 +1,12 @@
 """Public rendering entry points.
 
 Counterpart of ``gsplat_tpu/render.py``: ``render`` with the reference
-signature (``:25-75``), ``pair_demand`` (``:78-107``) and
-``render_from_params`` (``:110-136``, with its ``uv_tap``). Batched views come in a later
-slice. Inputs are tensors on one device; the compositor runs the CUDA
-kernel for CUDA tensors and its plain version for CPU tensors.
+signature (``:25-75``), ``pair_demand`` (``:78-107``),
+``render_from_params`` (``:110-136``, with its ``uv_tap``),
+``stack_view_projections`` (``:139-177``) and ``render_batch_from_params``
+(``:180-268``: B views through one binning and one compositor launch).
+Inputs are tensors on one device; the compositor runs the CUDA kernel for
+CUDA tensors and its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 from .config import RenderConfig
 from .ops.binning import bin_gaussians
 from .ops.gaussian import build_cov3d_packed, pack_cov3d
-from .ops.projection import project_gaussians
+from .ops.projection import ProjectedGaussians, project_gaussians
 from .ops.rasterize import rasterize
 from .ops.sh import evaluate_sh
 
@@ -110,3 +112,97 @@ def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
         extra_valid=alive, uv_tap=uv_tap,
     )
     return rasterize(proj, colors, cfg)
+
+
+def stack_view_projections(proj_b: ProjectedGaussians, cfg: RenderConfig):
+    """Stack per-view projections (fields ``[B, N, ...]``) into one scene.
+
+    View v takes the tile rows ``[v * tiles_y, (v + 1) * tiles_y)``: its
+    ``tile_min`` and ``tile_max`` rows are offset by ``v * tiles_y`` (an
+    invalid slot keeps ``tmax = tmin - 1``), and ``uv`` stays view-local;
+    the compositor wraps tile rows back to view-local pixel rows through
+    the returned config's ``view_tile_rows`` (exact integers). Returns
+    (the ``[B*N]`` projections, the config with ``height = B *
+    padded_height``, ``max_pairs``, ``max_rows`` and ``bwd_pairs`` times B
+    (capacities shared by the batch) and ``view_tile_rows = tiles_y``).
+    """
+    B, n = proj_b.uv.shape[:2]
+    voff = torch.arange(B, dtype=proj_b.tile_min.dtype,
+                        device=proj_b.uv.device) * cfg.tiles_y
+    tile_off = torch.stack([torch.zeros_like(voff), voff], dim=-1)[:, None]
+    stacked = ProjectedGaussians(
+        uv=proj_b.uv.reshape(B * n, 2),
+        depth=proj_b.depth.reshape(B * n),
+        conic=proj_b.conic.reshape(B * n, 3),
+        opacity=proj_b.opacity.reshape(B * n),
+        radius=proj_b.radius.reshape(B * n),
+        tile_min=(proj_b.tile_min + tile_off).reshape(B * n, 2),
+        tile_max=(proj_b.tile_max + tile_off).reshape(B * n, 2),
+        valid=proj_b.valid.reshape(B * n),
+    )
+    bcfg = cfg.with_(
+        height=B * cfg.padded_height,
+        max_pairs=B * cfg.max_pairs,
+        max_rows=B * cfg.max_rows,
+        bwd_pairs=B * cfg.bwd_pairs,
+        view_tile_rows=cfg.tiles_y,
+    )
+    return stacked, bcfg
+
+
+def _per_view(x, B: int, like: torch.Tensor) -> torch.Tensor:
+    """[B] f32 on ``like``'s device from a scalar or B values."""
+    t = torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    return torch.broadcast_to(t, (B,))
+
+
+def render_batch_from_params(params: dict, c2w, fx, fy, cx, cy,
+                             cfg: RenderConfig,
+                             alive: torch.Tensor | None = None,
+                             uv_taps: torch.Tensor | None = None):
+    """Render B views in one binning and one compositor launch.
+
+    The views' colours and projections are computed view by view (the JAX
+    package's ``vmap``), stacked by :func:`stack_view_projections` into
+    one image of ``B * padded_height`` rows, and rasterized once. Tiles
+    never span views and the binning's depth sort is stable, so each view
+    keeps its order inside the ``B*N`` pool and composites as it would
+    alone: fed the same per-view projections, the batch gives each view's
+    image bit for bit. Pair-capacity overflow drops the farthest pairs of
+    the whole batch (``aux.num_pairs`` against ``B * max_pairs``).
+
+    Args:
+        c2w: [B, 4, 4] camera-to-world per view.
+        fx, fy, cx, cy: scalars or [B] per-view intrinsics.
+        alive: optional [N] bool pool mask, shared by the views.
+        uv_taps: optional [B, N, 2] zeros; the gradient w.r.t. it gives each
+            view's view-space positional gradient (paper-ADC statistic).
+
+    Returns:
+        (images [B, H, W, 3], RenderAux) with depth and alpha [B, H, W] and
+        ``screen_radius`` [B, N]; the counts and capacities are the
+        batch's.
+    """
+    pos = params["pos"]
+    c2w = _c2w(c2w, pos)
+    B = c2w.shape[0]
+    n = pos.shape[0]
+    fx, fy, cx, cy = (_per_view(a, B, pos) for a in (fx, fy, cx, cy))
+    cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
+    colors, projs = [], []
+    for v in range(B):
+        colors.append(evaluate_sh(params["f_dc"], params["f_rest"], pos,
+                                  c2w[v]))
+        projs.append(project_gaussians(
+            pos, cov3d, params["opacity_raw"], c2w[v], fx[v], fy[v], cx[v],
+            cy[v], cfg, extra_valid=alive,
+            uv_tap=None if uv_taps is None else uv_taps[v]))
+    proj_b = ProjectedGaussians(*(torch.stack(f) for f in zip(*projs)))
+    stacked, bcfg = stack_view_projections(proj_b, cfg)
+    img, aux = rasterize(stacked, torch.cat(colors), bcfg)
+    H, Hp, W = cfg.height, cfg.padded_height, cfg.width
+    return img.reshape(B, Hp, W, 3)[:, :H], aux._replace(
+        depth=aux.depth.reshape(B, Hp, W)[:, :H],
+        alpha=aux.alpha.reshape(B, Hp, W)[:, :H],
+        screen_radius=proj_b.radius,
+    )

@@ -1,8 +1,10 @@
 """Serve a trained scene: orbit render with per-frame timing and demand.
 
 Counterpart of ``scripts/render_trained.py:78-409``, restricted to what
-the port supports (single-view rendering, rect binning, the default camera
-without a dataset), with the serving levers: per-tile rank truncation
+the port supports (one device, rect binning, the default camera without a
+dataset), with batched poses (``--render_batch``: B poses through one
+binning and one compositor launch) and the serving levers: per-tile rank
+truncation
 (``--tile_rank_cap``, with the pre-sort occlusion cull in
 ``--cull_chunks`` depth chunks), demand-sized capacities
 (``--auto_pairs``), per-frame capacity bucketing (``--bucket_pairs``),
@@ -83,6 +85,9 @@ def main(argv=None):
                    choices=("none", "dilate", "mip"),
                    help="screen-space antialiasing: 'dilate' adds the 0.3 px "
                         "low-pass, 'mip' also compensates opacity")
+    p.add_argument("--render_batch", type=int, default=1,
+                   help="poses rendered per launch via the shared-binning "
+                        "batched path (1 = per-pose rendering)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
@@ -93,6 +98,7 @@ def main(argv=None):
     from .viewer import (
         create_orbit_trajectory,
         estimate_scene_center_radius,
+        make_batch_render_fn,
         make_bucketed_render_fn,
         make_render_fn,
         render_trajectory,
@@ -158,7 +164,17 @@ def main(argv=None):
               + f" -> capacities {kw}")
         cfg = cfg.with_(**kw)
 
-    if args.bucket_pairs:
+    pair_capacity = cfg.max_pairs
+    batch_size = 1
+    if args.render_batch > 1:
+        # The batch shares one pair list of render_batch x max_pairs.
+        orbit_fn = make_batch_render_fn(
+            pool.params, cfg, fx, fy, cx, cy, alive=pool.alive,
+            batch=args.render_batch, report_demand=True,
+        )
+        batch_size = args.render_batch
+        pair_capacity = args.render_batch * cfg.max_pairs
+    elif args.bucket_pairs:
         orbit_fn = make_bucketed_render_fn(
             pool.params, cfg, fx, fy, cx, cy, alive=pool.alive,
             trajectory=traj, num_buckets=args.bucket_pairs,
@@ -170,8 +186,8 @@ def main(argv=None):
             report_demand=True,
         )
     frames, stats = render_trajectory(
-        orbit_fn, traj, keep_frames=not args.benchmark_only,
-        pair_capacity=cfg.max_pairs,
+        orbit_fn, traj, batch_size=batch_size,
+        keep_frames=not args.benchmark_only, pair_capacity=pair_capacity,
     )
     print(
         f"FPS: {stats['fps']:.2f}  (mean {stats['mean_ms']:.2f} ms, "
@@ -191,7 +207,7 @@ def main(argv=None):
             f"pair capacity — the farthest splats were dropped; raise "
             f"--max_pairs or use --auto_pairs"
         )
-    if args.bucket_pairs:
+    if args.bucket_pairs and batch_size == 1:
         stats.update(rungs=orbit_fn.rungs, rung_of_frame=orbit_fn.assign,
                      rung_cfgs=orbit_fn.cfgs,
                      frame_demand=[d[0] for d in orbit_fn.demands],

@@ -12,8 +12,9 @@ Counterpart of ``gsplat_tpu/train/fit.py`` (``FitReport`` :42, ``fit``
   gradient norms, visibility counts and the largest screen radius;
 * checkpoints hold the optimizer state, in the JAX package's ``.npz``
   layout;
-* ``max_pairs``, the pool capacity and, with ``tile_rank_cap``, the
-  truncated list's ``trunc_pairs`` grow from the observed demand.
+* ``max_pairs``, the pool capacity, with ``tile_rank_cap`` the truncated
+  list's ``trunc_pairs`` and with ``bwd_pairs`` the compacted backward's
+  capacity grow from the observed demand.
 
 The host waits for the device where the JAX ``fit()`` does: at ``log_every``
 boundaries (loss, alive count, pair demand) and on each densification
@@ -109,16 +110,18 @@ def fit(
     ``tile_rank_cap``, a truncated-list overflow (``trunc_demand`` above
     ``trunc_capacity``; whole trailing blocks dropped, reported) grows
     ``RenderConfig.trunc_pairs`` to 1.25x the demand, rounded up to 1,024.
-    The JAX ``fit()``'s ``auto_capacity=False``, which only logs the
-    overflow, is not ported.
+    With ``bwd_pairs``, a compacted-backward overflow (``bwd_demand``
+    above ``bwd_capacity``; the trailing tiles' gradients dropped, reported)
+    grows ``RenderConfig.bwd_pairs`` the same way. With ``batched_render``
+    these demands are the batch's. The JAX ``fit()``'s
+    ``auto_capacity=False``, which only logs the overflow, is not ported.
 
     Not ported, and raising ``NotImplementedError``: ``mesh`` and
     ``gauss_sharded`` (multi-device training). The JAX ``fit()``'s device
     image cache (``device_cache_bytes``) belongs to its dataset and is not
-    an argument here. The row, compacted-backward and ring capacities that
-    the JAX ``fit()`` also grows belong to render modes the port raises on
-    (``ops/binning.py``, ``ops/rasterize.py``), so their branches are left
-    out.
+    an argument here. The row and ring capacities that the JAX ``fit()``
+    also grows belong to modes the port raises on (``ops/binning.py``,
+    ``mesh``), so their branches are left out.
     """
     if mesh is not None or gauss_sharded:
         raise NotImplementedError(
@@ -253,6 +256,20 @@ def fit(
                         f"trunc_pairs -> {new_tp} (recompile)"
                     )
                     render_cfg = render_cfg.with_(trunc_pairs=new_tp)
+                    step_fn = make_train_step(render_cfg, train_cfg)
+            # The compacted backward too (overflow loses gradient blocks).
+            if "bwd_demand" in metrics:
+                bdemand = int(metrics["bwd_demand"])
+                bcap = int(metrics["bwd_capacity"])
+                if bdemand > bcap:
+                    report.overflow_events += 1
+                    new_bp = -(-int(bdemand * 1.25) // 1024) * 1024
+                    log_fn(
+                        f"iter {it}: backward-compaction overflow "
+                        f"(demand {bdemand}, capacity {bcap}) — growing "
+                        f"bwd_pairs -> {new_bp} (recompile)"
+                    )
+                    render_cfg = render_cfg.with_(bwd_pairs=new_bp)
                     step_fn = make_train_step(render_cfg, train_cfg)
             log_fn(
                 f"iter {it:6d}  loss {loss:.5f}  l1 {float(metrics['l1']):.5f}"

@@ -16,7 +16,10 @@ form (the orbax pair waits for the multi-device slice):
   parameters, the Adam moments and the Adam step counts on the device,
   with no host sync, and the step reports ``nonfinite_skipped``;
 * the views of a batch are rendered one after the other (``lax.scan``
-  becomes a Python loop); the loss is the mean of the per-view losses;
+  becomes a Python loop) and the loss is the mean of the per-view losses,
+  or, with ``batched_render``, all at once through one binning and one
+  compositor launch (``render_batch_from_params``) and the loss of the
+  batch;
 * with ``adc_mode="paper"`` the step also differentiates a zero
   view-space tap per view and returns ``uv_grad_sum``, ``visible`` and
   ``max_radius``, the paper's densification statistics;
@@ -30,7 +33,7 @@ PyTorch idiom: ``step_fn`` updates the pool's parameters and the optimizer
 in place (the JAX step donates its input state) and returns a
 ``TrainState`` that shares them. On CUDA the optimizer is ``capturable``,
 so its step counts and the position LR stay on the device; on the CPU
-they are host tensors. ``batched_render`` raises ``NotImplementedError``.
+they are host tensors.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from ..models.adc import (densify_and_prune, densify_and_prune_paper,
                           raise_low_opacity)
 from ..models.gaussians import PARAM_KEYS, GaussianPool, pool_from_numpy
 from ..ops.losses import compute_loss
-from ..render import render_from_params
+from ..render import render_batch_from_params, render_from_params
 
 
 def position_lr(step, cfg: TrainConfig) -> torch.Tensor:
@@ -195,18 +198,46 @@ def batch_loss_fn(
     batch: dict with 'image' [B,H,W,3], 'c2w' [B,4,4], 'fx','fy','cx','cy'
     [B], tensors on the pool's device. uv_taps: optional [B, N, 2] zeros
     (the paper-ADC view-space tap, one per view). Returns (loss, metrics)
-    with the metrics as tensors (``pair_capacity`` an int): nothing here
-    waits for the device. With ``tile_rank_cap`` the metrics gain the
-    largest view's ``trunc_demand`` and ``trunc_capacity`` (an int, the
-    truncated list's ``trunc_padded_pairs``). With ``uv_taps`` they gain
+    with the metrics as tensors (capacities as ints): nothing here waits
+    for the device. With ``tile_rank_cap`` the metrics gain the largest
+    view's ``trunc_demand`` and ``trunc_capacity`` (the truncated list's
+    ``trunc_padded_pairs``); with ``bwd_pairs``, the largest view's
+    ``bwd_demand`` and ``bwd_capacity``. With ``uv_taps`` they gain
     per-gaussian ``visible`` (views with a non-zero screen radius) and
     ``max_radius`` ([N] int32, detached).
+
+    With ``train_cfg.batched_render`` the batch goes through one binning
+    and one compositor launch (``render_batch_from_params``); the loss of
+    the batch's images is the mean of the per-view losses up to the order
+    of float sums. The demands and capacities are then the batch's
+    (``pair_capacity`` B x ``max_pairs``, as the JAX package reports it).
     """
     if train_cfg.batched_render:
-        raise NotImplementedError(
-            "batched_render (one shared binning for the batch) is not "
-            "ported yet")
-    totals, l1s, ssims, pairs, tds, radii = [], [], [], [], [], []
+        imgs, aux = render_batch_from_params(
+            params, batch["c2w"], batch["fx"], batch["fy"], batch["cx"],
+            batch["cy"], render_cfg, alive=alive, uv_taps=uv_taps)
+        total, comps = compute_loss(imgs, batch["image"],
+                                    train_cfg.lambda_l1,
+                                    train_cfg.lambda_ssim)
+        metrics = {
+            "l1": comps["l1"].detach(),
+            "ssim": comps["ssim"].detach(),
+            "pair_demand": aux.num_pairs,
+            "pair_capacity": aux.pair_capacity,
+        }
+        if render_cfg.tile_rank_cap:
+            metrics["trunc_demand"] = aux.trunc_demand
+            metrics["trunc_capacity"] = aux.trunc_capacity
+        if render_cfg.bwd_pairs:
+            metrics["bwd_demand"] = aux.bwd_demand
+            metrics["bwd_capacity"] = aux.bwd_capacity
+        if uv_taps is not None:
+            radii = aux.screen_radius.detach()  # [B, N]
+            metrics["visible"] = torch.sum((radii > 0).to(torch.int32),
+                                           dim=0, dtype=torch.int32)
+            metrics["max_radius"] = torch.amax(radii, dim=0)
+        return total, metrics
+    totals, l1s, ssims, pairs, tds, bds, radii = [], [], [], [], [], [], []
     for i in range(batch["c2w"].shape[0]):
         img, aux = render_from_params(
             params, batch["c2w"][i], batch["fx"][i], batch["fy"][i],
@@ -221,6 +252,7 @@ def batch_loss_fn(
         ssims.append(comps["ssim"])
         pairs.append(aux.num_pairs)
         tds.append(aux.trunc_demand)
+        bds.append(aux.bwd_demand)
         if uv_taps is not None:
             radii.append(aux.screen_radius.detach())
     metrics = {
@@ -234,6 +266,11 @@ def batch_loss_fn(
         # drops whole trailing blocks, so fit() reads and grows it.
         metrics["trunc_demand"] = torch.max(torch.stack(tds))
         metrics["trunc_capacity"] = render_cfg.trunc_padded_pairs
+    if render_cfg.bwd_pairs:
+        # The compacted backward's capacity: its overflow drops the
+        # trailing tiles' gradients, so fit() reads and grows it.
+        metrics["bwd_demand"] = torch.max(torch.stack(bds))
+        metrics["bwd_capacity"] = render_cfg.bwd_capacity
     if uv_taps is not None:
         radii = torch.stack(radii)  # [B, N]
         metrics["visible"] = torch.sum((radii > 0).to(torch.int32), dim=0,
@@ -303,10 +340,6 @@ def make_train_step(render_cfg: RenderConfig, train_cfg: TrainConfig):
     """
     if train_cfg.adc_mode not in ("reference", "paper"):
         raise ValueError(f"unknown adc_mode {train_cfg.adc_mode!r}")
-    if train_cfg.batched_render:
-        raise NotImplementedError(
-            "batched_render (one shared binning for the batch) is not "
-            "ported yet")
 
     def step_fn(state: TrainState, batch: dict):
         pool, opt = state.pool, state.opt_state

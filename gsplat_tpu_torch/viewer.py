@@ -3,8 +3,9 @@
 Counterpart of ``gsplat_tpu/viewer.py``: ``look_at``,
 ``create_orbit_trajectory``, ``estimate_scene_center_radius`` (``:25-90``),
 ``_traj_stats`` (``:102-123``), ``make_bucketed_render_fn``
-(``:126-222``), ``render_trajectory`` (``:225-340``, one pose per call),
-``_demand_probe`` and ``make_render_fn`` (``:383-424``). Camera
+(``:126-222``), ``render_trajectory`` (``:225-340``, one pose or a batch
+of poses per call), ``_demand_probe``, ``make_render_fn`` and
+``make_batch_render_fn`` (``:383-452``). Camera
 convention: forward = normalize(target - pos), right = normalize(forward
 x up), camera y = -up.
 
@@ -216,10 +217,16 @@ def make_bucketed_render_fn(params: dict, cfg: RenderConfig, fx, fy, cx, cy,
     return fn
 
 
+def _to_uint8(imgs: torch.Tensor) -> np.ndarray:
+    return (torch.clamp(imgs, 0, 1).cpu().numpy() * 255.0 + 0.5).astype(
+        np.uint8)
+
+
 def render_trajectory(
     render_fn,
     trajectory: np.ndarray,
     warmup: int = 1,
+    batch_size: int = 1,
     keep_frames: bool = True,
     pair_capacity: int = 0,
 ):
@@ -235,10 +242,42 @@ def render_trajectory(
     With ``keep_frames=False`` (benchmark mode) no image is fetched to the
     host, and a second, pipelined pass dispatches every frame with one
     sync at the end.
+
+    ``batch_size`` > 1: `render_fn([B, 4, 4]) -> [B, H, W, 3]`
+    (:func:`make_batch_render_fn`) renders B poses per call; each frame's
+    time is the call's divided by B, and each probe is the batch's (its
+    demand against the batch's shared capacity). The last chunk is padded
+    by repeating its final pose (the padded frames are dropped). The stats
+    gain ``batch_size``; there is no pipelined pass.
     """
     frames = []
     times = []
     probes = []
+
+    if batch_size > 1:
+        B, n = batch_size, len(trajectory)
+        warm = np.broadcast_to(np.asarray(trajectory[0]), (B, 4, 4)).copy()
+        for _ in range(min(warmup, 1)):
+            _sync(_split_render_out(render_fn(warm))[0])
+        for s in range(0, n, B):
+            chunk = np.asarray(trajectory[s:s + B])
+            real = chunk.shape[0]
+            if real < B:
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], B - real, axis=0)])
+            t0 = time.perf_counter()
+            imgs, probe = _split_render_out(render_fn(chunk))
+            _sync(imgs)
+            dt = (time.perf_counter() - t0) / B
+            times.extend([dt] * real)
+            if probe is not None:
+                probes.append(probe.cpu().numpy())
+            if keep_frames:
+                frames.extend(_to_uint8(imgs[:real]))
+        stats = _traj_stats(times, len(frames) if keep_frames else n, probes,
+                            pair_capacity, extra={"batch_size": B}) \
+            if times else {}
+        return frames, stats
 
     for i in range(min(warmup, len(trajectory))):
         img, _ = _split_render_out(render_fn(np.asarray(trajectory[i])))
@@ -251,11 +290,7 @@ def render_trajectory(
         if probe is not None:
             probes.append(probe.cpu().numpy())
         if keep_frames:
-            frames.append(
-                (torch.clamp(img, 0, 1).cpu().numpy() * 255.0 + 0.5).astype(
-                    np.uint8
-                )
-            )
+            frames.append(_to_uint8(img))
     stats = _traj_stats(
         times, len(frames) if keep_frames else len(trajectory), probes,
         pair_capacity,
@@ -310,5 +345,28 @@ def make_render_fn(params: dict, cfg: RenderConfig, fx, fy, cx, cy,
         if report_demand:
             return img, _demand_probe(img, aux)
         return img
+
+    return fn
+
+
+def make_batch_render_fn(params: dict, cfg: RenderConfig, fx, fy, cx, cy,
+                         alive=None, batch: int = 4,
+                         report_demand: bool = False):
+    """[B, 4, 4] -> [B, H, W, 3] closure over fixed intrinsics, run without
+    autograd: one binning and one compositor launch for the B poses
+    (``render.render_batch_from_params``). Each image equals the pose
+    rendered alone when fed the same projections. ``batch`` is the B the
+    caller sends (kept for the JAX signature; the closure takes any B).
+    ``report_demand`` as in :func:`make_render_fn`, with the batch's demand
+    (``num_pairs`` against the shared ``B * max_pairs``)."""
+    from .render import render_batch_from_params
+
+    def fn(c2w_b):
+        with torch.no_grad():
+            imgs, aux = render_batch_from_params(
+                params, np.asarray(c2w_b), fx, fy, cx, cy, cfg, alive=alive)
+        if report_demand:
+            return imgs, _demand_probe(imgs, aux)
+        return imgs
 
     return fn

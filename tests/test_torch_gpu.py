@@ -239,6 +239,126 @@ def test_truncated_kernels_match_plain(cuda, trunc_pairs):
     assert torch.isfinite(fwd).all()
 
 
+def _stacked_inputs(params, cfg, dev, views=3):
+    """``views`` poses of one scene stacked by ``stack_view_projections``
+    (view v's tile rows offset by v * tiles_y): (pair features, binning,
+    the stacked config with view_tile_rows = tiles_y)."""
+    from gsplat_tpu_torch.render import stack_view_projections
+
+    t = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+    with torch.no_grad():
+        cov = build_cov3d_packed(t["scale_raw"], t["q_raw"])
+        projs, colors = [], []
+        for v in range(views):
+            c2w = torch.eye(4, device=dev)
+            c2w[0, 3] = 0.3 * v - 0.3
+            colors.append(evaluate_sh(t["f_dc"], t["f_rest"], t["pos"], c2w))
+            projs.append(project_gaussians(t["pos"], cov, t["opacity_raw"],
+                                           c2w, *CAM.values(), cfg))
+        proj_b = type(projs[0])(*(torch.stack(f) for f in zip(*projs)))
+        stacked, bcfg = stack_view_projections(proj_b, cfg)
+        b = bin_gaussians(stacked, bcfg)
+        feat = _pair_features(stacked, torch.cat(colors), torch.float32)[
+            b.depth_order.long()]
+        return gather_pair_features(feat, b.pair_slot, b.gauss_offsets), b, \
+            bcfg
+
+
+@pytest.mark.parametrize("math", ["cumprod", "log"])
+def test_wrapped_rows_kernels_match_plain(cuda, math):
+    """Batched views (view_tile_rows > 0): K1 bit for bit with its plain
+    version and its cull's count equal to the plain test's under the row
+    wrap; K2 from K1's state within 1e-5."""
+    params, _ = _scene(600, 0)
+    cfg = gt.RenderConfig(**CFG, transmittance_math=math)
+    pf, b, bcfg = _stacked_inputs(params, cfg, cuda)
+    assert bcfg.view_tile_rows == cfg.tiles_y
+    log = math == "log"
+    fwd = _check_fwd_bwd(cuda, pf, b, bcfg,
+                         "log_launches" if log else "launches",
+                         "bwd_log_launches" if log else "bwd_launches")
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    tras._launch_fwd(pf, b.tile_start, b.tile_count, bcfg, skipped=skipped)
+    blk, tile, _ = tras.active_blocks(b.tile_start,
+                                      tras.tile_block_offsets(fwd), bcfg)
+    n = tras.cull_audit(pf, blk, tile, bcfg)
+    torch.cuda.synchronize()
+    assert n["unsafe"] == 0 and int(skipped.item()) == n["skipped"] > 0
+    occ = b.tile_count > 0
+    assert occ[bcfg.num_tiles * 2 // 3:].any(), "the last view is empty"
+
+
+@pytest.mark.parametrize("kind", ["plain", "saturated"])
+def test_compact_backward_matches_plain(cuda, kind):
+    """K2 in compact mode (kb >= and < the composited blocks): within 1e-5
+    of its plain version, columns past the kept blocks zero, two runs
+    equal, each launch counted in bwd_compact_launches; the kept columns
+    equal to the block layout's."""
+    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
+        else {}
+    params, c2w = _scene(600, 0, **shift)
+    cfg = gt.RenderConfig(**CFG)
+    pf, b = _inputs(params, c2w, cfg, cuda)
+    args = (pf, b.tile_start, b.tile_count)
+    fwd, state = tras._composite_fwd(*args, cfg, with_state=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    gout = torch.randn(cfg.num_tiles, 8, cfg.tile**2, generator=gen,
+                       device=cuda)
+    full = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg)
+    off = tras.tile_block_offsets(fwd)
+    n_active = int(off[-1])
+    G = cfg.pair_block
+    for kb in (n_active + 3, max(n_active // 2, 1)):
+        before = tras.composite_pairs.bwd_compact_launches
+        got = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg, kb=kb)
+        again = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg, kb=kb)
+        assert tras.composite_pairs.bwd_compact_launches == before + 2
+        want = tras.composite_pairs_bwd_plain(*args, fwd, state, gout, cfg,
+                                              kb=kb)
+        torch.cuda.synchronize()
+        assert tuple(got.shape) == (10, kb * G)
+        assert torch.equal(got, again), "two runs differ"
+        for r in range(10):
+            scale = float(want[r].abs().max())
+            assert float((got[r] - want[r]).abs().max()) <= 1e-5 * scale, r
+        kept = min(n_active, kb)
+        assert (got[:, kept * G:] == 0).all()
+        blk, _, _, valid = tras.composited_blocks(b.tile_start, off, kb,
+                                                  cfg)
+        cols = (blk[valid, None] * G
+                + torch.arange(G, device=cuda)).reshape(-1)
+        assert torch.equal(got[:, :kept * G], full[:, cols])
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_sized_compaction_is_bit_exact_on_card(cuda, batched):
+    """bwd_pairs at the demand gives the gradients of bwd_pairs = 0 bit for
+    bit on the card (one view, and a batch of three)."""
+    params, c2w = _scene(600, 0)
+    cfg = gt.RenderConfig(**CFG)
+    poses = np.stack([c2w] * 3)
+    poses[:, 0, 3] = [-0.3, 0.0, 0.3]
+
+    def run(cfg):
+        t = {k: torch.from_numpy(v).to(cuda).requires_grad_(True)
+             for k, v in params.items()}
+        if batched:
+            img, aux = gt.render_batch_from_params(t, poses, *CAM.values(),
+                                                   cfg)
+        else:
+            img, aux = gt.render_from_params(t, c2w, *CAM.values(), cfg)
+        (img.mean() + (img * img).mean()).backward()
+        return aux, {k: v.grad for k, v in t.items()}
+
+    aux0, g0 = run(cfg)
+    demand = int(aux0.bwd_demand)
+    per_view = -(-demand // 3) if batched else demand
+    auxc, gc = run(cfg.with_(bwd_pairs=per_view))
+    assert int(auxc.bwd_demand) <= auxc.bwd_capacity
+    for k in params:
+        assert torch.equal(g0[k], gc[k]), k
+
+
 def test_render_on_card_matches_cpu(cuda):
     params, c2w = _scene(600, 3)
     cfg = gt.RenderConfig(**CFG)

@@ -111,8 +111,19 @@ def test_gather_backward_matches_jax_vjp():
     trast.gather_pair_features(f_tt, slot, offs, truncated=True).backward(
         _t(g))
     assert _rel_err(f_tt.grad.numpy(), want_t) <= 1e-6
-    with pytest.raises(NotImplementedError, match="bwd_cap"):
-        trast.gather_pair_features(f_t, slot, offs, bwd_cap=4096)
+    # bwd_cap (the block-compacted backward) is ported
+    # (test_torch_satbwd.py): here it keeps the first 2 of the 36 nonzero
+    # 128-pair blocks (the real pairs span more), as JAX's VJP does.
+    _, vjp_c = jax.vjp(
+        lambda f: jgather(CFG["max_pairs"], False, 256, f, b.pair_slot,
+                          b.gauss_offsets),
+        jnp.asarray(feat10))
+    (want_c,) = vjp_c(jnp.asarray(g))
+    f_tc = _t(feat10, True)
+    trast.gather_pair_features(f_tc, slot, offs, bwd_cap=256).backward(
+        _t(g))
+    assert _rel_err(f_tc.grad.numpy(), want_c) <= 1e-6
+    assert _rel_err(f_tc.grad.numpy(), want) > 1e-3  # blocks were dropped
 
 
 # --- plain stages: covariance, SH, projection --------------------------------

@@ -148,8 +148,15 @@ def test_wrapper_rejects_bad_inputs():
         tras.composite_pairs(pf[:, :-1], ts, tc, cfg)
     with pytest.raises(ValueError, match="transmittance_math"):
         tras.composite_pairs(pf, ts, tc, cfg.with_(transmittance_math="exp"))
-    with pytest.raises(NotImplementedError, match="view_tile_rows"):
-        tras.composite_pairs(pf, ts, tc, cfg.with_(view_tile_rows=4))
+    # view_tile_rows (batched views) is ported (test_torch_batched.py): a
+    # negative one is refused, and one that wraps no row changes no bit.
+    with pytest.raises(ValueError, match="view_tile_rows"):
+        tras.composite_pairs(pf, ts, tc, cfg.with_(view_tile_rows=-1))
+    t, _ = _case(make_scene(None, n=192, seed_offset=0))
+    args = (t["pair_feat"], t["tile_start"], t["tile_count"])
+    assert torch.equal(
+        tras.composite_pairs(*args, cfg.with_(view_tile_rows=cfg.tiles_y)),
+        tras.composite_pairs(*args, cfg))
     for mode in ("cumprod", "log"):  # empty scene
         out = tras.composite_pairs(pf, ts, tc,
                                    cfg.with_(transmittance_math=mode))

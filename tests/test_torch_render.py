@@ -166,10 +166,11 @@ def test_pair_demand_matches_jax():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(backend="xla"), "xla"),
-    (dict(bwd_pairs=256), "bwd_pairs"),
-    # The log transmittance and truncation are ported (test_torch_logT.py,
-    # test_torch_trunc.py); what they still meet unported raises.
-    pytest.param(dict(transmittance_math="log", bwd_pairs=256), "bwd_pairs",
+    # bwd_pairs (the compacted backward) is ported (test_torch_satbwd.py):
+    # its two cases now hold the forward, and its reported capacity, to
+    # JAX's; what the levers still meet unported raises.
+    pytest.param(dict(bwd_pairs=256), None, id="kw1-bwd_pairs"),
+    pytest.param(dict(transmittance_math="log", bwd_pairs=256), None,
                  id="kw2-log"),
     (dict(cull_mode="ellipse"), "ellipse"),
     pytest.param(dict(tile_rank_cap=64, cull_mode="ellipse"), "ellipse",
@@ -177,6 +178,13 @@ def test_pair_demand_matches_jax():
 ])
 def test_unported_options_raise(kw, match):
     s = _scene("seed0")
+    if match is None:  # ported: the JAX render's image and capacities
+        _check(_np_params(s), s["c2w"], dict(CFG, **kw), CAM)
+        _, aux_j = _jax_render(_np_params(s), s["c2w"], dict(CFG, **kw), CAM)
+        _, aux_t = _torch_render(_np_params(s), s["c2w"], dict(CFG, **kw),
+                                 CAM)
+        assert aux_t.bwd_capacity == int(aux_j.bwd_capacity) == 256
+        return
     with pytest.raises(NotImplementedError, match=match):
         _torch_render(_np_params(s), s["c2w"], dict(CFG, **kw), CAM)
 

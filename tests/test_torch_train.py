@@ -254,8 +254,18 @@ def test_sh_warmup_freezes_f_rest_until_activation():
 
 def test_unported_training_options_raise():
     rcfg = gt.RenderConfig(**RCFG)
-    with pytest.raises(NotImplementedError, match="batched_render"):
-        gt.make_train_step(rcfg, gt.TrainConfig(batched_render=True))
+    # batched_render is ported (test_torch_batched.py): one step of it
+    # gives the scan step's loss.
+    jpool = _make_pool()
+    batch = _torch_batch(_make_batch(jpool))
+    losses = []
+    for batched in (False, True):
+        tcfg = gt.TrainConfig(capacity=512, batch_size=2,
+                              batched_render=batched)
+        _, m = gt.make_train_step(rcfg, tcfg)(
+            gt.init_train_state(_torch_pool(jpool), tcfg), batch)
+        losses.append(float(m["total"]))
+    assert abs(losses[0] - losses[1]) <= 1e-5 * max(abs(losses[0]), 1.0)
     with pytest.raises(NotImplementedError, match="mesh"):
         gt.fit(iter(()), rcfg, gt.TrainConfig(), mesh=object(),
                device="cpu")
