@@ -125,7 +125,37 @@ Phases (any failure exits non-zero, with no result line):
          through make_batch_render_fn (the bench-pose frame within 1e-5 of
          phase 5's) and render_trained --render_batch 4 over the orbit;
          frame ms beside phase 5's;
- 13. one JSON line {"kernels": [...]} (thirteen kernels), the card line,
+ 13. the XLA compositor, evaluation and the measuring tools, at full
+     width on the checkpoint:
+     (a) backend="xla" (plain PyTorch on the card) at the 1080p bench pose
+         with max_per_tile at its largest tile: image within 2e-5 of K1's
+         frame (itself equal to phase 5's), depth within 2e-5 of its
+         largest value, alpha within 2e-5 where K1's final T stays above
+         transmittance_min (K1 stops a saturated tile early; the xla
+         compositor does not, so there its alpha only has to be
+         saturated); K1 with tile_rank_cap 1024 against "xla"
+         with max_per_tile 1024 (within 2e-5) at the bench pose and at
+         phase 11d's close-in pose of highest demand; a fwd+bwd through
+         "xla" against one through K1/K2 at 960x540 (each gradient leaf
+         within 5e-4 of its max); frame ms and peak memory of both;
+     (b) evaluate_views on phase 8's views: the perturbed pool before and
+         after the 6 steps (PSNR must rise), the checkpoint against its
+         own renders (above 100 dB), render_batch=4 against per view (1e-3
+         dB, L1 1e-6), auto_size from max_pairs 2**18;
+     (c) one served frame and one fwd+bwd at 1080p, each traced
+         (utils.profiling.trace) and read back: device-busy share, kernel
+         launches, the ten kernels with the most time, the longest idle
+         gaps; K1 and K2 events as many as their counts; then one frame
+         traced stage by stage: host ms, launches and device-busy ms of
+         each stage;
+     (d) profile_stages exact and with the lever (tile_rank_cap 1024,
+         --auto_pairs), and profile_binning, at the bench pose;
+     (e) cull_sweep at 16-256 chunks: at 64, the bench pose's demand and
+         kept pairs equal to phase 11b's;
+     (f) the truncation ladder at 4 close-in poses, K in {1024, 4096}, its
+         banded exact reference against a full-frame exact render (max
+         abs, PSNR);
+ 14. one JSON line {"kernels": [...]} (thirteen kernels), the card line,
      and the final line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -149,6 +179,11 @@ from gsplat_tpu_torch.profile_kernel import (PEAK_BYTES, PEAK_F32_FLOPS,
                                              bound_ms, device_ms,
                                              transcendental_instructions)
 from gsplat_tpu_torch.models.gaussians import PARAM_KEYS
+# One definition of the stage and backward-part timers, shared with the
+# stage profiler.
+from gsplat_tpu_torch.profile_stages import (bench_pose, bwd_parts_ms,
+                                             record_backward, serving_path,
+                                             stage_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "bench_assets", "trained_ckpt.npz")
@@ -230,34 +265,6 @@ def make_scene(n, seed):
                             [-np.sin(th), 0, np.cos(th)]], np.float32)
     c2w[:3, 3] = [0.1, -0.05, 0.2]
     return params, c2w
-
-
-def serving_path(params, c2w, fx, fy, cx, cy, cfg, alive=None):
-    """The serving path up to the compositor, stage by stage, with the same
-    calls as render_from_params: {"cov", "colors", "proj", "bin",
-    "pair_feat" [10, pairs]}."""
-    from gsplat_tpu_torch.ops.binning import bin_gaussians
-    from gsplat_tpu_torch.ops.gaussian import build_cov3d_packed
-    from gsplat_tpu_torch.ops.projection import project_gaussians
-    from gsplat_tpu_torch.ops.rasterize import (_pair_features,
-                                                gather_pair_features)
-    from gsplat_tpu_torch.ops.sh import evaluate_sh
-
-    pos = params["pos"]
-    s = {"c2w": torch.as_tensor(c2w, dtype=torch.float32, device=pos.device)}
-    with torch.no_grad():
-        s["cov"] = build_cov3d_packed(params["scale_raw"], params["q_raw"])
-        s["colors"] = evaluate_sh(params["f_dc"], params["f_rest"], pos,
-                                  s["c2w"])
-        s["proj"] = project_gaussians(pos, s["cov"], params["opacity_raw"],
-                                      s["c2w"], fx, fy, cx, cy, cfg,
-                                      extra_valid=alive)
-        s["bin"] = bin_gaussians(s["proj"], cfg)
-        feat10 = _pair_features(s["proj"], s["colors"], torch.float32)[
-            s["bin"].depth_order.long()]
-        s["pair_feat"] = gather_pair_features(feat10, s["bin"].pair_slot,
-                                              s["bin"].gauss_offsets)
-    return s
 
 
 def compare(name, out_k, out_p, tile_count):
@@ -425,53 +432,6 @@ def fwd_bwd_phase(pool, c2w, fx, fy, cx, cy, cfg, card, reps=5):
     return params, seen
 
 
-def bwd_parts_ms(params, c2w, fx, fy, cx, cy, cfg, alive, seen, reps=5):
-    """Device time (CUDA events, median of reps) of each part of the
-    backward, on the cotangents the fwd+bwd produced: K2, the reduction of
-    its pair gradients to per-gaussian ones (keys of the composited
-    blocks, stable sort, segmented sum), and autograd through projection,
-    SH and covariance (down from the per-gaussian features to the six
-    parameters)."""
-    from gsplat_tpu_torch.ops.binning import bin_gaussians
-    from gsplat_tpu_torch.ops.gaussian import build_cov3d_packed
-    from gsplat_tpu_torch.ops.projection import project_gaussians
-    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs_bwd
-    from gsplat_tpu_torch.ops.rasterize import (_pair_features,
-                                                _reduce_pair_grads,
-                                                composited_pair_keys)
-    from gsplat_tpu_torch.ops.sh import evaluate_sh
-
-    c2w_t = torch.as_tensor(c2w, dtype=torch.float32, device=alive.device)
-    leaves = list(params.values())
-    cov = build_cov3d_packed(params["scale_raw"], params["q_raw"])
-    colors = evaluate_sh(params["f_dc"], params["f_rest"], params["pos"],
-                         c2w_t)
-    proj = project_gaussians(params["pos"], cov, params["opacity_raw"], c2w_t,
-                             fx, fy, cx, cy, cfg, extra_valid=alive)
-    b = bin_gaussians(proj, cfg)
-    feat10 = _pair_features(proj, colors, torch.float32)[
-        b.depth_order.long()]
-    n = feat10.shape[0]
-
-    def reduction():
-        return _reduce_pair_grads(composited_pair_keys(
-            b.pair_slot, b.tile_start, seen["args"][3], n, 0, cfg),
-            seen["d"], n)
-
-    g_f10 = reduction()
-    parts = {
-        "K2": lambda: composite_pairs_bwd(*seen["args"]),
-        "reduction": reduction,
-        "proj+sh+cov_bwd": lambda: torch.autograd.grad(
-            feat10, leaves, g_f10, retain_graph=True),
-    }
-    out = {}
-    for name, fn in parts.items():
-        fn()
-        out[name] = float(np.median([device_ms(fn, 1) for _ in range(reps)]))
-    return out
-
-
 def train_views(pool, bench_c2w, center, radius):
     """The training workload at 960x540: (cfg, batch of the bench pose and
     3 orbit poses with ground truth rendered from the unperturbed
@@ -505,7 +465,8 @@ def train_views(pool, bench_c2w, center, radius):
 
 def train_phase(pool, bench_c2w, center, radius, card):
     """TRAIN_STEPS steps of the port's train step at 960x540, batch 4.
-    Returns (K1 launches, K2 launches) of the steps."""
+    Returns (K1 launches, K2 launches, step ms, the parameters after the
+    steps)."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
 
@@ -555,12 +516,13 @@ def train_phase(pool, bench_c2w, center, radius, card):
             and skipped == [0] * TRAIN_STEPS and dead_same
             and k1 == k2 == views and max(demand) <= cfg.max_pairs):
         raise SystemExit("FAIL: training phase")
+    trained = {k: v.detach().clone() for k, v in tpool.params.items()}
     parts = train_parts_ms(state, batch, cfg, tcfg)
     print(f"[{card}] train step parts (CUDA events, median of 3, after the "
           f"checked steps): " + ", ".join(f"{k} {v:.3f} ms"
                                          for k, v in parts.items()),
           flush=True)
-    return k1, k2, step_ms
+    return k1, k2, step_ms, trained
 
 
 def train_parts_ms(state, batch, cfg, tcfg, reps=3):
@@ -1153,27 +1115,10 @@ def bwd_bound(bargs, cfg, ops_per_pair_pixel, out_cols=None):
 def grads_of(pool, c2w, fx, fy, cx, cy, cfg):
     """One fwd+bwd of render_from_params (loss mean(im) + mean(im^2)):
     (the inputs autograd handed K2, whether every gradient is finite)."""
-    import gsplat_tpu_torch as gt
-    from gsplat_tpu_torch.ops import raster_cuda
-
-    params = {k: v.detach().clone().requires_grad_(True)
-              for k, v in pool.params.items()}
-    seen = {}
-    plain_bwd = raster_cuda.composite_pairs_bwd
-
-    def seen_bwd(*args, **kw):
-        seen["args"] = detached(args)
-        return plain_bwd(*args, **kw)
-
-    raster_cuda.composite_pairs_bwd = seen_bwd
-    try:
-        img, _ = gt.render_from_params(params, c2w, fx, fy, cx, cy, cfg,
-                                       alive=pool.alive)
-        (torch.mean(img) + torch.mean(img * img)).backward()
-        torch.cuda.synchronize()
-    finally:
-        raster_cuda.composite_pairs_bwd = plain_bwd
-    finite = all(bool(torch.isfinite(p.grad).all()) for p in params.values())
+    leaves, seen = record_backward(pool.params, c2w, fx, fy, cx, cy, cfg,
+                                   pool.alive)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in leaves.values())
     return seen["args"], finite
 
 
@@ -1282,7 +1227,8 @@ def trunc_phase(pool, c2w, traj, fx, fy, cx, cy, cfg, exact_img, card):
     around the lever's runs); one fwd+bwd. Then overflow, trunc_pairs at
     half the demand: reported, finite, equal to the plain version on the
     same list, no block read past the list's end. Returns (K1, K2)
-    launches of the lever's main-path runs."""
+    launches of the lever's main-path runs and {"demand", "kept"}: the
+    bench pose's pair demand after the cull and its kept pairs."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs,
                                                   composite_pairs_plain)
@@ -1414,7 +1360,7 @@ def trunc_phase(pool, c2w, traj, fx, fy, cx, cy, cfg, exact_img, card):
           f"abs {float((img_c - exact_img).abs().max()):.3e}", flush=True)
     if not (reported and finite and d_plain == 0.0 and inside):
         raise SystemExit("FAIL: truncated-list overflow")
-    return k1, k2
+    return k1, k2, {"demand": pk, "kept": kept[0]}
 
 
 def bucket_phase(pool, fx, fy, cx, cy, cfg, center, radius, card):
@@ -1424,7 +1370,8 @@ def bucket_phase(pool, fx, fy, cx, cy, cfg, center, radius, card):
     set to 0 before: each pose's demand and rung, the overflow frames, and
     at every pose, the one of highest demand first, the PSNR of the served
     (truncated) frame against an exact render sized to the pose's demand.
-    Returns the K1 launches."""
+    Returns the K1 launches and {"c2w", "exact_demand"} of the pose of
+    highest demand."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch import render_trained
     from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
@@ -1492,7 +1439,11 @@ def bucket_phase(pool, fx, fy, cx, cy, cfg, center, radius, card):
     print(f"[{card}] close-in orbit, K={LEVER_CAP}: PSNR at the pose of "
           f"highest demand ({int(order[0])}) {psnrs[int(order[0])]:.2f} dB, "
           f"worst over the 8 poses {min(psnrs.values()):.2f} dB", flush=True)
-    return k1
+    top = int(order[0])
+    with torch.no_grad():
+        top_demand = int(pair_demand(pool.params, traj[top], fx, fy, cx, cy,
+                                     cfg, alive=pool.alive)[0])
+    return k1, {"c2w": traj[top], "exact_demand": top_demand}
 
 
 def stacked_views(pool, batch, cfg):
@@ -1941,6 +1892,359 @@ def levers_serve_phase(pool, traj, fx, fy, cx, cy, cfg, served_first,
     return k1 + k1_cli
 
 
+def _counts():
+    """K1 and K2 launch counts ("cumprod" forms), read together."""
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+
+    return composite_pairs.launches, composite_pairs.bwd_launches
+
+
+def _since(before):
+    k1, k2 = _counts()
+    return k1 - before[0], k2 - before[1]
+
+
+def _timed_render(pool, pose, fx, fy, cx, cy, cfg):
+    """One render (no autograd) timed on the host clock to synchronize,
+    with its peak device memory: (img, aux, ms, GiB)."""
+    import gsplat_tpu_torch as gt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img, aux = gt.render_from_params(pool.params, pose, fx, fy, cx, cy,
+                                         cfg, alive=pool.alive)
+    torch.cuda.synchronize()
+    return (img, aux, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def alpha_error(alpha_x, alpha_k, cfg):
+    """The xla alpha plane against K1's: (max abs difference where K1's
+    final T is above transmittance_min, the least xla alpha elsewhere).
+    K1 stops compositing a tile once every pixel's T is at or below
+    transmittance_min (the TPU kernel's early exit), so its final T there
+    is the T at that point; the xla compositor multiplies T through all
+    max_per_tile pairs (its w are zero past that point either way). Where
+    K1's T stayed above the threshold no tile stopped early, so both
+    multiplied the same factors."""
+    live = alpha_k < 1.0 - cfg.transmittance_min
+    d = float((alpha_x - alpha_k)[live].abs().max()) if bool(live.any()) \
+        else 0.0
+    sat = float(alpha_x[~live].min()) if bool((~live).any()) else 1.0
+    return d, sat
+
+
+def xla_phase(pool, c2w, fx, fy, cx, cy, cfg, served_first, close, card):
+    """Phase 13a: the XLA compositor (backend="xla", plain PyTorch on the
+    card) against K1 at 1080p: (1) with max_per_tile at the bench pose's
+    largest tile, image, depth and alpha against K1's frame (and K1's
+    frame against phase 5's served frame); (2) K1 with tile_rank_cap
+    LEVER_CAP against "xla" with max_per_tile LEVER_CAP at the bench pose
+    and at phase 11d's close-in pose of highest demand; (3) a fwd+bwd
+    through "xla" against one through K1 and K2 at 960x540 (the loss of
+    tests/test_pallas_kernel.py:202-210), each gradient leaf within 5e-4
+    of its max. Frame ms and peak memory of both compositors are printed
+    (a record, not a gate). Returns (K1, K2) launches."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.render import pair_demand
+
+    before = _counts()
+    img_k, aux_k, k_ms, k_peak = _timed_render(pool, c2w, fx, fy, cx, cy,
+                                               cfg)
+    K = int(aux_k.max_tile_count)
+    cfg_x = cfg.with_(backend="xla", max_per_tile=K)
+    _timed_render(pool, c2w, fx, fy, cx, cy, cfg_x)  # warm-up
+    img_x, aux_x, x_ms, x_peak = _timed_render(pool, c2w, fx, fy, cx, cy,
+                                               cfg_x)
+    d_img = float((img_x - img_k).abs().max())
+    d_alpha_all = float((aux_x.alpha - aux_k.alpha).abs().max())
+    d_alpha, sat_alpha = alpha_error(aux_x.alpha, aux_k.alpha, cfg)
+    d_depth = float((aux_x.depth - aux_k.depth).abs().max())
+    depth_max = float(aux_k.depth.abs().max())
+    d_served = float((img_k - served_first).abs().max())
+    print(f"[{card}] xla vs K1 at the 1080p bench pose, max_per_tile {K} "
+          f"(the largest tile): image max abs {d_img:.3e}, alpha "
+          f"{d_alpha:.3e} where K1's T stayed above transmittance_min "
+          f"({d_alpha_all:.3e} over all pixels; the least xla alpha where "
+          f"K1 stopped early {sat_alpha:.7f}), depth {d_depth:.3e} "
+          f"(largest depth "
+          f"{depth_max:.3f}); K1's frame vs phase 5's served frame "
+          f"{d_served:.3e}; per_tile_capacity {aux_x.per_tile_capacity}, "
+          f"bwd_demand {aux_x.bwd_demand}", flush=True)
+    print(f"[{card}] frame (host clock to synchronize, one call after a "
+          f"warm-up): xla {x_ms:.3f} ms, peak {x_peak:.2f} GiB; K1 "
+          f"{k_ms:.3f} ms, peak {k_peak:.2f} GiB", flush=True)
+    if not (d_img <= TOL and d_alpha <= TOL and d_served == 0.0
+            and sat_alpha >= 1.0 - cfg.transmittance_min - TOL
+            and d_depth <= TOL * max(1.0, depth_max)
+            and aux_x.bwd_demand is None and aux_x.per_tile_capacity == K):
+        raise SystemExit("FAIL: the xla compositor disagrees with K1")
+
+    # (2) K1's rank cap against the xla per-tile cap.
+    cfg_t = cfg.with_(tile_rank_cap=LEVER_CAP, cull_chunks=LEVER_CHUNKS)
+    for name, pose, exact in (("bench pose", c2w, None),
+                              ("close-in pose", close["c2w"],
+                               close["exact_demand"])):
+        with torch.no_grad():
+            pd, _, td = (int(x) for x in pair_demand(
+                pool.params, pose, fx, fy, cx, cy, cfg_t, alive=pool.alive))
+        k_cfg = cfg_t.with_(max_pairs=max(cfg.max_pairs, rup(pd)),
+                            trunc_pairs=rup(td))
+        x_cfg = cfg.with_(backend="xla", max_per_tile=LEVER_CAP)
+        if exact is not None:
+            x_cfg = x_cfg.with_(max_pairs=rup(exact))
+        img_t, aux_t, t_ms, _ = _timed_render(pool, pose, fx, fy, cx, cy,
+                                              k_cfg)
+        img_c, aux_c, c_ms, c_peak = _timed_render(pool, pose, fx, fy, cx,
+                                                   cy, x_cfg)
+        d = float((img_t - img_c).abs().max())
+        over = int(aux_c.num_pairs) > x_cfg.max_pairs \
+            or int(aux_t.trunc_demand) > aux_t.trunc_capacity
+        print(f"[{card}] K1 tile_rank_cap {LEVER_CAP} vs xla max_per_tile "
+              f"{LEVER_CAP} at the {name}: image max abs {d:.3e}; pairs "
+              f"kept {int(aux_t.num_pairs_kept)} of {int(aux_c.num_pairs)} "
+              f"(largest tile {int(aux_c.max_tile_count)}); K1 {t_ms:.3f} "
+              f"ms, xla {c_ms:.3f} ms (first call, max_pairs "
+              f"{x_cfg.max_pairs}), peak {c_peak:.2f} GiB; overflow {over}",
+              flush=True)
+        if not (d <= TOL and not over):
+            raise SystemExit(f"FAIL: truncated K1 vs the xla cap, {name}")
+        del img_t, img_c, aux_t, aux_c
+
+    # (3) Gradients through xla against K1/K2 at 960x540.
+    tf = 0.85 * TRAIN_W
+    tcfg = gt.RenderConfig(height=TRAIN_H, width=TRAIN_W,
+                           max_pairs=TRAIN_PAIRS)
+    gen = torch.Generator(device=pool.pos.device).manual_seed(2)
+    tgt = torch.rand(TRAIN_H, TRAIN_W, 3, generator=gen,
+                     device=pool.pos.device)
+    grads, ms, kg = {}, {}, 0
+    for name in ("pallas", "xla"):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in pool.params.items()}
+        # xla composites as many pairs per tile as K1's largest tile holds.
+        cfg_g = tcfg if name == "pallas" else tcfg.with_(
+            backend="xla", max_per_tile=kg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img, aux = gt.render_from_params(p, c2w, tf, tf, TRAIN_W / 2.0,
+                                         TRAIN_H / 2.0, cfg_g,
+                                         alive=pool.alive)
+        (torch.mean(torch.abs(img - tgt)) + torch.mean(img * img)).backward()
+        torch.cuda.synchronize()
+        ms[name] = ((time.perf_counter() - t0) * 1e3,
+                    torch.cuda.max_memory_allocated() / 2**30)
+        grads[name] = {k: v.grad for k, v in p.items()}
+        kg = kg or int(aux.max_tile_count)
+    rel = {}
+    for k in PARAM_KEYS:
+        scale = float(grads["xla"][k].abs().max()) + 1e-12
+        rel[k] = float((grads["pallas"][k] - grads["xla"][k]).abs().max()) \
+            / scale
+    print(f"[{card}] fwd+bwd at {TRAIN_W}x{TRAIN_H}, xla (max_per_tile "
+          f"{kg}) vs K1/K2: gradient max abs / leaf max "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (bound 5e-4); host clock to synchronize, first call: xla "
+          f"{ms['xla'][0]:.1f} ms, peak {ms['xla'][1]:.2f} GiB; K1/K2 "
+          f"{ms['pallas'][0]:.1f} ms, peak {ms['pallas'][1]:.2f} GiB",
+          flush=True)
+    if not all(v <= 5e-4 for v in rel.values()):
+        raise SystemExit("FAIL: xla gradients disagree with K1/K2")
+    return _since(before)
+
+
+def eval_phase(pool, trained, batch, cfg, start, card):
+    """Phase 13b: evaluate_views on phase 8's training views (960x540, the
+    unperturbed checkpoint rendered through K1 as ground truth): the
+    perturbed pool before and after phase 8's steps (PSNR must rise), the
+    checkpoint against its own renders (above 100 dB), render_batch=4
+    against per-view (PSNR 1e-3 dB, L1 1e-6), auto_size from max_pairs
+    2**18 (the capacity grows to the demand and reproduces the sized
+    metrics). Returns the K1 launches."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.evaluation import evaluate_views
+
+    alive = pool.alive
+    views = [{"image": batch["image"][i], "c2w": batch["c2w"][i],
+              **{k: float(batch[k][i]) for k in ("fx", "fy", "cx", "cy")}}
+             for i in range(batch["c2w"].shape[0])]
+    before_pool = gt.pool_from_numpy(start, alive.cpu().numpy(),
+                                     device=alive.device)
+    k1 = _counts()[0]
+    r_before = evaluate_views(before_pool.params, views, cfg, alive=alive)
+    r_after = evaluate_views(trained, views, cfg, alive=alive)
+    r_self = evaluate_views(pool.params, views, cfg, alive=alive)
+    r_b4 = evaluate_views(trained, views, cfg, alive=alive, render_batch=4)
+    r_auto = evaluate_views(trained, views, cfg.with_(max_pairs=2**18),
+                            alive=alive)
+    k1 = _counts()[0] - k1
+
+    def fig(r):
+        return "; ".join(f"{v['psnr']:.3f} dB / {v['ssim']:.5f} / "
+                         f"{v['l1']:.6f}" for v in r["per_view"])
+
+    for name, r in (("perturbed, before the steps", r_before),
+                    ("after the 6 steps", r_after),
+                    ("after, render_batch=4", r_b4),
+                    ("after, auto_size from max_pairs 2**18", r_auto),
+                    ("the checkpoint itself", r_self)):
+        print(f"[{card}] evaluate_views, {name}: mean PSNR "
+              f"{r['psnr']:.4f} dB, SSIM {r['ssim']:.6f}, L1 {r['l1']:.7f}; "
+              f"per view (PSNR / SSIM / L1) {fig(r)}; demand "
+              f"{r['max_pair_demand']}, max_pairs {r['eval_max_pairs']}",
+              flush=True)
+    d_psnr = max(abs(a["psnr"] - b["psnr"])
+                 for a, b in zip(r_after["per_view"], r_b4["per_view"]))
+    d_l1 = max(abs(a["l1"] - b["l1"])
+               for a, b in zip(r_after["per_view"], r_b4["per_view"]))
+    d_auto = max(abs(a["psnr"] - b["psnr"])
+                 for a, b in zip(r_after["per_view"], r_auto["per_view"]))
+    print(f"[{card}] evaluation: PSNR gain {r_after['psnr'] - r_before['psnr']:+.4f} "
+          f"dB over the steps; batched vs per view: PSNR {d_psnr:.2e} dB, "
+          f"L1 {d_l1:.2e}; auto-sized vs sized PSNR {d_auto:.2e} dB; K1 "
+          f"launches {k1}", flush=True)
+    if not (r_after["psnr"] > r_before["psnr"]
+            and min(v["psnr"] for v in r_self["per_view"]) > 100.0
+            and d_psnr <= 1e-3 and d_l1 <= 1e-6 and d_auto <= 1e-3
+            and r_auto["eval_max_pairs"] >= r_auto["max_pair_demand"]
+            > 2**18):
+        raise SystemExit("FAIL: evaluation")
+    return k1
+
+
+def kernel_events(summary, name):
+    """Kernel launches in a trace summary whose name holds ``name``."""
+    return sum(c for k, (c, _) in summary["by_kernel"].items() if name in k)
+
+
+def trace_phase(pool, c2w, fx, fy, cx, cy, cfg, card):
+    """Phase 13c: one served frame and one fwd+bwd at 1080p at the bench
+    pose, each inside utils.profiling.trace; each Chrome trace read back
+    (utils.profiling.summarize_trace): the device-busy share of the traced
+    window, the kernel launches, the ten kernels with the most time, the
+    longest idle gaps. The trace must hold as many K1 and K2 events as
+    their counts say. Then one frame traced stage by stage
+    (profile_trace.trace_stages): each stage's host time, kernel launches
+    and device-busy time, every launch's kernel record in the trace.
+    Returns (K1, K2) launches."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.profile_trace import (STAGES, print_stages,
+                                                print_summary, trace_stages)
+    from gsplat_tpu_torch.utils.profiling import summarize_trace, trace
+    from gsplat_tpu_torch.viewer import make_render_fn
+
+    log_dir = os.path.join(ROOT, "traces", "chip_smoke")
+    render_fn = make_render_fn(pool.params, cfg, fx, fy, cx, cy,
+                               alive=pool.alive)
+
+    def fwd_bwd():
+        p = {k: v.detach().requires_grad_(True)
+             for k, v in pool.params.items()}
+        img, _ = gt.render_from_params(p, c2w, fx, fy, cx, cy, cfg,
+                                       alive=pool.alive)
+        (torch.mean(img) + torch.mean(img * img)).backward()
+
+    before = _counts()
+    frame_kernels = 0
+    for name, fn in (("served frame", lambda: render_fn(c2w)),
+                     ("fwd+bwd", fwd_bwd)):
+        fn()  # warm-up, outside the trace
+        torch.cuda.synchronize()
+        n0 = _counts()
+        with trace(log_dir) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n1, n2 = _since(n0)
+        s = summarize_trace(prof.chrome_trace_path)
+        e1 = kernel_events(s, "raster_fwd_kernel")
+        e2 = kernel_events(s, "raster_bwd_kernel")
+        print(f"[{card}] trace of one {name} at 1080p "
+              f"({os.path.relpath(prof.chrome_trace_path, ROOT)}): K1 events "
+              f"{e1} (count {n1}), K2 events {e2} (count {n2})", flush=True)
+        print_summary(s, 1, f"[{card}] {name}")
+        frame_kernels = frame_kernels or s["kernels"]
+        if not (s["kernels"] > 0 and e1 == n1 and e2 == n2 and n1 == 1):
+            raise SystemExit(f"FAIL: the trace of the {name} lacks the "
+                             f"counted kernel events")
+    st = trace_stages(pool.params, c2w, fx, fy, cx, cy, cfg, pool.alive,
+                      log_dir)
+    print_stages(st, f"[{card}] 1080p bench pose")
+    ranges = [st["ranges"][k] for k in STAGES]
+    launched = sum(r["launches"] for r in ranges)
+    held = sum(r["kernels"] for r in ranges)
+    print(f"[{card}] stage trace: {launched} launches in the annotated "
+          f"frame, {held} of their kernels in the trace (the served frame's "
+          f"trace: {frame_kernels} launches)", flush=True)
+    if not (held == launched > 0
+            and kernel_events(st, "raster_fwd_kernel") == 2):
+        raise SystemExit("FAIL: the stage trace lost kernel records")
+    return _since(before)
+
+
+def tools_phase(pool, c2w, fx, fy, cx, cy, cfg, lever, card):
+    """Phase 13d-f: the measuring CLIs at the bench pose through their
+    mains, as a user runs them: profile_stages exact and with the lever
+    (tile_rank_cap LEVER_CAP, --auto_pairs), profile_binning, cull_sweep
+    (its 64-chunk bench-pose demand and kept pairs equal to phase 11b's),
+    and the truncation ladder at 4 close-in poses with K in {1024, 4096},
+    its banded exact reference held against a full-frame exact render
+    sized to each pose's demand. Returns (K1, K2) launches."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch import (cull_sweep, profile_binning,
+                                  profile_stages, trunc_error_ladder)
+
+    before = _counts()
+    runs = {}
+    for name, extra in (("exact", []), ("lever", [
+            "--tile_rank_cap", str(LEVER_CAP), "--auto_pairs"])):
+        argv = ["--checkpoint", CKPT] + extra
+        print(f"[{card}] python -m gsplat_tpu_torch.profile_stages "
+              + " ".join(argv), flush=True)
+        runs[name] = profile_stages.main(argv)
+    print(f"[{card}] python -m gsplat_tpu_torch.profile_binning", flush=True)
+    binning_ms = profile_binning.main(["--checkpoint", CKPT])
+    print(f"[{card}] python -m gsplat_tpu_torch.cull_sweep", flush=True)
+    sweep = cull_sweep.main(["--checkpoint", CKPT])
+    at64 = sweep["bench(4.4x)"]
+    print(f"[{card}] cull_sweep at {LEVER_CHUNKS} chunks, bench pose: "
+          f"demand {at64['chunks'][LEVER_CHUNKS]['demand']} (phase 11b "
+          f"{lever['demand']}), kept {at64['kept']} (phase 11b "
+          f"{lever['kept']})", flush=True)
+    if not (at64["chunks"][LEVER_CHUNKS]["demand"] == lever["demand"]
+            and at64["kept"] == lever["kept"]):
+        raise SystemExit("FAIL: cull_sweep disagrees with phase 11b")
+    argv = ["--checkpoint", CKPT, "--caps", "1024", "4096"]
+    print(f"[{card}] python -m gsplat_tpu_torch.trunc_error_ladder "
+          + " ".join(argv), flush=True)
+    lad = trunc_error_ladder.main(argv)
+    for i, (pose, band) in enumerate(zip(lad["poses"], lad["exact"])):
+        cfg_x = cfg.with_(max_pairs=rup(lad["exact_demand"][i]))
+        with torch.no_grad():
+            full, aux = gt.render_from_params(pool.params, pose, fx, fy, cx,
+                                              cy, cfg_x, alive=pool.alive)
+        diff = band - full
+        mse = float(torch.mean(diff * diff))
+        psnr = float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
+        rows = (diff.abs().amax(dim=(1, 2)) > 0).nonzero().flatten()
+        print(f"[{card}] ladder pose {i}: banded exact ({lad['bands']} "
+              f"bands) vs the full-frame exact render (demand "
+              f"{int(aux.num_pairs)}, max_pairs {cfg_x.max_pairs}): max abs "
+              f"{float(diff.abs().max()):.3e}, PSNR {psnr:.2f} dB, "
+              f"{rows.numel()} rows differ"
+              + (f" ({int(rows.min())}-{int(rows.max())})" if rows.numel()
+                 else ""), flush=True)
+        if int(aux.num_pairs) > cfg_x.max_pairs:
+            raise SystemExit("FAIL: the full-frame exact render overflowed")
+        del full, aux, diff
+    k = _since(before)
+    print(f"[{card}] measuring CLIs: K1 launches {k[0]}, K2 launches {k[1]}",
+          flush=True)
+    return k, runs, binning_ms, sweep, lad
+
+
 def image_from_tiles(out, tile_count, cfg):
     """[num_tiles, 8, P] compositor output -> [H, W, 3] image, as
     rasterize_binned assembles it."""
@@ -1950,53 +2254,6 @@ def image_from_tiles(out, tile_count, cfg):
     img = rgb.reshape(cfg.tiles_y, cfg.tiles_x, 3, t, t).permute(
         0, 3, 1, 4, 2).reshape(cfg.padded_height, cfg.padded_width, 3)
     return torch.clamp(img[: cfg.height, : cfg.width], 0.0, 1.0)
-
-
-def stage_ms(params, c2w, fx, fy, cx, cy, cfg, alive, reps=5):
-    """Device time of each stage of render_from_params, one at a time on
-    the same inputs (CUDA events; median of `reps`). `rasterize_binned`
-    holds the pair-feature gather, the kernel and the plane assembly."""
-    from gsplat_tpu_torch.ops.binning import bin_gaussians
-    from gsplat_tpu_torch.ops.gaussian import build_cov3d_packed
-    from gsplat_tpu_torch.ops.projection import project_gaussians
-    from gsplat_tpu_torch.ops.rasterize import (_pair_features,
-                                                gather_pair_features,
-                                                rasterize_binned)
-    from gsplat_tpu_torch.ops.sh import evaluate_sh
-
-    pos = params["pos"]
-    s = serving_path(params, c2w, fx, fy, cx, cy, cfg, alive)
-    steps = {
-        "cov3d+sh": lambda: (
-            build_cov3d_packed(params["scale_raw"], params["q_raw"]),
-            evaluate_sh(params["f_dc"], params["f_rest"], pos, s["c2w"])),
-        "project": lambda: project_gaussians(
-            pos, s["cov"], params["opacity_raw"], s["c2w"], fx, fy, cx, cy,
-            cfg, extra_valid=alive),
-        "bin": lambda: bin_gaussians(s["proj"], cfg),
-        "gather": lambda: gather_pair_features(
-            _pair_features(s["proj"], s["colors"], torch.float32)[
-                s["bin"].depth_order.long()], s["bin"].pair_slot,
-            s["bin"].gauss_offsets),
-        "rasterize_binned": lambda: rasterize_binned(
-            s["proj"], s["colors"], s["bin"], cfg),
-    }
-    out = {}
-    with torch.no_grad():
-        for name, fn in steps.items():
-            fn()
-            out[name] = float(np.median([device_ms(fn, 1)
-                                         for _ in range(reps)]))
-    return out
-
-
-def bench_pose(pool):
-    from gsplat_tpu_torch.viewer import estimate_scene_center_radius, look_at
-
-    pos = pool.pos.detach().cpu().numpy()[pool.alive.cpu().numpy()]
-    center, radius = estimate_scene_center_radius(positions=pos)
-    cam = center + np.array([0.0, -0.6 * radius, -4.4 * radius])
-    return look_at(cam, center), center, radius
 
 
 def main():
@@ -2196,8 +2453,8 @@ def main():
     del gparams
 
     # --- 8. training through the port's entry points ---
-    train_k1, train_k2, train_ms = train_phase(pool, c2w, center, radius,
-                                               card)
+    train_k1, train_k2, train_ms, trained = train_phase(pool, c2w, center,
+                                                        radius, card)
 
     # --- 8b. fit(): density control, checkpoints, growth ---
     fit_k1, fit_k2 = fit_phase(pool, c2w, center, radius, card)
@@ -2247,10 +2504,10 @@ def main():
           flush=True)
     log_entries = log_phase(pool, c2w, traj, fx, fy, cx, cy, cfg, pf,
                             binning, plain_img, card, instr)
-    trunc_k1, trunc_k2 = trunc_phase(pool, c2w, traj, fx, fy, cx, cy, cfg,
-                                     served["first"], card)
-    bucket_k1 = bucket_phase(pool, fx, fy, cx, cy, cfg, center, radius,
-                             card)
+    trunc_k1, trunc_k2, lever = trunc_phase(pool, c2w, traj, fx, fy, cx,
+                                            cy, cfg, served["first"], card)
+    bucket_k1, close = bucket_phase(pool, fx, fy, cx, cy, cfg, center,
+                                    radius, card)
 
     # --- 12. the training levers ---
     train_cfg, tbatch, tstart = train_views(pool, c2w, center, radius)
@@ -2265,14 +2522,25 @@ def main():
     serve_k1 = levers_serve_phase(pool, traj, fx, fy, cx, cy, cfg,
                                   served["first"], stats, card)
 
-    # --- 13. result lines ---
+    # --- 13. the XLA compositor, evaluation and the measuring tools ---
+    t13 = time.perf_counter()
+    xla_n = xla_phase(pool, c2w, fx, fy, cx, cy, cfg, served["first"],
+                      close, card)
+    eval_k1 = eval_phase(pool, trained, tbatch, train_cfg, tstart, card)
+    trace_n = trace_phase(pool, c2w, fx, fy, cx, cy, cfg, card)
+    tools_n = tools_phase(pool, c2w, fx, fy, cx, cy, cfg, lever, card)[0]
+    print(f"[{card}] phase 13 took {time.perf_counter() - t13:.1f} s",
+          flush=True)
+
+    # --- 14. result lines ---
     kernels = [{
         "name": "raster_fwd",
         "route": "cuda",
         "source": "gsplat_tpu_torch/ops/csrc/raster_fwd.cu",
         "replaces": "gsplat_tpu/ops/raster_pallas.py:192",
         "launches": launches + fit_k1 + trunc_k1 + bucket_k1
-        + lever_n["launches"] + fit_n["launches"] + serve_k1,
+        + lever_n["launches"] + fit_n["launches"] + serve_k1
+        + xla_n[0] + eval_k1 + trace_n[0] + tools_n[0],
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2284,7 +2552,8 @@ def main():
         "route": "cuda",
         "source": "gsplat_tpu_torch/ops/csrc/raster_bwd.cu",
         "replaces": "gsplat_tpu/ops/raster_pallas.py:243",
-        "launches": train_k2 + fit_k2 + trunc_k2 + lever_n["bwd_launches"],
+        "launches": train_k2 + fit_k2 + trunc_k2 + lever_n["bwd_launches"]
+        + xla_n[1] + trace_n[1] + tools_n[1],
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

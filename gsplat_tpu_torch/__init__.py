@@ -12,6 +12,8 @@ from .device import resolve_device
 from .models.gaussians import (GaussianPool, init_pool_from_points,
                                pool_from_numpy)
 from .ops.binning import TileBinning, bin_gaussians
+from .ops.camera import inv2x2, project_points
+from .ops.gaussian import build_sigma_from_params
 from .ops.losses import compute_loss
 from .ops.projection import ProjectedGaussians, project_gaussians
 from .ops.rasterize import RenderAux, rasterize
@@ -33,6 +35,9 @@ __all__ = [
     "pool_from_numpy",
     "TileBinning",
     "bin_gaussians",
+    "build_sigma_from_params",
+    "inv2x2",
+    "project_points",
     "compute_loss",
     "ProjectedGaussians",
     "project_gaussians",

@@ -178,43 +178,34 @@ def _occlusion_cull(tile_min, n_u, n_v, counts, cfg: RenderConfig):
     return torch.where(occluded, 0, counts)
 
 
-def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
-    """Build the block-aligned sorted pair list for one view (static shapes)."""
-    _check_supported(cfg)
-    dev = proj.depth.device
-    i64 = torch.int64
-    n = proj.depth.shape[0]
-    num_tiles = cfg.num_tiles
-    cap = cfg.max_pairs
-    G = cfg.pair_block
-    cap_pad = cfg.padded_pairs
-    num_blocks = cap_pad // G
-
+def _footprints(proj: ProjectedGaussians):
+    """The depth order and each gaussian's tile rectangle in that order:
+    (order [N] int32, tile_min [N, 2], n_u, n_v, counts [N], int64)."""
     order = depth_order(proj.depth, proj.valid)
-    order_l = order.to(i64)
-
-    # Footprint counts in DEPTH order, so that capacity overflow drops the
-    # farthest gaussians' pairs first.
-    tile_min = proj.tile_min[order_l].to(i64)
-    tile_max = proj.tile_max[order_l].to(i64)
+    order_l = order.to(torch.int64)
+    tile_min = proj.tile_min[order_l].to(torch.int64)
+    tile_max = proj.tile_max[order_l].to(torch.int64)
     n_u = torch.clamp(tile_max[:, 0] - tile_min[:, 0] + 1, min=0)
     n_v = torch.clamp(tile_max[:, 1] - tile_min[:, 1] + 1, min=0)
-    counts = n_u * n_v
-    if cfg.tile_rank_cap and cfg.occlusion_cull:
-        # Before the capacity drop, so num_pairs is the demand after it.
-        counts = _occlusion_cull(tile_min, n_u, n_v, counts, cfg)
+    return order, tile_min, n_u, n_v, n_u * n_v
 
-    # Overflow drops WHOLE gaussians from the back of the depth order.
+
+def _expand(counts, tile_min, n_u, cfg: RenderConfig):
+    """The capacity drop and the pair expansion: (total demand, offsets
+    [N+1] after the drop, owner depth slot [max_pairs] (N past the end),
+    pair_ok, tile_id (num_tiles for unused slots)). Overflow drops WHOLE
+    gaussians from the back of the depth order."""
+    dev = counts.device
+    n = counts.shape[0]
     full_cum = torch.cumsum(counts, 0)
     total = full_cum[-1]  # true demand (reported; may exceed cap)
-    kept_pre = counts > 0  # before the capacity drop
-    counts = torch.where(full_cum <= cap, counts, 0)
+    counts = torch.where(full_cum <= cfg.max_pairs, counts, 0)
     offsets = torch.cat(
-        [torch.zeros(1, dtype=i64, device=dev), torch.cumsum(counts, 0)]
+        [torch.zeros(1, dtype=torch.int64, device=dev),
+         torch.cumsum(counts, 0)]
     )  # [N+1] exclusive offsets (post-drop)
-
-    # --- expansion: owner depth-slot of pair p = #(offsets <= p) - 1 ---
-    p = torch.arange(cap, dtype=i64, device=dev)
+    # Owner depth-slot of pair p = #(offsets <= p) - 1.
+    p = torch.arange(cfg.max_pairs, dtype=torch.int64, device=dev)
     slot = torch.searchsorted(offsets, p, right=True) - 1  # n past the end
     pair_ok = slot < n
     s = torch.clamp(slot, max=n - 1)
@@ -222,68 +213,130 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
     nu = torch.clamp(n_u[s], min=1)
     tx = tile_min[s, 0] + local % nu
     ty = tile_min[s, 1] + local // nu
-    tile_id = torch.where(pair_ok, ty * cfg.tiles_x + tx, num_tiles)
+    tile_id = torch.where(pair_ok, ty * cfg.tiles_x + tx, cfg.num_tiles)
+    return total, offsets, slot, pair_ok, tile_id
 
-    # --- exact per-tile counts (integer scatter-add: deterministic) ---
-    tile_count = torch.zeros(num_tiles + 1, dtype=i64, device=dev)
+
+def _tile_counts(tile_id, num_tiles: int):
+    """Exact per-tile pair counts (integer scatter-add: deterministic)."""
+    tile_count = torch.zeros(num_tiles + 1, dtype=torch.int64,
+                             device=tile_id.device)
     tile_count.scatter_add_(0, tile_id, torch.ones_like(tile_id))
-    tile_count = tile_count[:num_tiles]
+    return tile_count[:num_tiles]
 
-    # --- one sort: tile-major, depth-ordered within a tile ---
-    # Keys are unique for real pairs; every unused capacity slot carries
-    # the sentinel (tile num_tiles) and sorts last.
+
+def _sort_keys(tile_id, slot, pair_ok, n: int, num_tiles: int):
+    """One sort: tile-major, depth-ordered within a tile. Keys are unique
+    for real pairs; every unused capacity slot carries the sentinel (tile
+    num_tiles) and sorts last."""
     key = torch.where(pair_ok, tile_id * (n + 1) + slot, num_tiles * (n + 1))
-    sorted_key, _ = torch.sort(key)
+    return torch.sort(key)[0]
+
+
+def _align(sorted_key, tile_count, n: int, cfg: RenderConfig):
+    """Block alignment: each tile's run padded to a multiple of
+    ``pair_block``. Returns (pair_slot [padded_pairs] int64, -1 padding;
+    padded_count [num_tiles]; padded_start [num_tiles + 1])."""
+    dev = sorted_key.device
+    i64 = torch.int64
+    G, T, cap_pad = cfg.pair_block, cfg.num_tiles, cfg.padded_pairs
     st = sorted_key // (n + 1)  # owning tile; num_tiles = unused
     ss = sorted_key % (n + 1)  # depth slot
-
-    # --- block alignment: each tile's run padded to a multiple of G ---
     padded_count = tile_count + (-tile_count) % G
     zero1 = torch.zeros(1, dtype=i64, device=dev)
     padded_start = torch.cat([zero1, torch.cumsum(padded_count, 0)])  # [T+1]
     real_start = torch.cat([zero1, torch.cumsum(tile_count, 0)])  # [T+1]
-    ok = st < num_tiles
+    ok = st < T
+    p = torch.arange(cfg.max_pairs, dtype=i64, device=dev)
     dest = padded_start[st] + (p - real_start[st])
     # Unused slots scatter to one extra trailing element, cut off below.
     pair_slot = torch.full((cap_pad + 1,), -1, dtype=i64, device=dev)
     pair_slot.scatter_(0, torch.where(ok, dest, cap_pad),
                        torch.where(ok, ss, -1))
-    pair_slot = pair_slot[:cap_pad]
+    return pair_slot[:cap_pad], padded_count, padded_start
 
-    # --- per-block metadata: owning tile, first / continuation / dead ---
-    b0 = torch.arange(num_blocks, dtype=i64, device=dev) * G
+
+def _block_meta(padded_start, cfg: RenderConfig):
+    """Per-block metadata: owning tile, first / continuation / dead."""
+    G, T = cfg.pair_block, cfg.num_tiles
+    num_blocks = cfg.num_pair_blocks
+    b0 = torch.arange(num_blocks, dtype=torch.int64,
+                      device=padded_start.device) * G
     block_tile = torch.searchsorted(padded_start, b0, right=True) - 1
-    block_tile = torch.clamp(block_tile, 0, num_tiles - 1)
-    block_used = b0 < padded_start[num_tiles]
+    block_tile = torch.clamp(block_tile, 0, T - 1)
+    block_used = b0 < padded_start[T]
     block_first = torch.where(
-        block_used, (b0 == padded_start[block_tile]).to(i64), -1
+        block_used, (b0 == padded_start[block_tile]).to(torch.int64), -1
     )
-    block_meta = pack_block_meta(block_tile, block_first)
+    return pack_block_meta(block_tile, block_first)
+
+
+def _compact_blocks(pair_slot, padded_count, padded_start,
+                    cfg: RenderConfig):
+    """Per-tile rank truncation: keep each tile's first ``rank_cap_blocks``
+    blocks, compacted block by block into the ``trunc_padded_pairs`` list.
+    Returns (pair_slot, block_meta, new_start_b [num_tiles + 1]: each
+    tile's first block in the compacted list)."""
+    dev = pair_slot.device
+    i64 = torch.int64
+    G, T = cfg.pair_block, cfg.num_tiles
+    num_blocks = cfg.num_pair_blocks
+    Kb = cfg.rank_cap_blocks
+    keepb = torch.clamp(padded_count // G, max=Kb)  # [T] blocks kept
+    new_start_b = torch.cat([torch.zeros(1, dtype=i64, device=dev),
+                             torch.cumsum(keepb, 0)])  # [T+1]
+    n_new = cfg.num_trunc_blocks
+    nb0 = torch.arange(n_new, dtype=i64, device=dev)
+    nb_tile = torch.clamp(
+        torch.searchsorted(new_start_b, nb0, right=True) - 1, 0, T - 1)
+    nb_used = nb0 < new_start_b[T]
+    src_block = torch.clamp(
+        padded_start[nb_tile] // G + (nb0 - new_start_b[nb_tile]),
+        0, num_blocks - 1)
+    nb_first = torch.where(
+        nb_used, (nb0 == new_start_b[nb_tile]).to(i64), -1)
+    pair_slot = torch.where(
+        nb_used[:, None], pair_slot.view(num_blocks, G)[src_block], -1
+    ).reshape(-1)
+    return pair_slot, pack_block_meta(nb_tile, nb_first), new_start_b
+
+
+def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
+    """Build the block-aligned sorted pair list for one view (static shapes).
+
+    The steps are module functions, in order (``profile_binning`` times
+    each on a frame's tensors): :func:`_footprints`, the occlusion cull
+    (with truncation), :func:`_expand`, :func:`_tile_counts`,
+    :func:`_sort_keys`, :func:`_align`, :func:`_block_meta`, and with
+    truncation :func:`_compact_blocks` and the exact cover counts."""
+    _check_supported(cfg)
+    dev = proj.depth.device
+    n = proj.depth.shape[0]
+    num_tiles = cfg.num_tiles
+
+    # Footprint counts in DEPTH order, so that capacity overflow drops the
+    # farthest gaussians' pairs first.
+    order, tile_min, n_u, n_v, counts = _footprints(proj)
+    if cfg.tile_rank_cap and cfg.occlusion_cull:
+        # Before the capacity drop, so num_pairs is the demand after it.
+        counts = _occlusion_cull(tile_min, n_u, n_v, counts, cfg)
+    kept_pre = counts > 0  # before the capacity drop
+    total, offsets, slot, pair_ok, tile_id = _expand(counts, tile_min, n_u,
+                                                     cfg)
+    tile_count = _tile_counts(tile_id, num_tiles)
+    sorted_key = _sort_keys(tile_id, slot, pair_ok, n, num_tiles)
+    pair_slot, padded_count, padded_start = _align(sorted_key, tile_count,
+                                                   n, cfg)
+    block_meta = _block_meta(padded_start, cfg)
     tile_start = padded_start[:num_tiles]
     kept_pairs = total
-    trunc_demand = torch.zeros((), dtype=i64, device=dev)
+    trunc_demand = torch.zeros((), dtype=torch.int64, device=dev)
 
     if cfg.tile_rank_cap:
-        # --- per-tile rank truncation: keep each tile's first Kb blocks,
-        # compacted block by block into the trunc_padded_pairs list ---
+        G = cfg.pair_block
         Kb = cfg.rank_cap_blocks
-        keepb = torch.clamp(padded_count // G, max=Kb)  # [T] blocks kept
-        new_start_b = torch.cat([zero1, torch.cumsum(keepb, 0)])  # [T+1]
-        n_new = cfg.num_trunc_blocks
-        nb0 = torch.arange(n_new, dtype=i64, device=dev)
-        nb_tile = torch.clamp(
-            torch.searchsorted(new_start_b, nb0, right=True) - 1,
-            0, num_tiles - 1)
-        nb_used = nb0 < new_start_b[num_tiles]
-        src_block = torch.clamp(
-            padded_start[nb_tile] // G + (nb0 - new_start_b[nb_tile]),
-            0, num_blocks - 1)
-        nb_first = torch.where(
-            nb_used, (nb0 == new_start_b[nb_tile]).to(i64), -1)
-        block_meta = pack_block_meta(nb_tile, nb_first)
-        pair_slot = torch.where(
-            nb_used[:, None], pair_slot.view(num_blocks, G)[src_block], -1
-        ).reshape(-1)
+        pair_slot, block_meta, new_start_b = _compact_blocks(
+            pair_slot, padded_count, padded_start, cfg)
         cap_t = Kb * G
         # Reported demand from the tile counts before the capacity drop,
         # so a probe's own max_pairs cannot hide it.
@@ -299,8 +352,9 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
         # A tile whose first block fell past the capacity is never
         # composited: count 0. Tiles that lost only deeper blocks keep a
         # front-most prefix; the overflow is reported by trunc_demand.
-        tile_count = torch.where(new_start_b[:num_tiles] < n_new,
-                                 torch.clamp(tile_count, max=cap_t), 0)
+        tile_count = torch.where(
+            new_start_b[:num_tiles] < cfg.num_trunc_blocks,
+            torch.clamp(tile_count, max=cap_t), 0)
 
     i32 = torch.int32
     return TileBinning(

@@ -1,6 +1,7 @@
 """Gaussian parameterization: quaternion -> rotation, covariance.
 
-Counterpart of ``gsplat_tpu/ops/gaussian.py:23-132``:
+Counterpart of ``gsplat_tpu/ops/gaussian.py:23-132``, with
+``build_sigma_from_params`` (``:54``) beside the packed form:
 
 * quaternions use the (x, y, z, w) layout,
 * quaternions are normalized with a +1e-9 denominator guard,
@@ -39,6 +40,18 @@ def normalize_quat(q_raw: torch.Tensor) -> torch.Tensor:
 def exp_scale(scale_raw: torch.Tensor) -> torch.Tensor:
     """Log-space scale -> positive scale, clamped to >= 1e-6."""
     return maximum(torch.exp(scale_raw), 1e-6)
+
+
+def build_sigma_from_params(scale_raw: torch.Tensor,
+                            q_raw: torch.Tensor) -> torch.Tensor:
+    """[N, 3, 3] covariance Sigma = R diag(s^2) R^T (``:54``), each entry
+    ``sum_k R_ik s2_k R_jk`` written out in k order (no matrix library)."""
+    scale = exp_scale(scale_raw)
+    R = quat_to_rotmat(normalize_quat(q_raw))
+    Rs2 = R * (scale**2)[..., None, :]
+    return (Rs2[..., :, None, 0] * R[..., None, :, 0]
+            + Rs2[..., :, None, 1] * R[..., None, :, 1]
+            + Rs2[..., :, None, 2] * R[..., None, :, 2])
 
 
 def build_cov3d_packed(scale_raw: torch.Tensor, q_raw: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,30 @@
 """Tile rasterization: depth-sorted alpha compositing of projected Gaussians.
 
 Counterpart of ``gsplat_tpu/ops/rasterize.py``: ``RenderAux`` (``:44-75``),
-``_pair_features`` (``:133-147``), ``gather_pair_features`` with its
-backward (``:150-264``: untruncated, truncated by ``tile_rank_cap``, and
-compacted by ``bwd_cap``), ``_reduce_pair_grads`` (``:267-286``),
-``_composite_gathered`` (``:289-373``, the gather and the compositor with
-the compacted backward), ``rasterize_binned_pallas`` (``:462-560``) and
-``rasterize`` (``:592-609``). The compositing itself is
-``ops/raster_cuda.py``: the Hopper kernels for CUDA tensors, their plain
-PyTorch versions for CPU tensors, forward and backward.
+``_pair_features`` (``:133-147``), ``_composite_chunk`` (``:78-130``),
+``gather_pair_features`` with its backward (``:150-264``: untruncated,
+truncated by ``tile_rank_cap``, and compacted by ``bwd_cap``),
+``_reduce_pair_grads`` (``:267-286``), ``_composite_gathered``
+(``:289-373``, the gather and the compositor with the compacted backward),
+``rasterize_binned_xla`` (``:376-459``), ``rasterize_binned_pallas``
+(``:462-560``), ``resolve_backend`` (``:563-576``), ``rasterize_binned``
+and ``rasterize`` (``:579-609``) and the dense oracle ``rasterize_dense``
+(``:612-657``).
 
-When autograd records, :func:`rasterize_binned` runs the gather and the
-compositor as one function (:class:`_CompositeGathered`) whose backward
+Two compositors:
+
+* ``"pallas"`` (and ``"auto"``): ``ops/raster_cuda.py``, the Hopper
+  kernels for CUDA tensors, their plain PyTorch versions for CPU tensors,
+  forward and backward. Each tile composites every pair of its list.
+* ``"xla"``: :func:`rasterize_binned_xla`, plain PyTorch on either device
+  (the JAX package computes it with ``lax.map`` and an einsum, outside any
+  Pallas kernel). Each tile composites only its first ``max_per_tile``
+  pairs, as a dense ``[C, K, P]`` cumulative product over chunks of
+  ``tile_chunk`` tiles, each chunk recomputed in the backward
+  (``torch.utils.checkpoint``, as JAX wraps it in ``jax.checkpoint``).
+
+When autograd records, :func:`rasterize_binned_pallas` runs the gather and
+the compositor as one function (:class:`_CompositeGathered`) whose backward
 reduces only the blocks the forward composited, in either layout: with
 ``bwd_pairs = 0`` the backward kernel writes the whole list and the other
 blocks are keyed out of the reduction; with ``bwd_pairs > 0`` it writes
@@ -19,9 +32,6 @@ the compact ``[10, kb*G]`` list. The reduction then sorts the same
 cotangents in the same order in both and sums each gaussian's run on its
 own, so a ``bwd_pairs`` at or above the demand gives the gradients of
 ``bwd_pairs = 0`` bit for bit.
-
-``backend="xla"`` (the ``max_per_tile`` ``lax.map`` compositor) raises
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,11 +39,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import RenderConfig, cdiv
 from . import raster_cuda
-from .binning import TileBinning, bin_gaussians
-from .clamps import clip
+from .binning import TileBinning, bin_gaussians, depth_order
+from .clamps import clip, minimum
 from .projection import ProjectedGaussians
 
 
@@ -57,6 +68,58 @@ class RenderAux(NamedTuple):
     # Pair slots of the blocks the compositor composited (row 5).
     bwd_demand: torch.Tensor | None = None
     bwd_capacity: int = 0
+
+
+def _composite_chunk(feats: torch.Tensor, mask: torch.Tensor,
+                     cfg: RenderConfig) -> torch.Tensor:
+    """Composite one chunk of tiles (the XLA compositor's body).
+
+    Args:
+        feats: [C, K, 10] per-(tile, slot) features (u, v, conic x3,
+            opacity, rgb, depth), u and v relative to the tile's origin.
+        mask: [C, K] slot validity.
+
+    Returns:
+        [C, T*T, 5]: rgb and depth sums, then the final transmittance.
+        Pixel index ``py * T + px``.
+    """
+    T = cfg.tile
+    P = T * T
+    u = feats[..., 0:1]  # [C, K, 1]
+    v = feats[..., 1:2]
+    ca = feats[..., 2:3]
+    cb = feats[..., 3:4]
+    cc = feats[..., 4:5]
+    op = feats[..., 5:6]
+    chans = feats[..., 6:10]  # [C, K, 4]: rgb + depth
+
+    pix = torch.arange(P, dtype=feats.dtype, device=feats.device)
+    px = pix % T  # [P]
+    py = torch.div(pix, T, rounding_mode="floor")
+
+    du = px[None, None, :] - u  # [C, K, P]
+    dv = py[None, None, :] - v
+    q = ca * du * du + 2.0 * cb * du * dv + cc * dv * dv
+    inside = q <= cfg.chi2_clip
+    g = torch.exp(-0.5 * minimum(q, cfg.chi2_clip))
+    g = torch.where(inside, g, 0.0)
+
+    alpha = minimum(op * g, cfg.alpha_max)
+    alpha = torch.where(alpha >= cfg.alpha_cutoff, alpha, 0.0)
+    alpha = torch.where(mask[..., None], alpha, 0.0)
+
+    # Front-to-back transmittance: T_i = prod_{j<i} (1 - alpha_j).
+    one_minus = 1.0 - alpha
+    trans = torch.cumprod(one_minus, dim=1)
+    trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=1)
+    alive = (trans > cfg.transmittance_min).to(alpha.dtype)
+    w = alpha * trans * alive  # [C, K, P]
+
+    # [C, P, K] @ [C, K, 4] -> [C, P, 4]: full float32 (device.py turns
+    # TF32 off; the JAX package asks for precision="highest").
+    out = torch.einsum("ckp,ckd->cpd", w, chans)
+    t_final = trans[:, -1, :] * one_minus[:, -1, :]  # [C, P]
+    return torch.cat([out, t_final[..., None]], dim=-1)
 
 
 def _pair_features(proj: ProjectedGaussians, colors: torch.Tensor, dtype):
@@ -248,19 +311,118 @@ def composited_pair_keys(pair_slot, tile_start, fwd_out, n: int, kb: int,
     return torch.where(valid[:, None] & (slots >= 0), slots, n).reshape(-1)
 
 
-def rasterize_binned(
+def _assemble_planes(tiles: torch.Tensor, cfg: RenderConfig):
+    """[num_tiles, 5, T*T] tile planes -> [H, W, 5] image planes."""
+    T = cfg.tile
+    planes = tiles.reshape(cfg.tiles_y, cfg.tiles_x, 5, T, T)
+    return planes.permute(0, 3, 1, 4, 2).reshape(
+        cfg.padded_height, cfg.padded_width, 5
+    )[: cfg.height, : cfg.width]
+
+
+def rasterize_binned_xla(
     proj: ProjectedGaussians,
     colors: torch.Tensor,
     binning: TileBinning,
     cfg: RenderConfig,
 ):
-    """Rasterize a precomputed aligned binning. Returns (image, aux).
+    """Rasterize a precomputed pair list with the dense per-tile compositor
+    (the JAX package's XLA path). Returns (image, aux).
+
+    Each tile composites only its first ``cfg.max_per_tile`` pairs (its
+    front-most ones: the list is depth-ordered within a tile), whatever the
+    tile holds, so it differs from the kernel path wherever a tile holds
+    more. Tiles go ``cfg.tile_chunk`` at a time through
+    :func:`_composite_chunk`; when autograd records, each chunk runs under
+    ``torch.utils.checkpoint`` (its ``[C, K, P]`` intermediates are
+    recomputed in the backward, not kept), and the gradients flow through
+    the gathers by autograd. ``cfg.view_tile_rows`` wraps tile rows per
+    view (batched views). Any tile size; no kernel on either device. The
+    aux reports ``per_tile_capacity = max_per_tile`` and, as in JAX, no
+    ``bwd_demand`` (None) and ``bwd_capacity`` 0."""
+    dtype = colors.dtype
+    dev = colors.device
+    T = cfg.tile
+    K = cfg.max_per_tile
+    C = cfg.tile_chunk
+    num_tiles = cfg.num_tiles
+    num_chunks = cdiv(num_tiles, C)
+    i64 = torch.int64
+
+    # Flat per-pair features, tile-major depth-ordered: one gather through
+    # the depth order (pair_slot indexes depth-sorted gaussians; it is the
+    # trunc-compacted layout when tile_rank_cap is set).
+    cap = binning.pair_slot.shape[0]
+    s_idx = binning.pair_slot.to(i64)  # [cap], -1 = padding slot
+    feat = _pair_features(proj, colors, dtype)[binning.depth_order.to(i64)]
+    pair_feat = feat[torch.clamp(s_idx, 0, feat.shape[0] - 1)]  # [cap, 10]
+    pair_feat = torch.where(s_idx[:, None] >= 0, pair_feat, 0.0)
+
+    # Tile origins of every tile; view_tile_rows wraps tile rows per view
+    # (exact integers, as raster_cuda.tile_rows).
+    tids = torch.arange(num_chunks * C, dtype=i64, device=dev)
+    tys = tids // cfg.tiles_x
+    if cfg.view_tile_rows:
+        tys = tys % cfg.view_tile_rows
+    ox = (tids % cfg.tiles_x * T).to(dtype)
+    oy = (tys * T).to(dtype)
+    pad = torch.zeros(num_chunks * C - num_tiles, dtype=i64, device=dev)
+    starts_all = torch.cat([binning.tile_start.to(i64), pad])
+    counts_all = torch.cat([binning.tile_count.to(i64), pad])
+    slot = torch.arange(K, dtype=i64, device=dev)
+
+    def chunk_fn(pair_feat, st, ct, cox, coy):
+        idx = torch.clamp(st[:, None] + slot[None, :], 0, cap - 1)  # [C, K]
+        mask = slot[None, :] < torch.clamp(ct, max=K)[:, None]
+        feats = pair_feat[idx]  # [C, K, 10]
+        # uv tile-local, so the compositor works in [0, T) coordinates.
+        local = torch.cat([feats[..., 0:1] - cox[:, None, None],
+                           feats[..., 1:2] - coy[:, None, None],
+                           feats[..., 2:]], dim=-1)
+        return _composite_chunk(local, mask, cfg)  # [C, T*T, 5]
+
+    remat = torch.is_grad_enabled() and pair_feat.requires_grad
+    outs = []
+    for c in range(num_chunks):
+        sl = slice(c * C, (c + 1) * C)
+        args = (pair_feat, starts_all[sl], counts_all[sl], ox[sl], oy[sl])
+        outs.append(checkpoint(chunk_fn, *args, use_reentrant=False)
+                    if remat else chunk_fn(*args))
+    tiles_out = torch.cat(outs)[:num_tiles]  # [num_tiles, T*T, 5]
+    planes = _assemble_planes(tiles_out.transpose(1, 2), cfg)
+    img = clip(planes[..., 0:3], 0.0, 1.0)  # JAX's tie gradient (clamps.py)
+
+    aux = RenderAux(
+        num_pairs=binning.num_pairs,
+        pair_capacity=cfg.max_pairs,
+        max_tile_count=torch.max(binning.tile_count),
+        per_tile_capacity=K,
+        depth=planes[..., 3],
+        alpha=1.0 - planes[..., 4],
+        screen_radius=proj.radius,
+        num_rows=binning.num_rows,
+        row_capacity=0,
+        num_pairs_kept=binning.num_pairs_kept,
+        trunc_demand=binning.trunc_demand,
+        trunc_capacity=cfg.trunc_padded_pairs if cfg.tile_rank_cap else 0,
+    )
+    return img, aux
+
+
+def rasterize_binned_pallas(
+    proj: ProjectedGaussians,
+    colors: torch.Tensor,
+    binning: TileBinning,
+    cfg: RenderConfig,
+):
+    """Rasterize a precomputed aligned binning through ``raster_cuda`` (the
+    kernels on CUDA tensors, their plain versions on CPU tensors). Returns
+    (image, aux).
 
     When autograd records (``colors`` or the projection requires grad),
     the gather and the compositor run as :class:`_CompositeGathered`;
     otherwise as the gather and ``composite_pairs`` (no state written).
     """
-    T = cfg.tile
     feat10 = _pair_features(proj, colors, torch.float32)[
         binning.depth_order.to(torch.int64)]
     if torch.is_grad_enabled() and feat10.requires_grad:
@@ -277,12 +439,8 @@ def rasterize_binned(
     occupied = (binning.tile_count > 0)[:, None, None]
     tiles_out = torch.where(occupied, out[:, 0:4, :], 0.0)
     tiles_T = torch.where(occupied[:, 0, :], out[:, 4, :], 1.0)
-    planes = torch.cat([tiles_out, tiles_T[:, None, :]], dim=1)  # [nt, 5, P]
-
-    planes = planes.reshape(cfg.tiles_y, cfg.tiles_x, 5, T, T)
-    planes = planes.permute(0, 3, 1, 4, 2).reshape(
-        cfg.padded_height, cfg.padded_width, 5
-    )[: cfg.height, : cfg.width]
+    planes = _assemble_planes(
+        torch.cat([tiles_out, tiles_T[:, None, :]], dim=1), cfg)
     img = clip(planes[..., 0:3], 0.0, 1.0)  # JAX's tie gradient (clamps.py)
 
     aux = RenderAux(
@@ -306,18 +464,83 @@ def rasterize_binned(
     return img, aux
 
 
+def resolve_backend(cfg: RenderConfig) -> str:
+    """The compositor a config asks for: ``"pallas"`` or ``"xla"``.
+
+    ``"auto"`` is ``"pallas"`` on both devices here: the K1 kernel on CUDA
+    tensors and its plain version, which has the kernel's semantics (every
+    pair of a tile composited), on CPU tensors. The JAX package's
+    ``"auto"`` means ``"xla"`` off a TPU, so an ``"auto"`` config that
+    overflows ``max_per_tile`` in some tile renders differently in the two
+    packages off a TPU; ask for ``"xla"`` to get JAX's fallback."""
+    if cfg.backend == "auto":
+        return "pallas"
+    if cfg.backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    return cfg.backend
+
+
+def rasterize_binned(
+    proj: ProjectedGaussians,
+    colors: torch.Tensor,
+    binning: TileBinning,
+    cfg: RenderConfig,
+):
+    """Rasterize a precomputed aligned binning with ``cfg``'s compositor
+    (:func:`resolve_backend`). Returns (image, aux)."""
+    if resolve_backend(cfg) == "xla":
+        return rasterize_binned_xla(proj, colors, binning, cfg)
+    return rasterize_binned_pallas(proj, colors, binning, cfg)
+
+
 def rasterize(proj: ProjectedGaussians, colors: torch.Tensor,
               cfg: RenderConfig):
     """Bin + rasterize one view. Returns (image [H, W, 3], RenderAux)."""
-    if cfg.backend == "xla":
-        raise NotImplementedError(
-            "backend='xla' (the max_per_tile lax.map compositor) is not "
-            "ported; use 'auto' or 'pallas' (the hand-written compositor)")
-    if cfg.backend not in ("auto", "pallas"):
-        raise ValueError(f"unknown backend {cfg.backend!r}")
-    binning = bin_gaussians(proj, cfg)
-    img, aux = rasterize_binned(proj, colors, binning, cfg)
+    img, aux = rasterize_binned(proj, colors, bin_gaussians(proj, cfg), cfg)
     if cfg.background != (0.0, 0.0, 0.0):
         bg = torch.tensor(cfg.background, dtype=img.dtype, device=img.device)
         img = img + (1.0 - aux.alpha)[..., None] * bg
     return img, aux
+
+
+def rasterize_dense(proj: ProjectedGaussians, colors: torch.Tensor,
+                    cfg: RenderConfig, row_chunk: int = 16) -> torch.Tensor:
+    """Oracle rasterizer: every gaussian against every pixel (tests only).
+
+    The reference math with no tiling, ``row_chunk`` image rows at a time;
+    memory O(N * row_chunk * W). Returns the [H, W, 3] image."""
+    dtype = colors.dtype
+    dev = colors.device
+    order = depth_order(proj.depth, proj.valid).to(torch.int64)
+    ok = proj.valid[order]
+    # Zero every field of invalid slots: culled gaussians may carry NaNs.
+    u = torch.where(ok, proj.uv[order, 0], 0.0)
+    v = torch.where(ok, proj.uv[order, 1], 0.0)
+    con = torch.where(ok[:, None], proj.conic[order], 0.0)
+    op = torch.where(ok, proj.opacity[order], 0.0)
+    rgb = torch.where(ok[:, None], colors[order], 0.0)
+
+    H, W = cfg.height, cfg.width
+    pad_h = cdiv(H, row_chunk) * row_chunk
+    xs = torch.arange(W, dtype=dtype, device=dev)
+    rows = []
+    for r0 in range(pad_h // row_chunk):
+        ys = r0 * row_chunk + torch.arange(row_chunk, dtype=dtype,
+                                           device=dev)
+        du = xs[None, None, :] - u[:, None, None]  # [N, 1, W]
+        dv = ys[None, :, None] - v[:, None, None]  # [N, R, 1]
+        q = (con[:, 0, None, None] * du * du
+             + 2.0 * con[:, 1, None, None] * du * dv
+             + con[:, 2, None, None] * dv * dv)
+        inside = q <= cfg.chi2_clip
+        g = torch.where(inside,
+                        torch.exp(-0.5 * minimum(q, cfg.chi2_clip)), 0.0)
+        alpha = minimum(op[:, None, None] * g, cfg.alpha_max)
+        alpha = torch.where(alpha >= cfg.alpha_cutoff, alpha, 0.0)
+        trans = torch.cumprod(1.0 - alpha, dim=0)
+        trans = torch.cat([torch.ones_like(trans[:1]), trans[:-1]], dim=0)
+        alive = (trans > cfg.transmittance_min).to(dtype)
+        w = alpha * trans * alive  # [N, R, W]
+        rows.append(torch.einsum("nrw,nd->rwd", w, rgb))
+    img = torch.cat(rows)[:H]
+    return clip(img, 0.0, 1.0)

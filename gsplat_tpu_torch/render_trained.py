@@ -8,14 +8,19 @@ truncation
 (``--tile_rank_cap``, with the pre-sort occlusion cull in
 ``--cull_chunks`` depth chunks), demand-sized capacities
 (``--auto_pairs``), per-frame capacity bucketing (``--bucket_pairs``),
-``--transmittance_math``, ``--background`` and ``--aa_mode``. Run as
+``--transmittance_math``, ``--background``, ``--aa_mode`` and the
+compositor (``--backend``: ``auto`` and ``pallas`` the kernel, ``xla`` the
+dense per-tile compositor). Run as
 
     python -m gsplat_tpu_torch.render_trained \\
         --checkpoint bench_assets/trained_ckpt.npz --benchmark_only \\
         --tile_rank_cap 1024 --bucket_pairs 4
 
-Without ``--benchmark_only`` the orbit frames are written as one uint8
-array to ``renders/orbit.npy`` (video export comes with a later slice).
+Without ``--benchmark_only`` the orbit is written to
+``<output_dir>/orbit.mp4`` at ``--fps`` (``viewer.save_video``: imageio,
+else ffmpeg; its PNG frames stay in ``<output_dir>/orbit_frames``), and
+``--save_depth`` writes each orbit pose's colourized depth map to
+``<output_dir>/depth/depth_<i>.png``.
 """
 
 from __future__ import annotations
@@ -45,10 +50,13 @@ def main(argv=None):
     """Parse ``argv``, serve the orbit and return ``render_trajectory``'s
     stats. With ``--bucket_pairs`` they also hold the ladder (``rungs``,
     ``rung_cfgs``), each frame's rung (``rung_of_frame``) and its probed
-    demands (``frame_demand``, ``frame_trunc_demand``)."""
+    demands (``frame_demand``, ``frame_trunc_demand``); with the orbit
+    written, ``video`` (the video's path, or the PNG directory) and, with
+    ``--save_depth``, ``depth_dir``."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint", required=True,
                    help=".npz checkpoint file or output dir")
+    p.add_argument("--output_dir", default="renders")
     p.add_argument("--num_frames", type=int, default=120)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
@@ -56,9 +64,12 @@ def main(argv=None):
     p.add_argument("--orbit_scale", type=float, default=1.0,
                    help="orbit camera distance as a multiple of the "
                         "estimated scene radius")
+    p.add_argument("--fps", type=int, default=30)
     p.add_argument("--max_pairs", type=int, default=2**21)
     p.add_argument("--benchmark_only", action="store_true",
-                   help="skip image IO, print FPS stats only")
+                   help="skip image/video IO, print FPS stats only")
+    p.add_argument("--save_depth", action="store_true",
+                   help="also write normalized depth maps for orbit frames")
     p.add_argument("--auto_pairs", action="store_true",
                    help="probe the orbit's true pair demand (projection and "
                         "binning only) and shrink max_pairs (and "
@@ -85,6 +96,8 @@ def main(argv=None):
                    choices=("none", "dilate", "mip"),
                    help="screen-space antialiasing: 'dilate' adds the 0.3 px "
                         "low-pass, 'mip' also compensates opacity")
+    p.add_argument("--backend", default="auto",
+                   choices=("auto", "pallas", "xla"))
     p.add_argument("--render_batch", type=int, default=1,
                    help="poses rendered per launch via the shared-binning "
                         "batched path (1 = per-pose rendering)")
@@ -93,15 +106,18 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from .config import RenderConfig, parse_background
+    from .data.images import save_image
     from .render import pair_demand
     from .train.trainer import restore_pool
     from .viewer import (
+        colorize_depth,
         create_orbit_trajectory,
         estimate_scene_center_radius,
         make_batch_render_fn,
         make_bucketed_render_fn,
         make_render_fn,
         render_trajectory,
+        save_video,
     )
 
     ckpt = resolve_checkpoint(args.checkpoint)
@@ -117,6 +133,7 @@ def main(argv=None):
     fx = fy = 0.85 * W
     cx, cy = W / 2.0, H / 2.0
     cfg = RenderConfig(height=H, width=W, max_pairs=args.max_pairs,
+                       backend=args.backend,
                        tile_rank_cap=args.tile_rank_cap,
                        cull_chunks=args.cull_chunks,
                        transmittance_math=args.transmittance_math,
@@ -213,10 +230,23 @@ def main(argv=None):
                      frame_demand=[d[0] for d in orbit_fn.demands],
                      frame_trunc_demand=[d[2] for d in orbit_fn.demands])
     if not args.benchmark_only:
-        os.makedirs("renders", exist_ok=True)
-        out = os.path.join("renders", "orbit.npy")
-        np.save(out, np.stack(frames))
-        print(f"frames: {out}")
+        os.makedirs(args.output_dir, exist_ok=True)
+        video = save_video(frames, os.path.join(args.output_dir,
+                                                "orbit.mp4"), fps=args.fps)
+        print(f"video/frames: {video}")
+        stats["video"] = video
+    if args.save_depth:
+        depth_fn = make_render_fn(pool.params, cfg, fx, fy, cx, cy,
+                                  alive=pool.alive, with_depth=True)
+        depth_dir = os.path.join(args.output_dir, "depth")
+        os.makedirs(depth_dir, exist_ok=True)
+        for i, c2w in enumerate(traj):
+            _, depth, alpha_plane = depth_fn(c2w)
+            save_image(os.path.join(depth_dir, f"depth_{i:05d}.png"),
+                       colorize_depth(depth.cpu().numpy(),
+                                      alpha_plane.cpu().numpy()))
+        print(f"depth maps: {depth_dir}")
+        stats["depth_dir"] = depth_dir
     return stats
 
 

@@ -202,7 +202,8 @@ def batch_loss_fn(
     for the device. With ``tile_rank_cap`` the metrics gain the largest
     view's ``trunc_demand`` and ``trunc_capacity`` (the truncated list's
     ``trunc_padded_pairs``); with ``bwd_pairs``, the largest view's
-    ``bwd_demand`` and ``bwd_capacity``. With ``uv_taps`` they gain
+    ``bwd_demand`` and ``bwd_capacity`` (``backend="xla"`` has no
+    backward demand: -1 per view, and no entry batched, as in JAX). With ``uv_taps`` they gain
     per-gaussian ``visible`` (views with a non-zero screen radius) and
     ``max_radius`` ([N] int32, detached).
 
@@ -228,7 +229,7 @@ def batch_loss_fn(
         if render_cfg.tile_rank_cap:
             metrics["trunc_demand"] = aux.trunc_demand
             metrics["trunc_capacity"] = aux.trunc_capacity
-        if render_cfg.bwd_pairs:
+        if render_cfg.bwd_pairs and aux.bwd_demand is not None:
             metrics["bwd_demand"] = aux.bwd_demand
             metrics["bwd_capacity"] = aux.bwd_capacity
         if uv_taps is not None:
@@ -252,7 +253,10 @@ def batch_loss_fn(
         ssims.append(comps["ssim"])
         pairs.append(aux.num_pairs)
         tds.append(aux.trunc_demand)
-        bds.append(aux.bwd_demand)
+        # backend="xla" reports no backward demand: -1, as in JAX.
+        bds.append(aux.bwd_demand if aux.bwd_demand is not None
+                   else torch.full((), -1, dtype=torch.int32,
+                                   device=img.device))
         if uv_taps is not None:
             radii.append(aux.screen_radius.detach())
     metrics = {

@@ -5,7 +5,8 @@ Counterpart of ``gsplat_tpu/viewer.py``: ``look_at``,
 ``_traj_stats`` (``:102-123``), ``make_bucketed_render_fn``
 (``:126-222``), ``render_trajectory`` (``:225-340``, one pose or a batch
 of poses per call), ``_demand_probe``, ``make_render_fn`` and
-``make_batch_render_fn`` (``:383-452``). Camera
+``make_batch_render_fn`` (``:383-452``), ``save_video`` (``:343-380``)
+and ``colorize_depth`` (``:455-468``). Camera
 convention: forward = normalize(target - pos), right = normalize(forward
 x up), camera y = -up.
 
@@ -16,6 +17,8 @@ demand exceeds the capacity are counted.
 
 from __future__ import annotations
 
+import os
+import subprocess
 import time
 
 import numpy as np
@@ -370,3 +373,64 @@ def make_batch_render_fn(params: dict, cfg: RenderConfig, fx, fy, cx, cy,
         return imgs
 
     return fn
+
+
+def save_video(
+    frames: list,
+    path: str,
+    fps: int = 30,
+    frames_dir: str | None = None,
+) -> str:
+    """Write uint8 frames as PNGs into ``frames_dir`` (default: ``path``
+    without its extension + ``_frames``), then as a video at ``path``
+    through imageio, else through ffmpeg over the PNGs; where neither
+    writes, the PNG directory stands. Returns what was written: ``path``
+    or ``frames_dir``."""
+    from .data.images import save_image
+
+    if frames_dir is None:
+        frames_dir = os.path.splitext(path)[0] + "_frames"
+    os.makedirs(frames_dir, exist_ok=True)
+    for i, frame in enumerate(frames):
+        save_image(os.path.join(frames_dir, f"frame_{i:05d}.png"), frame)
+
+    try:
+        import imageio.v2 as imageio
+
+        with imageio.get_writer(path, fps=fps) as writer:
+            for frame in frames:
+                writer.append_data(frame)
+        return path
+    except (ImportError, ValueError, RuntimeError, OSError):
+        pass  # no imageio, no backend for the format, or a writer error
+    try:
+        subprocess.run(
+            [
+                "ffmpeg", "-y", "-framerate", str(fps),
+                "-i", os.path.join(frames_dir, "frame_%05d.png"),
+                "-pix_fmt", "yuv420p", path,
+            ],
+            check=True,
+            capture_output=True,
+        )
+        return path
+    except (OSError, subprocess.CalledProcessError):
+        return frames_dir  # the PNGs remain
+
+
+def colorize_depth(depth: np.ndarray, alpha: np.ndarray | None = None):
+    """Normalize an accumulated-depth plane to a viewable [H, W, 3] image:
+    depth over alpha where alpha > 0.05, stretched between its 2nd and
+    98th percentiles (numpy only)."""
+    d = np.asarray(depth, np.float32)
+    if alpha is not None:
+        a = np.clip(np.asarray(alpha, np.float32), 1e-3, 1.0)
+        d = d / a
+        mask = a > 0.05
+    else:
+        mask = np.isfinite(d) & (d > 0)
+    if mask.any():
+        lo, hi = np.percentile(d[mask], [2.0, 98.0])
+        d = np.clip((d - lo) / max(hi - lo, 1e-6), 0.0, 1.0)
+    d = np.where(mask, d, 0.0)
+    return np.repeat(d[..., None], 3, axis=-1)

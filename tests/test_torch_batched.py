@@ -39,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import gsplat_tpu as gj
 import gsplat_tpu.config as jconfig
@@ -402,7 +403,8 @@ def test_batch_render_fn_and_render_trained_match_per_pose(tmp_path,
             "--checkpoint", CKPT, "--num_frames", "2", "--height", "36",
             "--width", "64", "--max_pairs", "262144", "--orbit_scale", "4.4",
             "--device", "cpu", "--render_batch", str(b)])
-        frames[b] = np.load(d / "renders" / "orbit.npy")
+        frames[b] = np.stack([np.asarray(Image.open(f)) for f in sorted(
+            (d / "renders" / "orbit_frames").glob("frame_*.png"))])
         assert stats["frames"] == 2 and stats["pair_overflow_frames"] == 0
         assert stats["pair_capacity"] == b * 262144
     assert stats["batch_size"] == 2 and len(stats["frame_pairs"]) == 1

@@ -27,6 +27,15 @@ and two runs bit-identical (no float atomics). A train step on the card vs
 on the CPU: gradients within 5e-4 of each leaf's largest, the render's own
 gradient tolerance.
 
+The XLA compositor (``backend="xla"``, plain PyTorch on the card) vs the
+kernel's render with ``max_per_tile`` at the largest tile: 2e-5 (depth:
+of its largest value; alpha where the kernel's final T is above
+``transmittance_min``, since the kernel stops a saturated tile early and
+the xla compositor does not); the kernels with ``tile_rank_cap=K`` vs the XLA
+compositor with ``max_per_tile=K``: images 2e-5, gradients 5e-4 of each
+leaf's largest (the JAX gate's bounds). ``evaluate_views`` batched vs per
+view on the card: PSNR 1e-3 dB, L1 1e-6 (the JAX gate's bounds).
+
 The eight K3 kernels of the profiler vs their plain versions: rows 0-4
 within 2e-5 abs, row 5 exact, rows 6-7 zero (built and ordered alike).
 cumprod, pg-roll and pg-log compute the forward compositor's function, so
@@ -662,3 +671,108 @@ def test_fit_on_card_grows_the_pool_and_round_trips_a_checkpoint(cuda,
         b = state.opt_state.state[getattr(state.pool, k)]
         for f in ("step", "exp_avg", "exp_avg_sq"):
             assert torch.equal(a[f], b[f]), (k, f)
+
+
+# --- the XLA compositor and evaluation on the card ----------------------------
+
+def _card_params(params, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+
+
+def test_xla_matches_kernel_on_card(cuda):
+    """``backend="xla"`` (plain PyTorch on the card) with ``max_per_tile``
+    at the largest tile count against the kernel's render: image, depth
+    and alpha within 2e-5 (depth: of its largest value); fewer slots per
+    tile change the image, and launch no kernel."""
+    params, c2w = _scene(600, 3)
+    p = _card_params(params, cuda)
+    cfg = gt.RenderConfig(**CFG)
+    with torch.no_grad():
+        img_k, aux_k = gt.render_from_params(p, c2w, *CAM.values(), cfg)
+        n = tras.composite_pairs.launches
+        big = int(aux_k.max_tile_count)
+        img_x, aux_x = gt.render_from_params(
+            p, c2w, *CAM.values(), cfg.with_(backend="xla", max_per_tile=big))
+        img_c, _ = gt.render_from_params(
+            p, c2w, *CAM.values(), cfg.with_(backend="xla",
+                                             max_per_tile=big // 4))
+    assert tras.composite_pairs.launches == n
+    assert img_x.is_cuda and aux_x.bwd_demand is None
+    assert float((img_x - img_k).abs().max()) <= TOL
+    # The kernel stops a tile once every pixel's T is at or below
+    # transmittance_min; the xla compositor multiplies T through all its
+    # slots. So alpha agrees where the kernel's T stayed above it, and the
+    # xla alpha is saturated elsewhere.
+    live = aux_k.alpha < 1.0 - cfg.transmittance_min
+    assert float((aux_x.alpha - aux_k.alpha)[live].abs().max()) <= TOL
+    assert bool((aux_x.alpha[~live] >= 1.0 - cfg.transmittance_min
+                 - TOL).all())
+    assert float((aux_x.depth - aux_k.depth).abs().max()) \
+        <= TOL * max(1.0, float(aux_k.depth.abs().max()))
+    assert float((img_c - img_k).abs().max()) > 1e-3
+
+
+def test_truncated_kernel_matches_xla_cap_on_card(cuda):
+    """``tile_rank_cap=K`` through the kernels against ``backend="xla"``
+    with ``max_per_tile=K`` (the JAX gate, tests/test_pallas_kernel.py:
+    183-216): images within 2e-5, gradients within 5e-4 of each leaf's
+    largest."""
+    rng = np.random.default_rng(11)
+    n = 1200
+    params = {
+        "pos": np.stack([rng.uniform(-0.4, 0.4, n), rng.uniform(-0.4, 0.4, n),
+                         rng.uniform(3, 8, n)], -1).astype(np.float32),
+        "scale_raw": (rng.normal(0, 0.3, (n, 3)) - 1.4).astype(np.float32),
+        "q_raw": (rng.normal(0, 1, (n, 4))
+                  + np.array([0, 0, 0, 2])).astype(np.float32),
+        "opacity_raw": rng.normal(-1.5, 0.8, n).astype(np.float32),
+        "f_dc": rng.normal(0, 0.8, (n, 3)).astype(np.float32),
+        "f_rest": rng.normal(0, 0.05, (n, 45)).astype(np.float32),
+    }
+    K = 128
+    base = gt.RenderConfig(**CFG, max_per_tile=4096)
+    tgt = torch.from_numpy(rng.uniform(0, 1, (128, 192, 3)).astype(
+        np.float32)).to(cuda)
+    out = {}
+    for name, cfg in (("kernel", base.with_(tile_rank_cap=K)),
+                      ("xla", base.with_(backend="xla", max_per_tile=K))):
+        p = {k: v.requires_grad_(True)
+             for k, v in _card_params(params, cuda).items()}
+        img, aux = gt.render_from_params(p, np.eye(4, dtype=np.float32),
+                                         *CAM.values(), cfg)
+        (torch.mean(torch.abs(img - tgt)) + torch.mean(img * img)).backward()
+        out[name] = (img.detach(), aux, {k: v.grad for k, v in p.items()})
+    (img_k, aux_k, g_k), (img_x, _, g_x) = out["kernel"], out["xla"]
+    assert int(aux_k.num_pairs_kept) < int(aux_k.num_pairs)
+    assert float((img_k - img_x).abs().max()) <= TOL
+    for k in params:
+        scale = float(g_x[k].abs().max()) + 1e-12
+        assert float((g_k[k] - g_x[k]).abs().max()) / scale <= 5e-4, k
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla"])
+def test_evaluate_views_batch_matches_per_view_on_card(cuda, backend):
+    """``evaluate_views`` on the card: ``render_batch=2`` (one binning and
+    one launch per chunk, the last padded) against per-view, PSNR within
+    1e-3 dB and L1 within 1e-6; a starved ``max_pairs`` grown by
+    ``auto_size`` reproduces them."""
+    from gsplat_tpu_torch.evaluation import evaluate_views
+
+    params, _ = _scene(400, 5)
+    p = _card_params(params, cuda)
+    rng = np.random.default_rng(5)
+    views = []
+    for i in range(3):
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[0, 3] = 0.2 * i - 0.2
+        views.append({"image": rng.uniform(0, 1, (128, 192, 3)).astype(
+            np.float32), "c2w": c2w, **CAM})
+    cfg = gt.RenderConfig(**CFG, max_per_tile=512, backend=backend)
+    r1 = evaluate_views(p, views, cfg)
+    r2 = evaluate_views(p, views, cfg, render_batch=2)
+    r3 = evaluate_views(p, views, cfg.with_(max_pairs=1024))
+    assert r3["eval_max_pairs"] >= r3["max_pair_demand"] > 1024
+    for a, b, c in zip(r1["per_view"], r2["per_view"], r3["per_view"]):
+        assert a["psnr"] == pytest.approx(b["psnr"], abs=1e-3)
+        assert a["l1"] == pytest.approx(b["l1"], abs=1e-6)
+        assert a["psnr"] == pytest.approx(c["psnr"], abs=1e-3)

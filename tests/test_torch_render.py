@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from conftest import make_scene
 
@@ -165,7 +166,9 @@ def test_pair_demand_matches_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(backend="xla"), "xla"),
+    # backend="xla" (the max_per_tile compositor) is ported
+    # (test_torch_xla.py): its case now holds the render to JAX's XLA one.
+    pytest.param(dict(backend="xla"), None, id="kw0-xla"),
     # bwd_pairs (the compacted backward) is ported (test_torch_satbwd.py):
     # its two cases now hold the forward, and its reported capacity, to
     # JAX's; what the levers still meet unported raises.
@@ -178,6 +181,20 @@ def test_pair_demand_matches_jax():
 ])
 def test_unported_options_raise(kw, match):
     s = _scene("seed0")
+    if kw.get("backend") == "xla":  # ported: JAX's XLA render, its aux
+        cfg = dict(CFG, **kw)
+        img_j, aux_j = jax.jit(lambda p, c: gj.render_from_params(
+            p, c, CAM["fx"], CAM["fy"], CAM["cx"], CAM["cy"],
+            gj.RenderConfig(**cfg)))(
+                {k: jnp.asarray(v) for k, v in _np_params(s).items()},
+                jnp.asarray(s["c2w"]))
+        img_t, aux_t = _torch_render(_np_params(s), s["c2w"], cfg, CAM)
+        assert int(aux_t.num_pairs) == int(aux_j.num_pairs)
+        assert float(np.abs(img_t.numpy() - np.asarray(img_j)).max()) \
+            <= IMG_TOL
+        assert aux_t.per_tile_capacity == aux_j.per_tile_capacity == 1024
+        assert aux_t.bwd_demand is None and aux_j.bwd_demand is None
+        return
     if match is None:  # ported: the JAX render's image and capacities
         _check(_np_params(s), s["c2w"], dict(CFG, **kw), CAM)
         _, aux_j = _jax_render(_np_params(s), s["c2w"], dict(CFG, **kw), CAM)
@@ -286,5 +303,6 @@ def test_render_trained_cli_on_cpu(tmp_path, monkeypatch):
         "--width", "80", "--max_pairs", "262144", "--orbit_scale", "4.4",
         "--device", "cpu"])
     assert stats["frames"] == 2 and stats["pair_overflow_frames"] == 0
-    frames = np.load(tmp_path / "renders" / "orbit.npy")
+    frames = np.stack([np.asarray(Image.open(f)) for f in sorted(
+        (tmp_path / "renders" / "orbit_frames").glob("frame_*.png"))])
     assert frames.shape == (2, 48, 80, 3) and frames.max() > 0
