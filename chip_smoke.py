@@ -155,8 +155,40 @@ Phases (any failure exits non-zero, with no result line):
      (f) the truncation ladder at 4 close-in poses, K in {1024, 4096}, its
          banded exact reference against a full-frame exact render (max
          abs, PSNR);
- 14. one JSON line {"kernels": [...]} (thirteen kernels), the card line,
-     and the final line {"ok": true, "device": {...}}.
+ 14. the dataset flow through the entry points a user runs, at 960x540
+     and batch 4 (the training configuration's full width), each run with
+     the launch counts set to 0 just before it:
+     (a) a Mip-NeRF-360-layout raw scene in chip_data/ (git-ignored,
+         cleared first): 24 views of the checkpoint at 1920x1080 around the
+         bench orbit as PNG, poses_bounds.npy, sparse/0/points3D.bin with
+         the alive means and DC colours; prepare_dataset mipnerf on it;
+     (b) train (its main) from the prepared point cloud with the device
+         image cache (21 views after holdout 8), capacity 131,072,
+         max_pairs 2**21, 60 iterations, the paper's density control every
+         20 (at the JAX defaults the reference rule's max_grad never fires
+         on this start): finite
+         losses, the last logged below the first logged after the last
+         densification, no skipped step, K1 and K2 launched views x
+         iterations times, the final checkpoint read by restore_pool equal
+         to the pool; step ms and peak memory;
+     (c) the same through fit() on the same GaussianDataset at tile 32
+         and pair_block 512;
+     (d) evaluate and eval_checkpoint on (b)'s checkpoint over the 3
+         held-out views, inference --trajectory, render_trained
+         --render_training_views --export_ply --export_splat (the PLY read
+         back with import_gaussians_ply equals the pool);
+     (e) fit() runs of 4 iterations at (16, 512), (32, 128), (32, 256),
+         and at (32, 256) in the log form and with the compacted backward;
+     (f) K1 and K2 at (16, 256) and at each (tile, pair_block) of (e) and
+         (c) on phase 3's synthetic scene and phase 4's bench pose as
+         phases 3-4 hold them (K1 rows 0-5 and state bit for bit, its
+         cull's count; K2 within BWD_TOL, zeros off the composited blocks,
+         two launches equal), at (32, 256) also the log form and K2's
+         compact mode; at the bench pose each timed (CUDA events) beside
+         its plain version and bound;
+ 15. one JSON line {"kernels": [...]} (twenty-four kernels: phase 14's
+     ranges as their own entries), the card line, and the final line
+     {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -225,13 +257,29 @@ FIT_ITERS = 12  # iterations of each fit() run of phase 8b
 LEVER_CAP = 1024  # tile_rank_cap of phase 11 (the README's K)
 LEVER_CHUNKS = 64  # cull_chunks of phase 11 (the JAX default)
 CLOSE_PAIRS = 2**24  # --max_pairs of phase 11d's bucketed close-in orbit
+# The (tile, pair_block) the kernels take beyond tile 16 with G <= 256
+# (phase 14).
+RANGES = ((16, 512), (32, 128), (32, 256), (32, 512))
+# Phase 14's dataset: a git-ignored directory the script clears first, the
+# views of its raw scene, and the training run's iterations and
+# densification interval; the other ranges' fit() runs take RANGE_ITERS.
+DATA_DIR = os.path.join(ROOT, "chip_data")
+SCENE_VIEWS = 24
+SCENE_PAIRS = 2**21  # the training run's max_pairs (the train CLI's)
+SCENE_ITERS = 60
+SCENE_INTERVAL = 20
+RANGE_ITERS = 4
 
 
-def kernel_resources(ptxas: str, kernel: str, log: bool = False):
+def kernel_resources(ptxas: str, kernel: str, log: bool = False,
+                     tile: int = 16, max_g: int = 256):
     """(registers, static shared bytes) of one instantiation of a
-    compositor (``raster_fwd_kernel`` or ``raster_bwd_kernel``, the "cumprod"
-    form or, with ``log``, the "log" one) from its library's ptxas report."""
-    part = ptxas.split(f"{kernel}ILb{int(log)}E", 1)[1]
+    compositor (``raster_fwd_kernel<tile, max_g, log>`` or
+    ``raster_bwd_kernel<tile, log>``, the "cumprod" form or, with ``log``,
+    the "log" one) from its library's ptxas report."""
+    args = f"Li{tile}E" + (f"Li{max_g}E" if kernel == "raster_fwd_kernel"
+                           else "")
+    part = ptxas.split(f"{kernel}I{args}Lb{int(log)}E", 1)[1]
     m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
                   part.split("Compiling entry", 1)[0])
     return int(m.group(1)), int(m.group(2) or 0)
@@ -321,13 +369,26 @@ def active_slots(binning, out, cfg):
     return active.repeat_interleave(G)
 
 
-def check_bwd(name, pf, binning, out, state_p, cfg, seed):
+def rel_err(d_k, d_p):
+    """Max over rows 0-9 of |kernel - plain| / the row's max |plain|."""
+    rel = []
+    for r in range(FEAT_ROWS):
+        scale = float(d_p[r].abs().max())
+        err = float((d_k[r] - d_p[r]).abs().max())
+        rel.append(err / scale if scale > 0 else (0.0 if err == 0 else 1.0))
+    return max(rel)
+
+
+def check_bwd(name, pf, binning, out, state_p, cfg, seed, block_chunk=256,
+              keep=None):
     """K1 writing its block-start state: output bit-identical to `out` (K1
     without state), state bit-identical to the plain forward's `state_p`
     at the composited blocks. Then K2, given K1's state, vs its plain
     version on a seeded cotangent: rows 0-9 within BWD_TOL of each row's
     max abs, exact zeros outside the composited blocks, finite, and a
-    second launch bit-identical. Returns the max abs error."""
+    second launch bit-identical. Returns the max abs error; with a dict
+    ``keep``, also puts K2's inputs (``bargs``) and gradient (``d_k``)
+    there."""
     from gsplat_tpu_torch.ops.raster_cuda import (_composite_fwd,
                                                   composite_pairs_bwd,
                                                   composite_pairs_bwd_plain)
@@ -348,27 +409,25 @@ def check_bwd(name, pf, binning, out, state_p, cfg, seed):
     gout = torch.randn(cfg.num_tiles, 8, cfg.tile**2, generator=gen,
                        device=pf.device)
     args = (pf, ts, tc, out, state, gout, cfg)
-    d_p = composite_pairs_bwd_plain(*args, block_chunk=256)
+    d_p = composite_pairs_bwd_plain(*args, block_chunk=block_chunk)
     off = ~active_slots(binning, out, cfg)
     d_k = composite_pairs_bwd(*args)
     d_k2 = composite_pairs_bwd(*args)
     torch.cuda.synchronize()
-    rel = []
-    for r in range(FEAT_ROWS):
-        scale = float(d_p[r].abs().max())
-        err = float((d_k[r] - d_p[r]).abs().max())
-        rel.append(err / scale if scale > 0 else (0.0 if err == 0 else 1.0))
+    rel = rel_err(d_k, d_p)
     zeros = bool((d_k[:, off] == 0).all())
     finite = bool(torch.isfinite(d_k).all())
     same = bool(torch.equal(d_k, d_k2))
     err = float((d_k - d_p).abs().max())
     print(f"[{name}] K2 vs plain: max abs err {err:.3e}, max per-row "
-          f"relative {max(rel):.3e} (tol {BWD_TOL}), zeros outside the "
+          f"relative {rel:.3e} (tol {BWD_TOL}), zeros outside the "
           f"{int((~off).sum()) // cfg.pair_block} composited blocks: "
           f"{zeros}, finite: {finite}, two launches bit-identical: {same}",
           flush=True)
-    if not (max(rel) <= BWD_TOL and zeros and finite and same):
+    if not (rel <= BWD_TOL and zeros and finite and same):
         raise SystemExit(f"FAIL: {name}: K2 disagrees with its plain version")
+    if keep is not None:
+        keep.update(bargs=args, d_k=d_k)
     return err
 
 
@@ -2245,6 +2304,518 @@ def tools_phase(pool, c2w, fx, fy, cx, cy, cfg, lever, card):
     return k, runs, binning_ms, sweep, lad
 
 
+def plain_chunks(cfg):
+    """(tiles, blocks) per chunk of the plain K1 and K2 at cfg: phases
+    3-4's 1,024 tiles and 256 blocks at tile 16 and pair_block 128, scaled
+    so that a chunk's [m, G, tile^2] temporaries keep their size."""
+    work = cfg.pair_block * cfg.tile * cfg.tile
+    return (max(1024 * 128 * 256 // work, 16),
+            max(256 * 128 * 256 // work, 8))
+
+
+def range_kernels(name, pf, binning, cfg, seed, card, timed=True,
+                  instr=None):
+    """K1 and K2 at cfg's (tile, pair_block, transmittance) on one pair
+    list, as phases 3-4 hold them (compare, check_cull, check_bwd). With
+    ``timed``, the CUDA-event times of both kernels and their plain
+    versions and their bounds (in the "log" form counted with ``instr``,
+    phase 11's SASS counts). Returns a dict (errors, times, bounds, K2's
+    inputs and gradient)."""
+    from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs,
+                                                  composite_pairs_bwd,
+                                                  composite_pairs_bwd_plain,
+                                                  composite_pairs_plain)
+
+    ts, tc = binning.tile_start, binning.tile_count
+    tchunk, bchunk = plain_chunks(cfg)
+    out_k = composite_pairs(pf, ts, tc, cfg)
+    out_p, state_p = composite_pairs_plain(pf, ts, tc, cfg, tile_chunk=tchunk,
+                                           with_state=True)
+    torch.cuda.synchronize()
+    r = {"err": compare(name, out_k, out_p, tc),
+         "cull": check_cull(name, pf, ts, tc, out_p, cfg)}
+    r["bwd_err"] = check_bwd(name, pf, binning, out_k, state_p, cfg, seed,
+                             block_chunk=bchunk, keep=r)
+    del state_p
+    bargs, cull = r["bargs"], r["cull"]
+    nblk = int(torch.where(tc > 0, out_k[:, 5, 0], 0.0).sum())
+    if not timed:
+        return r
+    from gsplat_tpu_torch.profile_kernel import log_ops_per_pair_pixel
+
+    log = cfg.transmittance_math == "log"
+    ops1 = log_ops_per_pair_pixel(26, instr) if log else None
+    ops2 = log_ops_per_pair_pixel(OPS_BWD_PER_PAIR_PIXEL, instr) if log \
+        else OPS_BWD_PER_PAIR_PIXEL
+    r["ms"] = device_ms(lambda: composite_pairs(pf, ts, tc, cfg), 20)
+    r["plain_ms"] = device_ms(lambda: composite_pairs_plain(
+        pf, ts, tc, cfg, tile_chunk=tchunk), 2)
+    r["bound"], r["by"] = bound_ms("full", nblk, cfg,
+                                   cull["total"] - cull["skipped"], ops1)
+    r["bwd_ms"] = device_ms(lambda: composite_pairs_bwd(*bargs), 20)
+    r["bwd_ctas"] = composite_pairs.bwd_ctas
+    r["bwd_plain_ms"] = device_ms(lambda: composite_pairs_bwd_plain(
+        *bargs, block_chunk=bchunk), 2)
+    r["bwd_bound"], r["bwd_by"], *_ = bwd_bound(bargs, cfg, ops2)
+    print(f"[{card}] {name}: raster_fwd {r['ms']:.4f} ms (CUDA events, 20 "
+          f"launches), plain {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound']:.4f} ms by {r['by']} (share "
+          f"{r['bound'] / r['ms']:.3f}); raster_bwd {r['bwd_ms']:.4f} ms "
+          f"({r['bwd_ctas']} CTAs), plain {r['bwd_plain_ms']:.3f} ms, bound "
+          f"{r['bwd_bound']:.4f} ms by {r['bwd_by']} (share "
+          f"{r['bwd_bound'] / r['bwd_ms']:.3f}); {nblk} composited blocks, "
+          f"{int(binning.num_pairs)} pairs", flush=True)
+    return r
+
+
+def compact_range(name, r, card):
+    """K2 in compact mode on range_kernels' inputs: kb at the composited
+    blocks and at half of them, against its plain version (BWD_TOL), the
+    kept columns equal to K2's block layout, zeros past them; its time and
+    bound at kb = the composited blocks. Returns (err, ms, plain ms, bound,
+    bound_by)."""
+    from gsplat_tpu_torch.ops import raster_cuda as rc
+
+    bargs, cfg = r["bargs"], r["bargs"][6]
+    G = cfg.pair_block
+    off = rc.tile_block_offsets(bargs[3])
+    n = int(off[-1])
+    _, bchunk = plain_chunks(cfg)
+    errs = []
+    for kb in (n, max(n // 2, 1)):
+        d_k = rc.composite_pairs_bwd(*bargs, kb=kb)
+        d_p = rc.composite_pairs_bwd_plain(*bargs, block_chunk=bchunk, kb=kb)
+        blk, _, _, valid = rc.composited_blocks(bargs[1], off, kb, cfg)
+        cols = (blk[valid, None] * G
+                + torch.arange(G, device=blk.device)).reshape(-1)
+        kept = min(n, kb)
+        torch.cuda.synchronize()
+        rel = rel_err(d_k, d_p)
+        same = bool(torch.equal(d_k[:, :kept * G], r["d_k"][:, cols]))
+        zeros = bool((d_k[:, kept * G:] == 0).all())
+        errs.append(float((d_k - d_p).abs().max()))
+        print(f"[{name}] K2 compact, kb {kb} of {n} composited blocks: max "
+              f"per-row relative {rel:.3e} (tol {BWD_TOL}), kept columns "
+              f"equal K2's: {same}, zeros past them: {zeros}", flush=True)
+        if not (rel <= BWD_TOL and same and zeros):
+            raise SystemExit(f"FAIL: {name}: K2 compact disagrees")
+    ms = device_ms(lambda: rc.composite_pairs_bwd(*bargs, kb=n), 20)
+    plain_ms = device_ms(lambda: rc.composite_pairs_bwd_plain(
+        *bargs, block_chunk=bchunk, kb=n), 2)
+    bound, by, *_ = bwd_bound(bargs, cfg, OPS_BWD_PER_PAIR_PIXEL,
+                              out_cols=n * G)
+    print(f"[{card}] {name}: raster_bwd[compact] {ms:.4f} ms (20 launches), "
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by} (share "
+          f"{bound / ms:.3f})", flush=True)
+    return max(errs), ms, plain_ms, bound, by
+
+
+def ranges_phase(sparams, sc2w, pool, c2w, fx, fy, cx, cy, card, instr):
+    """Phase 14f: K1 and K2 at each (tile, pair_block) of RANGES on phase
+    3's synthetic scene and phase 4's bench pose at 1080p, as phases 3-4
+    hold them; at the bench pose each timed beside (16, 256), with its
+    bound; at (32, 256) also the log transmittance and K2's compact mode.
+    K1's registers and CTAs per SM, K2's CTAs. Returns {key: numbers}."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops.raster_cuda import fwd_ctas_per_sm
+
+    out = {}
+    for tile, G in ((16, 256),) + RANGES:
+        cfg = gt.RenderConfig(height=H, width=W, max_pairs=MAX_PAIRS,
+                              tile=tile, pair_block=G)
+        print(f"[{card}] tile {tile}, pair_block {G}: K1 "
+              f"{fwd_ctas_per_sm(pool.pos.device, tile=tile, pair_block=G)} "
+              f"CTAs of {tile * tile} threads per SM (occupancy API)",
+              flush=True)
+        sp = serving_path(sparams, sc2w, fx, fy, cx, cy, cfg)
+        range_kernels(f"synthetic 1080p, tile {tile}, G {G}", sp["pair_feat"],
+                      sp["bin"], cfg, seed=1, card=card, timed=False)
+        sp = serving_path(pool.params, c2w, fx, fy, cx, cy, cfg,
+                          alive=pool.alive)
+        name = f"bench pose 1080p, tile {tile}, G {G}"
+        out[(tile, G)] = range_kernels(name, sp["pair_feat"], sp["bin"],
+                                       cfg, seed=2, card=card)
+        if (tile, G) == (32, 256):
+            out["compact"] = compact_range(name, out[(tile, G)], card)
+            out["log"] = range_kernels(
+                f"log, {name}", sp["pair_feat"], sp["bin"],
+                cfg.with_(transmittance_math="log"), seed=3, card=card,
+                instr=instr)
+        for r in out.values():  # the kernels line reads only the numbers
+            if isinstance(r, dict):
+                r.pop("bargs", None)
+                r.pop("d_k", None)
+        del sp
+        torch.cuda.empty_cache()
+    return out
+
+
+class _Tee:
+    """A text stream that writes to two streams (the CLIs print their log
+    lines; phase 14 reads them)."""
+
+    def __init__(self, a, b):
+        self.a, self.b = a, b
+
+    def write(self, s):
+        self.a.write(s)
+        return self.b.write(s)
+
+    def flush(self):
+        self.a.flush()
+        self.b.flush()
+
+
+def run_cli(fn, argv):
+    """fn(argv) with its standard output also captured: (result, lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        res = fn(argv)
+    return res, buf.getvalue().splitlines()
+
+
+def write_raw_scene(pool, center, radius, card):
+    """Phase 14a: a Mip-NeRF-360-layout raw scene in DATA_DIR/raw: SCENE_VIEWS
+    views of the checkpoint rendered at 1920x1080 around the bench orbit
+    (radius x 4.4, elevations alternating 10 and 20 degrees) as PNG,
+    poses_bounds.npy (LLFF's 3x5 layout with (H, W, focal)) and
+    sparse/0/points3D.bin holding the alive means and their DC colours.
+    Returns the raw directory."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.data.images import save_image
+    from gsplat_tpu_torch.viewer import create_orbit_trajectory, make_render_fn
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    raw = os.path.join(DATA_DIR, "raw")
+    os.makedirs(os.path.join(raw, "images"))
+    os.makedirs(os.path.join(raw, "sparse", "0"))
+    f = 0.85 * W
+    cfg = gt.RenderConfig(height=H, width=W, max_pairs=MAX_PAIRS)
+    poses = np.concatenate([
+        create_orbit_trajectory(center, 4.4 * radius,
+                                num_frames=SCENE_VIEWS // 2,
+                                elevation_deg=e)
+        for e in (10.0, 20.0)]).astype(np.float32)
+    render = make_render_fn(pool.params, cfg, f, f, W / 2.0, H / 2.0,
+                            alive=pool.alive)
+    t0 = time.perf_counter()
+    for i, c2w in enumerate(poses):
+        save_image(os.path.join(raw, "images", f"{i:03d}.png"),
+                   render(c2w).cpu().numpy())
+    # OpenCV (right, down, forward) -> LLFF (down, right, back) columns.
+    llff = np.stack([poses[:, :3, 1], poses[:, :3, 0], -poses[:, :3, 2],
+                     poses[:, :3, 3], np.tile([H, W, f], (len(poses), 1))],
+                    axis=2)
+    bounds = np.tile([0.1, 100.0], (len(poses), 1))
+    np.save(os.path.join(raw, "poses_bounds.npy"),
+            np.concatenate([llff.reshape(len(poses), 15), bounds], 1))
+    alive = pool.alive.cpu().numpy()
+    xyz = pool.pos.detach().cpu().numpy()[alive].astype(np.float64)
+    sh_c0 = 0.28209479177387814
+    rgb = 1.0 / (1.0 + np.exp(-pool.f_dc.detach().cpu().numpy()[alive]
+                              * sh_c0))
+    rec = np.zeros(xyz.shape[0], np.dtype([
+        ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),
+        ("track", "<u8")]))
+    rec["id"] = np.arange(xyz.shape[0])
+    rec["xyz"] = xyz
+    rec["rgb"] = np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    with open(os.path.join(raw, "sparse", "0", "points3D.bin"), "wb") as fh:
+        fh.write(np.uint64(xyz.shape[0]).tobytes())
+        fh.write(rec.tobytes())
+    print(f"[{card}] 14a: raw scene of {len(poses)} views at {W}x{H} (PNG) "
+          f"and {xyz.shape[0]} points in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return raw
+
+
+def check_fit_run(name, state, report, rec, lines, k1, k2, iters, interval,
+                  card, peak_gib):
+    """A dataset fit's checks: finite losses, no skipped step, K1 and K2
+    launched views x iterations times, the last logged loss below the
+    first logged after the last densification before the end (when there
+    is one), and the step times, ADC counts and demand printed."""
+    views = TRAIN_BATCH * iters
+    losses = [v for _, v in report.losses]
+    last_adc = max((it for it in range(interval, iters, interval)),
+                   default=None)
+    adc = [(it, [int(getattr(r, f)) for f in (
+        "num_pruned", "num_split", "num_cloned", "num_overflowed")])
+        for it, _, _, r in rec["adc"]]
+    ms = rec["ms"]
+    print(f"[{card}] {name}: logged losses " + ", ".join(
+        f"{it}: {v:.6f}" for it, v in report.losses)
+        + f"; nonfinite steps {report.nonfinite_steps}; K1 launches {k1}, K2 "
+        f"launches {k2} (views x iterations = {views}); densifications "
+        f"{adc}; capacity {state.pool.capacity}, {report.num_gaussians} "
+        f"alive; max_pairs {rec['max_pairs']}; step ms (host clock to "
+        f"synchronize) median {float(np.median(ms[1:])):.3f}, first "
+        f"{ms[0]:.1f}, mean of the rest {float(np.mean(ms[1:])):.3f}; peak "
+        f"device memory {peak_gib:.2f} GiB; wall {report.wall_time_s:.2f} s",
+        flush=True)
+    ok = (all(np.isfinite(losses)) and report.nonfinite_steps == 0
+          and k1 == k2 == views and len(ms) == iters and len(adc) >= 1)
+    if last_adc is not None:
+        after = [v for it, v in report.losses if it > last_adc][0]
+        ok &= losses[-1] < after
+        print(f"  [{card}] {name}: last logged loss {losses[-1]:.6f} below "
+              f"the first logged after the last densification (iteration "
+              f"{last_adc}: {after:.6f}): {losses[-1] < after}", flush=True)
+    if not ok:
+        raise SystemExit(f"FAIL: {name}")
+    return float(np.median(ms[1:]))
+
+
+def dataset_phase(pool, center, radius, card, device="cuda"):
+    """Phase 14: the dataset flow through the entry points a user runs, at
+    the training configuration's full width (960x540, batch 4):
+    (a) write_raw_scene, then prepare_dataset mipnerf (--downsample 1);
+    (b) train (its main) from the prepared point cloud with the device
+        image cache: holdout 8, 60 iterations, densification every 20;
+    (c) the same through fit() on the same GaussianDataset at tile 32 and
+        pair_block 512;
+    (d) evaluate and eval_checkpoint on (b)'s checkpoint over the held-out
+        views, inference --trajectory, render_trained --export_ply (read
+        back with import_gaussians_ply, equal to the pool) and
+        --render_training_views;
+    (e) fit() runs of RANGE_ITERS iterations at the other (tile,
+        pair_block) of RANGES, and at (32, 256) in the log form and with
+        the compacted backward.
+    Each run with the launch counts set to 0 just before it. Returns
+    {name: (K1 launches, K2 launches)} for the kernels line."""
+    import importlib
+
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch import (eval_checkpoint, evaluate, inference,
+                                  prepare_dataset, render_trained)
+    from gsplat_tpu_torch.data import GaussianDataset
+    from gsplat_tpu_torch.data.gsply import import_gaussians_ply
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs as cp
+    from gsplat_tpu_torch.train.__main__ import main as train_main
+
+    fit_mod = importlib.import_module("gsplat_tpu_torch.train.fit")
+    counts = {}
+
+    def zero():
+        for k in ("launches", "bwd_launches", "log_launches",
+                  "bwd_log_launches", "bwd_compact_launches"):
+            setattr(cp, k, 0)
+
+    def read():
+        return {k: getattr(cp, k) for k in (
+            "launches", "bwd_launches", "log_launches", "bwd_log_launches",
+            "bwd_compact_launches")}
+
+    t14 = time.perf_counter()
+    raw = write_raw_scene(pool, center, radius, card)
+    prep = os.path.join(DATA_DIR, "prepared")
+    info, _ = run_cli(prepare_dataset.main, [
+        "mipnerf", "--input_dir", raw, "--output_dir", prep,
+        "--downsample", "1"])
+    if not (info["num_images"] == SCENE_VIEWS
+            and info["num_points"] == int(pool.alive.sum())):
+        raise SystemExit(f"FAIL: prepare_dataset: {info}")
+
+    # --- 14b: train through its main ---
+    iters, interval = SCENE_ITERS, SCENE_INTERVAL
+    argv = ["--data_dir", prep, "--output_dir",
+            os.path.join(DATA_DIR, "out_b"), "--scale_factor", "0.5",
+            "--batch_size", str(TRAIN_BATCH), "--capacity", "131072",
+            "--max_pairs", str(SCENE_PAIRS), "--holdout_every", "8",
+            "--densification_interval", str(interval), "--adc_mode",
+            "paper", "--iterations", str(iters), "--log_every", "5",
+            "--checkpoint_interval",
+            str(10**9), "--device", device]
+    rec = {"max_pairs": [], "ms": [], "demand": [], "adc": [], "steps": 0,
+           "snapshot_at": None}
+    real = _instrument_fit(fit_mod, rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    try:
+        (state, report), lines = run_cli(train_main, argv)
+    finally:
+        _restore_fit(fit_mod, real)
+    n = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    views_train = SCENE_VIEWS - -(-SCENE_VIEWS // 8)
+    init = [m for m in lines if m.startswith("init from")]
+    cache = [m for m in lines if m.startswith(
+        f"device-caching {views_train} views")]
+    print(f"[{card}] 14b: init line {init}, cache line {cache}", flush=True)
+    if not (init and cache):
+        raise SystemExit("FAIL: 14b did not start from the prepared point "
+                         "cloud with the device image cache")
+    step_b = check_fit_run("14b train", state, report, rec, lines,
+                           n["launches"], n["bwd_launches"], iters, interval,
+                           card, peak)
+    ckpt = report.checkpoints[-1]
+    back = gt.restore_pool(ckpt, device=device)
+    same = all(torch.equal(getattr(back, k), getattr(state.pool, k).detach())
+               for k in PARAM_KEYS) and torch.equal(back.alive,
+                                                    state.pool.alive)
+    print(f"[{card}] 14b: {ckpt} read by restore_pool equals the trained "
+          f"pool: {same}", flush=True)
+    if not same:
+        raise SystemExit("FAIL: 14b checkpoint")
+    counts["b"] = (n["launches"], n["bwd_launches"])
+
+    # --- 14c: the same at tile 32 and pair_block 512, through fit() ---
+    ds = GaussianDataset(prep, scale_factor=0.5, holdout_every=8,
+                         split="train")
+    rcfg = gt.RenderConfig(height=ds.height, width=ds.width,
+                           max_pairs=SCENE_PAIRS, tile=32, pair_block=512)
+    tcfg = gt.TrainConfig(iterations=iters, batch_size=TRAIN_BATCH,
+                          capacity=131072, position_lr_max_steps=iters,
+                          densification_interval=interval,
+                          adc_mode="paper", checkpoint_interval=10**9)
+    rec = {"max_pairs": [], "ms": [], "demand": [], "adc": [], "steps": 0,
+           "snapshot_at": None}
+    lines = []
+    real = _instrument_fit(fit_mod, rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    try:
+        state_c, report_c = fit_mod.fit(
+            ds, rcfg, tcfg, output_dir=os.path.join(DATA_DIR, "out_c"),
+            log_every=5, log_fn=lines.append, device=device)
+    finally:
+        _restore_fit(fit_mod, real)
+    n = read()
+    peak_c = torch.cuda.max_memory_allocated() / 2**30
+    for m in lines:
+        print(f"  [14c] {m}")
+    step_c = check_fit_run("14c fit at tile 32, pair_block 512", state_c,
+                           report_c, rec, lines, n["launches"],
+                           n["bwd_launches"], iters, interval, card, peak_c)
+    counts[(32, 512)] = (n["launches"], n["bwd_launches"])
+    print(f"[{card}] 14b/14c step ms: tile 16 G 128 {step_b:.3f}, tile 32 "
+          f"G 512 {step_c:.3f}; losses at the end {report.final_loss:.6f} "
+          f"and {report_c.final_loss:.6f}", flush=True)
+    del state_c
+
+    # --- 14d: evaluate, eval_checkpoint, inference, export ---
+    zero()
+    ev, _ = run_cli(evaluate.main, [
+        "--checkpoint", ckpt, "--data_dir", prep, "--scale_factor", "0.5",
+        "--holdout_every", "8", "--max_pairs", str(SCENE_PAIRS), "--device",
+        device])
+    ec, _ = run_cli(eval_checkpoint.main, [
+        "--checkpoint", ckpt, "--scene_dir", prep, "--holdout_every", "8",
+        "--device", device])
+    traj_path = os.path.join(DATA_DIR, "trajectory.npy")
+    np.save(traj_path, ds.c2w[:4])
+    frames, _ = run_cli(inference.main, [
+        "--checkpoint", ckpt, "--trajectory", traj_path, "--data_dir", prep,
+        "--output_dir", os.path.join(DATA_DIR, "novel"), "--max_pairs",
+        str(SCENE_PAIRS), "--device", device])
+    ply = os.path.join(DATA_DIR, "export.ply")
+    run_cli(render_trained.main, [
+        "--checkpoint", ckpt, "--data_dir", prep, "--scale_factor", "0.5",
+        "--output_dir", os.path.join(DATA_DIR, "renders"), "--num_frames",
+        "2", "--benchmark_only", "--render_training_views", "--export_ply",
+        ply, "--export_splat", os.path.join(DATA_DIR, "export.splat"),
+        "--device", device])
+    n = read()
+    counts["d"] = (n["launches"], n["bwd_launches"])
+    imported = import_gaussians_ply(ply)
+    alive = state.pool.alive
+    want = {k: getattr(state.pool, k).detach()[alive].cpu().numpy()
+            for k in PARAM_KEYS}
+    q = want["q_raw"] / (np.linalg.norm(want["q_raw"], axis=1,
+                                        keepdims=True) + 1e-12)
+    exact = all(np.array_equal(imported[k], want[k]) for k in
+                ("pos", "f_dc", "f_rest", "opacity_raw", "scale_raw"))
+    q_err = float(np.abs(imported["q_raw"] - q).max())
+    pngs = sorted(os.listdir(os.path.join(DATA_DIR, "novel")))
+    print(f"[{card}] 14d: evaluate on {ev['num_views']} held-out views: "
+          f"PSNR {ev['psnr']:.3f} dB, SSIM {ev['ssim']:.4f}; eval_checkpoint "
+          f"(full resolution) PSNR {ec['psnr']} dB over {ec['num_views']} "
+          f"views, demand {ec['max_pair_demand']}; inference wrote "
+          f"{len(pngs)} frames; the exported PLY read back: pos, f_dc, "
+          f"f_rest, opacity, scale equal the pool's {exact}, rotation "
+          f"(normalized) max abs {q_err:.2e}; K1 launches {n['launches']}",
+          flush=True)
+    test_views = -(-SCENE_VIEWS // 8)
+    if not (ev["num_views"] == test_views == ec["num_views"]
+            and np.isfinite(ev["psnr"]) and np.isfinite(ec["psnr"])
+            and len(frames) == len(pngs) == 4 and exact and q_err <= 1e-6
+            and n["launches"] > 0):
+        raise SystemExit("FAIL: 14d")
+
+    # --- 14e: the other ranges, the log form and the compacted backward ---
+    for key in [r for r in RANGES if r != (32, 512)] + ["log", "compact"]:
+        tile, G = (32, 256) if isinstance(key, str) else key
+        kw = dict(transmittance_math="log") if key == "log" else {}
+        if key == "compact":
+            kw = dict(bwd_pairs=2**20)
+        rcfg = gt.RenderConfig(height=ds.height, width=ds.width,
+                               max_pairs=2 * SCENE_PAIRS, tile=tile, pair_block=G,
+                               **kw)
+        tcfg = gt.TrainConfig(iterations=RANGE_ITERS, batch_size=TRAIN_BATCH,
+                              capacity=131072, densification_interval=10**9,
+                              checkpoint_interval=10**9)
+        zero()
+        st, rep = fit_mod.fit(ds, rcfg, tcfg, log_every=RANGE_ITERS,
+                              log_fn=lambda m: None, device=device)
+        n = read()
+        if key == "log":
+            k1, k2 = n["log_launches"], n["bwd_log_launches"]
+        elif key == "compact":
+            k1, k2 = n["launches"], n["bwd_compact_launches"]
+        else:
+            k1, k2 = n["launches"], n["bwd_launches"]
+        views = TRAIN_BATCH * RANGE_ITERS
+        print(f"[{card}] 14e fit at tile {tile}, G {G} {kw}: losses "
+              f"{rep.losses}, nonfinite {rep.nonfinite_steps}; K1 {k1}, K2 "
+              f"{k2} launches (views x iterations = {views})", flush=True)
+        if not (k1 == k2 == views and rep.nonfinite_steps == 0
+                and np.isfinite(rep.final_loss)):
+            raise SystemExit(f"FAIL: 14e at {key}")
+        counts[key] = (k1, k2)
+        del st
+    print(f"[{card}] phase 14a-e took {time.perf_counter() - t14:.1f} s",
+          flush=True)
+    return counts
+
+
+def range_entries(ranges, counts):
+    """The kernels line's entries of phase 14: K1 and K2 at each (tile,
+    pair_block) of RANGES, and at (32, 256) K1 and K2 in the log form and
+    K2 in compact mode; launches from phase 14's fit() runs, times, errors
+    and bounds from ranges_phase."""
+    fwd = dict(route="cuda", library_ms=None,
+               source="gsplat_tpu_torch/ops/csrc/raster_fwd.cu")
+    bwd = dict(fwd, source="gsplat_tpu_torch/ops/csrc/raster_bwd.cu")
+    out = []
+    for key in RANGES + ("log",):
+        r = ranges[key]
+        tag, form = ("log,t32,G256", " (log)") if key == "log" else (
+            f"t{key[0]},G{key[1]}", "")
+        k1, k2 = counts[key]
+        out += [dict(fwd, name=f"raster_fwd[{tag}]",
+                     replaces=f"gsplat_tpu/ops/raster_pallas.py:192{form}",
+                     launches=k1, max_abs_err=r["err"], ms=r["ms"],
+                     plain_ms=r["plain_ms"], bound_ms=r["bound"],
+                     bound_by=r["by"]),
+                dict(bwd, name=f"raster_bwd[{tag}]",
+                     replaces=f"gsplat_tpu/ops/raster_pallas.py:243{form}",
+                     launches=k2, max_abs_err=r["bwd_err"], ms=r["bwd_ms"],
+                     plain_ms=r["bwd_plain_ms"], bound_ms=r["bwd_bound"],
+                     bound_by=r["bwd_by"])]
+    err, ms, plain_ms, bound, by = ranges["compact"]
+    out.append(dict(bwd, name="raster_bwd[compact,t32,G256]",
+                    replaces="gsplat_tpu/ops/raster_pallas.py:243 (over the "
+                             "compacted block list of rasterize.py:331)",
+                    launches=counts["compact"][1], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+    return out
+
+
 def image_from_tiles(out, tile_count, cfg):
     """[num_tiles, 8, P] compositor output -> [H, W, 3] image, as
     rasterize_binned assembles it."""
@@ -2295,7 +2866,17 @@ def main():
             if spills and int(spills.group(1)) > 0:
                 raise SystemExit(f"FAIL: {name} spills registers: {line}")
     print("  raster_bwd dynamic shared memory: (10 + 2 warps x 10) x G x 4 B "
-          "per CTA = 15360 B at pair_block 128")
+          "per CTA at tile 16 (15360 B at pair_block 128), (10 + 8 warps x "
+          "10) x G x 4 B at tile 32 (184320 B at pair_block 512)")
+    for tile, max_g in ((16, 512), (32, 512)):
+        regs, smem = kernel_resources(built["raster_fwd"]["ptxas"],
+                                      "raster_fwd_kernel", tile=tile,
+                                      max_g=max_g)
+        print(f"[{card}] raster_fwd<tile {tile}, G <= {max_g}>: {regs} "
+              f"registers, {smem} B shared", flush=True)
+    regs, _ = kernel_resources(built["raster_bwd"]["ptxas"],
+                               "raster_bwd_kernel", tile=32)
+    print(f"[{card}] raster_bwd<tile 32>: {regs} registers", flush=True)
     regs, smem = kernel_resources(built["raster_fwd"]["ptxas"],
                                   "raster_fwd_kernel")
     print(f"[{card}] raster_fwd (K1) design: 8x4-pixel warps, per-warp pair "
@@ -2532,7 +3113,15 @@ def main():
     print(f"[{card}] phase 13 took {time.perf_counter() - t13:.1f} s",
           flush=True)
 
-    # --- 14. result lines ---
+    # --- 14. the dataset flow, and K1/K2 at tile 32 and pair_block 512 ---
+    t14 = time.perf_counter()
+    counts = dataset_phase(pool, center, radius, card)
+    ranges = ranges_phase(sparams, sc2w, pool, c2w, fx, fy, cx, cy, card,
+                          instr)
+    print(f"[{card}] phase 14 took {time.perf_counter() - t14:.1f} s",
+          flush=True)
+
+    # --- 15. result lines ---
     kernels = [{
         "name": "raster_fwd",
         "route": "cuda",
@@ -2540,7 +3129,8 @@ def main():
         "replaces": "gsplat_tpu/ops/raster_pallas.py:192",
         "launches": launches + fit_k1 + trunc_k1 + bucket_k1
         + lever_n["launches"] + fit_n["launches"] + serve_k1
-        + xla_n[0] + eval_k1 + trace_n[0] + tools_n[0],
+        + xla_n[0] + eval_k1 + trace_n[0] + tools_n[0] + counts["b"][0]
+        + counts["d"][0],
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2553,7 +3143,7 @@ def main():
         "source": "gsplat_tpu_torch/ops/csrc/raster_bwd.cu",
         "replaces": "gsplat_tpu/ops/raster_pallas.py:243",
         "launches": train_k2 + fit_k2 + trunc_k2 + lever_n["bwd_launches"]
-        + xla_n[1] + trace_n[1] + tools_n[1],
+        + xla_n[1] + trace_n[1] + tools_n[1] + counts["b"][1],
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
@@ -2588,6 +3178,7 @@ def main():
         "bound_by": prof[v]["bound_by"],
         "library_ms": None,
     } for v in ABLATION_REPLACES]
+    kernels += range_entries(ranges, counts)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

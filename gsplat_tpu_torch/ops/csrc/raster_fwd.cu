@@ -9,24 +9,35 @@
 //
 // Design. The TPU kernel walks a sequential grid of (tile, block) steps
 // and carries each tile's sums in its VMEM output block. CUDA blocks run
-// in no order, so here one CTA owns one 16x16 tile, one thread per pixel,
-// and walks the tile's cdiv(tile_count, G) blocks itself, with T and the
-// four sums in registers:
+// in no order, so here one CTA owns one tile, one thread per pixel, and
+// walks the tile's cdiv(tile_count, G) blocks itself, with T and the four
+// sums in registers. The tile (16 or 32) and the largest pair block the
+// CTA stages (kMaxG: 256 or 512 at tile 16, 512 at tile 32) are template
+// parameters; the launcher picks the instantiation from (tile, G):
 //   * a one-CTA kernel first lists the tiles by their number of blocks,
 //     most first (tile_order_kernel), and CTA i takes the i-th: the tiles
 //     with the longest serial walk start in the first wave instead of
 //     wherever the image puts them, which shortens the tail of a frame
 //     whose work sits in a few tiles;
-//   * each warp owns an 8x4 pixel patch (warp w at column (w % 2) * 8, row
-//     (w / 2) * 4 of the tile; lane l at (l % 8, l / 8) in it). Output and
-//     state stay indexed by pixel p = py * 16 + px;
-//   * staging: thread j < G holds pair j's 10 feature rows in registers
-//     (loaded coalesced, the rows being feature-major, while the warps
-//     walk the previous block) and stores the pair pair-major in shared
+//   * each warp owns an 8x4 pixel patch (with kWarpsX = tile / 8 patches
+//     across, warp w at column (w % kWarpsX) * 8, row (w / kWarpsX) * 4 of
+//     the tile; lane l at (l % 8, l / 8) in it): 8 warps at tile 16, 32 at
+//     tile 32 (1,024 threads, the CTA limit). Output and state stay indexed
+//     by pixel p = py * tile + px;
+//   * staging: thread t holds pairs t, t + tile^2, ... (kStage =
+//     cdiv(kMaxG, tile^2) of them: 2 at tile 16 with G = 512, else 1) of
+//     the next block, 10 feature rows each, in registers (loaded coalesced,
+//     the rows being feature-major, while the warps walk the previous
+//     block) and stores each pair pair-major in shared
 //     memory, 12 floats (u v a b | c op r g | b depth t m), so a pair is
 //     three 16-byte broadcast loads. The store's 48-byte stride puts the
 //     eight threads of a quarter-warp on 32 distinct banks. Slots 10-11
-//     hold the pair's cull values (reach_threshold);
+//     hold the pair's cull values (reach_threshold). 48 B x kMaxG of
+//     static shared memory: 12 KiB at kMaxG 256, 24 KiB at 512. The
+//     tile-16 kernel keeps kMaxG 256 for G <= 256, so its registers, shared
+//     memory and CTAs per SM are those of the one-tile kernel before it;
+//   * at tile 32 a CTA of 1,024 threads may hold at most 64 registers a
+//     thread (the kernel needs about 40) and two CTAs share an SM;
 //   * the per-warp pair cull: for the 32 pairs j = w0 + lane of a block,
 //     lane `lane` tests whether pair j can reach any pixel of its warp's
 //     patch, and __ballot_sync makes the 32-bit mask; the warp then walks
@@ -40,8 +51,8 @@
 //     composited block, so row 4 (and the alpha plane) keeps the TPU
 //     kernel's block-granular meaning, and row 5 counts the blocks
 //     composited (the backward reads it as the active-block prefix);
-//   * the [8, 256] output is written once, at the end;
-//   * with a non-null `state` ([n_pairs / G, 5, 256] f32), each thread
+//   * the [8, tile^2] output is written once, at the end;
+//   * with a non-null `state` ([n_pairs / G, 5, tile^2] f32), each thread
 //     writes its four sums (rows 0-3) and T (row 4) as they stand at the
 //     start of every block it composites, at row base / G of the pair
 //     list. Autograd asks for it: the backward (raster_bwd.cu) then runs
@@ -121,10 +132,7 @@
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;  // threads per CTA
 constexpr int kRows = 10;               // u v a b c op r g b depth
-constexpr int kMaxG = 256;
 constexpr int kSlots = 3;               // float4s per staged pair
 constexpr int kWarpW = 8, kWarpH = 4;   // a warp's pixel patch
 constexpr int kOrderThreads = 1024;
@@ -193,24 +201,30 @@ __global__ void __launch_bounds__(kOrderThreads) tile_order_kernel(
   }
 }
 
-template <bool kLog>
-__global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
+template <int kTile, int kMaxG, bool kLog>
+__global__ void __launch_bounds__(kTile * kTile) raster_fwd_kernel(
     const float* __restrict__ feat, int n_pairs, int stride,
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
     const int* __restrict__ order, float* __restrict__ out,
     float* __restrict__ state, unsigned long long* __restrict__ skipped,
     int tiles_x, int rows_mod, int G, float chi2_clip, float alpha_max,
     float alpha_cutoff, float t_min, CullMargins cm) {
+  constexpr int kPixels = kTile * kTile;  // threads per CTA
+  constexpr int kWarpsX = kTile / kWarpW;  // warp patches across the tile
+  constexpr int kStage = (kMaxG + kPixels - 1) / kPixels;  // pairs a thread
+                                                           // stages
+  static_assert(kTile % kWarpW == 0 && kTile % kWarpH == 0, "warp patches");
+  static_assert(kMaxG % 32 == 0, "pair blocks are whole warps of pairs");
   __shared__ float4 sm[kSlots * kMaxG];
 
   const int tile = order[blockIdx.x];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int trow = rows_mod > 0 ? (tile / tiles_x) % rows_mod : tile / tiles_x;
-  const int tx = (tile % tiles_x) * kTile + (warp % 2) * kWarpW;
-  const int ty = trow * kTile + (warp / 2) * kWarpH;
-  const int p = ((warp / 2) * kWarpH + lane / kWarpW) * kTile +
-                (warp % 2) * kWarpW + lane % kWarpW;
+  const int tx = (tile % tiles_x) * kTile + (warp % kWarpsX) * kWarpW;
+  const int ty = trow * kTile + (warp / kWarpsX) * kWarpH;
+  const int p = ((warp / kWarpsX) * kWarpH + lane / kWarpW) * kTile +
+                (warp % kWarpsX) * kWarpW + lane % kWarpW;
   const float px = (float)(tx + lane % kWarpW);
   const float py = (float)(ty + lane / kWarpW);
   const float x0 = (float)tx, x1 = (float)(tx + kWarpW - 1);
@@ -224,13 +238,19 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
   int blocks = 0;
   int reached = 0;  // (pair, warp) walked, uniform over the warp
-  // Thread j < G holds pair j of the next block in registers, loaded
-  // while the warps walk the current one.
-  float f[kRows];
-  if (tid < G && nblk > 0 && start + G <= n_pairs) {
+  // Thread tid holds pairs tid + i * kPixels (< G) of the next block in
+  // registers, loaded while the warps walk the current one.
+  float f[kStage][kRows];
+  if (nblk > 0 && start + G <= n_pairs) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      f[r] = feat[(size_t)r * stride + start + tid];
+    for (int i = 0; i < kStage; ++i) {
+      const int j = tid + i * kPixels;
+      if (j < G) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          f[i][r] = feat[(size_t)r * stride + start + j];
+      }
+    }
   }
 
   for (int k = 0; k < nblk; ++k) {
@@ -248,18 +268,29 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
       s[3 * kPixels] = acc_d;
       s[4 * kPixels] = T;
     }
-    if (tid < G) {
-      float m;
-      const float t = reach_threshold(f, chi2_clip, alpha_cutoff, cm, &m);
-      sm[kSlots * tid + 0] = make_float4(f[0], f[1], f[2], f[3]);
-      sm[kSlots * tid + 1] = make_float4(f[4], f[5], f[6], f[7]);
-      sm[kSlots * tid + 2] = make_float4(f[8], f[9], t, m);
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      const int j = tid + i * kPixels;
+      if (j < G) {
+        float m;
+        const float t =
+            reach_threshold(f[i], chi2_clip, alpha_cutoff, cm, &m);
+        sm[kSlots * j + 0] = make_float4(f[i][0], f[i][1], f[i][2], f[i][3]);
+        sm[kSlots * j + 1] = make_float4(f[i][4], f[i][5], f[i][6], f[i][7]);
+        sm[kSlots * j + 2] = make_float4(f[i][8], f[i][9], t, m);
+      }
     }
     __syncthreads();
-    if (tid < G && k + 1 < nblk && base + 2 * G <= n_pairs) {
+    if (k + 1 < nblk && base + 2 * G <= n_pairs) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        f[r] = feat[(size_t)r * stride + base + G + tid];
+      for (int i = 0; i < kStage; ++i) {
+        const int j = tid + i * kPixels;
+        if (j < G) {
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            f[i][r] = feat[(size_t)r * stride + base + G + j];
+        }
+      }
     }
 
     for (int w0 = 0; w0 < G; w0 += 32) {
@@ -327,6 +358,27 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
   }
 }
 
+// The instantiation of raster_fwd_kernel for (tile, G, log_t), or null
+// where none is built: tile 16 stages up to 256 pairs a CTA or 512, tile 32
+// up to 512.
+using FwdKernel = void (*)(const float*, int, int, const int*, const int*,
+                           const int*, float*, float*, unsigned long long*,
+                           int, int, int, float, float, float, float,
+                           CullMargins);
+
+template <bool kLog>
+FwdKernel pick_kernel(int tile, int G) {
+  if (G <= 0 || G % 32 != 0) return nullptr;
+  if (tile == 16 && G <= 256) return raster_fwd_kernel<16, 256, kLog>;
+  if (tile == 16 && G <= 512) return raster_fwd_kernel<16, 512, kLog>;
+  if (tile == 32 && G <= 512) return raster_fwd_kernel<32, 512, kLog>;
+  return nullptr;
+}
+
+FwdKernel pick_kernel(int tile, int G, int log_t) {
+  return log_t ? pick_kernel<true>(tile, G) : pick_kernel<false>(tile, G);
+}
+
 }  // namespace
 
 // Launches tile_order_kernel, then the compositor, on `stream` and returns
@@ -334,6 +386,8 @@ __global__ void __launch_bounds__(kPixels) raster_fwd_kernel(
 // ints. `state` may be null (nothing written); `skipped` may be null
 // (nothing counted), else the kernel adds the (pair, warp) it skipped to
 // *skipped. log_t selects the transmittance: 1 "log", 0 "cumprod".
+// tile: 16 or 32; G: a multiple of 32, at most 512 (cudaErrorInvalidValue
+// otherwise).
 // rows_mod: the tile rows of one view for batched views, else 0 (see the
 // header).
 // margin_rel, margin_eps, margin_abs and kappa_min are the cull's (see the
@@ -342,12 +396,13 @@ extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
                           const void* tile_start, const void* tile_count,
                           void* order, void* out, void* state, void* skipped,
                           int log_t, int num_tiles, int tiles_x,
-                          int rows_mod, int G,
+                          int rows_mod, int tile, int G,
                           float chi2_clip,
                           float alpha_max, float alpha_cutoff, float t_min,
                           float margin_rel, float margin_eps,
                           float margin_abs, float kappa_min, void* stream) {
-  if (G <= 0 || G > kMaxG || G % 32 != 0 || num_tiles < 0 || rows_mod < 0) {
+  const FwdKernel kernel = pick_kernel(tile, G, log_t);
+  if (kernel == nullptr || num_tiles < 0 || rows_mod < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (num_tiles == 0) return 0;
@@ -357,8 +412,7 @@ extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const CullMargins cm = {margin_rel, margin_eps, margin_abs, kappa_min};
-  auto kernel = log_t ? raster_fwd_kernel<true> : raster_fwd_kernel<false>;
-  kernel<<<num_tiles, kPixels, 0, s>>>(
+  kernel<<<num_tiles, tile * tile, 0, s>>>(
       (const float*)feat, n_pairs, stride, (const int*)tile_start,
       (const int*)tile_count, (const int*)order, (float*)out, (float*)state,
       (unsigned long long*)skipped, tiles_x, rows_mod, G, chi2_clip,
@@ -367,11 +421,12 @@ extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
   return (int)cudaGetLastError();
 }
 
-// The compositor's resident CTAs per SM on the current device (log_t as
-// raster_fwd's), from the occupancy API, into *n; returns the CUDA error
-// (0 on success).
-extern "C" int raster_fwd_ctas_per_sm(int log_t, int* n) {
+// The compositor's resident CTAs per SM on the current device for (tile,
+// G, log_t) as raster_fwd takes them, from the occupancy API, into *n;
+// returns the CUDA error (0 on success).
+extern "C" int raster_fwd_ctas_per_sm(int tile, int G, int log_t, int* n) {
+  const FwdKernel kernel = pick_kernel(tile, G, log_t);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      n, log_t ? raster_fwd_kernel<true> : raster_fwd_kernel<false>, kPixels,
-      0);
+      n, kernel, tile * tile, 0);
 }

@@ -86,10 +86,9 @@ META_SHIFT = 2
 META_FIRST = 1
 META_DEAD = 2
 
-KERNEL_TILE = 16  # the only tile size the CUDA kernel takes for now
-MAX_PAIR_BLOCK = 256
+KERNEL_TILES = (16, 32)  # the tiles the CUDA kernels take
+MAX_PAIR_BLOCK = 512  # and their pair blocks: multiples of 32 up to this
 STATE_ROWS = 5  # block-start state: sums r g b depth, then T
-KERNEL_WARPS = 8  # K1's warps per tile
 WARP_W, WARP_H = 8, 4  # the pixel patch of one K1 warp
 # Margins of K1's per-warp pair cull (_reach_threshold), which _launch_fwd
 # passes to raster_fwd.cu
@@ -147,15 +146,30 @@ def _block_alpha(f, px, py, cfg: RenderConfig):
     return torch.where(a >= cfg.alpha_cutoff, a, 0.0), du, dv, g, a_raw, a
 
 
+def kernel_warps(tile: int) -> int:
+    """K1's warps per tile: one 8x4-pixel patch each (8 at tile 16, 32 at
+    tile 32)."""
+    return tile * tile // (WARP_W * WARP_H)
+
+
+def _warp_origins(tile: int, device=None):
+    """(x, y) [warps] int64: the top-left pixel of each K1 warp's patch
+    within its tile, warp w at column (w % across)*8, row (w // across)*4,
+    ``across = tile // 8``."""
+    w = torch.arange(kernel_warps(tile), device=device)
+    across = tile // WARP_W
+    return (w % across) * WARP_W, (w // across) * WARP_H
+
+
 def warp_pixels(cfg: RenderConfig, device=None):
-    """[8, 32] int64: the pixel ``p = py*tile + px`` of lane l of warp w in
-    K1, whose warp w takes the 8x4 patch at column (w % 2)*8, row
-    (w // 2)*4 of its tile, lane l at (l % 8, l // 8) within it. Local to
-    the tile, so ``view_tile_rows`` does not enter."""
-    w = torch.arange(KERNEL_WARPS, device=device)[:, None]
+    """[warps, 32] int64: the pixel ``p = py*tile + px`` of lane l of warp
+    w in K1 (patch origins as :func:`_warp_origins`), lane l at (l % 8,
+    l // 8) within its patch. Local to the tile, so ``view_tile_rows`` does
+    not enter."""
+    x0, y0 = _warp_origins(cfg.tile, device)
     lane = torch.arange(32, device=device)[None, :]
-    x = (w % 2) * WARP_W + lane % WARP_W
-    y = (w // 2) * WARP_H + lane // WARP_W
+    x = x0[:, None] + lane % WARP_W
+    y = y0[:, None] + lane // WARP_W
     return y * cfg.tile + x
 
 
@@ -201,7 +215,7 @@ def _reach_threshold(f, cfg: RenderConfig):
 
 
 def pair_warp_reach(f, tiles, cfg: RenderConfig):
-    """K1's per-warp pair cull as plain PyTorch: [m, G, 8] bool, False
+    """K1's per-warp pair cull as plain PyTorch: [m, G, warps] bool, False
     where the kernel's warp w skips pair j of block i (features f
     [>= 10, m, G] of blocks in tiles ``tiles`` [m]).
 
@@ -216,12 +230,12 @@ def pair_warp_reach(f, tiles, cfg: RenderConfig):
     t, m = _reach_threshold(f, cfg)
     t, m = t[..., None], m[..., None]
     u, v, a, b, c = (f[r][..., None] for r in range(5))
-    w = torch.arange(KERNEL_WARPS, device=f.device)
+    wx, wy = _warp_origins(cfg.tile, f.device)
     tx = ((tiles % cfg.tiles_x) * cfg.tile)[:, None]
     ty = (tile_rows(tiles, cfg) * cfg.tile)[:, None]
-    x0 = (tx + (w % 2) * WARP_W).to(f.dtype)[:, None, :]  # [m, 1, 8]
-    x1 = (tx + (w % 2) * WARP_W + WARP_W - 1).to(f.dtype)[:, None, :]
-    y0 = (ty + (w // 2) * WARP_H).to(f.dtype)[:, None, :]
+    x0 = (tx + wx).to(f.dtype)[:, None, :]  # [m, 1, warps]
+    x1 = (tx + wx + WARP_W - 1).to(f.dtype)[:, None, :]
+    y0 = (ty + wy).to(f.dtype)[:, None, :]
     lo = x0 - u
     hi = x1 - u
     reach = torch.zeros(lo.shape, dtype=torch.bool, device=f.device)
@@ -248,9 +262,9 @@ def cull_audit(pair_feat, blocks, tiles, cfg: RenderConfig, chunk: int = 256):
     for c0 in range(0, blocks.shape[0], chunk):
         blk, tile = blocks[c0:c0 + chunk], tiles[c0:c0 + chunk]
         f = pair_feat[:FEAT_ROWS, blk[:, None] * G + cols]
-        reach = pair_warp_reach(f, tile, cfg)  # [m, G, 8]
+        reach = pair_warp_reach(f, tile, cfg)  # [m, G, warps]
         px, py = _tile_pixels(tile, cfg)
-        alpha = _block_alpha(f, px, py, cfg)[0][:, :, wpix]  # [m, G, 8, 32]
+        alpha = _block_alpha(f, px, py, cfg)[0][:, :, wpix]  # [m, G, w, 32]
         nonzero = (alpha != 0).any(dim=3)
         n["total"] += reach.numel()
         n["skipped"] += int((~reach).sum())
@@ -629,16 +643,25 @@ composite_pairs.bwd_compact_launches = 0  # K2 launches in compact mode
 composite_pairs.bwd_ctas = 0  # CTAs of the last K2 launch (persistent grid)
 
 
-def _check_kernel_args(cfg: RenderConfig, **tensors):
-    if cfg.tile != KERNEL_TILE:
+def check_kernel_config(cfg: RenderConfig):
+    """Raise ``ValueError`` unless the CUDA kernels take ``cfg``'s tile and
+    pair block: tile 16 or 32, ``pair_block`` a multiple of 32 up to 512
+    (the JAX package's TPU path takes any tile with ``tile*tile % 128 ==
+    0`` and pair blocks that are multiples of 128; its ``backend="xla"``,
+    as here, takes any)."""
+    if cfg.tile not in KERNEL_TILES:
         raise ValueError(
-            f"the CUDA compositor takes tile={KERNEL_TILE} only "
-            f"(got {cfg.tile})")
+            f"the CUDA compositor takes tile=16 or tile=32 (got "
+            f"tile={cfg.tile}); use backend='xla'")
     G = cfg.pair_block
     if G % 32 or not 0 < G <= MAX_PAIR_BLOCK:
         raise ValueError(
-            f"pair_block must be a multiple of 32 in [32, {MAX_PAIR_BLOCK}] "
-            f"(got {G})")
+            f"the CUDA compositor takes a pair_block that is a multiple of "
+            f"32 in [32, {MAX_PAIR_BLOCK}] (got {G}); use backend='xla'")
+
+
+def _check_kernel_args(cfg: RenderConfig, **tensors):
+    check_kernel_config(cfg)
     for name, a in tensors.items():
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -676,7 +699,8 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
             out.data_ptr(), None if state is None else state.data_ptr(),
             None if skipped is None else skipped.data_ptr(),
             int(cfg.transmittance_math == "log"),
-            cfg.num_tiles, cfg.tiles_x, cfg.view_tile_rows, cfg.pair_block,
+            cfg.num_tiles, cfg.tiles_x, cfg.view_tile_rows, cfg.tile,
+            cfg.pair_block,
             ctypes.c_float(cfg.chi2_clip), ctypes.c_float(cfg.alpha_max),
             ctypes.c_float(cfg.alpha_cutoff),
             ctypes.c_float(cfg.transmittance_min),
@@ -693,16 +717,18 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
     return (out, state) if with_state else out
 
 
-def fwd_ctas_per_sm(device, log: bool = False) -> int:
+def fwd_ctas_per_sm(device, log: bool = False, tile: int = 16,
+                    pair_block: int = 256) -> int:
     """K1's resident CTAs per SM on the CUDA ``device``, from the occupancy
     API (``raster_fwd_ctas_per_sm``), for the "cumprod" kernel or, with
-    ``log``, the "log" one."""
+    ``log``, the "log" one, at ``tile`` and ``pair_block``."""
     from ._build import load_library
 
     lib = load_library("raster_fwd")
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.raster_fwd_ctas_per_sm(int(log), ctypes.byref(n))
+        err = lib.raster_fwd_ctas_per_sm(tile, pair_block, int(log),
+                                         ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"raster_fwd occupancy query failed: CUDA error "
                            f"{err}")
@@ -732,7 +758,7 @@ def _launch_bwd(pair_feat, tile_start, tile_count, fwd_out, state, gout,
             cfg.num_tiles, fwd_out.data_ptr(), gout.data_ptr(),
             state.data_ptr(), dfeat.data_ptr(), dfeat.stride(0),
             int(cfg.transmittance_math == "log"), cfg.tiles_x,
-            cfg.view_tile_rows, kb, cfg.pair_block,
+            cfg.view_tile_rows, kb, cfg.tile, cfg.pair_block,
             ctypes.c_float(cfg.chi2_clip),
             ctypes.c_float(cfg.alpha_max), ctypes.c_float(cfg.alpha_cutoff),
             ctypes.c_float(1.0 - cfg.alpha_max),

@@ -54,8 +54,8 @@ import torch
 from .config import RenderConfig
 from .device import resolve_device
 from .ops.raster_ablate import K1_FUNCTION, ablate
-from .ops.raster_cuda import (FEAT_ROWS, FEAT_WIDTH, KERNEL_WARPS,
-                              active_blocks, composite_pairs, cull_audit,
+from .ops.raster_cuda import (FEAT_ROWS, FEAT_WIDTH, active_blocks,
+                              composite_pairs, cull_audit, kernel_warps,
                               tile_block_offsets)
 
 # The JAX script's VARIANTS, in its order.
@@ -215,8 +215,9 @@ def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None,
         if name == "no-compute":
             ops = blocks * (G + P)
         elif reached is not None and name in CULLED:
-            ops = reached * (P // KERNEL_WARPS) * per \
-                + blocks * G * (KERNEL_WARPS * OPS_CULL_PER_PAIR_WARP
+            warps = kernel_warps(cfg.tile)
+            ops = reached * (P // warps) * per \
+                + blocks * G * (warps * OPS_CULL_PER_PAIR_WARP
                                 + OPS_CULL_PER_PAIR)
         else:
             ops = blocks * G * P * per

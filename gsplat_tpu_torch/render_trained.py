@@ -1,8 +1,13 @@
 """Serve a trained scene: orbit render with per-frame timing and demand.
 
 Counterpart of ``scripts/render_trained.py:78-409``, restricted to what
-the port supports (one device, rect binning, the default camera without a
-dataset), with batched poses (``--render_batch``: B poses through one
+the port supports (one device, rect binning), with the camera of a
+prepared dataset (``--data_dir``, ``--scale_factor``; else a generic
+pinhole at ``--height``/``--width``), its training views
+(``--render_training_views``: the first 10), the pool exported as a
+standard 3DGS PLY (``--export_ply``, ``--ply_external_colors``) or a
+``.splat`` file (``--export_splat``), batched poses (``--render_batch``: B
+poses through one
 binning and one compositor launch) and the serving levers: per-tile rank
 truncation
 (``--tile_rank_cap``, with the pre-sort occlusion cull in
@@ -46,6 +51,50 @@ def resolve_checkpoint(path_or_dir: str) -> str:
     raise FileNotFoundError(f"no checkpoint under {path_or_dir}")
 
 
+def load_params(path: str, device="cuda"):
+    """(params, alive) on ``device`` from a ``.npz`` pool checkpoint, a
+    standard 3DGS ``.ply`` (every gaussian alive), or a directory of six
+    ``.pt`` tensors (the reference implementation's checkpoint layout)."""
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    if path.endswith(".npz"):
+        from .train.trainer import restore_pool
+
+        pool = restore_pool(path, device=dev)
+        return pool.params, pool.alive
+    if path.endswith(".ply"):
+        from .data.gsply import import_gaussians_ply
+
+        params = {k: torch.from_numpy(v).to(dev)
+                  for k, v in import_gaussians_ply(path).items()}
+    else:
+        d = os.path.dirname(path) if os.path.isfile(path) else path
+        names = {
+            "pos": "positions.pt", "scale_raw": "scales.pt",
+            "q_raw": "rotations.pt", "opacity_raw": "opacities.pt",
+            "f_dc": "features_dc.pt", "f_rest": "features_rest.pt",
+        }
+        params = {k: torch.load(os.path.join(d, fn), map_location="cpu",
+                                weights_only=True).to(dev, torch.float32)
+                  for k, fn in names.items()}
+    n = params["pos"].shape[0]
+    return params, torch.ones(n, dtype=torch.bool, device=dev)
+
+
+def apply_resolution_override(H, W, fx, fy, cx, cy, height=None, width=None):
+    """Apply ``--height``/``--width``, rescaling the intrinsics to keep the
+    field of view."""
+    if (height and height != H) or (width and width != W):
+        from .ops.camera import scale_intrinsics
+
+        H_new = height or H
+        W_new = width or W
+        fx, fy, cx, cy = scale_intrinsics(H_new, W_new, H, W, fx, fy, cx, cy)
+        H, W = H_new, W_new
+    return H, W, fx, fy, cx, cy
+
+
 def main(argv=None):
     """Parse ``argv``, serve the orbit and return ``render_trajectory``'s
     stats. With ``--bucket_pairs`` they also hold the ladder (``rungs``,
@@ -55,11 +104,15 @@ def main(argv=None):
     ``--save_depth``, ``depth_dir``."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint", required=True,
-                   help=".npz checkpoint file or output dir")
+                   help=".npz checkpoint file, output dir, or a 3DGS .ply")
+    p.add_argument("--data_dir", default=None,
+                   help="dataset dir (for camera intrinsics and the orbit "
+                        "center)")
     p.add_argument("--output_dir", default="renders")
     p.add_argument("--num_frames", type=int, default=120)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
+    p.add_argument("--scale_factor", type=float, default=1.0)
     p.add_argument("--elevation", type=float, default=15.0)
     p.add_argument("--orbit_scale", type=float, default=1.0,
                    help="orbit camera distance as a multiple of the "
@@ -68,8 +121,20 @@ def main(argv=None):
     p.add_argument("--max_pairs", type=int, default=2**21)
     p.add_argument("--benchmark_only", action="store_true",
                    help="skip image/video IO, print FPS stats only")
+    p.add_argument("--render_training_views", action="store_true",
+                   help="with --data_dir: also write the first 10 training "
+                        "views' renders")
     p.add_argument("--save_depth", action="store_true",
                    help="also write normalized depth maps for orbit frames")
+    p.add_argument("--export_ply", default=None,
+                   help="also write the gaussians as a standard 3DGS PLY "
+                        "(loadable by public splat viewers)")
+    p.add_argument("--export_splat", default=None,
+                   help="also write a .splat file (antimatter15 web-viewer "
+                        "format, 32 bytes/gaussian)")
+    p.add_argument("--ply_external_colors", action="store_true",
+                   help="remap the DC color term for INRIA-convention "
+                        "viewers (approximate for view-dependent color)")
     p.add_argument("--auto_pairs", action="store_true",
                    help="probe the orbit's true pair demand (projection and "
                         "binning only) and shrink max_pairs (and "
@@ -108,7 +173,6 @@ def main(argv=None):
     from .config import RenderConfig, parse_background
     from .data.images import save_image
     from .render import pair_demand
-    from .train.trainer import restore_pool
     from .viewer import (
         colorize_depth,
         create_orbit_trajectory,
@@ -122,16 +186,28 @@ def main(argv=None):
 
     ckpt = resolve_checkpoint(args.checkpoint)
     print(f"checkpoint: {ckpt}")
-    pool = restore_pool(ckpt, device=args.device)
-    alive = pool.alive.cpu().numpy()
+    params, alive_t = load_params(ckpt, device=args.device)
+    alive = alive_t.cpu().numpy()
     n_alive = int(alive.sum())
-    print(f"{n_alive} gaussians (pool capacity {pool.capacity}) on "
-          f"{pool.alive.device}")
+    print(f"{n_alive} gaussians (pool capacity {alive.shape[0]}) on "
+          f"{alive_t.device}")
 
-    H = args.height or 1080
-    W = args.width or 1920
-    fx = fy = 0.85 * W
-    cx, cy = W / 2.0, H / 2.0
+    # Camera: the dataset's intrinsics when given, else a generic pinhole.
+    c2ws = None
+    if args.data_dir:
+        from .data import GaussianDataset
+
+        ds = GaussianDataset(args.data_dir, scale_factor=args.scale_factor)
+        H, W = ds.height, ds.width
+        fx, fy, cx, cy = ds.fx, ds.fy, ds.cx, ds.cy
+        c2ws = ds.c2w
+    else:
+        H = args.height or 1080
+        W = args.width or 1920
+        fx = fy = 0.85 * W
+        cx, cy = W / 2.0, H / 2.0
+    H, W, fx, fy, cx, cy = apply_resolution_override(
+        H, W, fx, fy, cx, cy, args.height, args.width)
     cfg = RenderConfig(height=H, width=W, max_pairs=args.max_pairs,
                        backend=args.backend,
                        tile_rank_cap=args.tile_rank_cap,
@@ -140,8 +216,32 @@ def main(argv=None):
                        aa_mode=args.aa_mode,
                        background=parse_background(args.background))
 
+    if args.export_ply or args.export_splat:
+        from .data.gsply import export_gaussians_ply, export_gaussians_splat
+
+        host = {k: v.detach().cpu().numpy() for k, v in params.items()}
+        if args.export_ply:
+            n_written = export_gaussians_ply(
+                args.export_ply, host, alive=alive,
+                convert_colors=args.ply_external_colors)
+            print(f"exported {n_written} gaussians to {args.export_ply}")
+        if args.export_splat:
+            n_written = export_gaussians_splat(args.export_splat, host,
+                                               alive=alive)
+            print(f"exported {n_written} gaussians to {args.export_splat}")
+
+    if args.render_training_views and c2ws is not None:
+        os.makedirs(args.output_dir, exist_ok=True)
+        view_fn = make_render_fn(params, cfg, fx, fy, cx, cy, alive=alive_t)
+        for i, c2w in enumerate(c2ws[:10]):
+            save_image(os.path.join(args.output_dir,
+                                    f"train_view_{i:03d}.png"),
+                       view_fn(c2w).cpu().numpy())
+        print(f"rendered {min(len(c2ws), 10)} training views")
+
     center, radius = estimate_scene_center_radius(
-        positions=pool.pos.detach().cpu().numpy()[alive]
+        c2w_matrices=c2ws,
+        positions=params["pos"].detach().cpu().numpy()[alive],
     )
     print(f"orbit: center {np.round(center, 2)}, radius {radius:.2f}")
     traj = create_orbit_trajectory(
@@ -159,7 +259,7 @@ def main(argv=None):
             elevation_deg=args.elevation)
         with torch.no_grad():
             demands = [tuple(int(x) for x in pair_demand(
-                pool.params, c, fx, fy, cx, cy, cfg, alive=pool.alive))
+                params, c, fx, fy, cx, cy, cfg, alive=alive_t))
                 for c in probe_traj]
         pk = max(d[0] for d in demands)
         tk = max(d[2] for d in demands)
@@ -186,20 +286,20 @@ def main(argv=None):
     if args.render_batch > 1:
         # The batch shares one pair list of render_batch x max_pairs.
         orbit_fn = make_batch_render_fn(
-            pool.params, cfg, fx, fy, cx, cy, alive=pool.alive,
+            params, cfg, fx, fy, cx, cy, alive=alive_t,
             batch=args.render_batch, report_demand=True,
         )
         batch_size = args.render_batch
         pair_capacity = args.render_batch * cfg.max_pairs
     elif args.bucket_pairs:
         orbit_fn = make_bucketed_render_fn(
-            pool.params, cfg, fx, fy, cx, cy, alive=pool.alive,
+            params, cfg, fx, fy, cx, cy, alive=alive_t,
             trajectory=traj, num_buckets=args.bucket_pairs,
             report_demand=True,
         )
     else:
         orbit_fn = make_render_fn(
-            pool.params, cfg, fx, fy, cx, cy, alive=pool.alive,
+            params, cfg, fx, fy, cx, cy, alive=alive_t,
             report_demand=True,
         )
     frames, stats = render_trajectory(
@@ -236,8 +336,8 @@ def main(argv=None):
         print(f"video/frames: {video}")
         stats["video"] = video
     if args.save_depth:
-        depth_fn = make_render_fn(pool.params, cfg, fx, fy, cx, cy,
-                                  alive=pool.alive, with_depth=True)
+        depth_fn = make_render_fn(params, cfg, fx, fy, cx, cy,
+                                  alive=alive_t, with_depth=True)
         depth_dir = os.path.join(args.output_dir, "depth")
         os.makedirs(depth_dir, exist_ok=True)
         for i, c2w in enumerate(traj):

@@ -3,6 +3,10 @@ step, the ADC schedule, opacity raises, checkpoints and metrics logging.
 
 Counterpart of ``gsplat_tpu/train/fit.py`` (``FitReport`` :42, ``fit``
 :55) for one device:
+* the initial cloud is the dataset's point cloud when it offers one
+  (``pointcloud_path()``), else a seeded random cloud;
+* a dataset whose views fit under ``device_cache_bytes`` is kept on the
+  device once (f32, else uint8) and each batch is a gather there;
 * one train step for the whole run, updating the pool in place; the ADC
   runs on the device on the schedule's boundaries (``adc_step`` /
   ``adc_step_paper``), and zeroes only the moments of the slots it
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig, TrainConfig
+from ..data.pointcloud import load_point_cloud
 from ..device import resolve_device
 from ..models.adc import pos_grad_norm
 from ..models.gaussians import init_pool_from_points
@@ -87,20 +92,28 @@ def fit(
     log_fn: Callable[[str], None] = print,
     seed: int = 0,
     device="cuda",
+    device_cache_bytes: int = 4 << 30,
 ) -> tuple[TrainState, FitReport]:
     """Train a Gaussian pool on a dataset. Returns (state, report).
 
     Args:
         dataset: an iterator of batch dicts ('image' [B,H,W,3], 'c2w'
             [B,4,4], 'fx','fy','cx','cy' [B], arrays or tensors), or any
-            object with ``.batches(batch_size, seed=...)`` returning one.
-        initial_points: [N, 3|6] cloud; without it, a seeded random
-            10k-point cloud like reference train.py:351-370. A dataset that
-            offers a point cloud (``pointcloud_path()``) raises instead:
-            the data layer is not ported.
+            object with ``.batches(batch_size, seed=...)`` returning one
+            (``data.GaussianDataset``).
+        initial_points: [N, 3|6] cloud; without it, the dataset's point
+            cloud (``pointcloud_path()``, read by
+            ``data.pointcloud.load_point_cloud``) where it offers one, else
+            a seeded random 10k-point cloud.
         resume_from: a checkpoint (either package's ``.npz``) to continue
             from; it replaces the initial pool.
         device: ``"cuda"`` (default; raises without a card) or ``"cpu"``.
+        device_cache_bytes: when the dataset offers ``device_batches`` and
+            its views fit under this many bytes, they are copied to the
+            device once and each batch is a gather there: in f32 where
+            ``size_bytes()`` fits, else as uint8 (``size_bytes(1)``,
+            dequantized after the gather), else batches come from the host
+            each step. 0 turns the cache off.
 
     Static capacities grow from the observed demand: a pair-capacity
     overflow (checked at log_every boundaries; the steps between are still
@@ -117,9 +130,8 @@ def fit(
     ``auto_capacity=False``, which only logs the overflow, is not ported.
 
     Not ported, and raising ``NotImplementedError``: ``mesh`` and
-    ``gauss_sharded`` (multi-device training). The JAX ``fit()``'s device
-    image cache (``device_cache_bytes``) belongs to its dataset and is not
-    an argument here. The row and ring capacities that the JAX ``fit()``
+    ``gauss_sharded`` (multi-device training). The row and ring capacities
+    that the JAX ``fit()``
     also grows belong to modes the port raises on (``ops/binning.py``,
     ``mesh``), so their branches are left out.
     """
@@ -135,15 +147,14 @@ def fit(
     if initial_points is None:
         pc_path = getattr(dataset, "pointcloud_path", lambda: None)()
         if pc_path:
-            raise NotImplementedError(
-                f"the dataset offers a point cloud ({pc_path}), but the data "
-                f"layer (point-cloud loading) is not ported; pass "
-                f"initial_points")
-        rng = np.random.default_rng(seed)
-        pts = rng.normal(0.0, 1.5, (10_000, 3))
-        pts[:, 2] += 4.0
-        initial_points = pts.astype(np.float32)
-        log_fn("no point cloud found; random 10k-point init")
+            initial_points = load_point_cloud(pc_path)
+            log_fn(f"init from {pc_path}: {initial_points.shape[0]} points")
+        else:
+            rng = np.random.default_rng(seed)
+            pts = rng.normal(0.0, 1.5, (10_000, 3))
+            pts[:, 2] += 4.0
+            initial_points = pts.astype(np.float32)
+            log_fn("no point cloud found; random 10k-point init")
 
     if initial_points.shape[0] > train_cfg.capacity:
         rng = np.random.default_rng(seed)
@@ -173,6 +184,23 @@ def fit(
 
     if hasattr(dataset, "__next__"):
         batches = dataset
+    elif (
+        device_cache_bytes
+        and hasattr(dataset, "device_batches")
+        and hasattr(dataset, "size_bytes")
+        and dataset.size_bytes(1) <= device_cache_bytes
+    ):
+        # Cache tiers: f32 when it fits, else uint8 (a quarter of the
+        # bytes, dequantized after the gather), else host batches.
+        quantize = dataset.size_bytes() > device_cache_bytes
+        log_fn(
+            f"device-caching {len(dataset)} views "
+            f"({dataset.size_bytes(1 if quantize else 4) / 1e6:.0f} MB"
+            + (", uint8-quantized" if quantize else "") + ")"
+        )
+        batches = dataset.device_batches(
+            train_cfg.batch_size, seed=seed, quantize=quantize, device=dev
+        )
     else:
         batches = dataset.batches(train_cfg.batch_size, seed=seed)
 

@@ -204,3 +204,22 @@ def test_plain_compositor_matches_jax_where_the_cull_drops_most():
     _check_against_jax(got, want, tc)
     blocks, tiles = _all_blocks(ts, tc, cfg)
     assert _check_blocks(pf_t, blocks, tiles, cfg) > 0.5
+
+
+@pytest.mark.parametrize("pair_block", [128, 512])
+@pytest.mark.parametrize("kind", ["seed0", "saturated"])
+def test_cull_is_conservative_at_tile_32(kind, pair_block):
+    """At tile 32 K1 runs 32 warps of 8x4 pixels, four across: the warp
+    patches tile the tile exactly once, and no (pair, warp) the test drops
+    has a non-zero alpha."""
+    cfg = gt.RenderConfig(height=128, width=192, max_pairs=2**15, tile=32,
+                          pair_block=pair_block)
+    pix = tras.warp_pixels(cfg)
+    assert tuple(pix.shape) == (tras.kernel_warps(32), 32) == (32, 32)
+    assert torch.equal(pix.reshape(-1).sort().values, torch.arange(1024))
+    scene = _saturated_scene() if kind == "saturated" else \
+        make_scene(None, n=600, seed_offset=0)
+    pf, b = _pairs(scene, scene["c2w"], cfg, (160.0, 158.0, 96.5, 63.5))
+    blocks, tiles = _all_blocks(b.tile_start, b.tile_count, cfg)
+    share = _check_blocks(pf, blocks, tiles, cfg)
+    assert share > 0.1, share

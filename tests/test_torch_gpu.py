@@ -43,6 +43,8 @@ they are also held against its plain version within the same 2e-5 (their
 T is rounded in another association).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -776,3 +778,141 @@ def test_evaluate_views_batch_matches_per_view_on_card(cuda, backend):
         assert a["psnr"] == pytest.approx(b["psnr"], abs=1e-3)
         assert a["l1"] == pytest.approx(b["l1"], abs=1e-6)
         assert a["psnr"] == pytest.approx(c["psnr"], abs=1e-3)
+
+
+# --- K1 and K2 at tile 32 and at pair_block 512 --------------------------------
+
+# The (tile, pair_block) the kernels take beyond tile 16 with G <= 256.
+NEW_RANGES = [(16, 512), (32, 128), (32, 256), (32, 512)]
+
+
+def _check_cull_count(cuda, pf, b, fwd, cfg):
+    """The (pair, warp) K1's cull skipped against the plain test."""
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    tras._launch_fwd(pf, b.tile_start, b.tile_count, cfg, skipped=skipped)
+    blk, tile, _ = tras.active_blocks(b.tile_start,
+                                      tras.tile_block_offsets(fwd), cfg)
+    n = tras.cull_audit(pf, blk, tile, cfg)
+    torch.cuda.synchronize()
+    assert n["unsafe"] == 0 and int(skipped.item()) == n["skipped"] > 0
+
+
+@pytest.mark.parametrize("tile,pair_block", NEW_RANGES)
+@pytest.mark.parametrize("kind", ["plain", "saturated"])
+def test_kernels_match_plain_at_new_ranges(cuda, kind, tile, pair_block):
+    """K1 (rows 0-5 and state bit for bit, its cull's count equal to the
+    plain test's) and K2 from K1's state (1e-5 of each row's max, zeros
+    off the composited blocks, two runs equal) at tile 32 and at
+    pair_block 512, as at tile 16."""
+    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
+        else {}
+    params, c2w = _scene(3000, 0, **shift)
+    cfg = gt.RenderConfig(**{**CFG, "max_pairs": 2**17}, tile=tile,
+                          pair_block=pair_block)
+    pf, b = _inputs(params, c2w, cfg, cuda)
+    fwd = _check_fwd_bwd(cuda, pf, b, cfg, "launches", "bwd_launches")
+    _check_cull_count(cuda, pf, b, fwd, cfg)
+    bare = tras.composite_pairs(pf, b.tile_start, b.tile_count, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(bare, fwd)
+    nblk = (b.tile_count + pair_block - 1) // pair_block
+    if kind == "saturated" and bool((nblk > 1).any()):
+        assert (fwd[:, 5, 0] < nblk).any(), "no tile was skipped"
+
+
+@pytest.mark.parametrize("mode", ["log", "compact", "rows_mod", "truncated"])
+def test_kernel_modes_match_plain_at_tile_32(cuda, mode):
+    """Each mode of the kernels at tile 32 and pair_block 256: the log
+    transmittance, K2's compact mode (kb at and below the composited
+    blocks), batched views (rows_mod) and a rank-truncated list that
+    overflows its capacity."""
+    tile, G = 32, 256
+    if mode == "rows_mod":
+        params, _ = _scene(1500, 0)
+        cfg = gt.RenderConfig(**CFG, tile=tile, pair_block=G)
+        pf, b, cfg = _stacked_inputs(params, cfg, cuda)
+        fwd = _check_fwd_bwd(cuda, pf, b, cfg, "launches", "bwd_launches")
+        _check_cull_count(cuda, pf, b, fwd, cfg)
+        return
+    if mode == "truncated":
+        params, c2w = _dense_scene(3000)
+        cfg = gt.RenderConfig(**CFG, tile=tile, pair_block=G,
+                              tile_rank_cap=512, trunc_pairs=3 * G)
+        pf, b = _inputs(params, c2w, cfg, cuda)
+        assert int(b.trunc_demand) > cfg.trunc_padded_pairs
+        fwd = _check_fwd_bwd(cuda, pf, b, cfg, "launches", "bwd_launches")
+        assert torch.isfinite(fwd).all()
+        return
+    params, c2w = _scene(3000, 0)
+    cfg = gt.RenderConfig(**{**CFG, "max_pairs": 2**17}, tile=tile,
+                          pair_block=G, transmittance_math="log"
+                          if mode == "log" else "cumprod")
+    pf, b = _inputs(params, c2w, cfg, cuda)
+    if mode == "log":
+        fwd = _check_fwd_bwd(cuda, pf, b, cfg, "log_launches",
+                             "bwd_log_launches")
+        _check_cull_count(cuda, pf, b, fwd, cfg)
+        return
+    args = (pf, b.tile_start, b.tile_count)
+    fwd, state = tras._composite_fwd(*args, cfg, with_state=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    gout = torch.randn(cfg.num_tiles, 8, tile**2, generator=gen, device=cuda)
+    full = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg)
+    off = tras.tile_block_offsets(fwd)
+    n_active = int(off[-1])
+    for kb in (n_active, max(n_active // 2, 1)):
+        before = tras.composite_pairs.bwd_compact_launches
+        got = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg, kb=kb)
+        assert tras.composite_pairs.bwd_compact_launches == before + 1
+        want = tras.composite_pairs_bwd_plain(*args, fwd, state, gout, cfg,
+                                              kb=kb)
+        torch.cuda.synchronize()
+        for r in range(10):
+            scale = float(want[r].abs().max())
+            assert float((got[r] - want[r]).abs().max()) <= 1e-5 * scale, r
+        blk, _, _, valid = tras.composited_blocks(b.tile_start, off, kb, cfg)
+        cols = (blk[valid, None] * G
+                + torch.arange(G, device=cuda)).reshape(-1)
+        kept = min(n_active, kb)
+        assert torch.equal(got[:, :kept * G], full[:, cols])
+        assert (got[:, kept * G:] == 0).all()
+
+
+def test_kernels_refuse_other_ranges_naming_xla(cuda):
+    """Tile 8 and pair blocks that are not multiples of 32 or exceed 512
+    raise before any launch, naming backend='xla'."""
+    for kw in (dict(tile=8), dict(pair_block=1024), dict(pair_block=48)):
+        cfg = gt.RenderConfig(**CFG, **kw)
+        ts = torch.zeros(cfg.num_tiles, dtype=torch.int32, device=cuda)
+        pf = torch.zeros(10, cfg.padded_pairs, device=cuda)
+        n = tras.composite_pairs.launches
+        with pytest.raises(ValueError, match="backend='xla'"):
+            tras.composite_pairs(pf, ts, ts, cfg)
+        assert tras.composite_pairs.launches == n
+
+
+def test_device_batches_on_card_match_host_batches(cuda, tmp_path):
+    """``device_batches`` keeps the views on the card once (f32, or uint8
+    dequantized after the gather) and yields the host batches' views in
+    the same order."""
+    from gsplat_tpu_torch.data.dataset import GaussianDataset
+
+    rng = np.random.default_rng(0)
+    os.makedirs(tmp_path / "images")
+    for i in range(5):
+        np.save(tmp_path / "images" / f"{i:03d}.npy",
+                rng.integers(0, 256, (12, 16, 3), dtype=np.uint8))
+    np.save(tmp_path / "cam_meta.npy", {"fx": 20.0, "fy": 20.0})
+    np.save(tmp_path / "poses.npy",
+            np.tile(np.eye(4, dtype=np.float32), (5, 1, 1)))
+    ds = GaussianDataset(str(tmp_path), scale_factor=1.0)
+    host = ds.batches(2, seed=3)
+    dev_f = ds.device_batches(2, seed=3, device=cuda)
+    dev_q = ds.device_batches(2, seed=3, device=cuda, quantize=True)
+    for _ in range(4):
+        h, f, q = next(host), next(dev_f), next(dev_q)
+        assert f["image"].is_cuda and q["image"].dtype == torch.float32
+        assert torch.equal(f["image"].cpu(), torch.from_numpy(h["image"]))
+        assert float((q["image"].cpu() - torch.from_numpy(h["image"]))
+                     .abs().max()) <= 1e-6
+        assert torch.equal(f["c2w"].cpu(), torch.from_numpy(h["c2w"]))

@@ -169,3 +169,54 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+@pytest.mark.parametrize("tile,pair_block", [(16, 512), (32, 128), (32, 512)])
+def test_plain_compositor_matches_jax_kernel_at_new_ranges(tile, pair_block):
+    """The kernels' plain version at tile 32 and pair_block 512 (the
+    ranges K1 and K2 take since the tile became a template parameter)
+    against the JAX package's Pallas kernel (interpret mode) at the same
+    tile and pair block, on a scene deep enough for several blocks per
+    tile at pair_block 128."""
+    kw = dict(CFG, max_pairs=2**14, tile=tile, pair_block=pair_block)
+    jcfg = jconfig.RenderConfig(**kw)
+    s = make_scene(None, n=700, seed_offset=5)
+    cov = jgau.build_cov3d_packed(jnp.asarray(s["scale_raw"]),
+                                  jnp.asarray(s["q_raw"]))
+    colors = jsh.evaluate_sh(jnp.asarray(s["f_dc"]), jnp.asarray(s["f_rest"]),
+                             jnp.asarray(s["pos"]), jnp.asarray(s["c2w"]))
+    proj = jproj.project_gaussians(jnp.asarray(s["pos"]), cov,
+                                   jnp.asarray(s["opacity_raw"]),
+                                   jnp.asarray(s["c2w"]), *CAM, jcfg)
+    b = jbin.bin_gaussians(proj, jcfg)
+    feat10 = _pair_features(proj, colors, jnp.float32)[b.depth_order]
+    pf10 = gather_pair_features(jcfg.max_pairs, False, 0, feat10,
+                                b.pair_slot, b.gauss_offsets)
+    pair_feat = jnp.concatenate(
+        [pf10, jnp.zeros((jras.FEAT_WIDTH - 10, pf10.shape[1]))], axis=0)
+    want = np.asarray(_jax_composite(pair_feat, b.block_meta, jcfg))
+    tc = torch.from_numpy(np.array(b.tile_count))
+    if pair_block == 128:
+        assert int(tc.max()) > pair_block, "no tile has a second block"
+    cfg = tconfig.RenderConfig(**kw)
+    got = tras.composite_pairs(torch.from_numpy(np.array(pair_feat)),
+                               torch.from_numpy(np.array(b.tile_start)), tc,
+                               cfg)
+    _check_against_jax(got, want, tc)
+
+
+@pytest.mark.parametrize("tile,pair_block,ok", [
+    (16, 32, True), (16, 256, True), (16, 512, True), (32, 128, True),
+    (32, 256, True), (32, 512, True), (8, 128, False), (64, 128, False),
+    (16, 1024, False), (32, 48, False)])
+def test_kernel_config_checks(tile, pair_block, ok):
+    """The kernels take tiles 16 and 32 and pair blocks that are multiples
+    of 32 up to 512; anything else raises before a launch, naming
+    backend='xla' (as the JAX package's check does)."""
+    cfg = tconfig.RenderConfig(height=64, width=64, tile=tile,
+                               pair_block=pair_block)
+    if ok:
+        tras.check_kernel_config(cfg)
+        return
+    with pytest.raises(ValueError, match="backend='xla'"):
+        tras.check_kernel_config(cfg)

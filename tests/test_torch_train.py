@@ -252,7 +252,7 @@ def test_sh_warmup_freezes_f_rest_until_activation():
         assert np.abs(pool.f_dc.detach().numpy() - f_dc0).max() > 0
 
 
-def test_unported_training_options_raise():
+def test_unported_training_options_raise(tmp_path):
     rcfg = gt.RenderConfig(**RCFG)
     # batched_render is ported (test_torch_batched.py): one step of it
     # gives the scan step's loss.
@@ -270,10 +270,26 @@ def test_unported_training_options_raise():
         gt.fit(iter(()), rcfg, gt.TrainConfig(), mesh=object(),
                device="cpu")
 
+    # A dataset's point cloud is read (the data layer is ported): the pool
+    # starts from its points, through the outlier filter.
+    from gsplat_tpu_torch.data.pointcloud import filter_outliers
+
+    pts = np.random.default_rng(0).normal(0, 1, (40, 6)).astype(np.float32)
+    np.save(tmp_path / "pointcloud.npy", pts)
+
     class WithPointCloud:
         def pointcloud_path(self):
-            return "scene/pointcloud.ply"
+            return str(tmp_path / "pointcloud.npy")
 
-    with pytest.raises(NotImplementedError, match="point cloud"):
-        gt.fit(WithPointCloud(), rcfg, gt.TrainConfig(capacity=64),
-               device="cpu")
+        def batches(self, batch_size, seed=0):
+            return iter(())
+
+    logs = []
+    state, _ = gt.fit(WithPointCloud(), rcfg,
+                      gt.TrainConfig(capacity=64, iterations=0),
+                      device="cpu", log_fn=logs.append)
+    n = len(filter_outliers(pts))  # the farthest 0.5 % go
+    assert 0 < n < 40
+    assert any(m.startswith("init from") and f"{n} points" in m
+               for m in logs)
+    assert int(state.pool.num_alive()) == n
