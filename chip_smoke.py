@@ -186,7 +186,47 @@ Phases (any failure exits non-zero, with no result line):
          two launches equal), at (32, 256) also the log form and K2's
          compact mode; at the bench pose each timed (CUDA events) beside
          its plain version and bound;
- 15. one JSON line {"kernels": [...]} (twenty-four kernels: phase 14's
+ 15. the ellipse cull and the (data, tile) process grid, both on K1 and K2:
+     (a) cull_mode="ellipse" on the checkpoint at 1920x1080: the bench
+         pose's pair demand against rect's and its rows against
+         row_capacity; K1 on the ellipse list bit for bit with its plain
+         version and K2 given its state within BWD_TOL, K1's time on both
+         lists; the image within 2e-6 and depth within 2e-5 of rect's,
+         alpha within 2e-6 where rect's final T is above
+         transmittance_min (elsewhere K1 stops the tile at a block
+         boundary, which the shorter list moves: there the ellipse's
+         alpha must be saturated); frame and
+         bin_gaussians times both ways (host clock; CUDA events); a fwd+bwd
+         each way, every leaf's gradient within 5e-5 of its max of rect's
+         and K2 against its plain version on the inputs autograd gave it;
+         a 12-iteration fit() at 960x540, batch 4, from max_rows 4,096,
+         which must grow max_rows once; render_trained --cull_mode ellipse
+         with --auto_pairs and with --bucket_pairs 4 over the 8-frame
+         orbit;
+     (b) one spawn of 4 gloo ranks on the card, data 2 x tile 2: the band
+         render at the bench pose (rect and ellipse) and the batch render
+         of 4 poses at 1080p bit for bit against one process rendering
+         the same bands, and against the full-frame single-rank renders
+         within the crossings a band's shifted principal point causes
+         (GRID_FLIP_SHARE, the edge alpha; JAX's 1e-6 holds at its 64x64
+         test, where tests/test_torch_sharding.py holds the port to it);
+         the train step at 960x540, batch 4 (scan and batched, reference
+         and paper ADC): its gradients within 1e-5 of each leaf's max of
+         one process's gradients of the same banded loss, uv_grad_sum
+         within 1e-6 + 1e-4 x max and visible and max_radius equal to
+         that process's; against the full-frame single-rank step, the
+         loss within 1e-5 and Adam's first update as the CPU tests
+         compare it; every rank's parameters and Adam moments
+         bit-identical; a
+         12-iteration fit(mesh=) with the paper ADC; evaluate_views(mesh=)
+         against single-rank PSNR and SSIM within 1e-4 relative; each
+         rank's K1 and K2 launches summed into the kernels line; the
+         grid's step time beside the single-rank step's (not a speed
+         figure: the ranks share one card, and gloo moves collectives
+         through host memory); then python -m gsplat_tpu_torch.train
+         --mesh_data 2 --mesh_tile 2 --dist_backend gloo for 20 iterations
+         on phase 14's prepared dataset;
+ 16. one JSON line {"kernels": [...]} (twenty-four kernels: phase 14's
      ranges as their own entries), the card line, and the final line
      {"ok": true, "device": {...}}.
 
@@ -2827,6 +2867,667 @@ def image_from_tiles(out, tile_count, cfg):
     return torch.clamp(img[: cfg.height, : cfg.width], 0.0, 1.0)
 
 
+# --------------------------------------------------------------------------
+# Phase 15: the ellipse cull and the (data, tile) process grid.
+# --------------------------------------------------------------------------
+
+# Ellipse against rect, JAX's own bounds (tests/test_binning_ellipse.py):
+# image and alpha 2e-6, depth 2e-5 (:67-76), gradients 5e-5 of each
+# leaf's max (:96).
+ELL_IMG_TOL, ELL_DEPTH_TOL, ELL_GRAD_TOL = 2e-6, 2e-5, 5e-5
+ELL_ROWS0 = 4096  # 15a fit()'s starting max_rows, far below the demand
+# The grid of phase 15b: four gloo ranks on one card. JAX's bounds for
+# sharded against single-device results (tests/test_sharding.py: images
+# 1e-6, :90; pos 1e-6 and the other leaves 2e-5 after a step, :109, :502)
+# hold at its 64x64 scene, and tests/test_torch_sharding.py holds the port
+# to them there. At 1080p they cannot: a band shifts the principal point
+# (cy - band * band_px), so uv rounds otherwise in float32 and a pair can
+# cross the edge of its support (q at min(chi2_clip, 2 ln(op / cutoff)))
+# at a pixel. So the card holds the grid bit for bit to one process
+# rendering the same bands, and to the full-frame single-rank render
+# within such crossings: max abs at most the largest alpha a pair has at
+# that edge, alpha_max * exp(-chi2_clip / 2), and at most GRID_FLIP_SHARE
+# of the values beyond GRID_IMG_TOL. The step likewise: its gradients
+# within GRID_GRAD_TOL of each leaf's max of one process's gradients of
+# the same banded loss (only the order of the sums differs), the paper
+# statistics against that process's; against the full-frame single-rank
+# step, the loss within 1e-5 and Adam's first update compared as
+# tests/test_torch_train.py does (the crossings move small gradients).
+GRID_DATA, GRID_TILE = 2, 2
+GRID_IMG_TOL, GRID_FLIP_SHARE, GRID_GRAD_TOL = 1e-6, 1e-3, 1e-5
+GRID_STEPS = {
+    "scan_ref": {},
+    "scan_paper": {"adc_mode": "paper"},
+    "batched_ref": {"batched_render": True},
+    "batched_paper": {"adc_mode": "paper", "batched_render": True},
+}
+GRID_FIT_ITERS = 12
+GRID_CLI_ITERS = 20
+
+
+def _zero_counts():
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs as cp
+
+    cp.launches = 0
+    cp.bwd_launches = 0
+
+
+def _frame_ms(fn, poses, reps=1):
+    """Median host ms (to synchronize) of fn(pose) over the poses."""
+    ms = []
+    for _ in range(reps):
+        for p in poses:
+            t0 = time.perf_counter()
+            fn(p)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def ellipse_phase(pool, c2w, traj, fx, fy, cx, cy, cfg, batch, start,
+                  train_cfg, card):
+    """Phase 15a: cull_mode="ellipse" on the checkpoint at full width.
+    (1) the bench pose's binning both ways (pair demand, rows against
+    row_capacity), K1 on the ellipse list bit for bit with its plain
+    version and K2 given its state within BWD_TOL; (2) the rendered image,
+    alpha and depth against rect's; frame and bin_gaussians times both
+    ways; (3) a 1080p fwd+bwd each way, every leaf's gradient within
+    ELL_GRAD_TOL of its max of rect's, and K2 of the ellipse fwd+bwd
+    against its plain version on the inputs autograd gave it; (4) a
+    FIT_ITERS-iteration fit() at 960x540, batch 4, from max_rows
+    ELL_ROWS0, which must grow max_rows once; (5) render_trained
+    --cull_mode ellipse with --auto_pairs and with --bucket_pairs 4 over
+    the 8-frame orbit. The launches of (2)-(5) are counted (each with the
+    counts set to 0 just before it). Returns {"k1", "k2", "err",
+    "bwd_err"}."""
+    import importlib
+    import tempfile
+
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch import render_trained
+    from gsplat_tpu_torch.ops.binning import bin_gaussians
+    from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs,
+                                                  composite_pairs_bwd_plain,
+                                                  composite_pairs_plain)
+    from gsplat_tpu_torch.train import trainer
+    from gsplat_tpu_torch.viewer import make_render_fn
+
+    cp = composite_pairs
+    ecfg = cfg.with_(cull_mode="ellipse")
+    n = {"k1": 0, "k2": 0}
+
+    def add():
+        n["k1"] += cp.launches
+        n["k2"] += cp.bwd_launches
+
+    # (1) binning, K1 and K2 on the ellipse list
+    sp_r = serving_path(pool.params, c2w, fx, fy, cx, cy, cfg,
+                        alive=pool.alive)
+    sp = serving_path(pool.params, c2w, fx, fy, cx, cy, ecfg,
+                      alive=pool.alive)
+    b, pf = sp["bin"], sp["pair_feat"]
+    pairs_r, pairs_e, rows = (int(sp_r["bin"].num_pairs), int(b.num_pairs),
+                              int(b.num_rows))
+    print(f"[{card}] 15a ellipse at the 1080p bench pose: pair demand "
+          f"{pairs_e} (rect {pairs_r}, {pairs_e / pairs_r:.4f} of it), "
+          f"rows {rows} of row_capacity {ecfg.row_capacity}", flush=True)
+    if not (0 < pairs_e < pairs_r and 0 < rows <= ecfg.row_capacity
+            and pairs_e <= ecfg.max_pairs):
+        raise SystemExit("FAIL: 15a ellipse demand")
+    out_k = composite_pairs(pf, b.tile_start, b.tile_count, ecfg)
+    out_p, state_p = composite_pairs_plain(
+        pf, b.tile_start, b.tile_count, ecfg, tile_chunk=1024,
+        with_state=True)
+    torch.cuda.synchronize()
+    err = compare("ellipse 1080p bench pose", out_k, out_p, b.tile_count)
+    bwd_err = check_bwd("ellipse 1080p bench pose", pf, b, out_k, state_p,
+                        ecfg, seed=5)
+    del state_p, out_p
+    br, pfr = sp_r["bin"], sp_r["pair_feat"]
+    k1ms = {"rect": device_ms(lambda: composite_pairs(
+        pfr, br.tile_start, br.tile_count, cfg), 20),
+        "ellipse": device_ms(lambda: composite_pairs(
+            pf, b.tile_start, b.tile_count, ecfg), 20)}
+    out_r = composite_pairs(pfr, br.tile_start, br.tile_count, cfg)
+    blocks = {m: int(torch.where(bb.tile_count > 0, o[:, 5, 0], 0.0).sum())
+              for m, bb, o in (("ellipse", b, out_k), ("rect", br, out_r))}
+    print(f"[{card}] 15a K1 at the bench pose (CUDA events, 20 launches, "
+          f"not counted): rect {k1ms['rect']:.4f} ms over "
+          f"{blocks['rect']} composited blocks, ellipse "
+          f"{k1ms['ellipse']:.4f} ms over {blocks['ellipse']}", flush=True)
+
+    # (2) the image both ways; frame and binning times
+    with torch.no_grad():
+        img_r, aux_r = gt.render_from_params(pool.params, c2w, fx, fy, cx,
+                                             cy, cfg, alive=pool.alive)
+        _zero_counts()
+        img_e, aux_e = gt.render_from_params(pool.params, c2w, fx, fy, cx,
+                                             cy, ecfg, alive=pool.alive)
+        torch.cuda.synchronize()
+        add()
+    di = float((img_e - img_r).abs().max())
+    dd = float((aux_e.depth - aux_r.depth).abs().max())
+    # Alpha where rect's final T stays above transmittance_min; elsewhere
+    # K1 stopped the tile at a block boundary, which the ellipse's shorter
+    # list moves, so there both alphas only have to be saturated.
+    da, sat = alpha_error(aux_e.alpha, aux_r.alpha, cfg)
+    da_all = float((aux_e.alpha - aux_r.alpha).abs().max())
+    print(f"[{card}] 15a ellipse vs rect frame: image max abs {di:.3e}, "
+          f"depth {dd:.3e} (tol {ELL_DEPTH_TOL}); alpha {da:.3e} (tol "
+          f"{ELL_IMG_TOL}) where rect's T > transmittance_min, the least "
+          f"ellipse alpha elsewhere {sat:.7f} (max abs over the frame "
+          f"{da_all:.3e}); row_capacity {aux_e.row_capacity}", flush=True)
+    if not (di <= ELL_IMG_TOL and da <= ELL_IMG_TOL and dd <= ELL_DEPTH_TOL
+            and sat >= 1.0 - cfg.transmittance_min - ELL_IMG_TOL
+            and aux_e.row_capacity == ecfg.row_capacity):
+        raise SystemExit("FAIL: 15a ellipse image")
+    fns = {m: make_render_fn(pool.params, c, fx, fy, cx, cy,
+                             alive=pool.alive)
+           for m, c in (("rect", cfg), ("ellipse", ecfg))}
+    for f in fns.values():
+        f(traj[0])
+    _zero_counts()
+    frame = {m: _frame_ms(fns[m], traj) for m in ("rect", "ellipse")}
+    n["k1"] += cp.launches  # rect and ellipse frames: main-path launches
+    binms = {}
+    for m, c, proj in (("rect", cfg, sp_r["proj"]),
+                       ("ellipse", ecfg, sp["proj"])):
+        bin_gaussians(proj, c)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bin_gaussians(proj, c)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        binms[m] = (float(np.median(host)),
+                    device_ms(lambda: bin_gaussians(proj, c), 5))
+    print(f"[{card}] 15a frame ms over the bench pose and the 8-pose orbit "
+          f"(host clock to synchronize, median): rect {frame['rect']:.3f}, "
+          f"ellipse {frame['ellipse']:.3f}; bin_gaussians at the bench "
+          f"pose: rect {binms['rect'][0]:.3f} ms host / "
+          f"{binms['rect'][1]:.3f} ms CUDA events, ellipse "
+          f"{binms['ellipse'][0]:.3f} / {binms['ellipse'][1]:.3f}",
+          flush=True)
+
+    # (3) fwd+bwd at 1080p both ways
+    grads = {}
+    for m, c in (("rect", cfg), ("ellipse", ecfg)):
+        _zero_counts()
+        gp, seen = fwd_bwd_phase(pool, c2w, fx, fy, cx, cy, c, card,
+                                 reps=2)
+        add()
+        grads[m] = {k: p.grad for k, p in gp.items()}
+        if m == "ellipse":
+            d_p = composite_pairs_bwd_plain(*seen["args"], block_chunk=256)
+            rel = rel_err(seen["d"], d_p)
+            bwd_err = max(bwd_err, float((seen["d"] - d_p).abs().max()))
+            del d_p
+    gerr = {k: float((grads["ellipse"][k] - grads["rect"][k]).abs().max())
+            / max(float(grads["rect"][k].abs().max()), 1e-30)
+            for k in PARAM_KEYS}
+    print(f"[{card}] 15a fwd+bwd ellipse vs rect, max abs error over each "
+          f"leaf's max: " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                      gerr.items())
+          + f" (tol {ELL_GRAD_TOL}); K2 on the ellipse list vs plain: "
+          f"relative {rel:.3e} (tol {BWD_TOL})", flush=True)
+    if not (max(gerr.values()) <= ELL_GRAD_TOL and rel <= BWD_TOL):
+        raise SystemExit("FAIL: 15a ellipse gradients")
+    del grads
+
+    # (4) fit() from a row capacity far below the demand
+    fit_mod = importlib.import_module("gsplat_tpu_torch.train.fit")
+    B = batch["c2w"].shape[0]
+    tcfg = gt.TrainConfig(iterations=FIT_ITERS, batch_size=B,
+                          capacity=pool.capacity, checkpoint_interval=10**9,
+                          densification_interval=10**9,
+                          opacity_reset_interval=10**9)
+    rcfg = train_cfg.with_(cull_mode="ellipse", max_rows=ELL_ROWS0)
+    rec = {"max_pairs": [], "ms": [], "demand": [], "adc": [], "steps": 0,
+           "snapshot_at": None}
+    lines = []
+
+    def log(msg):
+        lines.append(msg)
+        print(f"  [fit ellipse] {msg}", flush=True)
+
+    def batches():
+        while True:
+            yield batch
+
+    tmp = tempfile.mkdtemp(prefix="gsplat_fit_")
+    try:
+        ckpt = os.path.join(tmp, "start.npz")
+        trainer.save_checkpoint(ckpt, gt.init_train_state(
+            gt.pool_from_numpy(start, pool.alive.cpu().numpy(),
+                               device=pool.pos.device), tcfg))
+        points = pool.pos.detach()[pool.alive].cpu().numpy()
+        real = _instrument_fit(fit_mod, rec)
+        _zero_counts()
+        try:
+            state, report = fit_mod.fit(
+                batches(), rcfg, tcfg, initial_points=points,
+                resume_from=ckpt, log_every=2, log_fn=log,
+                device=pool.pos.device)
+        finally:
+            _restore_fit(fit_mod, real)
+        k1, k2 = cp.launches, cp.bwd_launches
+        add()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    m = rec["last_metrics"]
+    grew = [x for x in lines if "growing max_rows" in x]
+    losses = [v for _, v in report.losses]
+    print(f"[{card}] 15a fit ellipse from max_rows {ELL_ROWS0}: growth "
+          f"{grew}; last step's row demand {int(m['row_demand'])} of "
+          f"{int(m['row_capacity'])}, pair demand {int(m['pair_demand'])} "
+          f"of {int(m['pair_capacity'])}; losses "
+          + ", ".join(f"{it}: {v:.6f}" for it, v in report.losses)
+          + f"; K1 {k1}, K2 {k2}; step ms median "
+          f"{float(np.median(rec['ms'][1:])):.3f}", flush=True)
+    if not (len(grew) == 1 and all(np.isfinite(losses))
+            and report.nonfinite_steps == 0 and k1 == k2 == B * FIT_ITERS
+            and int(m["row_demand"]) <= int(m["row_capacity"])):
+        raise SystemExit("FAIL: 15a fit with the ellipse cull")
+
+    # (5) render_trained over the 8-frame orbit, demand-sized and bucketed
+    for flags in (["--auto_pairs"], ["--bucket_pairs", "4"]):
+        _zero_counts()
+        st, _ = run_cli(render_trained.main, [
+            "--checkpoint", CKPT, "--benchmark_only", "--num_frames", "8",
+            "--orbit_scale", "4.4", "--max_pairs", str(MAX_PAIRS),
+            "--cull_mode", "ellipse"] + flags)
+        k1 = cp.launches
+        add()
+        print(f"[{card}] 15a render_trained --cull_mode ellipse "
+              f"{' '.join(flags)}: {st['median_ms']:.3f} ms median, max "
+              f"pairs {st['max_pairs_seen']} and rows "
+              f"{st['max_rows_seen']} seen, overflow frames "
+              f"{st['pair_overflow_frames']}, K1 {k1}", flush=True)
+        if st["pair_overflow_frames"] or k1 < 8 or st["max_rows_seen"] <= 0:
+            raise SystemExit("FAIL: 15a render_trained with the ellipse")
+    n.update(err=err, bwd_err=bwd_err)
+    return n
+
+
+def _state_digest(state) -> str:
+    """sha256 over a train state's parameters, Adam moments and counts."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in PARAM_KEYS:
+        p = state.pool.params[k]
+        st = state.opt_state.state[p]
+        for t in (p, st["exp_avg"], st["exp_avg_sq"], st["step"]):
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _max_diff(a, b):
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def banded_grads(pool, start, batch, rcfg, tcfg):
+    """What the grid's step computes, in one process: each view's
+    GRID_TILE bands rendered one after another (render_from_params, or
+    batched render_batch_from_params), stacked, cropped, the batch's loss
+    and its gradients, clipped and masked as the step does. Returns
+    (loss, grads, paper statistics or None)."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops.losses import compute_loss
+    from gsplat_tpu_torch.parallel import band_config
+    from gsplat_tpu_torch.train.trainer import _clip_pos_grad, tap_norm_sum
+
+    dev = pool.pos.device
+    params = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+              for k, v in start.items()}
+    bcfg, band_px = band_config(rcfg, GRID_TILE)
+    B, Hh = batch["c2w"].shape[0], rcfg.height
+    paper = tcfg.adc_mode == "paper"
+    taps = torch.zeros((B, pool.capacity, 2), device=dev,
+                       requires_grad=True) if paper else None
+    cams = [batch[k] for k in ("fx", "fy", "cx")]
+    radii = []
+    if tcfg.batched_render:
+        bands = []
+        for b in range(GRID_TILE):
+            img, aux = gt.render_batch_from_params(
+                params, batch["c2w"], *cams, batch["cy"] - b * band_px,
+                bcfg, alive=pool.alive, uv_taps=taps)
+            bands.append(img)
+            radii.append(aux.screen_radius.detach())
+        loss = compute_loss(torch.cat(bands, dim=1)[:, :Hh], batch["image"],
+                            tcfg.lambda_l1, tcfg.lambda_ssim)[0]
+    else:
+        totals = []
+        for i in range(B):
+            bands, rad = [], []
+            for b in range(GRID_TILE):
+                img, aux = gt.render_from_params(
+                    params, batch["c2w"][i], *(c[i] for c in cams),
+                    batch["cy"][i] - b * band_px, bcfg, alive=pool.alive,
+                    uv_tap=None if taps is None else taps[i])
+                bands.append(img)
+                rad.append(aux.screen_radius.detach())
+            radii.append(torch.stack(rad, dim=1))  # [N, bands]
+            totals.append(compute_loss(torch.cat(bands)[:Hh],
+                                       batch["image"][i], tcfg.lambda_l1,
+                                       tcfg.lambda_ssim)[0])
+        loss = torch.mean(torch.stack(totals))
+    loss.backward()
+    with torch.no_grad():
+        grads = _clip_pos_grad({k: p.grad for k, p in params.items()},
+                               tcfg.grad_clip_pos)
+        grads = {k: torch.where(pool.alive.reshape(
+            (-1,) + (1,) * (g.dim() - 1)), g, 0.0) for k, g in grads.items()}
+        stats = None
+        if paper:
+            if tcfg.batched_render:  # [B, N] per band -> max over bands
+                rmax = torch.amax(torch.stack(radii), dim=0)
+            else:
+                rmax = torch.amax(torch.stack(radii), dim=-1)  # [B, N]
+            stats = {"uv_grad_sum": tap_norm_sum(taps.grad, rcfg),
+                     "visible": torch.sum((rmax > 0).to(torch.int32), dim=0,
+                                          dtype=torch.int32),
+                     "max_radius": torch.amax(rmax, dim=0)}
+    return loss.detach(), grads, stats
+
+
+def grid_rank(card):
+    """One rank of phase 15b's data x tile grid of gloo ranks on the card.
+    Each part runs with the launch counts set to 0 just before it; rank 0
+    also computes the single-rank references and checks the parts against
+    them (a failure raises, which fails the rank and the phase). Returns,
+    on rank 0: {"checks": the lines rank 0 printed, "counts": every rank's
+    (K1, K2), "grid_ms", "single_ms"}."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.evaluation import evaluate_views
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs as cp
+    from gsplat_tpu_torch.parallel import (band_config, local_batch,
+                                           make_mesh,
+                                           make_sharded_batch_render,
+                                           make_sharded_render,
+                                           make_sharded_train_step)
+    from gsplat_tpu_torch.train import trainer
+    from gsplat_tpu_torch.viewer import create_orbit_trajectory
+
+    mesh = make_mesh(data=GRID_DATA, tile=GRID_TILE)
+    main_rank = mesh.rank == 0
+    dev = mesh.device
+    pool = gt.restore_pool(CKPT, device=dev)
+    alive_np = pool.alive.cpu().numpy()
+    c2w, center, radius = bench_pose(pool)
+    cfg = gt.RenderConfig(height=H, width=W, max_pairs=MAX_PAIRS)
+    fx = fy = 0.85 * W
+    cx, cy = W / 2.0, H / 2.0
+    n = [0, 0]
+    lines = []
+
+    def run(fn):
+        torch.cuda.synchronize()
+        _zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        n[0] += cp.launches
+        n[1] += cp.bwd_launches
+        return out
+
+    def check(ok, what):
+        lines.append(what)
+        print(f"[{card}] 15b {what}", flush=True)
+        if not ok:
+            raise SystemExit(f"FAIL: 15b {what}")
+
+    def single(c, poses):
+        """One process: the full frames, and the same bands rendered one
+        after another and stacked ([B, H, W, 3] each)."""
+        bcfg, band_px = band_config(c, GRID_TILE)
+        with torch.no_grad():
+            full = torch.stack([gt.render_from_params(
+                pool.params, p, fx, fy, cx, cy, c, alive=pool.alive)[0]
+                for p in poses])
+            bands = torch.cat([gt.render_batch_from_params(
+                pool.params, poses, fx, fy, cx, cy - b * band_px, bcfg,
+                alive=pool.alive)[0] for b in range(GRID_TILE)], dim=1)
+        return full, bands[:, :H]
+
+    def image_check(what, img, poses, c):
+        full, bands = single(c, poses)
+        same = bool(torch.equal(img, bands))
+        d = (img - full).abs()
+        e, share = float(d.max()), float((d > GRID_IMG_TOL).float().mean())
+        edge = c.alpha_max * float(np.exp(-c.chi2_clip / 2))
+        check(same and e <= edge and share <= GRID_FLIP_SHARE,
+              f"{what}: bit-identical to one process rendering the same "
+              f"bands: {same}; against the full-frame single-rank render: "
+              f"max abs {e:.3e} (at most {edge:.4e}, a pair's alpha at the "
+              f"edge of its support), {share:.2e} of the values beyond "
+              f"{GRID_IMG_TOL} (at most {GRID_FLIP_SHARE})")
+
+    # (1) the band render at the bench pose, rect and ellipse
+    for cull in ("rect", "ellipse"):
+        ccfg = cfg.with_(cull_mode=cull)
+        fn = make_sharded_render(ccfg, mesh)
+        img = run(lambda: fn(pool.params, pool.alive, c2w, fx, fy, cx, cy))
+        if main_rank:
+            image_check(f"band render ({cull}) at the 1080p bench pose",
+                        img[None], c2w[None], ccfg)
+    # (2) the batch render of 4 poses
+    poses = np.concatenate([c2w[None], create_orbit_trajectory(
+        center, radius * 4.4, num_frames=3, elevation_deg=15.0)])
+    bfn = make_sharded_batch_render(cfg, mesh)
+    imgs = run(lambda: bfn(pool.params, pool.alive, poses, fx, fy, cx, cy))
+    if main_rank:
+        image_check("batch render of 4 poses at 1080p", imgs, poses, cfg)
+    del imgs
+    dist.barrier()
+
+    # (3) the train step, scan and batched, reference and paper ADC
+    tcfg0, batch, start = train_views(pool, c2w, center, radius)
+    lb = local_batch(batch, mesh)
+    grid_ms = single_ms = None
+    for name, tkw in GRID_STEPS.items():
+        tcfg = gt.TrainConfig(capacity=pool.capacity, batch_size=TRAIN_BATCH,
+                              densification_interval=10**9,
+                              opacity_reset_interval=10**9, **tkw)
+        state = gt.init_train_state(
+            gt.pool_from_numpy(start, alive_np, device=dev), tcfg)
+        step = make_sharded_train_step(tcfg0, tcfg, mesh)
+        state, m = run(lambda: step(state, lb))
+        digests = [None] * mesh.size
+        dist.all_gather_object(digests, _state_digest(state))
+        if main_rank:
+            ref = gt.init_train_state(
+                gt.pool_from_numpy(start, alive_np, device=dev), tcfg)
+            sstep = gt.make_train_step(tcfg0, tcfg)
+            ref, m1 = sstep(ref, batch)
+            lrs = {"pos": tcfg.position_lr_init * 0.01,
+                   "opacity_raw": tcfg.opacity_lr, "f_dc": tcfg.feature_lr,
+                   "f_rest": tcfg.feature_lr / 20.0,
+                   "scale_raw": tcfg.scaling_lr, "q_raw": tcfg.rotation_lr}
+            bl, bg, bstats = banded_grads(pool, start, batch, tcfg0, tcfg)
+            gerr, ferr, uerr, lr_ok = {}, {}, {}, True
+            for k in PARAM_KEYS:
+                g = state.pool.params[k].grad
+                g1 = ref.pool.params[k].grad
+                gerr[k] = _max_diff(g, bg[k]) / max(
+                    float(bg[k].abs().max()), 1e-30)
+                gmax = float(g1.abs().max())
+                ferr[k] = _max_diff(g, g1) / max(gmax, 1e-30)
+                s0 = torch.from_numpy(start[k]).to(dev)
+                d, d1 = (state.pool.params[k].detach() - s0,
+                         ref.pool.params[k].detach() - s0)
+                big = g1.abs() > 1e-3 * gmax
+                uerr[k] = float(((d - d1).abs() / d1.abs().clamp(
+                    min=1e-30))[big].max()) if bool(big.any()) else 0.0
+                lr_ok = lr_ok and bool((d.abs() <= lrs[k] * (1 + 1e-6)
+                                        + s0.abs() * 2**-23).all())
+            ok = (len(set(digests)) == 1
+                  and max(gerr.values()) <= GRID_GRAD_TOL
+                  and abs(float(m["total"]) - float(bl)) <= 1e-5
+                  and max(uerr.values()) <= 1e-4 and lr_ok
+                  and abs(float(m["total"]) - float(m1["total"])) <= 1e-5
+                  and int(m["nonfinite_skipped"]) == 0
+                  and int(m["max_band_pairs"]) <= int(
+                      m["band_pair_capacity"]))
+            what = (f"step {name}: all {mesh.size} ranks' parameters and "
+                    f"moments bit-identical: {len(set(digests)) == 1}; "
+                    f"gradients vs one process's banded loss over each "
+                    f"leaf's max (tol {GRID_GRAD_TOL}): " + ", ".join(
+                        f"{k} {v:.2e}" for k, v in gerr.items())
+                    + f"; loss {float(m['total']):.6f}, banded "
+                    f"{float(bl):.6f}, full-frame single rank "
+                    f"{float(m1['total']):.6f}; against the full-frame "
+                    f"step: gradients over each leaf's max " + ", ".join(
+                        f"{k} {v:.2e}" for k, v in ferr.items())
+                    + " (the crossings), updates where its gradient is "
+                    "large, relative (tol 1e-4): " + ", ".join(
+                        f"{k} {v:.2e}" for k, v in uerr.items())
+                    + f", every update within its lr: {lr_ok}; band demand "
+                    f"{int(m['max_band_pairs'])} of "
+                    f"{int(m['band_pair_capacity'])}")
+            if "uv_grad_sum" in m:
+                a, b = bstats["uv_grad_sum"], m["uv_grad_sum"]
+                ue = _max_diff(a, b)
+                ok = ok and ue <= 1e-6 + 1e-4 * float(a.abs().max()) \
+                    and torch.equal(m["visible"], bstats["visible"]) \
+                    and torch.equal(m["max_radius"], bstats["max_radius"])
+                what += (f"; against the banded process: uv_grad_sum max "
+                         f"abs {ue:.3e} (max {float(a.abs().max()):.3e}), "
+                         f"visible and max_radius equal")
+            del bg
+            check(ok, what)
+            if name == "scan_ref":  # the single-rank step's time
+                ms = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    sstep(ref, batch)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                single_ms = float(np.median(ms))
+            del ref
+        dist.barrier()
+        if name == "scan_ref":  # the grid's step time, after the first
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(lambda: step(state, lb))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            grid_ms = float(np.median(ms))
+        del state
+
+    # (4) fit(mesh=) with the paper ADC from the perturbed checkpoint
+    tcfg = gt.TrainConfig(iterations=GRID_FIT_ITERS, batch_size=TRAIN_BATCH,
+                          capacity=pool.capacity, checkpoint_interval=10**9,
+                          adc_mode="paper", densification_interval=4,
+                          densify_until_iter=12, opacity_reset_interval=8)
+    points = pool.pos.detach()[pool.alive].cpu().numpy()
+    tmp = tempfile.mkdtemp(prefix=f"gsplat_grid{mesh.rank}_")
+    fit_lines = []
+    try:
+        ckpt = os.path.join(tmp, "start.npz")
+        trainer.save_checkpoint(ckpt, gt.init_train_state(
+            gt.pool_from_numpy(start, alive_np, device=dev), tcfg))
+
+        def batches():
+            while True:
+                yield batch
+
+        state, report = run(lambda: gt.fit(
+            batches(), tcfg0, tcfg, initial_points=points,
+            resume_from=ckpt, mesh=mesh, log_every=4,
+            log_fn=fit_lines.append))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    digests = [None] * mesh.size
+    dist.all_gather_object(digests, _state_digest(state))
+    if main_rank:
+        losses = [v for _, v in report.losses]
+        check(len(set(digests)) == 1 and all(np.isfinite(losses))
+              and report.nonfinite_steps == 0 and len(fit_lines) > 0,
+              f"fit(mesh=) {GRID_FIT_ITERS} iterations, paper ADC every 4: "
+              f"losses " + ", ".join(f"{it}: {v:.6f}"
+                                     for it, v in report.losses)
+              + f"; {report.num_gaussians} alive; final state bit-identical "
+              f"on all ranks: {len(set(digests)) == 1}; log: "
+              + " | ".join(x for x in fit_lines if "ADC" in x or "grow" in x))
+    del state
+
+    # (5) evaluate_views(mesh=): the perturbed pool on phase 8's views
+    views = [{"image": batch["image"][i], "c2w": batch["c2w"][i],
+              "fx": float(batch["fx"][i]), "fy": float(batch["fy"][i]),
+              "cx": float(batch["cx"][i]), "cy": float(batch["cy"][i])}
+             for i in range(TRAIN_BATCH)]
+    perturbed = gt.pool_from_numpy(start, alive_np, device=dev)
+    ev = run(lambda: evaluate_views(perturbed.params, views, tcfg0,
+                                    alive=perturbed.alive, mesh=mesh))
+    if main_rank:
+        ev1 = evaluate_views(perturbed.params, views, tcfg0,
+                             alive=perturbed.alive)
+        check(abs(ev["psnr"] - ev1["psnr"]) <= 1e-4 * abs(ev1["psnr"])
+              and abs(ev["ssim"] - ev1["ssim"]) <= 1e-4 * abs(ev1["ssim"]),
+              f"evaluate_views(mesh=): PSNR {ev['psnr']:.6f} vs single "
+              f"{ev1['psnr']:.6f}, SSIM {ev['ssim']:.6f} vs {ev1['ssim']:.6f}")
+    counts = [None] * mesh.size
+    dist.all_gather_object(counts, tuple(n))
+    return {"checks": lines, "counts": counts, "grid_ms": grid_ms,
+            "single_ms": single_ms} if main_rank else None
+
+
+def grid_phase(card):
+    """Phase 15b: one spawn of GRID_DATA x GRID_TILE gloo ranks on the card
+    (parallel.launch; the kernels were built in phase 2, so the ranks load
+    them), running :func:`grid_rank`; then the train CLI over the same
+    grid (its own spawn) for GRID_CLI_ITERS iterations on phase 14's
+    prepared dataset. Returns (K1, K2) launches of every rank of the
+    first spawn."""
+    from gsplat_tpu_torch.parallel import launch
+    from gsplat_tpu_torch.train.__main__ import main as train_main
+
+    t0 = time.perf_counter()
+    res = launch(grid_rank, GRID_DATA * GRID_TILE, backend="gloo",
+                 args=(card,))
+    k1 = sum(c[0] for c in res["counts"])
+    k2 = sum(c[1] for c in res["counts"])
+    print(f"[{card}] 15b launches per rank (K1, K2): {res['counts']}; the "
+          f"grid's scan step {res['grid_ms']:.3f} ms against the single-rank "
+          f"step {res['single_ms']:.3f} ms (host clock to synchronize, "
+          f"median of 3; not a speed figure: {GRID_DATA * GRID_TILE} ranks "
+          f"share one card and gloo moves every collective through host "
+          f"memory); the spawn took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not (k1 > 0 and k2 > 0):
+        raise SystemExit("FAIL: 15b launched no kernel")
+    out = os.path.join(DATA_DIR, "out_grid")
+    t0 = time.perf_counter()
+    _, report = train_main([
+        "--data_dir", os.path.join(DATA_DIR, "prepared"), "--output_dir",
+        out, "--scale_factor", "0.5", "--batch_size", str(TRAIN_BATCH),
+        "--capacity", "131072", "--max_pairs", str(SCENE_PAIRS),
+        "--holdout_every", "8", "--iterations", str(GRID_CLI_ITERS),
+        "--log_every", "5", "--checkpoint_interval", str(10**9),
+        "--mesh_data", str(GRID_DATA), "--mesh_tile", str(GRID_TILE),
+        "--dist_backend", "gloo"])
+    losses = [v for _, v in report.losses]
+    done = os.path.exists(os.path.join(out, "checkpoint_final.npz"))
+    print(f"[{card}] 15b python -m gsplat_tpu_torch.train --mesh_data "
+          f"{GRID_DATA} --mesh_tile {GRID_TILE} --dist_backend gloo, "
+          f"{GRID_CLI_ITERS} iterations: losses " + ", ".join(
+              f"{it}: {v:.6f}" for it, v in report.losses)
+          + f"; final checkpoint written: {done}; "
+          f"{time.perf_counter() - t0:.1f} s (its ranks' launches are not "
+          f"in the kernels line: they stay in the CLI's own processes)",
+          flush=True)
+    if not (report.iterations == GRID_CLI_ITERS and all(np.isfinite(losses))
+            and report.nonfinite_steps == 0 and done):
+        raise SystemExit("FAIL: 15b train CLI over the grid")
+    return k1, k2
+
+
 def main():
     # --- 1. card ---
     if not torch.cuda.is_available():
@@ -3121,7 +3822,18 @@ def main():
     print(f"[{card}] phase 14 took {time.perf_counter() - t14:.1f} s",
           flush=True)
 
-    # --- 15. result lines ---
+    # --- 15. the ellipse cull, and the (data, tile) grid of gloo ranks ---
+    t15 = time.perf_counter()
+    ell = ellipse_phase(pool, c2w, traj, fx, fy, cx, cy, cfg, tbatch, tstart,
+                        train_cfg, card)
+    errs.append(ell["err"])
+    bwd_errs.append(ell["bwd_err"])
+    grid_k1, grid_k2 = grid_phase(card)
+    print(f"[{card}] phase 15 took {time.perf_counter() - t15:.1f} s; its "
+          f"launches: K1 {ell['k1']} (15a) + {grid_k1} (15b), K2 "
+          f"{ell['k2']} + {grid_k2}", flush=True)
+
+    # --- 16. result lines ---
     kernels = [{
         "name": "raster_fwd",
         "route": "cuda",
@@ -3130,7 +3842,7 @@ def main():
         "launches": launches + fit_k1 + trunc_k1 + bucket_k1
         + lever_n["launches"] + fit_n["launches"] + serve_k1
         + xla_n[0] + eval_k1 + trace_n[0] + tools_n[0] + counts["b"][0]
-        + counts["d"][0],
+        + counts["d"][0] + ell["k1"] + grid_k1,
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -3143,7 +3855,8 @@ def main():
         "source": "gsplat_tpu_torch/ops/csrc/raster_bwd.cu",
         "replaces": "gsplat_tpu/ops/raster_pallas.py:243",
         "launches": train_k2 + fit_k2 + trunc_k2 + lever_n["bwd_launches"]
-        + xla_n[1] + trace_n[1] + tools_n[1] + counts["b"][1],
+        + xla_n[1] + trace_n[1] + tools_n[1] + counts["b"][1] + ell["k2"]
+        + grid_k2,
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

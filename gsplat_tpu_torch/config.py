@@ -5,17 +5,15 @@ Counterpart of ``gsplat_tpu/config.py:18-296`` (``RenderConfig`` and
 so a config built for one package means the same render or training step
 in the other.
 
-Options the port does not implement yet are accepted here (the fields
-must match) and raise ``NotImplementedError`` where they are used:
-``cull_mode="ellipse"`` (with or without ``tile_rank_cap``). On the card
-the compositor kernels take ``tile=16`` only (``ValueError``); the XLA
-compositor (``backend="xla"``, plain PyTorch) takes any tile.
+Every option is ported: ``cull_mode="ellipse"`` (with ``max_rows``),
 ``tile_rank_cap`` (with ``occlusion_cull``, ``cull_chunks`` and
 ``trunc_pairs``), ``transmittance_math="log"``, ``bwd_pairs > 0`` (the
 compacted backward), ``view_tile_rows > 0`` (batched views, set by
 ``render.stack_view_projections``), ``backend="xla"`` (with
 ``max_per_tile`` and ``tile_chunk``) and, in ``TrainConfig``,
-``batched_render=True`` are ported. ``backend="auto"`` means the
+``batched_render=True``. On the card the compositor kernels take tiles
+16 and 32 (``ops/raster_cuda.py::check_kernel_config``); the XLA
+compositor takes any tile. ``backend="auto"`` means the
 compositor kernel (its plain version on the CPU), not JAX's XLA fallback
 (``ops/rasterize.py::resolve_backend``).
 """

@@ -257,17 +257,27 @@ class GaussianDataset:
         dequantizes after the gather: lossless for unrescaled 8-bit
         sources, at most 1/510 per channel after a fractional rescale.
         fit() picks f32, uint8 or host batches under its
-        ``device_cache_bytes``. ``mesh`` (views replicated over a device
-        mesh, batches sharded over its data axis) raises
-        ``NotImplementedError``: multi-device training is not ported.
+        ``device_cache_bytes``.
+
+        With ``mesh`` (this rank's ``parallel.Mesh``) the views are
+        replicated on the mesh's device (``device`` is ignored), every
+        rank draws the same order from ``seed``, and each yields its data
+        coordinate's share of every global batch (``batch_size`` must
+        divide by the data size): the input of
+        ``make_sharded_train_step``, with no per-step host upload.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "device_batches(mesh=...) (multi-device training) is not "
-                "ported")
         from ..device import resolve_device
 
-        dev = resolve_device(device)
+        if mesh is None:
+            dev, lo, hi = resolve_device(device), 0, batch_size
+        else:
+            n_data = mesh.shape["data"]
+            if batch_size % n_data:
+                raise ValueError(f"batch_size {batch_size} not divisible by "
+                                 f"the mesh's data axis ({n_data})")
+            bl = batch_size // n_data
+            dev, lo, hi = mesh.device, mesh.coord[0] * bl, \
+                (mesh.coord[0] + 1) * bl
         n = len(self)
         imgs_np = np.stack([self[i]["image"] for i in range(n)])
         if quantize:
@@ -277,7 +287,7 @@ class GaussianDataset:
         imgs = torch.from_numpy(imgs_np).to(dev)  # [N, H, W, 3] on device
         c2ws = torch.from_numpy(np.ascontiguousarray(self.c2w[:n])).to(dev)
         del imgs_np
-        intr = {k: torch.full((batch_size,), getattr(self, k),
+        intr = {k: torch.full((hi - lo,), getattr(self, k),
                               dtype=torch.float32, device=dev)
                 for k in ("fx", "fy", "cx", "cy")}
 
@@ -293,7 +303,7 @@ class GaussianDataset:
                     pos = 0
                 idx.append(int(order[pos]))
                 pos += 1
-            sel = torch.as_tensor(idx, device=dev)
+            sel = torch.as_tensor(idx[lo:hi], device=dev)
             batch_img = imgs[sel]
             if quantize:
                 batch_img = batch_img.to(torch.float32) * (1.0 / 255.0)

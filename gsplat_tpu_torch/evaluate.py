@@ -6,8 +6,10 @@ Counterpart of ``scripts/evaluate.py``. Run as
         --data_dir data/garden --holdout_every 8
 
 ``--holdout_every`` N evaluates the held-out test views (every Nth, as in
-training). ``--cull_mode ellipse`` and ``--spmd`` (multi-device
-evaluation) raise ``NotImplementedError``: they are not ported.
+training). ``--spmd`` evaluates over a ``(data, tile)`` grid of
+``--spmd_ranks`` processes (default: the launcher's world, else one per
+card; ``--dist_backend gloo`` shares one card): views over ``data``,
+frames in ``--spmd_bands`` bands over ``tile``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ def main(argv=None):
     p.add_argument("--max_pairs", type=int, default=2**21)
     p.add_argument("--cull_mode", default="rect",
                    choices=("rect", "ellipse"),
-                   help="tile culling granularity (ellipse is not ported)")
+                   help="tile culling granularity (ellipse: exact per-row "
+                        "ellipse intervals, fewer pairs)")
     p.add_argument("--transmittance_math", default="cumprod",
                    choices=("log", "cumprod"))
     p.add_argument("--tile_rank_cap", type=int, default=0,
@@ -49,26 +52,41 @@ def main(argv=None):
                    help="views rendered per launch via the shared-binning "
                         "batched path")
     p.add_argument("--spmd", action="store_true",
-                   help="evaluate over all devices (not ported)")
+                   help="evaluate over a (data, tile) process grid: views "
+                        "over 'data', frames in --spmd_bands bands")
     p.add_argument("--spmd_bands", type=int, default=1,
-                   help="tile-band size under --spmd (not ported)")
+                   help="tile-band ('tile' grid axis) size under --spmd")
+    p.add_argument("--spmd_ranks", type=int, default=None,
+                   help="processes of the --spmd grid (default: the "
+                        "launcher's world, else one per card)")
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=("nccl", "gloo"),
+                   help="collectives of the --spmd grid (gloo: through "
+                        "host memory, several ranks per card)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
     if args.spmd:
-        raise NotImplementedError(
-            "--spmd (multi-device evaluation) is not ported")
-    if args.cull_mode == "ellipse":
-        raise NotImplementedError(
-            "--cull_mode ellipse is not ported yet (rect only)")
+        from .parallel.mesh import cli_rank, grid_device, grid_ranks, launch
+
+        # Rank 0 prints, writes and returns the result.
+        return launch(cli_rank, grid_ranks(args.spmd_ranks),
+                      args.dist_backend, grid_device(args.device),
+                      args=(_run, args, None, args.spmd_bands))
+    return _run(args)
+
+
+def _run(args, mesh=None):
+    """Evaluate on one device, or on this rank of ``mesh``."""
 
     from .config import RenderConfig, parse_background
     from .data import GaussianDataset
     from .evaluation import evaluate_views
     from .render_trained import load_params, resolve_checkpoint
 
-    params, alive = load_params(resolve_checkpoint(args.checkpoint),
-                                device=args.device)
+    params, alive = load_params(
+        resolve_checkpoint(args.checkpoint),
+        device=args.device if mesh is None else mesh.device)
     ds = GaussianDataset(
         args.data_dir, scale_factor=args.scale_factor,
         holdout_every=args.holdout_every,
@@ -84,7 +102,7 @@ def main(argv=None):
     n = len(ds) if args.max_views is None else min(len(ds), args.max_views)
     views = [ds[i] for i in range(n)]
     result = evaluate_views(params, views, cfg, alive=alive,
-                            render_batch=args.render_batch)
+                            render_batch=args.render_batch, mesh=mesh)
     if args.json:
         print(json.dumps(result))
     else:

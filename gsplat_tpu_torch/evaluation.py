@@ -14,6 +14,7 @@ import torch
 from .config import RenderConfig
 from .ops.clamps import maximum
 from .ops.losses import ssim
+from .parallel.sharding import make_sharded_batch_render
 from .render import pair_demand, render_batch_from_params, render_from_params
 
 
@@ -49,23 +50,25 @@ def evaluate_views(
         render_batch: views rendered per launch through
             ``render_batch_from_params`` (one binning and one compositor
             launch; the last chunk pads by repeating its final view).
-        mesh: multi-device rendering; not ported (raises).
+        mesh: this rank's ``(data, tile)`` grid: each launch splits its
+            views over ``data`` and each frame into bands over ``tile``
+            (``parallel.make_sharded_batch_render``); every rank returns
+            the scores. ``render_batch`` must be a multiple of the data
+            size (it defaults to it when 1).
         auto_size: probe the pair demand of every view first (projection
             and binning only, ``pair_demand``) and grow ``max_pairs`` (and,
             with ``tile_rank_cap``, ``trunc_pairs``) to 1.1 x the largest,
             rounded up to 4,096, where it exceeds them: an under-sized
             evaluation drops the farthest gaussians and reports a collapsed
             score. The demand and the capacity used are in the result.
+            In ellipse mode the row capacity follows ``max_pairs`` where
+            ``max_rows`` is 0; an explicit ``max_rows`` is kept (JAX's).
 
     Returns:
         JAX's dict: mean ``psnr``, ``ssim``, ``l1``; ``per_view`` (a dict
         of the three per view); ``num_views``; ``max_pair_demand``;
         ``eval_max_pairs``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "evaluate_views(mesh=...) needs multi-device rendering, which "
-            "is not ported yet")
     dev = params["pos"].device
     imgs = []
     max_demand = 0
@@ -90,7 +93,20 @@ def evaluate_views(
                 upd["trunc_pairs"] = _rup(max_trunc)
             if upd:
                 cfg = cfg.with_(**upd)
+        if mesh is not None and render_batch == 1:
+            render_batch = mesh.shape["data"]
         if render_batch > 1:
+            if mesh is not None:
+                sfn = make_sharded_batch_render(cfg, mesh)
+
+                def render_chunk(c2w, fx, fy, cx, cy):
+                    return sfn(params, alive, c2w, fx, fy, cx, cy)
+            else:
+
+                def render_chunk(c2w, fx, fy, cx, cy):
+                    return render_batch_from_params(
+                        params, c2w, fx, fy, cx, cy, cfg, alive=alive)[0]
+
             B = render_batch
             for s in range(0, len(views), B):
                 chunk = views[s:s + B]
@@ -100,9 +116,8 @@ def evaluate_views(
                 def field(k):
                     return torch.stack([_f32(v[k], dev) for v in chunk])
 
-                out, _ = render_batch_from_params(
-                    params, field("c2w"), field("fx"), field("fy"),
-                    field("cx"), field("cy"), cfg, alive=alive)
+                out = render_chunk(field("c2w"), field("fx"), field("fy"),
+                                   field("cx"), field("cy"))
                 imgs.extend(out[i] for i in range(real))
         else:
             for v in views:

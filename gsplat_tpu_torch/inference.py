@@ -9,9 +9,11 @@ as
 
 ``--render_batch`` B renders B poses per launch through one binning;
 ``--bucket_pairs`` N sizes each frame's capacities from a ladder of N
-demand-sized configurations over the known trajectory. ``--spmd`` and
-``--spmd_bands`` (multi-device rendering) and ``--cull_mode ellipse``
-raise ``NotImplementedError``: they are not ported.
+demand-sized configurations over the known trajectory. ``--spmd``
+renders over a ``(data, tile)`` grid of ``--spmd_ranks`` processes
+(default: the launcher's world, else one per card; ``--dist_backend
+gloo`` shares one card): poses over ``data``, frames in ``--spmd_bands``
+bands over ``tile``; rank 0 writes the frames.
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ def main(argv=None):
     p.add_argument("--max_pairs", type=int, default=2**21)
     p.add_argument("--cull_mode", default="rect",
                    choices=("rect", "ellipse"),
-                   help="tile culling granularity (ellipse is not ported)")
+                   help="tile culling granularity (ellipse: exact per-row "
+                        "ellipse intervals, fewer pairs)")
     p.add_argument("--tile_rank_cap", type=int, default=0,
                    help="keep only the front-most K pairs per tile; 0 = "
                         "exact")
@@ -69,9 +72,17 @@ def main(argv=None):
     p.add_argument("--backend", default="auto",
                    choices=("auto", "pallas", "xla"))
     p.add_argument("--spmd", action="store_true",
-                   help="render over all devices (not ported)")
+                   help="render over a (data, tile) process grid: poses "
+                        "over 'data', frames in --spmd_bands bands")
     p.add_argument("--spmd_bands", type=int, default=1,
-                   help="tile-band size under --spmd (not ported)")
+                   help="tile-band ('tile' grid axis) size under --spmd")
+    p.add_argument("--spmd_ranks", type=int, default=None,
+                   help="processes of the --spmd grid (default: the "
+                        "launcher's world, else one per card)")
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=("nccl", "gloo"),
+                   help="collectives of the --spmd grid (gloo: through "
+                        "host memory, several ranks per card)")
     p.add_argument("--render_batch", type=int, default=1,
                    help="poses rendered per launch via the shared-binning "
                         "batched path")
@@ -82,12 +93,18 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
-    if args.spmd or args.spmd_bands != 1:
-        raise NotImplementedError(
-            "--spmd / --spmd_bands (multi-device rendering) are not ported")
-    if args.cull_mode == "ellipse":
-        raise NotImplementedError(
-            "--cull_mode ellipse is not ported yet (rect only)")
+    if args.spmd:
+        from .parallel.mesh import cli_rank, grid_device, grid_ranks, launch
+
+        # Rank 0 prints, writes and returns the result.
+        return launch(cli_rank, grid_ranks(args.spmd_ranks),
+                      args.dist_backend, grid_device(args.device),
+                      args=(_run, args, None, args.spmd_bands))
+    return _run(args)
+
+
+def _run(args, mesh=None):
+    """Render the trajectory on one device, or on this rank of ``mesh``."""
 
     from .config import RenderConfig, parse_background
     from .data.images import save_image
@@ -95,8 +112,9 @@ def main(argv=None):
     from .viewer import (make_batch_render_fn, make_bucketed_render_fn,
                          make_render_fn, render_trajectory)
 
-    params, alive = load_params(resolve_checkpoint(args.checkpoint),
-                                device=args.device)
+    params, alive = load_params(
+        resolve_checkpoint(args.checkpoint),
+        device=args.device if mesh is None else mesh.device)
     traj = load_trajectory(args.trajectory)
 
     if args.data_dir:
@@ -120,18 +138,37 @@ def main(argv=None):
                        transmittance_math=args.transmittance_math,
                        aa_mode=args.aa_mode,
                        background=parse_background(args.background))
-    os.makedirs(args.output_dir, exist_ok=True)
+    write = mesh is None or mesh.rank == 0
+    if write:
+        os.makedirs(args.output_dir, exist_ok=True)
     paths = []
-    if args.render_batch > 1:
-        batch_fn = make_batch_render_fn(
-            params, cfg, fx, fy, cx, cy, alive=alive,
-            batch=args.render_batch,
-        )
+    if args.render_batch > 1 or mesh is not None:
+        if mesh is not None:
+            from .parallel import make_sharded_batch_render
+
+            n_data = mesh.shape["data"]
+            if args.render_batch == 1:
+                args.render_batch = n_data
+            if args.render_batch % n_data:
+                raise ValueError(f"--render_batch {args.render_batch} must "
+                                 f"be a multiple of the grid's data axis "
+                                 f"({n_data})")
+            print(f"SPMD: grid {mesh.shape} of {mesh.backend} ranks")
+            sfn = make_sharded_batch_render(cfg, mesh)
+
+            def batch_fn(c2w_b):
+                return sfn(params, alive, c2w_b, fx, fy, cx, cy)
+        else:
+            batch_fn = make_batch_render_fn(
+                params, cfg, fx, fy, cx, cy, alive=alive,
+                batch=args.render_batch,
+            )
         frames, _ = render_trajectory(batch_fn, traj,
                                       batch_size=args.render_batch)
         for i, frame in enumerate(frames):
             paths.append(os.path.join(args.output_dir, f"view_{i:05d}.png"))
-            save_image(paths[-1], frame)
+            if write:
+                save_image(paths[-1], frame)
     else:
         if args.bucket_pairs:
             render_fn = make_bucketed_render_fn(

@@ -1,15 +1,17 @@
 """Static-shape tile binning: (gaussian, tile) pair expansion + sort.
 
-Counterpart of ``gsplat_tpu/ops/binning.py`` in rect mode: ``bin_gaussians``
-(``:709-884``) with its expansion (``:348-490``), the exact tile cover
+Counterpart of ``gsplat_tpu/ops/binning.py``: ``bin_gaussians``
+(``:709-884``) with its rect expansion (``:348-490``), the ellipse
+expansion (``_expand_pairs_ellipse``, ``:493-706``), the exact tile cover
 counts (``_rect_cover_counts``, ``:127-199``), the pre-sort occlusion cull
 (``_occlusion_cull``, ``:202-321``) and the per-tile rank truncation
 (``:815-871``). The outputs are bit-identical to the JAX package, dead
 blocks and overflow included: ``pair_slot``, ``tile_start``,
 ``tile_count``, ``block_meta`` (``tile << 2 | dead << 1 | first``),
 ``num_pairs`` (the true demand, after the cull), ``depth_order``,
-``gauss_offsets``, ``num_pairs_kept`` and ``trunc_demand``. On capacity
-overflow whole gaussians are dropped from the back of the depth order.
+``gauss_offsets``, ``num_rows`` (the ellipse's row demand),
+``num_pairs_kept`` and ``trunc_demand``. On capacity overflow whole
+gaussians are dropped from the back of the depth order.
 
 The JAX package built these outputs around TPU costs (int8 MXU cover
 counts, a two-level cumsum, 10-bit packed delta cumsums). The port
@@ -17,11 +19,17 @@ computes them directly: a binary search expands the pairs, a scatter-add
 counts pairs per tile, one int64 sort orders them, and cover counts are a
 four-corner integer scatter-add and two cumulative sums (integer adds are
 exact in any order). Every shape stays static (the capacities
-``cfg.max_pairs`` and ``cfg.trunc_padded_pairs``), so a frame needs no
-host sync.
+``cfg.max_pairs``, ``cfg.row_capacity`` and ``cfg.trunc_padded_pairs``),
+so a frame needs no host sync.
 
-``cull_mode="ellipse"`` raises ``NotImplementedError``, with or without
-truncation.
+``cull_mode="ellipse"`` expands each gaussian's tile rows first and then,
+per row, the tiles of the exact x-interval of its alpha-cutoff ellipse
+(:func:`_expand_ellipse`). Its interval ends are floors of float32
+expressions, written in the JAX package's order of operations so that
+every integer output equals JAX's. It keeps two JAX behaviours that
+``ROADMAP.md`` lists as known faults: the pair and truncation demands are
+counted over the rows that fit ``row_capacity`` and the pairs that fit
+``max_pairs``, and the occlusion cull does not apply.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ import torch
 from ..config import RenderConfig
 from .projection import ProjectedGaussians
 from .raster_cuda import pack_block_meta
+
+_PACK_MASK = (1 << 10) - 1  # JAX packs tile columns into 10 bits
 
 
 class TileBinning(NamedTuple):
@@ -72,10 +82,7 @@ def depth_order(depth: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def _check_supported(cfg: RenderConfig):
-    if cfg.cull_mode == "ellipse":
-        raise NotImplementedError(
-            "cull_mode='ellipse' is not ported yet (rect only)")
-    if cfg.cull_mode != "rect":
+    if cfg.cull_mode not in ("rect", "ellipse"):
         raise ValueError(f"unknown cull_mode {cfg.cull_mode!r}")
 
 
@@ -217,6 +224,157 @@ def _expand(counts, tile_min, n_u, cfg: RenderConfig):
     return total, offsets, slot, pair_ok, tile_id
 
 
+def _ellipse_table(proj: ProjectedGaussians, order, cfg: RenderConfig):
+    """The 10 per-gaussian cull terms in depth order ([N, 10] f32; JAX
+    ``:556-596``): uv, b, 1/a, P1 = a*k2, det, the peak dy* of the
+    interval's upper end, and the AABB's tile x-range and first tile row.
+    ``k2 = min(chi2_clip, 2 ln(op / alpha_cutoff))`` is the compositor's
+    own zero set, widened by ``(1 + 1e-5)`` and ``1e-6`` so that the
+    algebraic boundary stays conservative against the kernel's directly
+    evaluated q. One rounding per JAX operation, in JAX's order."""
+    o = order.to(torch.int64)
+    valid = proj.valid[o]
+    uv, conic, opac = proj.uv[o], proj.conic[o], proj.opacity[o]
+    tile_min, tile_max = proj.tile_min[o], proj.tile_max[o]
+    a = torch.where(valid, conic[:, 0], 1.0)
+    b = torch.where(valid, conic[:, 1], 0.0)
+    c = torch.where(valid, conic[:, 2], 1.0)
+    k2 = torch.clamp(
+        2.0 * torch.log(torch.clamp(opac, min=1e-12) / cfg.alpha_cutoff),
+        max=cfg.chi2_clip)
+    k2 = torch.where(valid, torch.clamp(k2, min=0.0), 1.0) * (1.0 + 1e-5) \
+        + 1e-6
+    det = torch.clamp(a * c - b * b, min=1e-12)
+    return torch.stack([
+        torch.where(valid, uv[:, 0], 0.0),
+        torch.where(valid, uv[:, 1], 0.0),
+        b,
+        1.0 / a,
+        a * k2,  # P1: discriminant D(dy) = P1 - det dy^2
+        det,
+        -b * torch.sqrt(k2 / (c * det)),  # dy* peak of xhi
+        tile_min[:, 0].to(torch.float32),  # AABB clip (image bounds)
+        tile_max[:, 0].to(torch.float32),
+        tile_min[:, 1].to(torch.float32),  # first tile row
+    ], dim=-1)
+
+
+def _row_intervals(tv, ty, row_ok, cfg: RenderConfig):
+    """Closed-form tile x-interval of each (gaussian, tile row) (JAX
+    ``:604-631``): (txlo, rlen, ty), int64, ``rlen`` 0 and ``ty`` 0 on an
+    empty or masked row. For the pixel-centre band ``dy in [dyl, dyh]``
+    the reachable x-extent's upper end peaks at ``clip(dy*, dyl, dyh)``
+    and its lower end at ``clip(-dy*, dyl, dyh)``; a 0.25 px guard
+    absorbs float32 rounding."""
+    T = cfg.tile
+    tyl = ty % cfg.view_tile_rows if cfg.view_tile_rows else ty
+    dyl = tyl.to(torch.float32) * T - tv[:, 1]  # band of pixel-centre dys
+    dyh = dyl + (T - 1)
+
+    def clip(x, lo, hi):  # jnp.clip: min(max(x, lo), hi)
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    dy0 = clip(torch.zeros_like(dyl), dyl, dyh)
+    nonempty = tv[:, 4] - tv[:, 5] * dy0 * dy0 >= 0.0  # D at the best dy
+    dyc_h = clip(tv[:, 6], dyl, dyh)
+    dyc_l = clip(-tv[:, 6], dyl, dyh)
+    rt_h = torch.sqrt(torch.clamp(tv[:, 4] - tv[:, 5] * dyc_h * dyc_h,
+                                  min=0.0))
+    rt_l = torch.sqrt(torch.clamp(tv[:, 4] - tv[:, 5] * dyc_l * dyc_l,
+                                  min=0.0))
+    xhi = tv[:, 0] + (-tv[:, 2] * dyc_h + rt_h) * tv[:, 3] + 0.25
+    xlo = tv[:, 0] + (-tv[:, 2] * dyc_l - rt_l) * tv[:, 3] - 0.25
+    rmask = row_ok & nonempty  # NaN-safe: NaN >= 0 is False
+    xhi = torch.where(rmask, xhi, 0.0)
+    xlo = torch.where(rmask, xlo, 0.0)
+    # Clamped to +-2^30 before the integer cast (JAX's conversion
+    # saturates): any end that far out leaves the row empty either way.
+    big = float(2**30)
+    txlo = torch.clamp(torch.maximum(torch.where(rmask, tv[:, 7], 0.0),
+                                     torch.floor(xlo / T)), -big, big)
+    txhi = torch.clamp(torch.minimum(torch.where(rmask, tv[:, 8], -1.0),
+                                     torch.floor(xhi / T)), -big, big)
+    txlo, txhi = txlo.to(torch.int64), txhi.to(torch.int64)
+    ty = torch.where(rmask, ty, 0)
+    rlen = torch.where(rmask, torch.clamp(txhi - txlo + 1, min=0), 0)
+    return txlo, rlen, ty
+
+
+def _expand_ellipse(proj: ProjectedGaussians, cfg: RenderConfig):
+    """Two-level (tile rows -> pairs) expansion with the exact per-row
+    ellipse x-intervals (JAX ``_expand_pairs_ellipse``). Same contract as
+    the rect branch, with fewer pairs: (order, total pair demand, offsets
+    [N+1], owner depth slot [max_pairs], pair_ok, tile_id, tile_count
+    [num_tiles], row demand), int64.
+
+    Rows stage: each gaussian's AABB tile rows, whole gaussians dropped
+    from the back of the depth order at ``row_capacity``; each row finds
+    its gaussian by a binary search over the row offsets and its interval
+    in closed form. Pairs stage: the per-gaussian pair totals, whole
+    gaussians dropped at ``max_pairs``; the exact per-tile counts from a
+    +1/-1 interval scatter and a prefix sum over x; each pair finds its
+    row by a binary search over the row pair-offsets. The row demand is
+    the true one, past the capacity too; the pair demand counts the rows
+    that fit (JAX's)."""
+    dev = proj.depth.device
+    i64 = torch.int64
+    n = proj.depth.shape[0]
+    cap, cap_r = cfg.max_pairs, cfg.row_capacity
+    zero1 = torch.zeros(1, dtype=i64, device=dev)
+
+    order = depth_order(proj.depth, proj.valid)
+    o = order.to(i64)
+    tile_min = proj.tile_min[o].to(i64)
+    tile_max = proj.tile_max[o].to(i64)
+    n_v = torch.clamp(tile_max[:, 1] - tile_min[:, 1] + 1, min=0)
+    table = _ellipse_table(proj, order, cfg)
+
+    # --- rows stage ---
+    rows_cum = torch.cumsum(n_v, 0)
+    rows_total = rows_cum[-1]
+    nrows = torch.where(rows_cum <= cap_r, n_v, 0)
+    row_off = torch.cat([zero1, torch.cumsum(nrows, 0)])  # [N+1]
+    r = torch.arange(cap_r, dtype=i64, device=dev)
+    gslot = torch.searchsorted(row_off, r, right=True) - 1  # n past the end
+    row_ok = gslot < n
+    gs = torch.clamp(gslot, 0, n - 1)
+    tv = table[gs]  # [cap_r, 10]
+    ty = tile_min[gs, 1] + (r - row_off[gs])  # global tile row
+    txlo, rlen, ty = _row_intervals(tv, ty, row_ok, cfg)
+    txlo = torch.clamp(txlo, 0, _PACK_MASK)  # JAX's packing-safe clamp
+
+    # --- per-gaussian pair totals; whole-gaussian drop at max_pairs ---
+    S = torch.cat([zero1, torch.cumsum(rlen, 0)])
+    g_pairs = S[row_off[1:]] - S[row_off[:-1]]  # [N]
+    full_cum = torch.cumsum(g_pairs, 0)
+    total = full_cum[-1]
+    cut = torch.sum(full_cum <= cap)
+    rlen = torch.where(gslot < cut, rlen, 0)
+    S2 = torch.cat([zero1, torch.cumsum(rlen, 0)])  # [cap_r + 1]
+    offsets = S2[row_off]  # [N+1] presort pair boundaries per gaussian
+
+    # --- exact per-tile counts before the sort (interval scatter) ---
+    TX = cfg.tiles_x
+    one = (rlen > 0).to(i64)
+    base = torch.where(rlen > 0, ty, 0) * (TX + 1)
+    grid = torch.zeros(cfg.tiles_y * (TX + 1), dtype=i64, device=dev)
+    grid.scatter_add_(0, torch.cat([base + txlo, base + txlo + rlen]),
+                      torch.cat([one, -one]))
+    tile_count = torch.cumsum(grid.view(cfg.tiles_y, TX + 1), 1)[
+        :, :TX].reshape(cfg.num_tiles)
+
+    # --- pairs stage: each pair's row, then its tile and depth slot ---
+    p = torch.arange(cap, dtype=i64, device=dev)
+    pair_ok = p < S2[-1]
+    row = torch.clamp(torch.searchsorted(S2, p, right=True) - 1, 0,
+                      cap_r - 1)
+    tx = txlo[row] + (p - S2[row])
+    tile_id = torch.where(pair_ok, ty[row] * TX + tx, cfg.num_tiles)
+    slot = torch.where(pair_ok, gslot[row], n)
+    return order, total, offsets, slot, pair_ok, tile_id, tile_count, \
+        rows_total
+
+
 def _tile_counts(tile_id, num_tiles: int):
     """Exact per-tile pair counts (integer scatter-add: deterministic)."""
     tile_count = torch.zeros(num_tiles + 1, dtype=torch.int64,
@@ -308,22 +466,29 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
     each on a frame's tensors): :func:`_footprints`, the occlusion cull
     (with truncation), :func:`_expand`, :func:`_tile_counts`,
     :func:`_sort_keys`, :func:`_align`, :func:`_block_meta`, and with
-    truncation :func:`_compact_blocks` and the exact cover counts."""
+    truncation :func:`_compact_blocks` and the exact cover counts. With
+    ``cull_mode="ellipse"``, :func:`_expand_ellipse` takes the place of
+    the first four."""
     _check_supported(cfg)
     dev = proj.depth.device
     n = proj.depth.shape[0]
     num_tiles = cfg.num_tiles
 
-    # Footprint counts in DEPTH order, so that capacity overflow drops the
-    # farthest gaussians' pairs first.
-    order, tile_min, n_u, n_v, counts = _footprints(proj)
-    if cfg.tile_rank_cap and cfg.occlusion_cull:
-        # Before the capacity drop, so num_pairs is the demand after it.
-        counts = _occlusion_cull(tile_min, n_u, n_v, counts, cfg)
-    kept_pre = counts > 0  # before the capacity drop
-    total, offsets, slot, pair_ok, tile_id = _expand(counts, tile_min, n_u,
-                                                     cfg)
-    tile_count = _tile_counts(tile_id, num_tiles)
+    if cfg.cull_mode == "ellipse":
+        order, total, offsets, slot, pair_ok, tile_id, tile_count, \
+            num_rows = _expand_ellipse(proj, cfg)
+    else:
+        # Footprint counts in DEPTH order, so that capacity overflow drops
+        # the farthest gaussians' pairs first.
+        order, tile_min, n_u, n_v, counts = _footprints(proj)
+        if cfg.tile_rank_cap and cfg.occlusion_cull:
+            # Before the capacity drop, so num_pairs is the demand after it.
+            counts = _occlusion_cull(tile_min, n_u, n_v, counts, cfg)
+        kept_pre = counts > 0  # before the capacity drop
+        total, offsets, slot, pair_ok, tile_id = _expand(counts, tile_min,
+                                                         n_u, cfg)
+        tile_count = _tile_counts(tile_id, num_tiles)
+        num_rows = torch.zeros((), dtype=torch.int64, device=dev)
     sorted_key = _sort_keys(tile_id, slot, pair_ok, n, num_tiles)
     pair_slot, padded_count, padded_start = _align(sorted_key, tile_count,
                                                    n, cfg)
@@ -338,12 +503,16 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
         pair_slot, block_meta, new_start_b = _compact_blocks(
             pair_slot, padded_count, padded_start, cfg)
         cap_t = Kb * G
-        # Reported demand from the tile counts before the capacity drop,
-        # so a probe's own max_pairs cannot hide it.
-        y0g, x0g = tile_min[:, 1], tile_min[:, 0]
-        tile_count_true = _cover_counts(
-            y0g, y0g + n_v, x0g, x0g + n_u, kept_pre, cfg.tiles_y,
-            cfg.tiles_x).reshape(num_tiles)
+        if cfg.cull_mode == "ellipse":
+            # JAX's: the counts of the rows and pairs that fit.
+            tile_count_true = tile_count
+        else:
+            # Reported demand from the tile counts before the capacity
+            # drop, so a probe's own max_pairs cannot hide it.
+            y0g, x0g = tile_min[:, 1], tile_min[:, 0]
+            tile_count_true = _cover_counts(
+                y0g, y0g + n_v, x0g, x0g + n_u, kept_pre, cfg.tiles_y,
+                cfg.tiles_x).reshape(num_tiles)
         kept_pairs = torch.sum(torch.clamp(tile_count_true, max=cap_t))
         trunc_demand = torch.sum(
             torch.clamp((tile_count_true + G - 1) // G, max=Kb)) * G
@@ -365,7 +534,7 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
         num_pairs=total.to(i32),
         depth_order=order,
         gauss_offsets=offsets.to(i32),
-        num_rows=torch.zeros((), dtype=i32, device=dev),
+        num_rows=num_rows.to(i32),
         num_pairs_kept=kept_pairs.to(i32),
         trunc_demand=trunc_demand.to(i32),
     )

@@ -401,7 +401,7 @@ def rasterize_binned_xla(
         alpha=1.0 - planes[..., 4],
         screen_radius=proj.radius,
         num_rows=binning.num_rows,
-        row_capacity=0,
+        row_capacity=cfg.row_capacity if cfg.cull_mode == "ellipse" else 0,
         num_pairs_kept=binning.num_pairs_kept,
         trunc_demand=binning.trunc_demand,
         trunc_capacity=cfg.trunc_padded_pairs if cfg.tile_rank_cap else 0,
@@ -452,7 +452,7 @@ def rasterize_binned_pallas(
         alpha=1.0 - planes[..., 4],
         screen_radius=proj.radius,
         num_rows=binning.num_rows,
-        row_capacity=0,
+        row_capacity=cfg.row_capacity if cfg.cull_mode == "ellipse" else 0,
         num_pairs_kept=binning.num_pairs_kept,
         trunc_demand=binning.trunc_demand,
         trunc_capacity=cfg.trunc_padded_pairs if cfg.tile_rank_cap else 0,

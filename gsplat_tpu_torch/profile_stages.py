@@ -21,8 +21,8 @@ prints:
 
 Stage times are device times on a card (CUDA events behind a busy stream,
 ``profile_kernel.device_ms``) and host-clock times on the CPU, labelled
-so. ``--cull_mode ellipse`` and ``--max_rows`` raise until ellipse culling
-is ported. :func:`serving_path`, :func:`stage_ms`, :func:`bwd_parts_ms`
+so. ``--cull_mode ellipse`` (with ``--max_rows``) profiles the ellipse
+cull's binning. :func:`serving_path`, :func:`stage_ms`, :func:`bwd_parts_ms`
 and :func:`bench_pose` are also the timers ``chip_smoke.py`` uses.
 """
 
@@ -244,10 +244,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.cull_mode == "ellipse" or args.max_rows:
-        raise NotImplementedError(
-            "--cull_mode ellipse and --max_rows need ellipse culling, which "
-            "is not ported yet")
 
     from .config import RenderConfig
     from .device import resolve_device
@@ -259,7 +255,8 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     cfg = RenderConfig(height=args.height, width=args.width,
                        max_pairs=args.max_pairs, max_per_tile=2048,
-                       tile_chunk=32, tile_rank_cap=args.tile_rank_cap)
+                       tile_chunk=32, tile_rank_cap=args.tile_rank_cap,
+                       cull_mode=args.cull_mode, max_rows=args.max_rows)
     alive = None
     if args.checkpoint:
         pool = restore_pool(args.checkpoint, device=dev)

@@ -1,7 +1,6 @@
 """Serve a trained scene: orbit render with per-frame timing and demand.
 
-Counterpart of ``scripts/render_trained.py:78-409``, restricted to what
-the port supports (one device, rect binning), with the camera of a
+Counterpart of ``scripts/render_trained.py:78-409``, with the camera of a
 prepared dataset (``--data_dir``, ``--scale_factor``; else a generic
 pinhole at ``--height``/``--width``), its training views
 (``--render_training_views``: the first 10), the pool exported as a
@@ -13,9 +12,15 @@ truncation
 (``--tile_rank_cap``, with the pre-sort occlusion cull in
 ``--cull_chunks`` depth chunks), demand-sized capacities
 (``--auto_pairs``), per-frame capacity bucketing (``--bucket_pairs``),
-``--transmittance_math``, ``--background``, ``--aa_mode`` and the
+``--transmittance_math``, ``--background``, ``--aa_mode``, the tile cull
+(``--cull_mode``: ``ellipse`` expands only the tiles of each splat's
+ellipse; ``--auto_pairs`` then also sizes ``max_rows``) and the
 compositor (``--backend``: ``auto`` and ``pallas`` the kernel, ``xla`` the
-dense per-tile compositor). Run as
+dense per-tile compositor). ``--spmd`` serves the orbit over a ``(data,
+tile)`` grid of ``--spmd_ranks`` processes (default: the launcher's world,
+else one per card): poses split over ``data``, frames into
+``--spmd_bands`` bands over ``tile`` (``--dist_backend gloo`` shares one
+card). Run as
 
     python -m gsplat_tpu_torch.render_trained \\
         --checkpoint bench_assets/trained_ckpt.npz --benchmark_only \\
@@ -166,9 +171,38 @@ def main(argv=None):
     p.add_argument("--render_batch", type=int, default=1,
                    help="poses rendered per launch via the shared-binning "
                         "batched path (1 = per-pose rendering)")
+    p.add_argument("--cull_mode", default="rect",
+                   choices=("rect", "ellipse"),
+                   help="tile culling granularity (ellipse: exact per-row "
+                        "ellipse intervals, fewer pairs)")
+    p.add_argument("--spmd", action="store_true",
+                   help="serve over a (data, tile) process grid: poses over "
+                        "'data', frames split into --spmd_bands bands")
+    p.add_argument("--spmd_bands", type=int, default=1,
+                   help="tile-band ('tile' grid axis) size under --spmd")
+    p.add_argument("--spmd_ranks", type=int, default=None,
+                   help="processes of the --spmd grid (default: the "
+                        "launcher's world, else one per card)")
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=("nccl", "gloo"),
+                   help="collectives of the --spmd grid (gloo: through "
+                        "host memory, several ranks per card)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
+    if args.spmd:
+        from .parallel.mesh import cli_rank, grid_device, grid_ranks, launch
+
+        # Rank 0 prints, writes and returns the result.
+        return launch(cli_rank, grid_ranks(args.spmd_ranks),
+                      args.dist_backend, grid_device(args.device),
+                      args=(_run, args, None, args.spmd_bands))
+    return _run(args)
+
+
+def _run(args, mesh=None):
+    """The CLI's work on one device, or on this rank of ``mesh``."""
+    write = mesh is None or mesh.rank == 0
 
     from .config import RenderConfig, parse_background
     from .data.images import save_image
@@ -186,7 +220,8 @@ def main(argv=None):
 
     ckpt = resolve_checkpoint(args.checkpoint)
     print(f"checkpoint: {ckpt}")
-    params, alive_t = load_params(ckpt, device=args.device)
+    params, alive_t = load_params(
+        ckpt, device=args.device if mesh is None else mesh.device)
     alive = alive_t.cpu().numpy()
     n_alive = int(alive.sum())
     print(f"{n_alive} gaussians (pool capacity {alive.shape[0]}) on "
@@ -209,14 +244,14 @@ def main(argv=None):
     H, W, fx, fy, cx, cy = apply_resolution_override(
         H, W, fx, fy, cx, cy, args.height, args.width)
     cfg = RenderConfig(height=H, width=W, max_pairs=args.max_pairs,
-                       backend=args.backend,
+                       backend=args.backend, cull_mode=args.cull_mode,
                        tile_rank_cap=args.tile_rank_cap,
                        cull_chunks=args.cull_chunks,
                        transmittance_math=args.transmittance_math,
                        aa_mode=args.aa_mode,
                        background=parse_background(args.background))
 
-    if args.export_ply or args.export_splat:
+    if write and (args.export_ply or args.export_splat):
         from .data.gsply import export_gaussians_ply, export_gaussians_splat
 
         host = {k: v.detach().cpu().numpy() for k, v in params.items()}
@@ -230,7 +265,7 @@ def main(argv=None):
                                                alive=alive)
             print(f"exported {n_written} gaussians to {args.export_splat}")
 
-    if args.render_training_views and c2ws is not None:
+    if write and args.render_training_views and c2ws is not None:
         os.makedirs(args.output_dir, exist_ok=True)
         view_fn = make_render_fn(params, cfg, fx, fy, cx, cy, alive=alive_t)
         for i, c2w in enumerate(c2ws[:10]):
@@ -262,6 +297,7 @@ def main(argv=None):
                 params, c, fx, fy, cx, cy, cfg, alive=alive_t))
                 for c in probe_traj]
         pk = max(d[0] for d in demands)
+        rk = max(d[1] for d in demands)
         tk = max(d[2] for d in demands)
         new_pairs = max(4096, -(-int(pk * 1.2) // 4096) * 4096)
         if new_pairs > args.max_pairs:
@@ -272,18 +308,36 @@ def main(argv=None):
                   f"overflow frames — raise --max_pairs for exactness)")
             new_pairs = args.max_pairs
         kw = {"max_pairs": new_pairs}
+        if cfg.cull_mode == "ellipse":
+            kw["max_rows"] = max(4096, -(-int(rk * 1.2) // 4096) * 4096)
         if cfg.tile_rank_cap:
             # The truncated demand sizes the compacted list the gather and
             # the compositor run on.
             kw["trunc_pairs"] = max(4096, -(-int(tk * 1.2) // 4096) * 4096)
         print(f"auto_pairs: demand {pk} pairs"
+              + (f" / {rk} rows" if cfg.cull_mode == "ellipse" else "")
               + (f" / {tk} truncated" if cfg.tile_rank_cap else "")
               + f" -> capacities {kw}")
         cfg = cfg.with_(**kw)
 
     pair_capacity = cfg.max_pairs
     batch_size = 1
-    if args.render_batch > 1:
+    if mesh is not None:
+        from .parallel import make_sharded_batch_render
+
+        n_data = mesh.shape["data"]
+        batch_size = args.render_batch if args.render_batch > 1 else n_data
+        if batch_size % n_data:
+            raise ValueError(f"--render_batch {batch_size} must be a "
+                             f"multiple of the grid's data axis ({n_data})")
+        print(f"SPMD orbit: grid {mesh.shape} of {mesh.backend} ranks")
+        sfn = make_sharded_batch_render(cfg, mesh)
+
+        def orbit_fn(c2w_b):
+            return sfn(params, alive_t, c2w_b, fx, fy, cx, cy)
+
+        pair_capacity = 0
+    elif args.render_batch > 1:
         # The batch shares one pair list of render_batch x max_pairs.
         orbit_fn = make_batch_render_fn(
             params, cfg, fx, fy, cx, cy, alive=alive_t,
@@ -316,9 +370,10 @@ def main(argv=None):
             f"pipelined FPS: {stats['fps_pipelined']:.2f} "
             f"({stats['pipelined_ms']:.2f} ms/frame — no per-frame sync)"
         )
-    print(f"pair demand: max {stats['max_pairs_seen']} of capacity "
-          f"{stats['pair_capacity']}")
-    if stats["pair_overflow_frames"]:
+    if "max_pairs_seen" in stats:
+        print(f"pair demand: max {stats['max_pairs_seen']} of capacity "
+              f"{stats['pair_capacity']}")
+    if stats.get("pair_overflow_frames"):
         print(
             f"WARNING: {stats['pair_overflow_frames']} frame(s) exceeded "
             f"pair capacity — the farthest splats were dropped; raise "
@@ -329,13 +384,13 @@ def main(argv=None):
                      rung_cfgs=orbit_fn.cfgs,
                      frame_demand=[d[0] for d in orbit_fn.demands],
                      frame_trunc_demand=[d[2] for d in orbit_fn.demands])
-    if not args.benchmark_only:
+    if write and not args.benchmark_only:
         os.makedirs(args.output_dir, exist_ok=True)
         video = save_video(frames, os.path.join(args.output_dir,
                                                 "orbit.mp4"), fps=args.fps)
         print(f"video/frames: {video}")
         stats["video"] = video
-    if args.save_depth:
+    if write and args.save_depth:
         depth_fn = make_render_fn(params, cfg, fx, fy, cx, cy,
                                   alive=alive_t, with_depth=True)
         depth_dir = os.path.join(args.output_dir, "depth")

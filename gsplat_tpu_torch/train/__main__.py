@@ -1,7 +1,7 @@
 """Train a 3D Gaussian Splatting scene from a prepared dataset.
 
 Counterpart of ``scripts/train.py`` (every flag), driving the port's
-``fit()`` on one device. Run as
+``fit()`` on one device or over a ``(data, tile)`` process grid. Run as
 
     python -m gsplat_tpu_torch.prepare_dataset mipnerf \\
         --input_dir data/raw/garden --output_dir data/garden
@@ -9,10 +9,14 @@ Counterpart of ``scripts/train.py`` (every flag), driving the port's
         --output_dir output/garden
 
 The dataset's point cloud starts the pool, and its views are kept on the
-card once when they fit ``fit()``'s device cache. Multi-device training
-(``--mesh_data``/``--mesh_tile`` above 1, ``--gauss_sharded``, ``--ring``)
-and ``--cull_mode ellipse`` raise ``NotImplementedError``: they are not
-ported. ``--device cpu`` runs the plain PyTorch path.
+card once when they fit ``fit()``'s device cache. ``--mesh_data D
+--mesh_tile T`` trains over a grid of D*T processes (views over ``data``,
+image bands over ``tile``): under ``torchrun --nproc_per_node D*T`` each
+process joins the launched world; a plain ``python -m`` starts the D*T
+workers itself. ``--dist_backend gloo`` lets several ranks share one card
+(NCCL needs one card per rank). ``--gauss_sharded`` and ``--ring`` (the
+gaussian-sharded step) raise ``NotImplementedError``: they are the next
+slice of the port. ``--device cpu`` runs the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_pairs", type=int, default=2**21)
     p.add_argument("--cull_mode", default="rect",
                    choices=("rect", "ellipse"),
-                   help="tile culling granularity (ellipse is not ported)")
+                   help="tile culling granularity (ellipse: exact per-row "
+                        "ellipse intervals, fewer pairs)")
     p.add_argument("--transmittance_math", default="cumprod",
                    choices=("log", "cumprod"))
     p.add_argument("--bwd_pairs", type=int, default=0,
@@ -84,11 +89,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_screen_size", type=int, default=0,
                    help="paper-ADC screen-size prune in px (0 = off)")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="devices along the data (view) mesh axis (not "
-                        "ported above 1)")
+                   help="devices along the data (view) mesh axis")
     p.add_argument("--mesh_tile", type=int, default=1,
-                   help="devices along the tile (image band) mesh axis (not "
-                        "ported above 1)")
+                   help="devices along the tile (image band) mesh axis")
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=("nccl", "gloo"),
+                   help="collectives of the grid (gloo: through host "
+                        "memory, several ranks per card)")
     p.add_argument("--gauss_sharded", action="store_true",
                    help="shard the pool over the tile axis (not ported)")
     p.add_argument("--ring", action="store_true",
@@ -103,21 +110,40 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_unported(args) -> None:
     """Raise ``NotImplementedError`` for the flags whose paths are not
-    ported (multi-device training, the ellipse cull)."""
-    if args.mesh_data * args.mesh_tile > 1 or args.gauss_sharded \
-            or args.ring:
+    ported (the gaussian-sharded step)."""
+    if args.gauss_sharded or args.ring:
         raise NotImplementedError(
-            "--mesh_data/--mesh_tile above 1, --gauss_sharded and --ring "
-            "(multi-device training) are not ported")
-    if args.cull_mode == "ellipse":
-        raise NotImplementedError(
-            "--cull_mode ellipse is not ported yet (rect only)")
+            "--gauss_sharded and --ring (the gaussian-sharded step) are "
+            "not ported yet; they are the next slice of the port")
 
 
 def main(argv=None):
-    """Parse ``argv``, train, and return ``(state, report)`` of ``fit()``."""
+    """Parse ``argv``, train, and return ``(state, report)`` of ``fit()``;
+    over a grid ``(None, report)``: rank 0's report (its checkpoints hold
+    the state)."""
     args = build_parser().parse_args(argv)
     check_unported(args)
+    n_ranks = args.mesh_data * args.mesh_tile
+    if n_ranks > 1:
+        from ..parallel.mesh import cli_rank, grid_device, launch
+
+        # Rank 0 prints, writes and returns the report.
+        return None, launch(cli_rank, n_ranks, args.dist_backend,
+                            grid_device(args.device),
+                            args=(_grid_train, args, args.mesh_data,
+                                  args.mesh_tile))
+    return _train(args)
+
+
+def _grid_train(args, mesh):
+    """One rank of the grid: ``fit()`` over ``mesh``; the report."""
+    print(f"mesh: data={args.mesh_data} x tile={args.mesh_tile} over "
+          f"{mesh.size} {mesh.backend} ranks")
+    return _train(args, mesh)[1]
+
+
+def _train(args, mesh=None):
+    """Train on one device, or on this rank of ``mesh``."""
 
     from ..config import RenderConfig, TrainConfig, parse_background
     from ..data import GaussianDataset
@@ -174,6 +200,7 @@ def main(argv=None):
         train_cfg,
         output_dir=args.output_dir,
         resume_from=args.resume_from,
+        mesh=mesh,
         log_every=args.log_every,
         seed=args.seed,
         device=args.device,

@@ -2,7 +2,7 @@
 step, the ADC schedule, opacity raises, checkpoints and metrics logging.
 
 Counterpart of ``gsplat_tpu/train/fit.py`` (``FitReport`` :42, ``fit``
-:55) for one device:
+:55), on one device or over a ``(data, tile)`` process grid (``mesh``):
 * the initial cloud is the dataset's point cloud when it offers one
   (``pointcloud_path()``), else a seeded random cloud;
 * a dataset whose views fit under ``device_cache_bytes`` is kept on the
@@ -16,8 +16,9 @@ Counterpart of ``gsplat_tpu/train/fit.py`` (``FitReport`` :42, ``fit``
   gradient norms, visibility counts and the largest screen radius;
 * checkpoints hold the optimizer state, in the JAX package's ``.npz``
   layout;
-* ``max_pairs``, the pool capacity, with ``tile_rank_cap`` the truncated
-  list's ``trunc_pairs`` and with ``bwd_pairs`` the compacted backward's
+* ``max_pairs``, the pool capacity, in ellipse mode the row stage's
+  ``max_rows``, with ``tile_rank_cap`` the truncated list's
+  ``trunc_pairs`` and with ``bwd_pairs`` the compacted backward's
   capacity grow from the observed demand.
 
 The host waits for the device where the JAX ``fit()`` does: at ``log_every``
@@ -42,6 +43,7 @@ from ..device import resolve_device
 from ..models.adc import pos_grad_norm
 from ..models.gaussians import init_pool_from_points
 from ..utils.logging import MetricsLogger
+from ..parallel.sharding import local_batch, make_sharded_train_step
 from ..utils.memory import estimate_train_memory
 from .trainer import (
     TrainState,
@@ -79,6 +81,17 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
     return out
 
 
+def _quiet(msg: str) -> None:
+    """The log of a rank other than 0: nothing."""
+
+
+def _local(batches, mesh):
+    """Global batches -> this rank's views (unchanged without a mesh)."""
+    if mesh is None:
+        return batches
+    return (local_batch(b, mesh) for b in batches)
+
+
 def fit(
     dataset,
     render_cfg: RenderConfig,
@@ -107,6 +120,14 @@ def fit(
             a seeded random 10k-point cloud.
         resume_from: a checkpoint (either package's ``.npz``) to continue
             from; it replaces the initial pool.
+        mesh: this rank's ``(data, tile)`` grid (``parallel.make_mesh``):
+            every rank calls ``fit()`` alike; the step is
+            ``make_sharded_train_step``, each batch's views are split over
+            ``data``, and the state stays replicated, bit-identical on
+            every rank (the ADC draws from one seed on every rank). Only
+            rank 0 logs and writes files. The device is the mesh's.
+        gauss_sharded: the ZeRO-style gaussian-sharded step; not ported
+            yet (raises ``NotImplementedError``).
         device: ``"cuda"`` (default; raises without a card) or ``"cpu"``.
         device_cache_bytes: when the dataset offers ``device_batches`` and
             its views fit under this many bytes, they are copied to the
@@ -125,20 +146,24 @@ def fit(
     ``RenderConfig.trunc_pairs`` to 1.25x the demand, rounded up to 1,024.
     With ``bwd_pairs``, a compacted-backward overflow (``bwd_demand``
     above ``bwd_capacity``; the trailing tiles' gradients dropped, reported)
-    grows ``RenderConfig.bwd_pairs`` the same way. With ``batched_render``
-    these demands are the batch's. The JAX ``fit()``'s
-    ``auto_capacity=False``, which only logs the overflow, is not ported.
-
-    Not ported, and raising ``NotImplementedError``: ``mesh`` and
-    ``gauss_sharded`` (multi-device training). The row and ring capacities
-    that the JAX ``fit()``
-    also grows belong to modes the port raises on (``ops/binning.py``,
-    ``mesh``), so their branches are left out.
+    grows ``RenderConfig.bwd_pairs`` the same way. In ellipse mode a
+    row-stage overflow (``row_demand`` above ``row_capacity``; whole
+    gaussians dropped, reported) grows ``RenderConfig.max_rows`` the same
+    way. With ``batched_render`` these demands are the batch's; under a
+    mesh ``max_pairs`` grows from the worst band's demand, and the pool
+    does not grow (an ADC overflow is logged, as in JAX). The JAX
+    ``fit()``'s ``auto_capacity=False``, which only logs the overflow, is
+    not ported.
     """
-    if mesh is not None or gauss_sharded:
+    if gauss_sharded:
         raise NotImplementedError(
-            "mesh / gauss_sharded (multi-device training) are not ported")
-    dev = resolve_device(device)
+            "gauss_sharded (the ZeRO-style gaussian-sharded step and its "
+            "ring) is not ported yet; it is the next slice of the port")
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    main = mesh is None or mesh.rank == 0
+    if not main:
+        output_dir = None
+        log_fn = _quiet
     t0 = time.time()
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
@@ -180,10 +205,15 @@ def fit(
         state = load_checkpoint(resume_from, state)
         log_fn(f"resumed from {resume_from} at step {int(state.step)}")
 
-    step_fn = make_train_step(render_cfg, train_cfg)
+    def build_step(rcfg: RenderConfig):
+        if mesh is not None:
+            return make_sharded_train_step(rcfg, train_cfg, mesh)
+        return make_train_step(rcfg, train_cfg)
+
+    step_fn = build_step(render_cfg)
 
     if hasattr(dataset, "__next__"):
-        batches = dataset
+        batches = _local(dataset, mesh)
     elif (
         device_cache_bytes
         and hasattr(dataset, "device_batches")
@@ -196,13 +226,17 @@ def fit(
         log_fn(
             f"device-caching {len(dataset)} views "
             f"({dataset.size_bytes(1 if quantize else 4) / 1e6:.0f} MB"
-            + (", uint8-quantized" if quantize else "") + ")"
+            + (", uint8-quantized" if quantize else "")
+            + (f", replicated over {mesh.size} devices)"
+               if mesh is not None else ")")
         )
         batches = dataset.device_batches(
-            train_cfg.batch_size, seed=seed, quantize=quantize, device=dev
+            train_cfg.batch_size, seed=seed, mesh=mesh, quantize=quantize,
+            device=dev,
         )
     else:
-        batches = dataset.batches(train_cfg.batch_size, seed=seed)
+        batches = _local(dataset.batches(train_cfg.batch_size, seed=seed),
+                         mesh)
 
     report = FitReport()
     metrics_log = None
@@ -251,10 +285,15 @@ def fit(
             loss = float(metrics["total"])
             report.losses.append((it, loss))
             n_alive = int(state.pool.num_alive())
-            # Pair-capacity overflow is never silent; it also grows
-            # max_pairs, so capacities need no hand-tuning.
-            demand = int(metrics["pair_demand"])
-            cap_pairs = int(metrics["pair_capacity"])
+            # Pair-capacity overflow (one device: 'pair_demand'; a grid:
+            # the worst band's 'max_band_pairs') is never silent; it also
+            # grows max_pairs, so capacities need no hand-tuning.
+            if "max_band_pairs" in metrics:
+                demand = int(metrics["max_band_pairs"])
+                cap_pairs = int(metrics["band_pair_capacity"])
+            else:
+                demand = int(metrics["pair_demand"])
+                cap_pairs = int(metrics["pair_capacity"])
             if demand > cap_pairs:
                 report.overflow_events += 1
                 ratio = max(demand / cap_pairs * 1.25, 1.5)
@@ -269,7 +308,21 @@ def fit(
                     f"~{est['total_mb']:.0f} MB estimated step footprint)"
                 )
                 render_cfg = render_cfg.with_(max_pairs=new_mp)
-                step_fn = make_train_step(render_cfg, train_cfg)
+                step_fn = build_step(render_cfg)
+            # The ellipse's row stage: the same never-silent growth.
+            if "row_demand" in metrics:
+                rdemand = int(metrics["row_demand"])
+                rcap = int(metrics["row_capacity"])
+                if rdemand > rcap:
+                    report.overflow_events += 1
+                    new_mr = -(-int(rdemand * 1.25) // 1024) * 1024
+                    log_fn(
+                        f"iter {it}: row overflow (demand {rdemand}, "
+                        f"capacity {rcap}) — growing max_rows -> "
+                        f"{new_mr} (recompile)"
+                    )
+                    render_cfg = render_cfg.with_(max_rows=new_mr)
+                    step_fn = build_step(render_cfg)
             # The truncated list has its own capacity (trunc_pairs): the
             # same never-silent growth (overflow drops trailing blocks).
             if "trunc_demand" in metrics:
@@ -284,7 +337,7 @@ def fit(
                         f"trunc_pairs -> {new_tp} (recompile)"
                     )
                     render_cfg = render_cfg.with_(trunc_pairs=new_tp)
-                    step_fn = make_train_step(render_cfg, train_cfg)
+                    step_fn = build_step(render_cfg)
             # The compacted backward too (overflow loses gradient blocks).
             if "bwd_demand" in metrics:
                 bdemand = int(metrics["bwd_demand"])
@@ -298,7 +351,7 @@ def fit(
                         f"bwd_pairs -> {new_bp} (recompile)"
                     )
                     render_cfg = render_cfg.with_(bwd_pairs=new_bp)
-                    step_fn = make_train_step(render_cfg, train_cfg)
+                    step_fn = build_step(render_cfg)
             log_fn(
                 f"iter {it:6d}  loss {loss:.5f}  l1 {float(metrics['l1']):.5f}"
                 f"  ssim {float(metrics['ssim']):.5f}  gaussians {n_alive}"
@@ -339,14 +392,20 @@ def fit(
             if overflow:
                 report.overflow_events += 1
                 cap_now = state.pool.capacity
-                new_cap = max(2 * cap_now, cap_now + 2 * overflow)
-                log_fn(
-                    f"iter {it}: ADC overflow, {overflow} spawns "
-                    f"dropped — growing pool capacity {cap_now} -> "
-                    f"{new_cap} (recompile; dropped spawns re-fire at "
-                    f"the next densification)"
-                )
-                state = grow_state_capacity(state, new_cap)
+                if mesh is None:
+                    new_cap = max(2 * cap_now, cap_now + 2 * overflow)
+                    log_fn(
+                        f"iter {it}: ADC overflow, {overflow} spawns "
+                        f"dropped — growing pool capacity {cap_now} -> "
+                        f"{new_cap} (recompile; dropped spawns re-fire at "
+                        f"the next densification)"
+                    )
+                    state = grow_state_capacity(state, new_cap)
+                else:
+                    log_fn(
+                        f"iter {it}: ADC overflow, {overflow} spawns "
+                        f"dropped (pool capacity {cap_now})"
+                    )
 
         if it % train_cfg.opacity_reset_interval == 0:
             state = opacity_raise_step(state)

@@ -199,7 +199,9 @@ def batch_loss_fn(
     [B], tensors on the pool's device. uv_taps: optional [B, N, 2] zeros
     (the paper-ADC view-space tap, one per view). Returns (loss, metrics)
     with the metrics as tensors (capacities as ints): nothing here waits
-    for the device. With ``tile_rank_cap`` the metrics gain the largest
+    for the device. With ``cull_mode="ellipse"`` they gain the largest
+    view's ``row_demand`` and ``row_capacity``. With ``tile_rank_cap``
+    the metrics gain the largest
     view's ``trunc_demand`` and ``trunc_capacity`` (the truncated list's
     ``trunc_padded_pairs``); with ``bwd_pairs``, the largest view's
     ``bwd_demand`` and ``bwd_capacity`` (``backend="xla"`` has no
@@ -226,6 +228,9 @@ def batch_loss_fn(
             "pair_demand": aux.num_pairs,
             "pair_capacity": aux.pair_capacity,
         }
+        if render_cfg.cull_mode == "ellipse":
+            metrics["row_demand"] = aux.num_rows
+            metrics["row_capacity"] = aux.row_capacity
         if render_cfg.tile_rank_cap:
             metrics["trunc_demand"] = aux.trunc_demand
             metrics["trunc_capacity"] = aux.trunc_capacity
@@ -238,7 +243,8 @@ def batch_loss_fn(
                                            dim=0, dtype=torch.int32)
             metrics["max_radius"] = torch.amax(radii, dim=0)
         return total, metrics
-    totals, l1s, ssims, pairs, tds, bds, radii = [], [], [], [], [], [], []
+    totals, l1s, ssims, pairs, rows, tds, bds, radii = ([] for _ in
+                                                        range(8))
     for i in range(batch["c2w"].shape[0]):
         img, aux = render_from_params(
             params, batch["c2w"][i], batch["fx"][i], batch["fy"][i],
@@ -252,6 +258,7 @@ def batch_loss_fn(
         l1s.append(comps["l1"])
         ssims.append(comps["ssim"])
         pairs.append(aux.num_pairs)
+        rows.append(aux.num_rows)
         tds.append(aux.trunc_demand)
         # backend="xla" reports no backward demand: -1, as in JAX.
         bds.append(aux.bwd_demand if aux.bwd_demand is not None
@@ -265,6 +272,11 @@ def batch_loss_fn(
         "pair_demand": torch.max(torch.stack(pairs)),
         "pair_capacity": render_cfg.max_pairs,
     }
+    if render_cfg.cull_mode == "ellipse":
+        # The row stage's capacity: its overflow drops whole gaussians,
+        # so fit() reads and grows it.
+        metrics["row_demand"] = torch.max(torch.stack(rows))
+        metrics["row_capacity"] = render_cfg.row_capacity
     if render_cfg.tile_rank_cap:
         # The truncated list's own capacity (trunc_pairs): its overflow
         # drops whole trailing blocks, so fit() reads and grows it.
@@ -291,6 +303,18 @@ def _optimizer_tensors(opt: torch.optim.Adam) -> list:
             st = opt.state[p]
             out += [p, st["exp_avg"], st["exp_avg_sq"], st["step"]]
     return out
+
+
+def tap_norm_sum(tap_grad: torch.Tensor,
+                 render_cfg: RenderConfig) -> torch.Tensor:
+    """``sum_v ||d loss / d uv_v * (W/2, H/2)||`` over the views of a
+    ``[B, N, 2]`` tap gradient: [N]. The scale takes the pixel tap to the
+    NDC units the paper thresholds."""
+    ndc = torch.tensor([render_cfg.width * 0.5, render_cfg.height * 0.5],
+                       dtype=torch.float32, device=tap_grad.device)
+    g = tap_grad * ndc
+    return torch.sum(torch.sqrt(g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]),
+                     dim=0)
 
 
 def value_and_grads(state: TrainState, batch: dict,
@@ -322,16 +346,52 @@ def value_and_grads(state: TrainState, batch: dict,
     with torch.no_grad():
         if taps is not None:
             g = taps.grad if taps.grad is not None else torch.zeros_like(taps)
-            ndc = torch.tensor([render_cfg.width * 0.5,
-                                render_cfg.height * 0.5],
-                               dtype=torch.float32, device=g.device)
-            g = g * ndc
-            metrics["uv_grad_sum"] = torch.sum(
-                torch.sqrt(g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]),
-                dim=0)  # [N]
+            metrics["uv_grad_sum"] = tap_norm_sum(g, render_cfg)
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
     return loss.detach(), metrics, grads
+
+
+def apply_update(state: TrainState, loss: torch.Tensor, grads: dict,
+                 train_cfg: TrainConfig):
+    """One optimizer update from the batch's loss and gradients, in
+    place: the position gradient clipped at ``grad_clip_pos``, dead
+    slots' gradients zeroed, the position LR read from the optimizer's
+    own count, Adam, and with ``nan_guard`` the restore of a non-finite
+    update. Returns (new_state, metrics: ``total``, ``pos_grad`` and with
+    ``nan_guard`` ``nonfinite_skipped``)."""
+    pool, opt = state.pool, state.opt_state
+    params = pool.params
+    metrics = {}
+    with torch.no_grad():
+        grads = _clip_pos_grad(grads, train_cfg.grad_clip_pos)
+        # Dead slots must not drift.
+        grads = {
+            k: torch.where(
+                pool.alive.reshape((-1,) + (1,) * (g.dim() - 1)), g, 0.0)
+            for k, g in grads.items()
+        }
+        for k, p in params.items():
+            p.grad = grads[k]
+        # The position schedule reads the optimizer's own update count.
+        for group in opt.param_groups:
+            if group["name"] == "pos":
+                lr = position_lr(opt.state[params["pos"]]["step"], train_cfg)
+                group["lr"] = lr if group["capturable"] else float(lr)
+        if train_cfg.nan_guard:
+            tensors = _optimizer_tensors(opt)
+            saved = [t.clone() for t in tensors]
+        with warnings.catch_warnings():
+            # capturable=True keeps the counts on the device; it is not
+            # used for graph capture here, which Adam warns about.
+            warnings.filterwarnings("ignore", message=".*capturable=True.*")
+            opt.step()
+        if train_cfg.nan_guard:
+            metrics["nonfinite_skipped"] = _guard_nonfinite(
+                loss, grads, tensors, saved)
+    new_state = TrainState(pool=pool, opt_state=opt, step=state.step + 1)
+    metrics.update(total=loss, pos_grad=grads["pos"])
+    return new_state, metrics
 
 
 def make_train_step(render_cfg: RenderConfig, train_cfg: TrainConfig):
@@ -346,41 +406,10 @@ def make_train_step(render_cfg: RenderConfig, train_cfg: TrainConfig):
         raise ValueError(f"unknown adc_mode {train_cfg.adc_mode!r}")
 
     def step_fn(state: TrainState, batch: dict):
-        pool, opt = state.pool, state.opt_state
-        params = pool.params
         loss, metrics, grads = value_and_grads(state, batch, render_cfg,
                                                train_cfg)
-        with torch.no_grad():
-            grads = _clip_pos_grad(grads, train_cfg.grad_clip_pos)
-            # Dead slots must not drift.
-            grads = {
-                k: torch.where(
-                    pool.alive.reshape((-1,) + (1,) * (g.dim() - 1)), g, 0.0)
-                for k, g in grads.items()
-            }
-            for k, p in params.items():
-                p.grad = grads[k]
-            # The position schedule reads the optimizer's own update count.
-            for group in opt.param_groups:
-                if group["name"] == "pos":
-                    lr = position_lr(opt.state[params["pos"]]["step"],
-                                     train_cfg)
-                    group["lr"] = lr if group["capturable"] else float(lr)
-            if train_cfg.nan_guard:
-                tensors = _optimizer_tensors(opt)
-                saved = [t.clone() for t in tensors]
-            with warnings.catch_warnings():
-                # capturable=True keeps the counts on the device; it is not
-                # used for graph capture here, which Adam warns about.
-                warnings.filterwarnings(
-                    "ignore", message=".*capturable=True.*")
-                opt.step()
-            if train_cfg.nan_guard:
-                metrics["nonfinite_skipped"] = _guard_nonfinite(
-                    loss, grads, tensors, saved)
-        new_state = TrainState(pool=pool, opt_state=opt,
-                               step=state.step + 1)
-        metrics.update(total=loss, pos_grad=grads["pos"])
+        new_state, upd = apply_update(state, loss, grads, train_cfg)
+        metrics.update(upd)
         return new_state, metrics
 
     return step_fn

@@ -122,6 +122,7 @@ def _traj_stats(times, n_frames, probes, pair_capacity, extra=None):
         stats["frame_mean"] = [float(x) for x in pv[:, 0]]
         stats["frame_pairs"] = [int(x) for x in pv[:, 1]]
         stats["max_pairs_seen"] = int(pv[:, 1].max())
+        stats["max_rows_seen"] = int(pv[:, 2].max())
         stats["pair_capacity"] = int(pair_capacity)
         stats["pair_overflow_frames"] = (
             int((pv[:, 1] > pair_capacity).sum()) if pair_capacity else 0
@@ -151,8 +152,8 @@ def make_bucketed_render_fn(params: dict, cfg: RenderConfig, fx, fy, cx, cy,
     The closure carries the ladder: ``fn.demands`` (per pose,
     ``(num_pairs, num_rows, trunc_demand)``), ``fn.rungs`` (ascending
     ``max_pairs``), ``fn.assign`` (each pose's rung) and ``fn.cfgs`` (each
-    rung's config, None where no pose uses it). ``cull_mode="ellipse"``
-    (a rung's ``max_rows``) is not ported and raises in the binning.
+    rung's config, None where no pose uses it). In ellipse mode each
+    rung's ``max_rows`` is sized from the row demands of its poses.
     """
     from .render import pair_demand
 

@@ -113,13 +113,19 @@ def test_depth_order_stable():
 
 
 @pytest.mark.parametrize("kw,match", [
+    # The ellipse cull is ported (test_torch_ellipse.py), with and without
+    # truncation: both cases now hold its binning to JAX's, every field
+    # equal; an unknown cull_mode raises.
     (dict(cull_mode="ellipse"), "ellipse"),
-    # Truncation is ported; with the ellipse cull it still raises.
     pytest.param(dict(tile_rank_cap=64, cull_mode="ellipse"), "ellipse",
                  id="kw1-tile_rank_cap"),
 ])
 def test_unported_binning_modes_raise(kw, match):
     s = make_scene(None, n=32, seed_offset=0)
+    cfg = dict(CFG, **kw)
+    got = _check(_jax_projection(s, cfg), cfg)
+    assert int(got.num_rows) > 0
     proj = _to_torch(_jax_projection(s, CFG))
-    with pytest.raises(NotImplementedError, match=match):
-        tbin.bin_gaussians(proj, tconfig.RenderConfig(**CFG, **kw))
+    with pytest.raises(ValueError, match="cull_mode"):
+        tbin.bin_gaussians(proj, tconfig.RenderConfig(
+            **dict(cfg, cull_mode=match + "x")))

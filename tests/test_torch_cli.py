@@ -150,16 +150,40 @@ def test_train_cli_has_every_flag_of_the_jax_script():
     ours = {a for act in train_cli.build_parser()._actions
             for a in act.option_strings if a.startswith("--")}
     assert _script_flags("train") <= ours
-    assert ours - _script_flags("train") == {"--help", "--device"}
+    assert ours - _script_flags("train") == {"--help", "--device",
+                                             "--dist_backend"}
 
 
 @pytest.mark.parametrize("flags", [["--mesh_data", "2"], ["--mesh_tile", "2"],
                                    ["--gauss_sharded"], ["--ring"],
                                    ["--cull_mode", "ellipse"]])
-def test_train_cli_refuses_unported_flags(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_cli.main(["--data_dir", str(tmp_path), "--device", "cpu"]
-                       + flags)
+def test_train_cli_refuses_unported_flags(flags, request, tmp_path):
+    """``--gauss_sharded`` and ``--ring`` (the next slice) raise. The grid
+    and the ellipse cull are ported: a grid refuses NCCL for CPU ranks,
+    naming gloo (no silent switch), and trains over two gloo ranks (one
+    band each; the data axis is held in test_torch_sharding.py); the
+    ellipse cull trains."""
+    if flags[0] in ("--gauss_sharded", "--ring"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            train_cli.main(["--data_dir", str(tmp_path), "--device", "cpu"]
+                           + flags)
+        return
+    if flags[0].startswith("--mesh"):
+        with pytest.raises(ValueError, match="gloo"):
+            train_cli.main(["--data_dir", str(tmp_path), "--device", "cpu"]
+                           + flags)
+        if flags[0] == "--mesh_data":
+            return
+        flags = flags + ["--dist_backend", "gloo"]  # two bands, two ranks
+    prep, _, _ = request.getfixturevalue("trained")
+    state, report = train_cli.main(
+        ["--data_dir", prep, "--output_dir", str(tmp_path / "out"),
+         "--scale_factor", "1.0", "--batch_size", "2", "--iterations", "2",
+         "--capacity", "1024", "--max_pairs", "65536", "--log_every", "1",
+         "--device", "cpu"] + flags)
+    assert report.iterations == 2 and np.isfinite(report.final_loss)
+    assert (state is None) == flags[0].startswith("--mesh")
+    assert os.path.exists(tmp_path / "out" / "checkpoint_final.npz")
 
 
 @pytest.mark.parametrize("cmd", ["mipnerf", "colmap"])
@@ -226,9 +250,14 @@ def test_eval_cli_match_evaluate_views(trained):
                                             max_pairs=65536),
                             alive=pool.alive)
     assert ev["psnr"] == pytest.approx(direct["psnr"], abs=1e-3)
-    with pytest.raises(NotImplementedError, match="spmd"):
-        evaluate.main(["--checkpoint", out, "--data_dir", prep, "--spmd",
-                       "--device", "cpu"])
+    # --spmd is ported: a band grid of two gloo ranks gives the same score.
+    sp = evaluate.main(["--checkpoint", out, "--data_dir", prep,
+                        "--scale_factor", "1.0", "--holdout_every", "4",
+                        "--max_pairs", "65536", "--render_batch", "2",
+                        "--json", "--spmd", "--spmd_ranks", "2",
+                        "--spmd_bands", "2", "--dist_backend", "gloo",
+                        "--device", "cpu"])
+    assert sp["psnr"] == pytest.approx(ev["psnr"], abs=1e-3)
 
 
 def test_inference_cli_trajectories_and_modes(trained, tmp_path):
@@ -259,9 +288,17 @@ def test_inference_cli_trajectories_and_modes(trained, tmp_path):
     for mode in ("batch", "bucket"):
         diff = np.abs(frames[mode].astype(int) - frames["per_pose"])
         assert diff.max() <= 1, mode
-    with pytest.raises(NotImplementedError, match="spmd"):
-        inference.main(["--checkpoint", out, "--trajectory", paths[".npy"],
-                        "--spmd_bands", "2", "--device", "cpu"])
+    # --spmd is ported: poses over two gloo ranks' data axis.
+    d = str(tmp_path / "spmd")
+    written = inference.main(
+        ["--checkpoint", out, "--trajectory", paths[".npy"], "--data_dir",
+         prep, "--scale_factor", "1.0", "--output_dir", d, "--max_pairs",
+         "65536", "--render_batch", "2", "--spmd", "--spmd_ranks", "2",
+         "--dist_backend", "gloo", "--device", "cpu"])
+    from PIL import Image
+
+    got = np.stack([np.asarray(Image.open(p)) for p in written])
+    assert np.abs(got.astype(int) - frames["per_pose"]).max() <= 1
 
 
 def test_render_trained_dataset_flags_and_exports(trained, tmp_path):

@@ -311,8 +311,22 @@ def test_device_batches_match_batches_and_jax(tmp_path, quantize):
                                       np.asarray(c["image"]))
         for k in ("c2w", "fx", "fy", "cx", "cy"):
             np.testing.assert_array_equal(b[k].numpy(), np.asarray(c[k]))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        next(t.device_batches(2, mesh=object(), device="cpu"))
+    # With a mesh (multi-device training is ported): each data coordinate
+    # takes its share of every global batch, in the same order.
+    from gsplat_tpu_torch.parallel import Mesh
+
+    shards = [t.device_batches(4, seed=7, quantize=quantize, mesh=Mesh(
+        {"data": 2, "tile": 1}, d, (d, 0), torch.device("cpu"), None))
+        for d in range(2)]
+    whole = t.device_batches(4, seed=7, quantize=quantize, device="cpu")
+    for _ in range(3):
+        a, b0, b1 = next(whole), next(shards[0]), next(shards[1])
+        for k in a:
+            assert torch.equal(torch.cat([b0[k], b1[k]]), a[k]), k
+    with pytest.raises(ValueError, match="divisible"):
+        next(t.device_batches(3, mesh=Mesh({"data": 2, "tile": 1}, 0,
+                                           (0, 0), torch.device("cpu"),
+                                           None)))
 
 
 def test_prefetch_propagates_errors_and_stops(tmp_path):

@@ -144,8 +144,18 @@ def test_evaluate_views_grows_trunc_pairs_and_takes_tensor_views():
 
 
 def test_evaluate_views_mesh_raises():
+    """``mesh=`` is ported (test_torch_sharding.py holds a 4-rank grid to
+    JAX's): on a one-rank grid the scores equal the unsharded ones, per
+    view and through the sharded batch render."""
+    from gsplat_tpu_torch.parallel import make_mesh
+
     params, views = _scene_and_views()
-    with pytest.raises(NotImplementedError):
-        teval.evaluate_views({k: torch.from_numpy(v)
-                              for k, v in params.items()}, views,
-                             gt.RenderConfig(**CFG), mesh=object())
+    p = {k: torch.from_numpy(v) for k, v in params.items()}
+    mesh = make_mesh(device="cpu")
+    assert mesh.shape == {"data": 1, "tile": 1}
+    for rb in (1, 2):
+        got = teval.evaluate_views(p, views, gt.RenderConfig(**CFG),
+                                   render_batch=rb, mesh=mesh)
+        want = teval.evaluate_views(p, views, gt.RenderConfig(**CFG),
+                                    render_batch=rb)
+        assert got == want

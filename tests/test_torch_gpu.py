@@ -916,3 +916,53 @@ def test_device_batches_on_card_match_host_batches(cuda, tmp_path):
         assert float((q["image"].cpu() - torch.from_numpy(h["image"]))
                      .abs().max()) <= 1e-6
         assert torch.equal(f["c2w"].cpu(), torch.from_numpy(h["c2w"]))
+
+
+# --- the ellipse cull and the (data, tile) grid (slice 11) -------------------
+
+@pytest.mark.parametrize("kind", ["plain", "saturated"])
+def test_kernels_match_plain_on_ellipse_list(cuda, kind):
+    """K1 and K2 on the ellipse cull's shorter pair list (fewer pairs a
+    tile, shifted block boundaries), as on the rect list."""
+    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
+        else {}
+    params, c2w = _scene(600, 0, **shift)
+    params["scale_raw"][:, 0] += 1.6  # elongated: the ellipse culls pairs
+    rect = gt.RenderConfig(**CFG)
+    cfg = rect.with_(cull_mode="ellipse")
+    pf, b = _inputs(params, c2w, cfg, cuda)
+    _, b_rect = _inputs(params, c2w, rect, cuda)
+    assert 0 < int(b.num_pairs) < int(b_rect.num_pairs)
+    assert 0 < int(b.num_rows) <= cfg.row_capacity
+    _check_fwd_bwd(cuda, pf, b, cfg, "launches", "bwd_launches")
+
+
+def _band_rank(params, c2w):
+    """One rank of a 2-rank band grid on the card: (rank 0's image, its
+    K1 launches)."""
+    from gsplat_tpu_torch.parallel import make_mesh, make_sharded_render
+
+    mesh = make_mesh(tile=2)
+    p = {k: torch.from_numpy(v).to(mesh.device) for k, v in params.items()}
+    before = tras.composite_pairs.launches
+    img = make_sharded_render(gt.RenderConfig(**CFG), mesh)(
+        p, None, c2w, *CAM.values())
+    torch.cuda.synchronize()
+    return img.cpu().numpy(), tras.composite_pairs.launches - before
+
+
+def test_band_render_of_two_gloo_ranks_on_card_matches_single_rank(cuda):
+    """Two gloo ranks share the card, one band each: the gathered image
+    within 1e-6 of the single-rank render (tests/test_sharding.py:90), one
+    K1 launch a rank."""
+    from gsplat_tpu_torch.parallel import launch
+
+    params, c2w = _scene(600, 0)
+    img, k1 = launch(_band_rank, 2, backend="gloo", args=(params, c2w))
+    p = {k: torch.from_numpy(v).to(cuda) for k, v in params.items()}
+    with torch.no_grad():
+        want, _ = gt.render_from_params(p, c2w, *CAM.values(),
+                                        gt.RenderConfig(**CFG))
+    assert img.shape == (CFG["height"], CFG["width"], 3)
+    assert float(np.abs(img - want.cpu().numpy()).max()) <= 1e-6
+    assert k1 == 1

@@ -175,6 +175,8 @@ def test_pair_demand_matches_jax():
     pytest.param(dict(bwd_pairs=256), None, id="kw1-bwd_pairs"),
     pytest.param(dict(transmittance_math="log", bwd_pairs=256), None,
                  id="kw2-log"),
+    # The ellipse cull is ported (test_torch_ellipse.py), with and without
+    # truncation: its two cases now hold the render to JAX's.
     (dict(cull_mode="ellipse"), "ellipse"),
     pytest.param(dict(tile_rank_cap=64, cull_mode="ellipse"), "ellipse",
                  id="kw4-tile_rank_cap"),
@@ -202,8 +204,12 @@ def test_unported_options_raise(kw, match):
                                  CAM)
         assert aux_t.bwd_capacity == int(aux_j.bwd_capacity) == 256
         return
-    with pytest.raises(NotImplementedError, match=match):
-        _torch_render(_np_params(s), s["c2w"], dict(CFG, **kw), CAM)
+    # ported: the JAX ellipse render's image, demands and row capacity
+    _, aux_t = _check(_np_params(s), s["c2w"], dict(CFG, **kw), CAM)
+    _, aux_j = _jax_render(_np_params(s), s["c2w"], dict(CFG, **kw), CAM)
+    assert int(aux_t.num_rows) == int(aux_j.num_rows) > 0
+    assert int(aux_t.trunc_demand) == int(aux_j.trunc_demand)
+    assert aux_t.row_capacity == aux_j.row_capacity == CFG["max_pairs"] // 2
 
 
 # --- pool, checkpoint, device -----------------------------------------------

@@ -238,7 +238,7 @@ def test_tools_refuse_without_a_card():
 
 # --- the CLIs at a tiny size ---------------------------------------------------
 
-def test_profile_stages_cli_on_cpu():
+def test_profile_stages_cli_on_cpu(tmp_path):
     r = profile_stages.main([
         "--device", "cpu", "--checkpoint", CKPT, "--height", "32",
         "--width", "48", "--tile_rank_cap", "1024", "--auto_pairs",
@@ -250,8 +250,18 @@ def test_profile_stages_cli_on_cpu():
     assert cfg.tile_rank_cap == 1024 and cfg.trunc_pairs >= 4096
     assert cfg.bwd_pairs >= 4096 and cfg.max_pairs >= r["num_pairs"]
     assert r["fwd"]["iters"] == 1 and r["device"] == "cpu"
-    with pytest.raises(NotImplementedError):
-        profile_stages.main(["--device", "cpu", "--cull_mode", "ellipse"])
+    # The ellipse cull is ported: its binning is profiled (on a
+    # 4,096-slot slice of the checkpoint, to keep the test short).
+    small = str(tmp_path / "slice.npz")
+    with np.load(CKPT) as d:
+        np.savez(small, **{k: d[k][:4096] for k in d.files
+                           if k.startswith("param_") or k == "__alive__"})
+    e = profile_stages.main([
+        "--device", "cpu", "--checkpoint", small, "--height", "32",
+        "--width", "48", "--auto_pairs", "--cull_mode", "ellipse",
+        "--reps", "1"])
+    assert e["cfg"].cull_mode == "ellipse" and e["num_pairs"] > 0
+    assert e["cfg"].max_pairs >= e["num_pairs"]
 
 
 def test_profile_trace_cli_on_cpu(tmp_path, capsys):

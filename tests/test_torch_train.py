@@ -266,8 +266,10 @@ def test_unported_training_options_raise(tmp_path):
             gt.init_train_state(_torch_pool(jpool), tcfg), batch)
         losses.append(float(m["total"]))
     assert abs(losses[0] - losses[1]) <= 1e-5 * max(abs(losses[0]), 1.0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        gt.fit(iter(()), rcfg, gt.TrainConfig(), mesh=object(),
+    # mesh is ported (test_torch_sharding.py); the gaussian-sharded step
+    # is the next slice and still raises.
+    with pytest.raises(NotImplementedError, match="gauss_sharded"):
+        gt.fit(iter(()), rcfg, gt.TrainConfig(), gauss_sharded=True,
                device="cpu")
 
     # A dataset's point cloud is read (the data layer is ported): the pool
