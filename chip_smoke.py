@@ -226,7 +226,32 @@ Phases (any failure exits non-zero, with no result line):
          through host memory); then python -m gsplat_tpu_torch.train
          --mesh_data 2 --mesh_tile 2 --dist_backend gloo for 20 iterations
          on phase 14's prepared dataset;
- 16. one JSON line {"kernels": [...]} (twenty-four kernels: phase 14's
+ 16. the gaussian-sharded (ZeRO-style) step, one spawn of 4 gloo ranks on
+     the card: (a) data 2 x tile 2 from phase 8's perturbed checkpoint at
+     960x540, batch 4, in four forms (scan and batched, reference and
+     paper ADC): every rank holds 65,536 rows of every capacity leaf; the
+     gathered images bit for bit and the gradients within 1e-5 of each
+     leaf's max of one process computing the same banded render
+     (full-frame projection, band_localize per band, each band's binning
+     and K1); against the full-frame single-rank step the loss within
+     1e-5 and Adam's first update as the CPU tests compare it; the two
+     data replicas' shards bit-identical; the paper statistics against
+     the banded process; K1 and K2 against their plain versions on the
+     band inputs autograd gave K2; each rank's step ms and peak memory
+     beside phase 15b's replicated step on the grid; (b) data 1 x tile 4 of
+     the same processes: the ring with ring_capacity 1.25 x the largest
+     band's gaussian demand against the all-gather step (images bit for
+     bit, gradients within 1e-5 of each leaf's max, Adam's first update as
+     the CPU tests compare it, overflow 0), and a starved ring_capacity of
+     1,024 reporting its overflow; (c) fit(mesh=, gauss_sharded=True) and
+     "ring", 12 iterations with the reference ADC from the perturbed
+     checkpoint, alive count and losses within 1 % of the single-rank
+     fit(); its state saved with save_checkpoint_dcp by the grid and
+     loaded in this process bit for bit; (d) python -m
+     gsplat_tpu_torch.train --mesh_data 2 --mesh_tile 2 --gauss_sharded
+     [--ring] --dist_backend gloo, 20 iterations each, on phase 14's
+     dataset;
+ 17. one JSON line {"kernels": [...]} (twenty-four kernels: phase 14's
      ranges as their own entries), the card line, and the final line
      {"ok": true, "device": {...}}.
 
@@ -3233,6 +3258,31 @@ def banded_grads(pool, start, batch, rcfg, tcfg):
     return loss.detach(), grads, stats
 
 
+def first_update(new, ref, start, tcfg, dev, ref_grads=None):
+    """Adam's first update of ``new`` (parameters) against ``ref``'s (a
+    state, or parameters with ``ref_grads``), as tests/test_torch_train.py
+    compares them across paths: (max relative difference where ref's
+    gradient is large, per leaf; every update within its lr)."""
+    lrs = {"pos": tcfg.position_lr_init * 0.01,
+           "opacity_raw": tcfg.opacity_lr, "f_dc": tcfg.feature_lr,
+           "f_rest": tcfg.feature_lr / 20.0, "scale_raw": tcfg.scaling_lr,
+           "q_raw": tcfg.rotation_lr}
+    uerr, lr_ok = {}, True
+    for k in PARAM_KEYS:
+        if ref_grads is None:
+            g1, p1 = ref.pool.params[k].grad, ref.pool.params[k].detach()
+        else:
+            g1, p1 = ref_grads[k], ref[k]
+        s0 = torch.from_numpy(start[k]).to(dev)
+        d, d1 = new[k] - s0, p1 - s0
+        big = g1.abs() > 1e-3 * float(g1.abs().max())
+        uerr[k] = float(((d - d1).abs() / d1.abs().clamp(min=1e-30))[big]
+                        .max()) if bool(big.any()) else 0.0
+        lr_ok = lr_ok and bool((d.abs() <= lrs[k] * (1 + 1e-6)
+                                + s0.abs() * 2**-23).all())
+    return uerr, lr_ok
+
+
 def grid_rank(card):
     """One rank of phase 15b's data x tile grid of gloo ranks on the card.
     Each part runs with the launch counts set to 0 just before it; rank 0
@@ -3345,27 +3395,18 @@ def grid_rank(card):
                 gt.pool_from_numpy(start, alive_np, device=dev), tcfg)
             sstep = gt.make_train_step(tcfg0, tcfg)
             ref, m1 = sstep(ref, batch)
-            lrs = {"pos": tcfg.position_lr_init * 0.01,
-                   "opacity_raw": tcfg.opacity_lr, "f_dc": tcfg.feature_lr,
-                   "f_rest": tcfg.feature_lr / 20.0,
-                   "scale_raw": tcfg.scaling_lr, "q_raw": tcfg.rotation_lr}
             bl, bg, bstats = banded_grads(pool, start, batch, tcfg0, tcfg)
-            gerr, ferr, uerr, lr_ok = {}, {}, {}, True
+            gerr, ferr = {}, {}
             for k in PARAM_KEYS:
                 g = state.pool.params[k].grad
                 g1 = ref.pool.params[k].grad
                 gerr[k] = _max_diff(g, bg[k]) / max(
                     float(bg[k].abs().max()), 1e-30)
-                gmax = float(g1.abs().max())
-                ferr[k] = _max_diff(g, g1) / max(gmax, 1e-30)
-                s0 = torch.from_numpy(start[k]).to(dev)
-                d, d1 = (state.pool.params[k].detach() - s0,
-                         ref.pool.params[k].detach() - s0)
-                big = g1.abs() > 1e-3 * gmax
-                uerr[k] = float(((d - d1).abs() / d1.abs().clamp(
-                    min=1e-30))[big].max()) if bool(big.any()) else 0.0
-                lr_ok = lr_ok and bool((d.abs() <= lrs[k] * (1 + 1e-6)
-                                        + s0.abs() * 2**-23).all())
+                ferr[k] = _max_diff(g, g1) / max(float(g1.abs().max()),
+                                                 1e-30)
+            uerr, lr_ok = first_update(
+                {k: p.detach() for k, p in state.pool.params.items()}, ref,
+                start, tcfg, dev)
             ok = (len(set(digests)) == 1
                   and max(gerr.values()) <= GRID_GRAD_TOL
                   and abs(float(m["total"]) - float(bl)) <= 1e-5
@@ -3526,6 +3567,553 @@ def grid_phase(card):
             and report.nonfinite_steps == 0 and done):
         raise SystemExit("FAIL: 15b train CLI over the grid")
     return k1, k2
+
+
+# Phase 16: the gaussian-sharded (ZeRO-style) step on the same kind of grid.
+# Its image must equal one process computing the same banded render bit for
+# bit (full-frame projection, band_localize per band, each band's binning
+# and K1), its gradients that process's within GRID_GRAD_TOL of each leaf's
+# max. The ring's images must equal the all-gather exchange's bit for bit
+# (its buffer goes back to the pool's slot order, so depth ties composite
+# alike), its gradients match within GRID_GRAD_TOL of each leaf's max, with
+# no overflow, its updated pos and f_dc within JAX's 5e-6
+# (tests/test_sharding.py:330-339) and its first Adam update by the CPU
+# tests' rule; a starved ring (GAUSS_STARVED rows) must report its
+# overflow. fit() with either exchange: alive count and losses within
+# GAUSS_FIT_TOL of the single-rank fit() from the same start.
+GAUSS_TILE4 = 4  # 16b's data 1 x tile 4 grid
+GAUSS_RING_MARGIN = 1.25
+GAUSS_STARVED = 1024
+GAUSS_FIT_TOL = 0.01
+RING_TOL = 5e-6  # ring vs all-gather, updated pos and f_dc
+GAUSS_DCP_DIR = os.path.join(DATA_DIR, "gauss_dcp")
+
+
+def banded_gauss(pool, start, batch, rcfg, tcfg, n_tile):
+    """What the gaussian-sharded grid computes, in one process: each
+    view's full-frame projection of the whole pool, localized to each of
+    ``n_tile`` bands (``band_localize``), each band binned and composited
+    (K1; batched: the views' localized projections of a band stacked into
+    one list), the bands stacked and cropped, the loss and its gradients,
+    clipped and masked as the step does. Returns (images [B, H, W, 3],
+    loss, gradients, paper statistics or None)."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops.gaussian import build_cov3d_packed
+    from gsplat_tpu_torch.ops.losses import compute_loss
+    from gsplat_tpu_torch.ops.rasterize import rasterize_binned
+    from gsplat_tpu_torch.ops.sh import evaluate_sh
+    from gsplat_tpu_torch.parallel import band_config, band_localize
+    from gsplat_tpu_torch.render import stack_view_projections
+    from gsplat_tpu_torch.train.trainer import _clip_pos_grad, tap_norm_sum
+
+    dev = pool.pos.device
+    params = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+              for k, v in start.items()}
+    bcfg, band_px = band_config(rcfg, n_tile)
+    rows = band_px // rcfg.tile
+    B, Hh = batch["c2w"].shape[0], rcfg.height
+    paper = tcfg.adc_mode == "paper"
+    taps = torch.zeros((B, pool.capacity, 2), device=dev,
+                       requires_grad=True) if paper else None
+
+    def project(v, cov3d):
+        c2w = batch["c2w"][v]
+        colors = evaluate_sh(params["f_dc"], params["f_rest"], params["pos"],
+                             c2w)
+        proj = gt.project_gaussians(
+            params["pos"], cov3d, params["opacity_raw"], c2w, batch["fx"][v],
+            batch["fy"][v], batch["cx"][v], batch["cy"][v], rcfg,
+            extra_valid=pool.alive, uv_tap=None if taps is None else taps[v])
+        return proj, colors
+
+    if tcfg.batched_render:
+        cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
+        pcs = [project(v, cov3d) for v in range(B)]
+        proj_b = gt.ProjectedGaussians(*(torch.stack(f) for f in zip(
+            *[p for p, _ in pcs])))
+        cols = torch.cat([c for _, c in pcs])
+        bands = []
+        for b in range(n_tile):
+            st, scfg = stack_view_projections(
+                band_localize(proj_b, b * rows, rows, rcfg.tile), bcfg)
+            img, _ = rasterize_binned(st, cols, gt.bin_gaussians(st, scfg),
+                                      scfg)
+            bands.append(img.reshape(B, bcfg.padded_height, rcfg.width,
+                                     3)[:, :band_px])
+        imgs = torch.cat(bands, dim=1)[:, :Hh]
+        loss = compute_loss(imgs, batch["image"], tcfg.lambda_l1,
+                            tcfg.lambda_ssim)[0]
+        radii = proj_b.radius
+    else:
+        ims, totals, radii = [], [], []
+        for v in range(B):
+            proj, col = project(v, build_cov3d_packed(params["scale_raw"],
+                                                      params["q_raw"]))
+            bands = []
+            for b in range(n_tile):
+                band = band_localize(proj, b * rows, rows, rcfg.tile)
+                bands.append(rasterize_binned(
+                    band, col, gt.bin_gaussians(band, bcfg), bcfg)[0])
+            im = torch.cat(bands)[:Hh]
+            ims.append(im)
+            totals.append(compute_loss(im, batch["image"][v], tcfg.lambda_l1,
+                                       tcfg.lambda_ssim)[0])
+            radii.append(proj.radius)
+        imgs = torch.stack(ims)
+        loss = torch.mean(torch.stack(totals))
+        radii = torch.stack(radii)
+    loss.backward()
+    with torch.no_grad():
+        grads = _clip_pos_grad({k: p.grad for k, p in params.items()},
+                               tcfg.grad_clip_pos)
+        grads = {k: torch.where(pool.alive.reshape(
+            (-1,) + (1,) * (g.dim() - 1)), g, 0.0) for k, g in grads.items()}
+        stats = None
+        if paper:
+            stats = {"uv_grad_sum": tap_norm_sum(taps.grad, rcfg),
+                     "visible": torch.sum((radii > 0).to(torch.int32), dim=0,
+                                          dtype=torch.int32),
+                     "max_radius": torch.amax(radii, dim=0)}
+    return imgs.detach(), loss.detach(), grads, stats
+
+
+def band_gauss_demand(pool, batch, rcfg, n_tile):
+    """The largest number of gaussians one band of one view holds (the
+    ring's buffer demand), from the whole pool's full-frame projections."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops.gaussian import build_cov3d_packed
+    from gsplat_tpu_torch.parallel import band_config, band_localize
+
+    rows = band_config(rcfg, n_tile)[1] // rcfg.tile
+    demand = 0
+    with torch.no_grad():
+        cov3d = build_cov3d_packed(pool.scale_raw, pool.q_raw)
+        for v in range(batch["c2w"].shape[0]):
+            proj = gt.project_gaussians(
+                pool.pos, cov3d, pool.opacity_raw, batch["c2w"][v],
+                batch["fx"][v], batch["fy"][v], batch["cx"][v],
+                batch["cy"][v], rcfg, extra_valid=pool.alive)
+            for b in range(n_tile):
+                band = band_localize(proj, b * rows, rows, rcfg.tile)
+                demand = max(demand, int(band.valid.sum()))
+    return demand
+
+
+def gauss_rank(card):
+    """One rank of phase 16's grid of gloo ranks on the card: (a) the
+    gaussian-sharded step over data 2 x tile 2 in four forms, (b) the ring
+    over data 1 x tile 4 of the same processes, (c) fit() with either
+    exchange and the DCP checkpoint. Each part runs with the launch counts
+    set to 0 just before it; rank 0 computes the one-process references
+    and checks the parts (a failure raises, which fails the rank and the
+    phase). Returns, on rank 0: {"counts": every rank's (K1, K2),
+    "digest": the gathered fit state's digest, "alive": its alive count,
+    "lines": what rank 0 checked, "k2_err": K2's largest abs error against
+    its plain version on the band inputs}."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.ops import raster_cuda
+    from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs_bwd_plain,
+                                                  composite_pairs_plain)
+    from gsplat_tpu_torch.parallel import (gather_train_state, local_batch,
+                                           make_gauss_sharded_render,
+                                           make_gauss_sharded_train_step,
+                                           make_mesh,
+                                           make_sharded_train_step,
+                                           shard_train_state)
+    from gsplat_tpu_torch.parallel.sharding import _all_gather
+    from gsplat_tpu_torch.train import trainer
+
+    cp = raster_cuda.composite_pairs
+    mesh = make_mesh(data=GRID_DATA, tile=GRID_TILE)
+    mesh4 = make_mesh(data=1, tile=GAUSS_TILE4)
+    main_rank = mesh.rank == 0
+    dev = mesh.device
+    pool = gt.restore_pool(CKPT, device=dev)
+    alive_np = pool.alive.cpu().numpy()
+    c2w, center, radius = bench_pose(pool)
+    rcfg, batch, start = train_views(pool, c2w, center, radius)
+    lb = local_batch(batch, mesh)
+    n = [0, 0]
+    lines = []
+
+    def run(fn):
+        torch.cuda.synchronize()
+        _zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        n[0] += cp.launches
+        n[1] += cp.bwd_launches
+        return out
+
+    def check(ok, what):
+        lines.append(what)
+        print(f"[{card}] 16 {what}", flush=True)
+        if not ok:
+            raise SystemExit(f"FAIL: 16 {what}")
+
+    def fresh(tcfg):
+        return gt.init_train_state(
+            gt.pool_from_numpy(start, alive_np, device=dev), tcfg)
+
+    def tcfg_of(**kw):
+        return gt.TrainConfig(capacity=pool.capacity, batch_size=TRAIN_BATCH,
+                              densification_interval=10**9,
+                              opacity_reset_interval=10**9, **kw)
+
+    def timed_step(step, state, views):
+        """(state, metrics, ms, peak GiB) of one counted step."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, m = run(lambda: step(state, views))
+        ms = (time.perf_counter() - t0) * 1e3
+        return state, m, ms, torch.cuda.max_memory_allocated(dev) / 2**30
+
+    # (a) the gaussian-sharded step, four forms, data 2 x tile 2.
+    seen, k2_err, mem = {}, 0.0, {}
+    real_bwd = raster_cuda.composite_pairs_bwd
+    for name, tkw in GRID_STEPS.items():
+        tcfg = tcfg_of(**tkw)
+        state = shard_train_state(fresh(tcfg), mesh)
+        opt = state.opt_state
+        rows = {"alive": state.pool.alive.shape[0]}
+        for k, p in state.pool.params.items():
+            rows[k] = p.shape[0]
+            rows[k + ".m"] = opt.state[p]["exp_avg"].shape[0]
+            rows[k + ".v"] = opt.state[p]["exp_avg_sq"].shape[0]
+        with torch.no_grad():  # the images the step's loss reads
+            imgs = make_gauss_sharded_render(
+                rcfg, mesh, batched=tcfg.batched_render)(
+                    state.pool.params, state.pool.alive, lb)[0]
+        imgs = _all_gather(imgs, mesh.data_group, GRID_DATA, 0)
+        step = make_gauss_sharded_train_step(rcfg, tcfg, mesh)
+        if name == "scan_ref":  # what autograd hands K2 on this band
+            def seen_bwd(*args, **kw):
+                seen["args"] = detached(args)
+                seen["d"] = real_bwd(*args, **kw)
+                return seen["d"]
+            raster_cuda.composite_pairs_bwd = seen_bwd
+        try:
+            state, m, ms, peak = timed_step(step, state, lb)
+        finally:
+            raster_cuda.composite_pairs_bwd = real_bwd
+        mem[name] = (ms, peak)
+        if name == "scan_ref":  # K1 and K2 against their plain versions
+            pf, ts, tc, out = seen["args"][:4]
+            with torch.no_grad():
+                out_p = composite_pairs_plain(pf, ts, tc, seen["args"][6],
+                                              tile_chunk=1024)
+            compare(f"16a rank {mesh.rank} band list", out, out_p, tc)
+            d_p = composite_pairs_bwd_plain(*seen["args"], block_chunk=256)
+            rel = rel_err(seen["d"], d_p)
+            k2_err = float((seen["d"] - d_p).abs().max())
+            print(f"[{card}] 16a rank {mesh.rank}: K2 on the band inputs "
+                  f"autograd gave it vs plain: relative {rel:.3e} (tol "
+                  f"{BWD_TOL}), max abs {k2_err:.3e}", flush=True)
+            if rel > BWD_TOL:
+                raise SystemExit("FAIL: 16a K2 disagrees with its plain "
+                                 "version on the band inputs")
+            del seen["args"], seen["d"], d_p, out_p
+            # Phase 15b's replicated step on the same grid and views.
+            rstate = fresh(tcfg)
+            rstep = make_sharded_train_step(rcfg, tcfg, mesh)
+            _, _, rms, rpeak = timed_step(rstep, rstate, lb)
+            mem["replicated"] = (rms, rpeak)
+            # Steps after the first (median of 3); the gaussian-sharded
+            # one on a copy, so that the checks below read the first.
+            copy = shard_train_state(gather_train_state(state, mesh), mesh)
+            mem["later"] = {tag: float(np.median([
+                timed_step(stp, st, lb)[2] for _ in range(3)]))
+                for tag, stp, st in (("scan_ref", step, copy),
+                                     ("replicated", rstep, rstate))}
+            del rstate, copy
+        digests = [None] * mesh.size
+        dist.all_gather_object(digests, _state_digest(state))
+        grads = {k: _all_gather(p.grad, mesh.tile_group, GRID_TILE, 0)
+                 for k, p in state.pool.params.items()}
+        whole = gather_train_state(state, mesh)
+        paper = {k: _all_gather(m[k], mesh.tile_group, GRID_TILE, 0)
+                 for k in ("uv_grad_sum", "visible", "max_radius") if k in m}
+        if main_rank:
+            bimgs, bl, bg, bstats = banded_gauss(pool, start, batch, rcfg,
+                                                 tcfg, GRID_TILE)
+            same_img = bool(torch.equal(imgs, bimgs))
+            del bimgs
+            ref = fresh(tcfg)
+            ref, m1 = gt.make_train_step(rcfg, tcfg)(ref, batch)
+            gerr = {k: _max_diff(grads[k], bg[k]) / max(
+                float(bg[k].abs().max()), 1e-30) for k in PARAM_KEYS}
+            uerr, lr_ok = first_update(
+                {k: v.detach() for k, v in whole.pool.params.items()}, ref,
+                start, tcfg, dev)
+            replicas = all(digests[t] == digests[GRID_TILE + t]
+                           for t in range(GRID_TILE))
+            ok = (same_img and replicas
+                  and set(rows.values()) == {pool.capacity // GRID_TILE}
+                  and max(gerr.values()) <= GRID_GRAD_TOL
+                  and abs(float(m["total"]) - float(bl)) <= 1e-5
+                  and abs(float(m["total"]) - float(m1["total"])) <= 1e-5
+                  and max(uerr.values()) <= 1e-4 and lr_ok
+                  and int(m["nonfinite_skipped"]) == 0
+                  and int(m["ring_overflow"]) == 0
+                  and int(m["max_band_pairs"]) <= int(
+                      m["band_pair_capacity"]))
+            what = (f"16a step {name}: each rank holds "
+                    f"{sorted(set(rows.values()))} rows of every capacity "
+                    f"leaf; gathered images bit-identical to one process's "
+                    f"banded render: {same_img}; data replicas' shards "
+                    f"bit-identical: {replicas}; gradients vs that "
+                    f"process's over each leaf's max (tol {GRID_GRAD_TOL}): "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in gerr.items())
+                    + f"; loss {float(m['total']):.6f}, banded "
+                    f"{float(bl):.6f}, full-frame single rank "
+                    f"{float(m1['total']):.6f}; Adam's first update vs the "
+                    f"single-rank step where its gradient is large, "
+                    f"relative (tol 1e-4): " + ", ".join(
+                        f"{k} {v:.2e}" for k, v in uerr.items())
+                    + f", every update within its lr: {lr_ok}; band demand "
+                    f"{int(m['max_band_pairs'])} of "
+                    f"{int(m['band_pair_capacity'])}")
+            if paper:
+                a = bstats["uv_grad_sum"]
+                ue = _max_diff(a, paper["uv_grad_sum"])
+                ok = ok and ue <= 1e-6 + 1e-4 * float(a.abs().max()) \
+                    and torch.equal(paper["visible"], bstats["visible"]) \
+                    and torch.equal(paper["max_radius"],
+                                    bstats["max_radius"])
+                what += (f"; uv_grad_sum vs the banded process max abs "
+                         f"{ue:.3e} (max {float(a.abs().max()):.3e}), "
+                         f"visible and max_radius equal")
+            del bg, ref
+            check(ok, what)
+        del state, whole, grads, imgs
+        dist.barrier()
+    peaks = [None] * mesh.size
+    dist.all_gather_object(peaks, mem)
+    if main_rank:
+        print(f"[{card}] 16a per rank, the first step of each (host ms to "
+              f"synchronize, peak GiB torch.cuda.max_memory_allocated): "
+              + "; ".join(f"rank {r}: " + ", ".join(
+                  f"{k} {v[0]:.3f} ms {v[1]:.3f} GiB"
+                  for k, v in p.items() if k != "later")
+                  + ", later steps (median of 3): " + ", ".join(
+                      f"{k} {v:.3f} ms" for k, v in p["later"].items())
+                  for r, p in enumerate(peaks))
+              + " (not a speed figure: the ranks share one card)",
+              flush=True)
+
+    # (b) the ring over data 1 x tile 4.
+    demand = band_gauss_demand(pool, batch, rcfg, GAUSS_TILE4)
+    cap = -(-int(demand * GAUSS_RING_MARGIN) // 1024) * 1024
+    tcfg = tcfg_of()
+    outs = {}
+    b4 = local_batch(batch, mesh4)
+    for tag, ring, rc in (("all-gather", False, None), ("ring", True, cap),
+                          ("starved", True, GAUSS_STARVED)):
+        state = shard_train_state(fresh(tcfg), mesh4)
+        with torch.no_grad():
+            imgs = make_gauss_sharded_render(rcfg, mesh4, ring=ring,
+                                             ring_capacity=rc)(
+                state.pool.params, state.pool.alive, b4)[0]
+        step = make_gauss_sharded_train_step(rcfg, tcfg, mesh4, ring=ring,
+                                             ring_capacity=rc)
+        state, m, ms, peak = timed_step(step, state, b4)
+        grads = {k: _all_gather(p.grad, mesh4.tile_group, GAUSS_TILE4, 0)
+                 for k, p in state.pool.params.items()}
+        whole = gather_train_state(state, mesh4)
+        outs[tag] = ({k: v.detach() for k, v in whole.pool.params.items()},
+                     float(m["total"]), int(m["ring_overflow"]), ms, peak,
+                     grads, imgs)
+        del state, whole
+    if main_rank:
+        (pa, la, _, msa, pka, ga, ia), (pr, lr_, ovf, msr, pkr, gr, ir) = (
+            outs["all-gather"], outs["ring"])
+        diffs = {k: _max_diff(pr[k], pa[k]) for k in PARAM_KEYS}
+        gerr = {k: _max_diff(gr[k], ga[k]) / max(float(ga[k].abs().max()),
+                                                 1e-30) for k in PARAM_KEYS}
+        uerr, lr_ok = first_update(pr, pa, start, tcfg, dev, ref_grads=ga)
+        same_img = bool(torch.equal(ir, ia))
+        check(ovf == 0 and outs["starved"][2] > 0 and cap < pool.capacity
+              and same_img and abs(lr_ - la) <= 1e-5
+              and max(gerr.values()) <= GRID_GRAD_TOL
+              and max(uerr.values()) <= 1e-4 and lr_ok
+              and max(diffs["pos"], diffs["f_dc"]) <= RING_TOL,
+              f"16b tile 4 ring: the largest band's gaussian demand "
+              f"{demand}, ring_capacity {cap} (x{GAUSS_RING_MARGIN}, of "
+              f"{pool.capacity} slots); ring vs all-gather step: images "
+              f"bit-identical: {same_img}; loss {lr_:.6f} vs {la:.6f}; "
+              f"gradients over each leaf's max (tol {GRID_GRAD_TOL}): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in gerr.items())
+              + "; Adam's first update where the gradient is large, "
+              "relative (tol 1e-4): " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in uerr.items())
+              + f", every update within its lr: {lr_ok}; updated "
+              f"parameters max abs " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in diffs.items())
+              + f" (tol {RING_TOL} on pos and f_dc, JAX's); "
+              f"ring_overflow {ovf}; starved ring_capacity "
+              f"{GAUSS_STARVED}: ring_overflow {outs['starved'][2]}; rank 0 "
+              f"step {msa:.3f} ms / {pka:.3f} GiB all-gather, {msr:.3f} ms "
+              f"/ {pkr:.3f} GiB ring (first step of each)")
+    del outs
+    dist.barrier()
+
+    # (c) fit(mesh=, gauss_sharded=True | "ring") from phase 8's perturbed
+    # checkpoint with the reference ADC (fit (a) of phase 8b), then the
+    # DCP pair.
+    tcfg = gt.TrainConfig(iterations=GRID_FIT_ITERS, batch_size=TRAIN_BATCH,
+                          capacity=pool.capacity, checkpoint_interval=10**9,
+                          densification_interval=4, densify_until_iter=12,
+                          opacity_reset_interval=8)
+    points = pool.pos.detach()[pool.alive].cpu().numpy()
+    tmp = tempfile.mkdtemp(prefix=f"gsplat_gauss{mesh.rank}_")
+    fits = {}
+    try:
+        ckpt = os.path.join(tmp, "start.npz")
+        trainer.save_checkpoint(ckpt, fresh(tcfg))
+
+        def batches():
+            while True:
+                yield batch
+
+        def fit(how, logs):
+            return gt.fit(batches(), rcfg, tcfg, initial_points=points,
+                          resume_from=ckpt, mesh=mesh if how else None,
+                          gauss_sharded=how, log_every=4,
+                          log_fn=logs.append, device=dev)
+
+        def peak_of(fn):
+            """(fn(), GiB this process held before, its peak GiB during)."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev) / 2**30
+            out = fn()
+            torch.cuda.synchronize()
+            return out, held, torch.cuda.max_memory_allocated(dev) / 2**30
+
+        fit_mem = {}
+        for how in (True, "ring"):
+            logs = []
+            out, *fit_mem[how] = peak_of(lambda: run(lambda: fit(how, logs)))
+            fits[how] = out + (logs,)
+        if main_rank:  # the single-rank reference (not counted)
+            out, *fit_mem[False] = peak_of(lambda: fit(False, []))
+            fits[False] = out + ([],)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    st = fits[True][0]
+    if main_rank:
+        shutil.rmtree(GAUSS_DCP_DIR, ignore_errors=True)
+    dist.barrier()
+    trainer.save_checkpoint_dcp(GAUSS_DCP_DIR, shard_train_state(st, mesh),
+                                mesh)
+    digest = _state_digest(st) + str(int(st.pool.num_alive()))
+    fit_peaks = [None] * mesh.size
+    dist.all_gather_object(fit_peaks, fit_mem)
+    if main_rank:
+        print(f"[{card}] 16c fit() peak memory per rank (GiB held before "
+              f"the fit / torch.cuda.max_memory_allocated during it; the "
+              f"ADC and the checkpoints gather the whole state on every "
+              f"rank): " + "; ".join(
+                  f"rank {r}: " + ", ".join(
+                      f"{tag} {p[h][0]:.3f} / {p[h][1]:.3f}"
+                      for h, tag in ((True, "all-gather"), ("ring", "ring")))
+                  for r, p in enumerate(fit_peaks))
+              + f"; the single-rank fit() in rank 0's process: "
+              f"{fit_mem[False][0]:.3f} / {fit_mem[False][1]:.3f}",
+              flush=True)
+        s1, r1, _ = fits[False]
+        n1 = int(s1.pool.num_alive())
+        msgs = []
+        ok = True
+        for how, tag in ((True, "all-gather"), ("ring", "ring")):
+            s, r, logs = fits[how]
+            na = int(s.pool.num_alive())
+            lerr = max(abs(a - b) / b for (_, a), (_, b) in zip(r.losses,
+                                                                r1.losses))
+            ok = ok and abs(na - n1) <= GAUSS_FIT_TOL * n1 \
+                and lerr <= GAUSS_FIT_TOL and r.nonfinite_steps == 0 \
+                and [i for i, _ in r.losses] == [i for i, _ in r1.losses] \
+                and not any("ring-stream" in x for x in logs)
+            msgs.append(f"{tag}: losses " + ", ".join(
+                f"{it}: {v:.6f}" for it, v in r.losses)
+                + f", {na} alive, largest loss difference {lerr:.2e}")
+        check(ok, f"16c fit(mesh=, gauss_sharded) {GRID_FIT_ITERS} "
+              f"iterations, reference ADC every 4: " + "; ".join(msgs)
+              + f"; single-rank fit: losses " + ", ".join(
+                  f"{it}: {v:.6f}" for it, v in r1.losses)
+              + f", {n1} alive (tol {GAUSS_FIT_TOL} relative)")
+    del fits
+    counts = [None] * mesh.size
+    dist.all_gather_object(counts, tuple(n))
+    return {"counts": counts, "digest": digest, "lines": lines,
+            "k2_err": k2_err} if main_rank else None
+
+
+def gauss_phase(card):
+    """Phase 16: one spawn of 4 gloo ranks on the card running
+    :func:`gauss_rank`; the DCP checkpoint its fit wrote, loaded here in
+    one process, bit for bit to the gathered state; then (d) the train CLI
+    with --gauss_sharded, and with --ring, over data 2 x tile 2 for
+    GRID_CLI_ITERS iterations each on phase 14's prepared dataset.
+    Returns (K1 launches, K2 launches, K2's largest abs error on the band
+    inputs) of the spawn's ranks."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch.parallel import launch
+    from gsplat_tpu_torch.train import trainer
+    from gsplat_tpu_torch.train.__main__ import main as train_main
+
+    t0 = time.perf_counter()
+    res = launch(gauss_rank, GRID_DATA * GRID_TILE, backend="gloo",
+                 args=(card,))
+    k1 = sum(c[0] for c in res["counts"])
+    k2 = sum(c[1] for c in res["counts"])
+    print(f"[{card}] 16 launches per rank (K1, K2): {res['counts']}; the "
+          f"spawn took {time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(c[0] > 0 and c[1] > 0 for c in res["counts"]):
+        raise SystemExit("FAIL: 16 a rank launched no K1 or no K2")
+    pool = gt.restore_pool(CKPT, device="cuda")
+    state = trainer.load_checkpoint_dcp(
+        GAUSS_DCP_DIR, gt.init_train_state(pool, gt.TrainConfig(
+            capacity=pool.capacity)))
+    got = _state_digest(state) + str(int(state.pool.num_alive()))
+    print(f"[{card}] 16c save_checkpoint_dcp by the data 2 x tile 2 shards, "
+          f"load_checkpoint_dcp in this process: bit-identical to the "
+          f"gathered state: {got == res['digest']}", flush=True)
+    if got != res["digest"]:
+        raise SystemExit("FAIL: 16c the DCP checkpoint")
+    shutil.rmtree(GAUSS_DCP_DIR, ignore_errors=True)
+    for extra in ([], ["--ring"]):
+        out = os.path.join(DATA_DIR, "out_gauss")
+        t1 = time.perf_counter()
+        _, report = train_main([
+            "--data_dir", os.path.join(DATA_DIR, "prepared"), "--output_dir",
+            out, "--scale_factor", "0.5", "--batch_size", str(TRAIN_BATCH),
+            "--capacity", "131072", "--max_pairs", str(SCENE_PAIRS),
+            "--holdout_every", "8", "--iterations", str(GRID_CLI_ITERS),
+            "--log_every", "5", "--checkpoint_interval", str(10**9),
+            "--mesh_data", str(GRID_DATA), "--mesh_tile", str(GRID_TILE),
+            "--dist_backend", "gloo", "--gauss_sharded"] + extra)
+        losses = [v for _, v in report.losses]
+        done = os.path.exists(os.path.join(out, "checkpoint_final.npz"))
+        print(f"[{card}] 16d python -m gsplat_tpu_torch.train --mesh_data "
+              f"{GRID_DATA} --mesh_tile {GRID_TILE} --dist_backend gloo "
+              f"--gauss_sharded {' '.join(extra)}, {GRID_CLI_ITERS} "
+              f"iterations: losses " + ", ".join(
+                  f"{it}: {v:.6f}" for it, v in report.losses)
+              + f"; final checkpoint written: {done}; "
+              f"{time.perf_counter() - t1:.1f} s (its ranks' launches stay "
+              f"in the CLI's own processes)", flush=True)
+        if not (report.iterations == GRID_CLI_ITERS
+                and all(np.isfinite(losses)) and report.nonfinite_steps == 0
+                and done):
+            raise SystemExit("FAIL: 16d train CLI --gauss_sharded")
+        shutil.rmtree(out, ignore_errors=True)
+    return k1, k2, res["k2_err"]
 
 
 def main():
@@ -3833,7 +4421,14 @@ def main():
           f"launches: K1 {ell['k1']} (15a) + {grid_k1} (15b), K2 "
           f"{ell['k2']} + {grid_k2}", flush=True)
 
-    # --- 16. result lines ---
+    # --- 16. the gaussian-sharded step over the grid ---
+    t16 = time.perf_counter()
+    gauss_k1, gauss_k2, gauss_err = gauss_phase(card)
+    bwd_errs.append(gauss_err)
+    print(f"[{card}] phase 16 took {time.perf_counter() - t16:.1f} s; its "
+          f"launches: K1 {gauss_k1}, K2 {gauss_k2}", flush=True)
+
+    # --- 17. result lines ---
     kernels = [{
         "name": "raster_fwd",
         "route": "cuda",
@@ -3842,7 +4437,7 @@ def main():
         "launches": launches + fit_k1 + trunc_k1 + bucket_k1
         + lever_n["launches"] + fit_n["launches"] + serve_k1
         + xla_n[0] + eval_k1 + trace_n[0] + tools_n[0] + counts["b"][0]
-        + counts["d"][0] + ell["k1"] + grid_k1,
+        + counts["d"][0] + ell["k1"] + grid_k1 + gauss_k1,
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -3856,7 +4451,7 @@ def main():
         "replaces": "gsplat_tpu/ops/raster_pallas.py:243",
         "launches": train_k2 + fit_k2 + trunc_k2 + lever_n["bwd_launches"]
         + xla_n[1] + trace_n[1] + tools_n[1] + counts["b"][1] + ell["k2"]
-        + grid_k2,
+        + grid_k2 + gauss_k2,
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

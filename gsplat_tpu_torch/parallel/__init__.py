@@ -3,9 +3,13 @@
 
 from .mesh import (DATA_AXIS, TILE_AXIS, Mesh, initialize_multihost,
                    launch, make_mesh)
-from .sharding import (band_config, gather_bands, local_batch,
+from .sharding import (adc_on_shards, band_config, band_localize,
+                       gather_bands, gather_train_state, local_batch,
+                       make_gauss_sharded_render,
+                       make_gauss_sharded_train_step,
                        make_sharded_batch_render, make_sharded_render,
-                       make_sharded_train_step, render_band)
+                       make_sharded_train_step, num_alive, render_band,
+                       shard_rows, shard_train_state)
 
 __all__ = [
     "DATA_AXIS",
@@ -14,11 +18,19 @@ __all__ = [
     "initialize_multihost",
     "launch",
     "make_mesh",
+    "adc_on_shards",
     "band_config",
+    "band_localize",
     "gather_bands",
+    "gather_train_state",
     "local_batch",
+    "make_gauss_sharded_render",
+    "make_gauss_sharded_train_step",
     "make_sharded_batch_render",
     "make_sharded_render",
     "make_sharded_train_step",
+    "num_alive",
     "render_band",
+    "shard_rows",
+    "shard_train_state",
 ]

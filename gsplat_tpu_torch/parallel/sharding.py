@@ -29,8 +29,15 @@ and the step divides by the data size. Every rank applies the same
 reduced gradient to the same replicated state, so parameters and Adam
 moments stay bit-identical across ranks.
 
-The ZeRO-style gaussian-sharded step, its ring, and ``shard_train_state``
-are not ported yet (the next slice).
+The ZeRO-style gaussian-sharded path, for scenes too large for one
+rank's state: ``make_gauss_sharded_train_step`` (``:291-672``) with its
+exchanges ``collect_all_gather`` (``:349-356``) and ``collect_ring``
+(``:358-418``), ``band_localize`` (``:331-347``), ``shard_train_state``
+(``:675-690``) and its inverse ``gather_train_state``, and the ADC on a
+sharded pool (``adc_on_shards``; JAX runs it through GSPMD). Parameters,
+gradients and Adam moments are split over ``tile``; each rank projects
+its own gaussians with the full-frame camera and exchanges their screen
+features, then bins and composites its band of the whole set.
 """
 
 from __future__ import annotations
@@ -39,10 +46,17 @@ import torch
 import torch.distributed as dist
 
 from ..config import RenderConfig, TrainConfig
+from ..models.gaussians import GaussianPool
+from ..ops.binning import bin_gaussians
+from ..ops.gaussian import build_cov3d_packed
 from ..ops.losses import compute_loss
-from ..render import render_batch_from_params, render_from_params
+from ..ops.projection import ProjectedGaussians, project_gaussians
+from ..ops.rasterize import rasterize_binned
+from ..ops.sh import evaluate_sh
+from ..render import (render_batch_from_params, render_from_params,
+                      stack_view_projections)
 from ..train.trainer import (TrainState, apply_sh_warmup, apply_update,
-                             tap_norm_sum)
+                             map_capacity_leaves, tap_norm_sum)
 from .mesh import DATA_AXIS, TILE_AXIS, Mesh
 
 
@@ -327,3 +341,489 @@ def local_batch(batch: dict, mesh: Mesh) -> dict:
     bl = B // n_data
     d = mesh.coord[0]
     return {k: v[d * bl:(d + 1) * bl] for k, v in batch.items()}
+
+
+# --------------------------------------------------------------------------
+# The gaussian-sharded (ZeRO-style) path: make_gauss_sharded_train_step
+# (:291-672) and shard_train_state (:675-690).
+# --------------------------------------------------------------------------
+
+
+def shard_rows(capacity: int, mesh: Mesh) -> slice:
+    """This rank's rows of a pool of ``capacity`` slots: ``[t*C/T,
+    (t+1)*C/T)`` for tile coordinate t of T (ValueError unless T divides
+    the capacity)."""
+    n_tile = mesh.shape[TILE_AXIS]
+    if capacity % n_tile:
+        raise ValueError(f"pool capacity {capacity} does not split over "
+                         f"the tile axis ({n_tile} ranks)")
+    n = capacity // n_tile
+    return slice(mesh.coord[1] * n, (mesh.coord[1] + 1) * n)
+
+
+def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """Lay out a whole train state for :func:`make_gauss_sharded_train_step`.
+
+    Every leaf whose dim 0 is the pool capacity C (the parameters,
+    ``alive`` and both Adam moments) is cut to this rank's rows
+    (:func:`shard_rows`); everything else (Adam's counts and LRs, the
+    step) is replicated. The result is a :class:`TrainState` whose
+    ``pool.capacity`` is the local C/T. ValueError unless T divides C;
+    a one-band grid returns ``state`` itself."""
+    rows = shard_rows(state.pool.capacity, mesh)
+    if mesh.shape[TILE_AXIS] == 1:
+        return state
+    return map_capacity_leaves(state, lambda x, _: x[rows].clone())
+
+
+def gather_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """The inverse of :func:`shard_train_state`: every capacity leaf
+    all-gathered over the tile group, so every rank holds the whole state
+    (collective over the group). A one-band grid returns ``state``."""
+    n_tile = mesh.shape[TILE_AXIS]
+    if n_tile == 1:
+        return state
+    return map_capacity_leaves(state,
+                               lambda x, _: _all_gather_rows(x, mesh))
+
+
+def _all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The tile group's ``x`` stacked along dim 0 in rank order."""
+    return _all_gather(x, mesh.tile_group, mesh.shape[TILE_AXIS], 0)
+
+
+def _reduce_scatter_rows(g: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The tile group's ``g`` summed, this rank's rows kept (dim 0)."""
+    n = mesh.shape[TILE_AXIS]
+    if n == 1:
+        return g
+    out = g.new_empty((g.shape[0] // n,) + tuple(g.shape[1:]))
+    dist.reduce_scatter(out, list(g.contiguous().chunk(n)),
+                        group=mesh.tile_group)
+    return out
+
+
+class _GatherShards(torch.autograd.Function):
+    """All-gather of the shards' rows over the tile group; the backward is
+    the reduce-scatter of the cotangent, so each rank gets its own rows
+    summed over the bands (the true gradient: each band's backward
+    already holds only its own rows of the image cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh: Mesh):
+        ctx.mesh = mesh
+        return _all_gather_rows(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_rows(g, ctx.mesh), None
+
+
+def _permute(x: torch.Tensor, mesh: Mesh, shift: int) -> torch.Tensor:
+    """``x`` sent to tile rank ``(t + shift) % T``; what tile rank
+    ``(t - shift) % T`` sent returned (``lax.ppermute`` over the ring), as
+    an all-to-all whose only non-empty split goes to the next rank. gloo
+    takes it on both devices (its send and receive abort on CUDA tensors);
+    NCCL runs it as grouped send/receive."""
+    n = mesh.shape[TILE_AXIS]
+    t = mesh.coord[1]
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dst, src = (t + shift) % n, (t - shift) % n
+    rows = x.shape[0]
+    dist.all_to_all_single(
+        out, x, [rows if r == src else 0 for r in range(n)],
+        [rows if r == dst else 0 for r in range(n)],
+        group=mesh.tile_group)
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    """One step of the ring: to the next tile rank; the backward sends the
+    cotangent the other way round."""
+
+    @staticmethod
+    def forward(ctx, x, mesh: Mesh):
+        ctx.mesh = mesh
+        return _permute(x, mesh, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.mesh, -1), None
+
+
+# Exchanged per gaussian: 10 floats (uv, depth, conic, opacity, rgb) that
+# carry gradients, 6 int32 (radius, tile_min, tile_max, valid) that do not.
+def _pack(proj: ProjectedGaussians, colors: torch.Tensor):
+    f = torch.cat([proj.uv, proj.depth[..., None], proj.conic,
+                   proj.opacity[..., None], colors], dim=-1)
+    i = torch.cat([proj.radius[..., None], proj.tile_min, proj.tile_max,
+                   proj.valid[..., None].to(torch.int32)], dim=-1)
+    return f, i
+
+
+def _unpack(f: torch.Tensor, i: torch.Tensor):
+    proj = ProjectedGaussians(
+        uv=f[..., 0:2], depth=f[..., 2], conic=f[..., 3:6],
+        opacity=f[..., 6], radius=i[..., 0], tile_min=i[..., 1:3],
+        tile_max=i[..., 3:5], valid=i[..., 5] != 0)
+    return proj, f[..., 7:10]
+
+
+def band_localize(proj: ProjectedGaussians, row0: int, band_rows: int,
+                  tile: int) -> ProjectedGaussians:
+    """Shift a full-frame projection into the band whose first tile row is
+    ``row0``: v and the tile rows move up by ``row0`` (tiles) and the
+    splats that miss the band's ``band_rows`` rows become invalid (JAX's
+    ``band_localize``, :331-347, expression for expression)."""
+    tmin_y = proj.tile_min[..., 1] - row0
+    tmax_y = proj.tile_max[..., 1] - row0
+    valid = proj.valid & (tmax_y >= 0) & (tmin_y <= band_rows - 1)
+    tmin_y = torch.where(valid, torch.clamp(tmin_y, 0, band_rows - 1), 0)
+    tmax_y = torch.where(valid, torch.clamp(tmax_y, 0, band_rows - 1), -1)
+    shift = torch.tensor([0.0, float(row0 * tile)], dtype=torch.float32,
+                         device=proj.uv.device)
+    return proj._replace(
+        uv=proj.uv - shift,
+        valid=valid,
+        tile_min=torch.stack([proj.tile_min[..., 0], tmin_y], dim=-1),
+        tile_max=torch.stack([proj.tile_max[..., 0], tmax_y], dim=-1),
+    )
+
+
+def collect_all_gather(proj: ProjectedGaussians, colors: torch.Tensor,
+                       mesh: Mesh, axis: int = 0):
+    """The exchange (JAX's ``collect_all_gather``, :349-356): every shard's
+    projections and colours, rows along ``axis``, all-gathered over the
+    tile group in rank order (the pool's slot order). Gradients of the
+    float fields return shard-local (reduce-scatter); the integer fields
+    ride along. Returns (projections, colours) of the whole pool."""
+    f, i = _pack(proj, colors)
+    f = _GatherShards.apply(f.movedim(axis, 0), mesh).movedim(0, axis)
+    i = _all_gather_rows(i.movedim(axis, 0), mesh).movedim(0, axis)
+    return _unpack(f, i)
+
+
+def collect_ring(proj: ProjectedGaussians, colors: torch.Tensor, mesh: Mesh,
+                 row0: int, band_rows: int, tile: int, capacity: int):
+    """The ring exchange (JAX's ``collect_ring``, :358-418): the shards
+    travel the tile ring in T steps; at each the current piece is
+    localized to this band and its valid splats are compacted, in ring
+    order, into buffers of ``capacity`` rows (slot ``min(k, capacity)``
+    of a ``capacity + 1`` buffer, the last row dropped, as JAX's
+    ``mode="drop"``); then the piece moves to tile rank ``t + 1``
+    (:class:`_Ppermute`; its backward streams the cotangent back). The
+    kept rows are then put back in the pool's slot order, so that depth
+    ties composite as the all-gather's do. The working set is
+    O(capacity) instead of O(N). Returns (projections,
+    colours) of the band, localized, and the overflow ``max(demand -
+    capacity, 0)`` ([] int32), reported, never silent."""
+    n_tile = mesh.shape[TILE_AXIS]
+    t = mesh.coord[1]
+    f, i = _pack(proj, colors)
+    dev = f.device
+    fbuf = f.new_zeros((capacity + 1, f.shape[1]))
+    ibuf = torch.tensor([0, 0, 0, -1, -1, 0], dtype=torch.int32,
+                        device=dev).repeat(capacity + 1, 1)
+    # Each row's shard (unfilled rows: n_tile, after every shard).
+    shard = torch.full((capacity + 1,), n_tile, dtype=torch.int64,
+                       device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    for step in range(n_tile):
+        piece, col = _unpack(f, i)
+        piece = band_localize(piece, row0, band_rows, tile)
+        sel = piece.valid
+        k = count + torch.cumsum(sel.to(torch.int32), 0,
+                                 dtype=torch.int32) - 1
+        dest = torch.where(sel & (k < capacity), k, capacity).to(torch.int64)
+        pf, pi = _pack(piece, col)
+        fbuf = fbuf.index_copy(0, dest, pf)
+        ibuf = ibuf.index_copy(0, dest, pi)
+        shard = shard.index_fill(0, dest, (t - step) % n_tile)
+        count = count + torch.sum(sel.to(torch.int32), dtype=torch.int32)
+        if step < n_tile - 1:  # the last piece's move is never read
+            f = _Ppermute.apply(f, mesh)
+            i = _permute(i, mesh, 1)
+    # Ring order -> the pool's slot order (shard by shard, as the
+    # all-gather lays the set out): binning's stable depth sort then
+    # breaks depth ties alike in both exchanges, so that they composite
+    # the same pairs in the same order (JAX's buffer keeps ring order).
+    order = torch.argsort(shard[:capacity], stable=True)
+    band, band_colors = _unpack(fbuf[:capacity][order],
+                                ibuf[:capacity][order])
+    return band, band_colors, torch.clamp(count - capacity, min=0)
+
+
+def make_gauss_sharded_render(render_cfg: RenderConfig, mesh: Mesh,
+                              batched: bool = False, ring: bool = False,
+                              ring_capacity: int | None = None):
+    """The gaussian-sharded renderer that :func:`make_gauss_sharded_train_step`
+    differentiates: fn(params, alive, views, uv_taps=None) -> (images [B,
+    H, W, 3] on every rank of the tile group, this rank's worst [pairs,
+    rows] band demand, the ring overflow ([] int32), ``radius`` [B,
+    n_local] of the local shard's full-frame projections).
+
+    ``params`` and ``alive`` are this rank's rows of the pool; ``views``
+    holds ``c2w`` [B, 4, 4] and ``fx``, ``fy``, ``cx``, ``cy`` [B]. Per
+    view each rank builds its gaussians' covariances and colours and
+    projects them with the full-frame camera (JAX's
+    ``render_band_gauss_sharded``, :422-450; every rank holds another
+    shard, so band cameras would gather an inconsistent mix), the screen
+    features are exchanged over the tile group (:func:`collect_all_gather`,
+    or :func:`collect_ring` with ``ring``; its ``ring_capacity`` defaults
+    to the whole pool), localized to this rank's band, binned and
+    composited (K1 on CUDA; K2 in the backward); the bands are gathered.
+    With ``batched`` (JAX's ``loss_fn_batched``, :456-520) the views go
+    through one exchange, one binning and one K1 launch
+    (``stack_view_projections``); the ring is per view, so ``batched``
+    with ``ring`` raises ValueError. No background is added, as in JAX.
+    """
+    if batched and ring:
+        raise ValueError(
+            "batched_render with the ring exchange is not implemented (the "
+            "ring is per view); use the all-gather exchange "
+            "(gauss_sharded=True) or batched_render=False")
+    n_tile = mesh.shape[TILE_AXIS]
+    band_cfg, band_px = band_config(render_cfg, n_tile)
+    band_rows = band_px // render_cfg.tile
+    row0 = mesh.coord[1] * band_rows
+
+    def project(params, alive, cov3d, c2w, fx, fy, cx, cy, tap):
+        colors = evaluate_sh(params["f_dc"], params["f_rest"],
+                             params["pos"], c2w)
+        proj = project_gaussians(params["pos"], cov3d,
+                                 params["opacity_raw"], c2w, fx, fy, cx, cy,
+                                 render_cfg, extra_valid=alive, uv_tap=tap)
+        return proj, colors
+
+    def per_view(params, alive, views, taps):
+        bands, demands, ovfs, radii = [], [], [], []
+        for v in range(views["c2w"].shape[0]):
+            cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
+            proj, colors = project(
+                params, alive, cov3d, views["c2w"][v], views["fx"][v],
+                views["fy"][v], views["cx"][v], views["cy"][v],
+                None if taps is None else taps[v])
+            if ring:
+                cap = (ring_capacity if ring_capacity is not None
+                       else proj.uv.shape[0] * n_tile)
+                band, band_colors, ovf = collect_ring(
+                    proj, colors, mesh, row0, band_rows, render_cfg.tile,
+                    cap)
+            else:
+                band, band_colors = collect_all_gather(proj, colors, mesh)
+                band = band_localize(band, row0, band_rows, render_cfg.tile)
+                ovf = torch.zeros((), dtype=torch.int32,
+                                  device=colors.device)
+            binning = bin_gaussians(band, band_cfg)
+            img, _ = rasterize_binned(band, band_colors, binning, band_cfg)
+            bands.append(gather_bands(img, render_cfg, mesh))
+            demands.append(torch.stack([binning.num_pairs,
+                                        binning.num_rows]))
+            ovfs.append(ovf)
+            radii.append(proj.radius)
+        return (torch.stack(bands), torch.amax(torch.stack(demands), dim=0),
+                torch.amax(torch.stack(ovfs)), torch.stack(radii))
+
+    def all_views(params, alive, views, taps):
+        B = views["c2w"].shape[0]
+        cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
+        projs, colors = [], []
+        for v in range(B):
+            proj, col = project(params, alive, cov3d, views["c2w"][v],
+                                views["fx"][v], views["fy"][v],
+                                views["cx"][v], views["cy"][v],
+                                None if taps is None else taps[v])
+            projs.append(proj)
+            colors.append(col)
+        proj_b = ProjectedGaussians(*(torch.stack(f) for f in zip(*projs)))
+        # One exchange for the whole batch, rows along dim 1.
+        full, colors_full = collect_all_gather(proj_b, torch.stack(colors),
+                                               mesh, axis=1)
+        band = band_localize(full, row0, band_rows, render_cfg.tile)
+        stacked, bcfg = stack_view_projections(band, band_cfg)
+        binning = bin_gaussians(stacked, bcfg)
+        img, _ = rasterize_binned(
+            stacked, colors_full.reshape(B * full.uv.shape[1], 3), binning,
+            bcfg)
+        bands = img.reshape(B, band_cfg.padded_height, render_cfg.width,
+                            3)[:, :band_px]
+        return (gather_bands(bands, render_cfg, mesh, axis=1),
+                torch.stack([binning.num_pairs, binning.num_rows]),
+                torch.zeros((), dtype=torch.int32, device=img.device),
+                proj_b.radius)
+
+    render = all_views if batched else per_view
+
+    def render_fn(params, alive, views, uv_taps=None):
+        dev = params["pos"].device
+        views = {k: torch.as_tensor(views[k], dtype=torch.float32,
+                                    device=dev)
+                 for k in ("c2w", "fx", "fy", "cx", "cy")}
+        return render(params, alive, views, uv_taps)
+
+    return render_fn
+
+
+def make_gauss_sharded_train_step(render_cfg: RenderConfig,
+                                  train_cfg: TrainConfig, mesh: Mesh,
+                                  ring: bool = False,
+                                  ring_capacity: int | None = None):
+    """The train step with the gaussian pool sharded over ``tile``
+    (ZeRO-style: parameters, gradients and Adam moments each 1/T a rank;
+    JAX's ``make_gauss_sharded_train_step``, :291-672).
+
+    ``state`` is laid out by :func:`shard_train_state` (this rank's
+    C/T rows) and ``batch`` is this rank's share of the views
+    (:func:`local_batch`). The images come from
+    :func:`make_gauss_sharded_render` (``batched_render`` batches its
+    views; ``ring`` with ``batched_render`` raises ValueError); the loss
+    is the mean of the views' losses, or the batch's when batched.
+
+    Gradients. The exchange's backward is a reduce-scatter (or the ring's
+    reverse permutes) and :func:`gather_bands`' backward keeps each
+    band's rows, so each rank's gradients are its rows of the true
+    gradient: unlike JAX (:570, :601) nothing is divided by ``n_tile``.
+    They are averaged over ``data``; the position clip reads the whole
+    pool's norm (the sum of squares summed over the tile group); the NaN
+    guard decides over the whole grid. The update is applied in place, as
+    ``make_train_step``.
+
+    Metrics: ``total``, ``l1``, ``ssim`` (means over ``data``),
+    ``pos_grad`` (this rank's rows, clipped and masked),
+    ``max_band_pairs`` and ``ring_overflow`` (maxima over the grid),
+    ``band_pair_capacity``; in ellipse mode ``row_demand`` and
+    ``row_capacity``; with ``adc_mode="paper"`` ``uv_grad_sum``,
+    ``visible`` and ``max_radius`` of this rank's rows over the global
+    batch; with ``nan_guard`` ``nonfinite_skipped``.
+    """
+    if train_cfg.adc_mode not in ("reference", "paper"):
+        raise ValueError(f"unknown adc_mode {train_cfg.adc_mode!r}")
+    render = make_gauss_sharded_render(render_cfg, mesh,
+                                       train_cfg.batched_render, ring,
+                                       ring_capacity)
+    n_tile, n_data = mesh.shape[TILE_AXIS], mesh.shape[DATA_AXIS]
+    n_all = n_tile * n_data
+    band_cfg, _ = band_config(render_cfg, n_tile)
+    paper = train_cfg.adc_mode == "paper"
+
+    def loss_fn(params, alive, batch, taps):
+        imgs, demand, ovf, radii = render(params, alive, batch, taps)
+        if train_cfg.batched_render:
+            total, comps = compute_loss(imgs, batch["image"],
+                                        train_cfg.lambda_l1,
+                                        train_cfg.lambda_ssim)
+            return (total, comps["l1"], comps["ssim"], demand, ovf,
+                    radii.detach())
+        totals, l1s, ssims = [], [], []
+        for v in range(imgs.shape[0]):
+            total, comps = compute_loss(imgs[v], batch["image"][v],
+                                        train_cfg.lambda_l1,
+                                        train_cfg.lambda_ssim)
+            totals.append(total)
+            l1s.append(comps["l1"])
+            ssims.append(comps["ssim"])
+        return (torch.mean(torch.stack(totals)),
+                torch.mean(torch.stack(l1s)), torch.mean(torch.stack(ssims)),
+                demand, ovf, radii.detach())
+
+    def step_fn(state: TrainState, batch: dict):
+        pool = state.pool
+        params = pool.params
+        for p in params.values():
+            p.grad = None
+        b_local = batch["c2w"].shape[0]
+        taps = None
+        if paper:
+            taps = torch.zeros((b_local, pool.capacity, 2),
+                               dtype=torch.float32, device=pool.pos.device,
+                               requires_grad=True)
+        total, l1, ssim, demand, ovf, radii = loss_fn(
+            apply_sh_warmup(params, state.step, train_cfg), pool.alive,
+            batch, taps)
+        total.backward()
+        with torch.no_grad():
+            # Shard-local already (the exchange's reduce-scatter); the
+            # mean over data in one all-reduce of every leaf.
+            keys = list(params)
+            grads = [params[k].grad if params[k].grad is not None
+                     else torch.zeros_like(params[k]) for k in keys]
+            flat = _reduce(torch.cat([g.reshape(-1) for g in grads]),
+                           mesh.data_group, n_data) / n_data
+            grads = dict(zip(keys, (
+                f.view_as(g) for f, g in zip(
+                    torch.split(flat, [g.numel() for g in grads]), grads))))
+            losses = _reduce(torch.stack([total.detach(), l1.detach(),
+                                          ssim.detach()]),
+                             mesh.data_group, n_data) / n_data
+            # The worst band's demand and ring overflow on the grid.
+            worst = _reduce(torch.cat([demand.to(torch.int32),
+                                       ovf.reshape(1).to(torch.int32)]),
+                            None, n_all, dist.ReduceOp.MAX)
+            cap_views = b_local if train_cfg.batched_render else 1
+            metrics = {"l1": losses[1], "ssim": losses[2],
+                       "max_band_pairs": worst[0],
+                       "band_pair_capacity": band_cfg.max_pairs * cap_views,
+                       "ring_overflow": worst[2]}
+            if band_cfg.cull_mode == "ellipse":
+                metrics["row_demand"] = worst[1]
+                metrics["row_capacity"] = band_cfg.row_capacity * cap_views
+            if paper:
+                # This rank's rows: the tap gradients came back summed
+                # over the bands; the mean over data is the global 1/B.
+                tg = taps.grad if taps.grad is not None \
+                    else torch.zeros_like(taps)
+                metrics["uv_grad_sum"] = _reduce(
+                    tap_norm_sum(tg, render_cfg), mesh.data_group,
+                    n_data) / n_data
+                metrics["visible"] = _reduce(
+                    torch.sum((radii > 0).to(torch.int32), dim=0,
+                              dtype=torch.int32), mesh.data_group, n_data)
+                metrics["max_radius"] = _reduce(
+                    torch.amax(radii, dim=0), mesh.data_group, n_data,
+                    dist.ReduceOp.MAX)
+        new_state, upd = apply_update(
+            state, losses[0], grads, train_cfg,
+            shard_sum=lambda t: _reduce(t, mesh.tile_group, n_tile),
+            grid_max=lambda t: _reduce(t, None, n_all, dist.ReduceOp.MAX))
+        metrics.update(upd)
+        return new_state, metrics
+
+    return step_fn
+
+
+def num_alive(pool: GaussianPool, mesh: Mesh | None = None) -> torch.Tensor:
+    """The pool's alive count; over a gaussian-sharded ``mesh`` the sum of
+    the shards' ([] int32, on every rank)."""
+    n = pool.num_alive().to(torch.int32)
+    if mesh is None or mesh.shape[TILE_AXIS] == 1:
+        return n
+    return _reduce(n.reshape(1), mesh.tile_group, mesh.shape[TILE_AXIS])[0]
+
+
+def adc_on_shards(state: TrainState, mesh: Mesh, adc, *stats):
+    """An ADC step on a gaussian-sharded state (JAX runs ``adc_step`` on
+    the sharded global arrays through GSPMD; here one process per rank):
+    the state and the shard-local statistics (``stats``, dim 0 the rows)
+    are gathered over the tile group, ``adc(whole_state, *whole_stats)``
+    (``train.trainer.adc_step`` / ``adc_step_paper`` with one seeded
+    generator on every rank, so every rank draws the same noise) runs on
+    every rank, and each keeps its rows, written into ``state`` in place.
+    The result equals the single-rank ADC bit for bit. Returns (state,
+    AdcResult) with the counts of the whole pool and ``new_slot_mask`` of
+    this rank's rows."""
+    if mesh.shape[TILE_AXIS] == 1:
+        return adc(state, *stats)
+    whole = gather_train_state(state, mesh)
+    whole, result = adc(whole, *(_all_gather_rows(s, mesh) for s in stats))
+    rows = shard_rows(whole.pool.capacity, mesh)
+    with torch.no_grad():
+        state.pool.alive.copy_(whole.pool.alive[rows])
+        for k, p in state.pool.params.items():
+            q = whole.pool.params[k]
+            p.copy_(q[rows])
+            src, dst = whole.opt_state.state[q], state.opt_state.state[p]
+            dst["exp_avg"].copy_(src["exp_avg"][rows])
+            dst["exp_avg_sq"].copy_(src["exp_avg_sq"][rows])
+    return state, result._replace(pool=state.pool,
+                                  new_slot_mask=result.new_slot_mask[rows])

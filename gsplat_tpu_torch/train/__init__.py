@@ -10,6 +10,7 @@ from .trainer import (
     grow_state_capacity,
     init_train_state,
     load_checkpoint,
+    load_checkpoint_dcp,
     make_optimizer,
     make_train_step,
     opacity_raise_step,
@@ -17,6 +18,7 @@ from .trainer import (
     reset_opt_state_slots,
     restore_pool,
     save_checkpoint,
+    save_checkpoint_dcp,
 )
 
 __all__ = [
@@ -29,6 +31,7 @@ __all__ = [
     "grow_state_capacity",
     "init_train_state",
     "load_checkpoint",
+    "load_checkpoint_dcp",
     "make_optimizer",
     "make_train_step",
     "opacity_raise_step",
@@ -36,4 +39,5 @@ __all__ = [
     "reset_opt_state_slots",
     "restore_pool",
     "save_checkpoint",
+    "save_checkpoint_dcp",
 ]

@@ -14,9 +14,11 @@ card once when they fit ``fit()``'s device cache. ``--mesh_data D
 image bands over ``tile``): under ``torchrun --nproc_per_node D*T`` each
 process joins the launched world; a plain ``python -m`` starts the D*T
 workers itself. ``--dist_backend gloo`` lets several ranks share one card
-(NCCL needs one card per rank). ``--gauss_sharded`` and ``--ring`` (the
-gaussian-sharded step) raise ``NotImplementedError``: they are the next
-slice of the port. ``--device cpu`` runs the plain PyTorch path.
+(NCCL needs one card per rank). ``--gauss_sharded`` shards the pool,
+its gradients and Adam moments over the tile axis (the ZeRO-style step;
+with ``--ring`` the gaussians stream around the tile ring instead of one
+all-gather); on one rank it is ignored, as in the JAX script. ``--device
+cpu`` runs the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -97,10 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="collectives of the grid (gloo: through host "
                         "memory, several ranks per card)")
     p.add_argument("--gauss_sharded", action="store_true",
-                   help="shard the pool over the tile axis (not ported)")
+                   help="shard pool/grads/optimizer over the tile axis "
+                        "(ZeRO-style; for large scenes)")
     p.add_argument("--ring", action="store_true",
                    help="with --gauss_sharded: stream gaussian blocks "
-                        "around the tile ring (not ported)")
+                        "around the tile ring instead of all-gathering the "
+                        "full set")
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
@@ -108,21 +112,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_unported(args) -> None:
-    """Raise ``NotImplementedError`` for the flags whose paths are not
-    ported (the gaussian-sharded step)."""
-    if args.gauss_sharded or args.ring:
-        raise NotImplementedError(
-            "--gauss_sharded and --ring (the gaussian-sharded step) are "
-            "not ported yet; they are the next slice of the port")
-
-
 def main(argv=None):
     """Parse ``argv``, train, and return ``(state, report)`` of ``fit()``;
     over a grid ``(None, report)``: rank 0's report (its checkpoints hold
     the state)."""
     args = build_parser().parse_args(argv)
-    check_unported(args)
     n_ranks = args.mesh_data * args.mesh_tile
     if n_ranks > 1:
         from ..parallel.mesh import cli_rank, grid_device, launch
@@ -201,6 +195,8 @@ def _train(args, mesh=None):
         output_dir=args.output_dir,
         resume_from=args.resume_from,
         mesh=mesh,
+        gauss_sharded=("ring" if args.ring else True)
+        if args.gauss_sharded else False,
         log_every=args.log_every,
         seed=args.seed,
         device=args.device,

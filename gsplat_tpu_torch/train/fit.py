@@ -43,7 +43,11 @@ from ..device import resolve_device
 from ..models.adc import pos_grad_norm
 from ..models.gaussians import init_pool_from_points
 from ..utils.logging import MetricsLogger
-from ..parallel.sharding import local_batch, make_sharded_train_step
+from ..parallel.mesh import TILE_AXIS
+from ..parallel.sharding import (adc_on_shards, gather_train_state,
+                                 local_batch, make_gauss_sharded_train_step,
+                                 make_sharded_train_step, num_alive,
+                                 shard_train_state)
 from ..utils.memory import estimate_train_memory
 from .trainer import (
     TrainState,
@@ -126,8 +130,16 @@ def fit(
             ``data``, and the state stays replicated, bit-identical on
             every rank (the ADC draws from one seed on every rank). Only
             rank 0 logs and writes files. The device is the mesh's.
-        gauss_sharded: the ZeRO-style gaussian-sharded step; not ported
-            yet (raises ``NotImplementedError``).
+        gauss_sharded: with ``mesh``, ``True`` (the all-gather exchange)
+            or ``"ring"`` trains the ZeRO-style gaussian-sharded step
+            (``make_gauss_sharded_train_step``): the state is sharded over
+            ``tile`` after init or resume (``shard_train_state``), the ADC
+            gathers it and its statistics over the tile group and keeps
+            each rank's rows (``adc_on_shards``, equal to the single-rank
+            ADC), the logged alive count is the whole pool's, a ring
+            overflow is logged, and checkpoints and the returned state
+            are the gathered whole state (what JAX's global arrays read
+            as). Without a mesh it is ignored, as in JAX.
         device: ``"cuda"`` (default; raises without a card) or ``"cpu"``.
         device_cache_bytes: when the dataset offers ``device_batches`` and
             its views fit under this many bytes, they are copied to the
@@ -155,12 +167,11 @@ def fit(
     ``fit()``'s ``auto_capacity=False``, which only logs the overflow, is
     not ported.
     """
-    if gauss_sharded:
-        raise NotImplementedError(
-            "gauss_sharded (the ZeRO-style gaussian-sharded step and its "
-            "ring) is not ported yet; it is the next slice of the port")
     dev = mesh.device if mesh is not None else resolve_device(device)
+    sharded = mesh is not None and bool(gauss_sharded)
     main = mesh is None or mesh.rank == 0
+    # Every rank gathers a sharded state for a checkpoint; rank 0 writes.
+    checkpointing = bool(output_dir)
     if not main:
         output_dir = None
         log_fn = _quiet
@@ -206,10 +217,19 @@ def fit(
         log_fn(f"resumed from {resume_from} at step {int(state.step)}")
 
     def build_step(rcfg: RenderConfig):
+        if sharded:
+            return make_gauss_sharded_train_step(
+                rcfg, train_cfg, mesh, ring=gauss_sharded == "ring")
         if mesh is not None:
             return make_sharded_train_step(rcfg, train_cfg, mesh)
         return make_train_step(rcfg, train_cfg)
 
+    def whole(state):
+        """The whole state (gathered over the tile group when sharded)."""
+        return gather_train_state(state, mesh) if sharded else state
+
+    if sharded:
+        state = shard_train_state(state, mesh)
     step_fn = build_step(render_cfg)
 
     if hasattr(dataset, "__next__"):
@@ -284,7 +304,7 @@ def fit(
         if it % log_every == 0 or it == train_cfg.iterations:
             loss = float(metrics["total"])
             report.losses.append((it, loss))
-            n_alive = int(state.pool.num_alive())
+            n_alive = int(num_alive(state.pool, mesh if sharded else None))
             # Pair-capacity overflow (one device: 'pair_demand'; a grid:
             # the worst band's 'max_band_pairs') is never silent; it also
             # grows max_pairs, so capacities need no hand-tuning.
@@ -352,6 +372,14 @@ def fit(
                     )
                     render_cfg = render_cfg.with_(bwd_pairs=new_bp)
                     step_fn = build_step(render_cfg)
+            ring_ovf = int(metrics.get("ring_overflow", 0))
+            if ring_ovf > 0:
+                report.overflow_events += 1
+                log_fn(
+                    f"iter {it}: ring-stream overflow — a band needed "
+                    f"{ring_ovf} more gaussian slots than ring_capacity; "
+                    f"raise it (splats dropped are reported, never silent)"
+                )
             log_fn(
                 f"iter {it:6d}  loss {loss:.5f}  l1 {float(metrics['l1']):.5f}"
                 f"  ssim {float(metrics['ssim']):.5f}  gaussians {n_alive}"
@@ -372,26 +400,31 @@ def fit(
         ):
             if paper_adc:
                 avg_uv = uv_sum / torch.clamp(vis_sum, min=1).to(torch.float32)
-                state, adc_result = adc_step_paper(
-                    state, avg_uv, rad_max, gen, train_cfg
-                )
+
+                def adc(st, avg, rad):
+                    return adc_step_paper(st, avg, rad, gen, train_cfg)
+
+                stats = (avg_uv, rad_max)
                 uv_sum = vis_sum = rad_max = None
             else:
-                state, adc_result = adc_step(
-                    state,
-                    pos_grad_accum,
-                    gen,
-                    (
+                def adc(st, grad):
+                    return adc_step(st, grad, gen, (
                         train_cfg.prune_opacity_threshold,
                         train_cfg.max_grad,
                         train_cfg.scale_threshold,
-                    ),
-                )
+                    ))
+
+                stats = (pos_grad_accum,)
                 pos_grad_accum = None
+            if sharded:
+                state, adc_result = adc_on_shards(state, mesh, adc, *stats)
+            else:
+                state, adc_result = adc(state, *stats)
             overflow = int(adc_result.num_overflowed)
             if overflow:
                 report.overflow_events += 1
-                cap_now = state.pool.capacity
+                cap_now = state.pool.capacity * (
+                    mesh.shape[TILE_AXIS] if sharded else 1)
                 if mesh is None:
                     new_cap = max(2 * cap_now, cap_now + 2 * overflow)
                     log_fn(
@@ -410,13 +443,16 @@ def fit(
         if it % train_cfg.opacity_reset_interval == 0:
             state = opacity_raise_step(state)
 
-        if output_dir and it % train_cfg.checkpoint_interval == 0:
-            path = os.path.join(output_dir, f"checkpoint_{it:06d}.npz")
-            save_checkpoint(path, state)
-            report.checkpoints.append(path)
+        if checkpointing and it % train_cfg.checkpoint_interval == 0:
+            full = whole(state)
+            if output_dir:
+                path = os.path.join(output_dir, f"checkpoint_{it:06d}.npz")
+                save_checkpoint(path, full)
+                report.checkpoints.append(path)
 
     if metrics_log is not None:
         metrics_log.close()
+    state = whole(state)
     if output_dir:
         path = os.path.join(output_dir, "checkpoint_final.npz")
         save_checkpoint(path, state)

@@ -1,8 +1,7 @@
 """Training: optimizer, LR schedule, the train step, the ADC steps and
 checkpoints.
 
-Counterpart of ``gsplat_tpu/train/trainer.py:43-547`` in the per-view
-form (the orbax pair waits for the multi-device slice):
+Counterpart of ``gsplat_tpu/train/trainer.py:43-582``:
 
 * per-parameter Adam groups (eps = ``adam_eps``) with the reference LRs
   (pos on the exponential schedule with its 1 %-delay phase, opacity,
@@ -27,7 +26,10 @@ form (the orbax pair waits for the multi-device slice):
   the pool in place and zero the moments of the slots it rewrote;
   ``grow_state_capacity`` makes a larger pool and optimizer;
 * ``save_checkpoint``/``load_checkpoint``: the JAX package's ``.npz``
-  layout, readable by both packages (optax's 19 leaves, below).
+  layout, readable by both packages (optax's 19 leaves, below);
+  ``save_checkpoint_dcp``/``load_checkpoint_dcp``: the orbax pair's
+  collective directory checkpoints, on ``torch.distributed.checkpoint``,
+  for a state sharded over a process grid.
 
 PyTorch idiom: ``step_fn`` updates the pool's parameters and the optimizer
 in place (the JAX step donates its input state) and returns a
@@ -38,6 +40,7 @@ they are host tensors.
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import NamedTuple
 
@@ -138,24 +141,35 @@ def init_train_state(pool: GaussianPool, cfg: TrainConfig) -> TrainState:
     )
 
 
-def _guard_nonfinite(loss, grads: dict, tensors: list, saved: list):
+def _guard_nonfinite(loss, grads: dict, tensors: list, saved: list,
+                     grid_max=None):
     """Keep the previous values of ``tensors`` (the parameters and the
     optimizer's moments and counts, ``saved`` before the update) when the
     loss or any gradient is non-finite: each is overwritten in place by
-    ``where(finite, new, old)`` on its device, with no host sync. Returns
-    the skipped flag, [] int32."""
+    ``where(finite, new, old)`` on its device, with no host sync. With
+    ``grid_max`` (an in-place MAX over every rank that applies the update)
+    the non-finite flag is decided over all of them, so that no shard of
+    a sharded pool skips an update that the others apply. Returns the
+    skipped flag, [] int32."""
     finite = torch.isfinite(loss)
     for g in grads.values():
         finite = finite & torch.all(torch.isfinite(g))
+    if grid_max is not None:
+        finite = grid_max((~finite).to(torch.int32).reshape(1))[0] == 0
     for new, old in zip(tensors, saved):
         new.copy_(torch.where(finite.to(new.device), new, old))
     return torch.where(finite, 0, 1).to(torch.int32)
 
 
-def _clip_pos_grad(grads: dict, max_norm: float) -> dict:
-    """clip_grad_norm_ on the position leaf only (train.py:536)."""
+def _clip_pos_grad(grads: dict, max_norm: float, shard_sum=None) -> dict:
+    """clip_grad_norm_ on the position leaf only (train.py:536). With
+    ``shard_sum`` (an in-place SUM over the ranks that hold the pool's
+    other rows) the norm is the whole pool's."""
     g = grads["pos"]
-    norm = torch.sqrt(torch.sum(g * g))
+    sq = torch.sum(g * g)
+    if shard_sum is not None:
+        sq = shard_sum(sq.reshape(1))[0]
+    norm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     out = dict(grads)
     out["pos"] = g * scale
@@ -353,18 +367,21 @@ def value_and_grads(state: TrainState, batch: dict,
 
 
 def apply_update(state: TrainState, loss: torch.Tensor, grads: dict,
-                 train_cfg: TrainConfig):
+                 train_cfg: TrainConfig, shard_sum=None, grid_max=None):
     """One optimizer update from the batch's loss and gradients, in
     place: the position gradient clipped at ``grad_clip_pos``, dead
     slots' gradients zeroed, the position LR read from the optimizer's
     own count, Adam, and with ``nan_guard`` the restore of a non-finite
-    update. Returns (new_state, metrics: ``total``, ``pos_grad`` and with
-    ``nan_guard`` ``nonfinite_skipped``)."""
+    update. On a gaussian-sharded pool ``shard_sum`` sums the clip's
+    sum of squares over the shards and ``grid_max`` decides the NaN
+    guard over every rank (both in-place all-reduces). Returns
+    (new_state, metrics: ``total``, ``pos_grad`` and with ``nan_guard``
+    ``nonfinite_skipped``)."""
     pool, opt = state.pool, state.opt_state
     params = pool.params
     metrics = {}
     with torch.no_grad():
-        grads = _clip_pos_grad(grads, train_cfg.grad_clip_pos)
+        grads = _clip_pos_grad(grads, train_cfg.grad_clip_pos, shard_sum)
         # Dead slots must not drift.
         grads = {
             k: torch.where(
@@ -388,7 +405,7 @@ def apply_update(state: TrainState, loss: torch.Tensor, grads: dict,
             opt.step()
         if train_cfg.nan_guard:
             metrics["nonfinite_skipped"] = _guard_nonfinite(
-                loss, grads, tensors, saved)
+                loss, grads, tensors, saved, grid_max)
     new_state = TrainState(pool=pool, opt_state=opt, step=state.step + 1)
     metrics.update(total=loss, pos_grad=grads["pos"])
     return new_state, metrics
@@ -434,6 +451,26 @@ def reset_opt_state_slots(opt: torch.optim.Adam,
     return opt
 
 
+def map_capacity_leaves(state: TrainState, take) -> TrainState:
+    """A new state whose capacity leaves, the parameters, ``alive`` and
+    both Adam moments, are ``take(leaf, fill)`` (``fill``: what a new dead
+    slot holds, -10 for ``opacity_raw``, False for ``alive``, else 0),
+    with a new optimizer of the same LRs; Adam's step counts and the step
+    stay. Growth, and the sharding of ``parallel``, are such maps."""
+    old = state.opt_state
+    with torch.no_grad():
+        params = {k: take(v.detach(), -10.0 if k == "opacity_raw" else 0.0)
+                  for k, v in state.pool.params.items()}
+        pool = GaussianPool(params, take(state.pool.alive, False))
+        opt = _rebuild_optimizer(old, pool.params)
+        for k, p_old in state.pool.params.items():
+            src, dst = old.state[p_old], opt.state[pool.params[k]]
+            dst["step"].copy_(src["step"])
+            for key in ("exp_avg", "exp_avg_sq"):
+                dst[key].copy_(take(src[key], 0.0))
+    return TrainState(pool=pool, opt_state=opt, step=state.step)
+
+
 def grow_state_capacity(state: TrainState, new_capacity: int) -> TrainState:
     """Grow the pool and the optimizer to a larger slot capacity.
 
@@ -448,22 +485,8 @@ def grow_state_capacity(state: TrainState, new_capacity: int) -> TrainState:
     if new_capacity <= cap:
         return state
     pad = new_capacity - cap
-
-    def grow(x, fill=0.0):
-        return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
-
-    old = state.opt_state
-    with torch.no_grad():
-        params = {k: grow(v.detach(), -10.0 if k == "opacity_raw" else 0.0)
-                  for k, v in state.pool.params.items()}
-        pool = GaussianPool(params, grow(state.pool.alive, False))
-        opt = _rebuild_optimizer(old, pool.params)
-        for k, p_old in state.pool.params.items():
-            src, dst = old.state[p_old], opt.state[pool.params[k]]
-            dst["step"].copy_(src["step"])
-            dst["exp_avg"][:cap] = src["exp_avg"]
-            dst["exp_avg_sq"][:cap] = src["exp_avg_sq"]
-    return TrainState(pool=pool, opt_state=opt, step=state.step)
+    return map_capacity_leaves(state, lambda x, fill: torch.cat(
+        [x, x.new_full((pad,) + x.shape[1:], fill)]))
 
 
 def adc_step(state: TrainState, pos_grad: torch.Tensor,
@@ -593,3 +616,76 @@ def load_checkpoint(path, state: TrainState) -> TrainState:
                 st[field].copy_(torch.from_numpy(m))
     return TrainState(pool=pool, opt_state=opt,
                       step=torch.tensor(step, dtype=torch.int32, device=dev))
+
+
+# --------------------------------------------------------------------------
+# Collective checkpoints (torch.distributed.checkpoint), the counterpart of
+# the JAX package's orbax pair (save_checkpoint_orbax :550,
+# load_checkpoint_orbax :567).
+# --------------------------------------------------------------------------
+
+
+def _state_tree(state: TrainState, mesh=None) -> dict:
+    """The checkpoint's tree (JAX's ``_state_tree``, :541-547): params,
+    alive, the optimizer's per-leaf ``step``/``exp_avg``/``exp_avg_sq``
+    and the step, as detached views of ``state``'s own tensors (a load
+    writes through them). With ``mesh`` (a gaussian-sharded state, as
+    ``parallel.shard_train_state`` lays it out) every capacity leaf is a
+    ``DTensor`` sharded on dim 0 over the mesh's tile group, so the
+    checkpoint holds each row once whatever grid wrote it."""
+    wrap = lambda t: t  # noqa: E731
+    if mesh is not None and mesh.shape["tile"] > 1:
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import DTensor, Shard
+
+        dmesh = DeviceMesh.from_group(mesh.tile_group, mesh.device.type)
+
+        def wrap(t):
+            return DTensor.from_local(t, dmesh, [Shard(0)], run_check=False)
+
+    pool, opt = state.pool, state.opt_state
+    return {
+        "params": {k: wrap(p.detach()) for k, p in pool.params.items()},
+        "alive": wrap(pool.alive),
+        "opt_state": {k: {"step": opt.state[p]["step"],
+                          "exp_avg": wrap(opt.state[p]["exp_avg"]),
+                          "exp_avg_sq": wrap(opt.state[p]["exp_avg_sq"])}
+                      for k, p in pool.params.items()},
+        "step": state.step,
+    }
+
+
+def save_checkpoint_dcp(path, state: TrainState, mesh=None):
+    """Directory checkpoint through ``torch.distributed.checkpoint``: the
+    counterpart of the JAX package's ``save_checkpoint_orbax``
+    (sharding-aware, for training across processes, where one ``.npz``
+    would race).
+
+    Collective: every rank of the process group calls it alike. With
+    ``mesh`` the state is gaussian-sharded (``parallel.shard_train_state``)
+    and each rank writes its rows; without it the state is whole on every
+    rank (one process, or the replicated grid), and the planner keeps one
+    copy. Either checkpoint loads into any grid and into one process
+    (:func:`load_checkpoint_dcp`)."""
+    import torch.distributed.checkpoint as dcp
+
+    with warnings.catch_warnings():
+        # One process: DCP says it assumes no process group.
+        warnings.filterwarnings("ignore", message=".*single process.*")
+        dcp.save(_state_tree(state, mesh), checkpoint_id=os.fspath(path))
+
+
+def load_checkpoint_dcp(path, state: TrainState, mesh=None) -> TrainState:
+    """Restore a :func:`save_checkpoint_dcp` checkpoint into a state of
+    matching structure and capacity, in place (the counterpart of
+    ``load_checkpoint_orbax``): its parameters, alive mask, Adam moments
+    and counts and step take the file's values; the LRs stay. With
+    ``mesh`` the state is gaussian-sharded and each rank reads its rows,
+    whatever grid wrote the file. Collective like the save. Returns the
+    state."""
+    import torch.distributed.checkpoint as dcp
+
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*single process.*")
+        dcp.load(_state_tree(state, mesh), checkpoint_id=os.fspath(path))
+    return state

@@ -12,8 +12,9 @@ package's functions and scripts on the same seeded files:
 * ``python -m gsplat_tpu_torch.train --device cpu`` trains from the
   prepared point cloud with the device image cache and writes a
   checkpoint that the JAX package's ``restore_pool`` reads, equal to the
-  port's; its parser has every flag of ``scripts/train.py``, and the
-  flags whose paths are not ported raise ``NotImplementedError``;
+  port's; its parser has every flag of ``scripts/train.py``; over a grid
+  of gloo ranks it refuses NCCL for CPU ranks and trains, replicated or
+  gaussian-sharded (``--gauss_sharded``, ``--ring``);
 * ``eval_checkpoint``'s PSNR equals JAX's ``evaluate_views`` on the same
   checkpoint within 1e-3 dB (the JAX gate between batched and per-view
   evaluation), ``evaluate``'s equals the port's ``evaluate_views``;
@@ -47,9 +48,11 @@ from gsplat_tpu_torch import (eval_checkpoint, evaluate, inference,
                               train_synthetic)
 from gsplat_tpu_torch.data.images import save_image
 from gsplat_tpu_torch.models.gaussians import PARAM_KEYS
+from gsplat_tpu_torch.parallel import launch
 from gsplat_tpu_torch.train import __main__ as train_cli
 from test_data_layer import _write_colmap_model
 from test_torch_data import _same_tree
+from torch_sharding_ranks import run_cli_grid
 
 # One intra-op thread: the suite's xdist workers run side by side, and
 # torch's default of one thread per core each oversubscribes the CPU.
@@ -154,19 +157,42 @@ def test_train_cli_has_every_flag_of_the_jax_script():
                                              "--dist_backend"}
 
 
+@pytest.fixture(scope="module")
+def gauss_trained(trained, tmp_path_factory):
+    """``train --mesh_tile 2 --dist_backend gloo --gauss_sharded``, then
+    with ``--ring``, in one spawn of two gloo ranks, each run through the
+    CLI's rank function as its ``main`` launches it: {flag: (rank 0's
+    report, output dir)}."""
+    base = tmp_path_factory.mktemp("gauss_cli")
+    flags = ("--gauss_sharded", "--ring")
+    argss = [train_cli.build_parser().parse_args(
+        ["--data_dir", trained[0], "--output_dir", str(base / f[2:]),
+         "--scale_factor", "1.0", "--batch_size", "2", "--iterations", "2",
+         "--capacity", "1024", "--max_pairs", "65536", "--log_every", "1",
+         "--device", "cpu", "--mesh_tile", "2", "--dist_backend", "gloo",
+         "--gauss_sharded"] + (["--ring"] if f == "--ring" else []))
+        for f in flags]
+    reports = launch(run_cli_grid, 2, backend="gloo", device="cpu",
+                     args=(argss,))
+    return {f: (r, base / f[2:]) for f, r in zip(flags, reports)}
+
+
 @pytest.mark.parametrize("flags", [["--mesh_data", "2"], ["--mesh_tile", "2"],
                                    ["--gauss_sharded"], ["--ring"],
                                    ["--cull_mode", "ellipse"]])
 def test_train_cli_refuses_unported_flags(flags, request, tmp_path):
-    """``--gauss_sharded`` and ``--ring`` (the next slice) raise. The grid
-    and the ellipse cull are ported: a grid refuses NCCL for CPU ranks,
-    naming gloo (no silent switch), and trains over two gloo ranks (one
-    band each; the data axis is held in test_torch_sharding.py); the
-    ellipse cull trains."""
+    """Every flag is ported. A grid refuses NCCL for CPU ranks, naming
+    gloo (no silent switch), and trains over two gloo ranks (one band
+    each; the data axis is held in test_torch_sharding.py), replicated or
+    with the pool sharded over them (``--gauss_sharded``, and with
+    ``--ring`` its ring exchange: both in the one spawn of
+    ``gauss_trained``); the ellipse cull trains."""
     if flags[0] in ("--gauss_sharded", "--ring"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_cli.main(["--data_dir", str(tmp_path), "--device", "cpu"]
-                           + flags)
+        report, out = request.getfixturevalue("gauss_trained")[flags[0]]
+        assert report.iterations == 2 and np.isfinite(report.final_loss)
+        # rank 0 wrote the gathered pool
+        pool = gt.restore_pool(out / "checkpoint_final.npz", device="cpu")
+        assert pool.capacity == 1024 and int(pool.num_alive()) > 0
         return
     if flags[0].startswith("--mesh"):
         with pytest.raises(ValueError, match="gloo"):

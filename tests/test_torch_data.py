@@ -534,3 +534,39 @@ def test_points3d_written_by_struct_parses_like_jax(tmp_path):
     got = tcol.read_points3d_binary(path)
     assert got.shape == (6, 6)
     np.testing.assert_array_equal(got, jcol.read_points3d_binary(path))
+
+
+def test_checkpoint_roundtrip_dcp(tmp_path):
+    """The twin of tests/test_data_layer.py::test_checkpoint_roundtrip_orbax
+    on the port's ``torch.distributed.checkpoint`` pair, in one process:
+    the step, every parameter, ``alive`` and Adam's moments and counts
+    come back bit for bit into a fresh state of the same capacity."""
+    from gsplat_tpu_torch.train import trainer
+
+    pts = np.random.default_rng(8).normal(0, 1, (16, 3)).astype(np.float32)
+    cfg = gt.TrainConfig(capacity=32)
+
+    def fresh():
+        return gt.init_train_state(
+            gt.init_pool_from_points(pts, capacity=32, device="cpu"), cfg)
+
+    state = fresh()._replace(step=torch.tensor(9, dtype=torch.int32))
+    r = np.random.default_rng(9)
+    with torch.no_grad():
+        state.pool.alive[3] = False
+        for p in state.pool.params.values():
+            st = state.opt_state.state[p]
+            st["step"].fill_(4.0)
+            for key in ("exp_avg", "exp_avg_sq"):
+                st[key].copy_(torch.from_numpy(
+                    r.uniform(0, 1, tuple(p.shape)).astype(np.float32)))
+    trainer.save_checkpoint_dcp(tmp_path / "dcp_ckpt", state)
+    restored = trainer.load_checkpoint_dcp(tmp_path / "dcp_ckpt", fresh())
+    assert int(restored.step) == 9
+    assert torch.equal(restored.pool.alive, state.pool.alive)
+    for k, p in state.pool.params.items():
+        q = restored.pool.params[k]
+        assert torch.equal(q, p), k
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(restored.opt_state.state[q][key],
+                               state.opt_state.state[p][key]), (k, key)

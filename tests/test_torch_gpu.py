@@ -966,3 +966,76 @@ def test_band_render_of_two_gloo_ranks_on_card_matches_single_rank(cuda):
     assert img.shape == (CFG["height"], CFG["width"], 3)
     assert float(np.abs(img - want.cpu().numpy()).max()) <= 1e-6
     assert k1 == 1
+
+
+def _gauss_batch(params, alive, cfg, dev):
+    """Two views of the scene with f_dc + 0.5 as ground truth."""
+    poses = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    poses[1, 0, 3] = 0.2
+    target = {k: torch.from_numpy(v) for k, v in params.items()}
+    target["f_dc"] = target["f_dc"] + 0.5
+    with torch.no_grad():
+        imgs = torch.stack([gt.render_from_params(
+            target, p, *CAM.values(), cfg, alive=torch.from_numpy(alive))[0]
+            for p in poses])
+    batch = {"image": imgs.to(dev), "c2w": torch.from_numpy(poses).to(dev)}
+    batch.update({k: torch.full((2,), v, device=dev)
+                  for k, v in CAM.items()})
+    return batch
+
+
+def _gauss_rank(params, alive, ring):
+    """One rank of a tile-2 grid on the card training the gaussian-sharded
+    step: rank 0's (gathered parameters, loss, ring overflow, its K1 and
+    K2 launches)."""
+    from gsplat_tpu_torch.parallel import (gather_train_state,
+                                           make_gauss_sharded_train_step,
+                                           make_mesh, shard_train_state)
+
+    mesh = make_mesh(tile=2)
+    cfg = gt.RenderConfig(**CFG)
+    tcfg = gt.TrainConfig(capacity=alive.shape[0], batch_size=2)
+    state = shard_train_state(gt.init_train_state(
+        gt.pool_from_numpy(params, alive, device=mesh.device), tcfg), mesh)
+    batch = _gauss_batch(params, alive, cfg, mesh.device)
+    k1, k2 = tras.composite_pairs.launches, tras.composite_pairs.bwd_launches
+    state, m = make_gauss_sharded_train_step(
+        cfg, tcfg, mesh, ring=ring,
+        ring_capacity=512 if ring else None)(state, batch)
+    torch.cuda.synchronize()
+    k1 = tras.composite_pairs.launches - k1
+    k2 = tras.composite_pairs.bwd_launches - k2
+    whole = gather_train_state(state, mesh)
+    return ({k: v.detach().cpu().numpy() for k, v in
+             whole.pool.params.items()}, float(m["total"]),
+            int(m["ring_overflow"]), k1, k2)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_gauss_sharded_step_of_two_gloo_ranks_on_card_matches_single_rank(
+        cuda, ring):
+    """Two gloo ranks share the card with the pool sharded over them (the
+    ring's buffers 512 of the 640 slots): one step within JAX's bounds of
+    the single-rank step (loss 1e-5, pos and f_dc 5e-6,
+    tests/test_sharding.py:149-158), K1 and K2 launched per view."""
+    from gsplat_tpu_torch.parallel import launch
+
+    params, _ = _scene(600, 3)
+    n = 640  # 40 dead slots
+    params = {k: np.concatenate([v, np.zeros((n - 600,) + v.shape[1:],
+                                             np.float32)])
+              for k, v in params.items()}
+    alive = np.arange(n) < 600
+    got, loss, ovf, k1, k2 = launch(_gauss_rank, 2, backend="gloo",
+                                    args=(params, alive, ring))
+    cfg = gt.RenderConfig(**CFG)
+    tcfg = gt.TrainConfig(capacity=n, batch_size=2)
+    state = gt.init_train_state(gt.pool_from_numpy(params, alive,
+                                                   device=cuda), tcfg)
+    state, m = gt.make_train_step(cfg, tcfg)(
+        state, _gauss_batch(params, alive, cfg, cuda))
+    assert ovf == 0 and k1 == 2 and k2 == 2
+    assert abs(loss - float(m["total"])) <= 1e-5
+    for k in ("pos", "f_dc"):
+        want = state.pool.params[k].detach().cpu().numpy()
+        assert float(np.abs(got[k] - want).max()) <= 5e-6, k

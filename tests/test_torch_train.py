@@ -266,11 +266,18 @@ def test_unported_training_options_raise(tmp_path):
             gt.init_train_state(_torch_pool(jpool), tcfg), batch)
         losses.append(float(m["total"]))
     assert abs(losses[0] - losses[1]) <= 1e-5 * max(abs(losses[0]), 1.0)
-    # mesh is ported (test_torch_sharding.py); the gaussian-sharded step
-    # is the next slice and still raises.
-    with pytest.raises(NotImplementedError, match="gauss_sharded"):
-        gt.fit(iter(()), rcfg, gt.TrainConfig(), gauss_sharded=True,
-               device="cpu")
+    # mesh and the gaussian-sharded step are ported
+    # (test_torch_sharding.py); without a mesh gauss_sharded is ignored,
+    # as in JAX: the same fit, bit for bit.
+    fits = []
+    for sharded in (False, True):
+        tcfg = gt.TrainConfig(capacity=512, batch_size=2, iterations=2)
+        st, _ = gt.fit(iter([batch] * 2), rcfg, tcfg,
+                       initial_points=np.asarray(jpool.params["pos"])[:64],
+                       gauss_sharded=sharded, log_fn=lambda s: None,
+                       device="cpu")
+        fits.append(st.pool.pos.detach().numpy())
+    np.testing.assert_array_equal(fits[0], fits[1])
 
     # A dataset's point cloud is read (the data layer is ported): the pool
     # starts from its points, through the outlier filter.
