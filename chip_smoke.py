@@ -9,9 +9,11 @@ Phases (any failure exits non-zero, with no result line):
   1. card check: torch.cuda.is_available(); the card's name and power limit;
   2. build every kernel of the serving, training and profiling paths from
      ``gsplat_tpu_torch/ops/csrc`` (raster_fwd = K1, raster_bwd = K2,
-     raster_ablate = K3's eight bodies in two templates; one nvcc per
-     source, all started together), with ptxas registers/spills (a spill
-     fails the run) and K1's registers, shared memory and CTAs per SM;
+     raster_ablate = K3's eight bodies: six built from K1's own kernel,
+     raster_fwd_kernel.cuh, and pg-roll, pg-log in their own template; one
+     nvcc per source, all started together), with ptxas registers/spills
+     (a spill fails the run) and K1's registers, shared memory and CTAs
+     per SM, which must stay as K1_RESOURCES;
   3. K1, then K2 on a seeded cotangent, against their plain PyTorch versions
      on a seeded synthetic scene at 1920x1080 (K1 rows 0-5 bit-identical to
      the plain version; K1 writing its block-start state: output
@@ -26,7 +28,9 @@ Phases (any failure exits non-zero, with no result line):
   5. serving: restore_pool -> make_render_fn -> render_trajectory over the
      bench pose plus an 8-frame orbit at orbit_scale 4.4, with the kernel's
      launch count read around the run, and the served bench-pose frame held
-     against the image assembled from the plain compositor's output;
+     against the image assembled from the plain compositor's output; the
+     memory model's estimate (utils.memory) beside the run's own peak
+     (the peak less what earlier phases held), within MEMORY_TOL;
   6. timing of K1 alone (CUDA events), without and with state writing,
      beside its plain version, its bound (the (pair, pixel) its cull
      reaches and the cull's own operations, against the bytes) and the
@@ -41,7 +45,10 @@ Phases (any failure exits non-zero, with no result line):
      960x540 on the checkpoint with f_dc and opacity perturbed, ground truth
      rendered from the unperturbed checkpoint: the loss falls, no step is
      skipped, dead slots do not move, K1 and K2 launch views x steps times,
-     no pair overflow; step ms, per-view ms, peak device memory;
+     no pair overflow; step ms, per-view ms, peak device memory and the
+     memory model's estimate within MEMORY_TOL of the step's own peak;
+     then the comm model (python -m gsplat_tpu_torch.comm_model) fed this
+     step's ms per view;
  8b. fit(): four runs of 12 iterations on the batch of phase 8, each
      resumed from the perturbed checkpoint that the port's save_checkpoint
      wrote: (a) reference ADC at the JAX defaults, (b) as (a) with
@@ -57,7 +64,8 @@ Phases (any failure exits non-zero, with no result line):
      the reset slots and unchanged elsewhere, rows outside them
      unchanged), and (c)'s uv_grad_sum through K2 within
      BWD_TOL of the plain backward compositor. ADC counts, capacities,
-     max_pairs, step ms, ADC ms and peak memory per run;
+     max_pairs, step ms, ADC ms and peak memory per run, beside the
+     memory model's estimate (within MEMORY_TOL for (a));
   9. timing of K2 alone (CUDA events) at the bench pose, on the inputs the
      fwd+bwd of phase 7 gave it, with its registers, CTAs launched and
      active and the state's bytes, beside its plain version and its bound;
@@ -65,12 +73,17 @@ Phases (any failure exits non-zero, with no result line):
      (raster_ablate.cu: cumprod, pg-roll, pg-log, no-transc, no-mxu,
      no-compute, no-input, empty) against their plain versions on the
      profiler's 1080p workload (K1 rows 0-5 bit for bit, and its cull as in
-     phase 3), and cumprod and pg-* also against K1's plain version (they
-     compute K1's function), the plain versions' times, then
+     phase 3; the others rows 0-4 within TOL, row 5 exact, rows 6-7 zero),
+     and cumprod and pg-* also against K1's plain version (they compute
+     K1's function); the bodies that cull (no-transc with its own
+     threshold, no-mxu, cumprod) report the (pair, warp) they skipped,
+     equal to the plain test's count; the plain versions' times, then
      ``profile_kernel.main(["--iters", "20"])`` with the launch counts set to
      0 just before it: ms, ns/block and share of bound of each variant, each
-     launch count, the tile-0 digests against the plain versions', and K1's
-     time minus each variant's;
+     launch count, the tile-0 digests against the plain versions', the
+     attribution table (K1's time minus each variant's and the class the
+     difference isolates) and the gate empty <= no-compute <= full within
+     ABLATION_ORDER_SLACK;
  11. the serving levers on the checkpoint at 1920x1080: the SASS
      instructions of expf and log1pf (probe kernels, cuobjdump), which the
      log kernels' bounds count;
@@ -118,7 +131,8 @@ Phases (any failure exits non-zero, with no result line):
      (d) 6 batched train steps (batched_render), without and with the
          compacted backward, each with the counts set to 0 before: the loss
          falls, no step skipped, one K1 and one K2 launch per step; step
-         ms beside phase 8's, peak memory, the batched step's parts;
+         ms beside phase 8's, peak memory and the memory model's estimate
+     within MEMORY_TOL of each run's own peak, the batched step's parts;
      (e) one fit() of 12 iterations, batched, from bwd_pairs 1,024, which
          must grow;
      (f) batched serving at 1080p, 4 poses a launch: phase 5's poses
@@ -258,6 +272,7 @@ Phases (any failure exits non-zero, with no result line):
 Imports nothing of JAX or of the JAX package.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -313,6 +328,18 @@ ABLATION_REPLACES = {
     "pg-roll": "scripts/profile_kernel.py:231 (roll)",
     "pg-log": "scripts/profile_kernel.py:231 (log)",
 }
+# Phase 10's gate on the ablations' times: empty <= no-compute <= full,
+# each within 5 % (the times of one call; a body that does a subset of
+# another's work should not take longer).
+ABLATION_ORDER_SLACK = 1.05
+# K1's resources since its redesign (registers, static shared bytes, CTAs
+# per SM at tile 16, G <= 256, "cumprod"): the ablations share its source,
+# which must leave K1 as it was.
+K1_RESOURCES = (40, 12288, 6)
+# The memory model (gsplat_tpu_torch/utils/memory.py) against a run's own
+# peak: within 25 % for serving, the per-view step, the batched step
+# without and with bwd_pairs, and fit() (a); elsewhere printed.
+MEMORY_TOL = 0.25
 FEAT_ROWS = 10
 TRAIN_H, TRAIN_W = 540, 960  # the reference's training resolution
 TRAIN_PAIRS = 2**21
@@ -348,6 +375,46 @@ def kernel_resources(ptxas: str, kernel: str, log: bool = False,
     m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
                   part.split("Compiling entry", 1)[0])
     return int(m.group(1)), int(m.group(2) or 0)
+
+
+def tensor_bytes(*ts) -> int:
+    """Bytes of the tensors (dicts and lists of them too)."""
+    n = 0
+    for t in ts:
+        if isinstance(t, dict):
+            n += tensor_bytes(*t.values())
+        elif isinstance(t, (list, tuple)):
+            n += tensor_bytes(*t)
+        elif torch.is_tensor(t):
+            n += t.numel() * t.element_size()
+    return n
+
+
+def memory_line(card, label, other, est, gate=False, dev=None):
+    """Print a run's peak (``torch.cuda.max_memory_allocated`` since the
+    last reset) beside the memory model's estimate ``est`` (a dict of
+    ``utils.memory``): ``other`` is what the device held before the run
+    that the run does not own (earlier phases' tensors; the run's own
+    inputs, such as its batch, are not in it), so the run's own peak is
+    the peak less ``other``. With ``gate`` the estimate must lie within
+    MEMORY_TOL of it. Returns (own peak GiB, estimate / own)."""
+    peak = torch.cuda.max_memory_allocated(dev)
+    own = peak - other
+    e = est["total_mb"] * 1e6
+    ratio = e / own
+    ok = abs(ratio - 1.0) <= MEMORY_TOL
+    print(f"[{card}] memory, {label}: peak {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated), {other / 2**30:.3f} GiB of it "
+          f"held before the run by others, the run's own {own / 2**30:.3f} "
+          f"GiB; estimate (utils.memory) {e / 2**30:.3f} GiB"
+          + (f" at its {est['peak_phase']} phase" if "peak_phase" in est
+             else "") + f"; estimate / own {ratio:.3f}, estimate / peak "
+          f"{e / peak:.3f}" + (f"; gate +-{MEMORY_TOL:.0%}: {ok}" if gate
+                               else ""), flush=True)
+    if gate and not ok:
+        raise SystemExit(f"FAIL: the memory model misses {label}'s peak: "
+                         f"estimate / own {ratio:.3f}")
+    return own / 2**30, ratio
 
 
 def card_line() -> str:
@@ -594,7 +661,11 @@ def train_phase(pool, bench_c2w, center, radius, card):
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
 
+    from gsplat_tpu_torch.utils.memory import estimate_train_memory
+
     dev = pool.pos.device
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated()  # before the batch and the state
     cfg, batch, start = train_views(pool, bench_c2w, center, radius)
     tpool = gt.pool_from_numpy(start, pool.alive.cpu().numpy(), device=dev)
     tcfg = gt.TrainConfig(capacity=tpool.capacity, batch_size=TRAIN_BATCH,
@@ -640,6 +711,9 @@ def train_phase(pool, bench_c2w, center, radius, card):
             and skipped == [0] * TRAIN_STEPS and dead_same
             and k1 == k2 == views and max(demand) <= cfg.max_pairs):
         raise SystemExit("FAIL: training phase")
+    memory_line(card, f"the per-view step ({TRAIN_BATCH} views at "
+                f"{TRAIN_W}x{TRAIN_H})", other,
+                estimate_train_memory(cfg, tcfg), gate=True)
     trained = {k: v.detach().clone() for k, v in tpool.params.items()}
     parts = train_parts_ms(state, batch, cfg, tcfg)
     print(f"[{card}] train step parts (CUDA events, median of 3, after the "
@@ -960,6 +1034,7 @@ def fit_run(fit_mod, name, tcfg, cfg, batch, points, start_ckpt, out_dir,
     was logged wherever a logged pair demand exceeded the capacity.
     Returns a dict of what the later checks read."""
     from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+    from gsplat_tpu_torch.utils.memory import estimate_train_memory
 
     rec = {"max_pairs": [], "ms": [], "demand": [], "adc": [], "steps": 0,
            "snapshot_at": 6 if name == "a" else None}
@@ -976,6 +1051,7 @@ def fit_run(fit_mod, name, tcfg, cfg, batch, points, start_ckpt, out_dir,
     cap0 = tcfg.capacity
     real = _instrument_fit(fit_mod, rec)
     torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - tensor_bytes(batch)
     torch.cuda.reset_peak_memory_stats()
     composite_pairs.launches = 0
     composite_pairs.bwd_launches = 0
@@ -1013,6 +1089,16 @@ def fit_run(fit_mod, name, tcfg, cfg, batch, points, start_ckpt, out_dir,
           f"{float(np.median(rec['ms'])):.3f} (" + ", ".join(
               f"{t:.1f}" for t in rec["ms"]) + f"); peak device memory "
           f"{peak_gib:.2f} GiB; wall {report.wall_time_s:.2f} s", flush=True)
+    # The run holds this script's snapshot of the state after step 6 (the
+    # checkpoint check's) from then on: not fit()'s.
+    memory_line(card, f"fit ({name}) (its step at capacity "
+                f"{state.pool.capacity}, max_pairs {rec['max_pairs'][-1]}; "
+                f"the script's step-6 snapshot counted as held by others)",
+                other + tensor_bytes(rec.get("snapshot")),
+                estimate_train_memory(
+                    cfg.with_(max_pairs=rec["max_pairs"][-1]),
+                    dataclasses.replace(tcfg, capacity=state.pool.capacity)),
+                gate=name == "a")
     losses = [v for _, v in report.losses]
     ok = (all(np.isfinite(losses)) and report.nonfinite_steps == 0
           and k1 == k2 == views and len(rec["ms"]) == FIT_ITERS)
@@ -1127,18 +1213,28 @@ def ablation_phase(card, dev):
     on the profiler's 1080p workload (K1 rows 0-5 bit for bit and its cull
     checked; the K3 kernels rows 0-4 within TOL, row 5 exact; rows 6-7
     zero, finite), cumprod and pg-* also against K1's plain
-    version (rows 0-4 within TOL, row 5 exact), each plain version's time,
-    then the profiler through its entry point with every launch count set
-    to 0 just before.
+    version (rows 0-4 within TOL, row 5 exact). The six bodies built from
+    K1's kernel (``raster_ablate.K1_BODIES``); those that cull
+    (``raster_ablate.CULLS``) also report the (pair, warp) they skipped,
+    which must equal the plain test's count (``cull_audit``, no-transc with
+    its own threshold), none with a non-zero alpha of the body's own. Then
+    each plain version's time, and the profiler through its entry point
+    with every launch count set to 0 just before: its attribution table
+    (K1 minus each variant, the class each difference isolates) and the
+    gate empty <= no-compute <= full within ABLATION_ORDER_SLACK.
     Returns ({variant: max abs error}, {variant: plain ms}, {variant: the
     profiler's result}, {variant: launches in the profiler's run}, the
     share of (pair, warp) K1's cull skips)."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch import profile_kernel
-    from gsplat_tpu_torch.ops.raster_ablate import (K1_FUNCTION, ablate,
+    from gsplat_tpu_torch.ops.raster_ablate import (CULLS, K1_BODIES,
+                                                    K1_FUNCTION, ablate,
                                                     ablate_plain)
-    from gsplat_tpu_torch.ops.raster_cuda import (composite_pairs,
-                                                  composite_pairs_plain)
+    from gsplat_tpu_torch.ops.raster_cuda import (active_blocks,
+                                                  composite_pairs,
+                                                  composite_pairs_plain,
+                                                  cull_audit,
+                                                  tile_block_offsets)
 
     cfg = gt.RenderConfig(height=H, width=W, max_pairs=2**18)
     pf, ts, tc = (t.to(dev) for t in profile_kernel.make_workload(cfg, 4))
@@ -1149,7 +1245,9 @@ def ablation_phase(card, dev):
     errs, plain_ms, digests = {}, {}, {}
     for name, (kernel, plain) in pairs.items():
         plain_fn = functools.partial(plain, pf, ts, tc, cfg, tile_chunk=512)
-        out_k = kernel(pf, ts, tc, cfg)
+        skipped = torch.zeros(1, dtype=torch.int64, device=dev)
+        out_k = kernel(pf, ts, tc, cfg, skipped=skipped) if name in CULLS \
+            else kernel(pf, ts, tc, cfg)
         out_p = plain_fn()
         torch.cuda.synchronize()
         errs[name] = float((out_k[:, 0:5] - out_p[:, 0:5]).abs().max())
@@ -1160,12 +1258,27 @@ def ablation_phase(card, dev):
         zero67 = bool((out_k[:, 6:] == 0).all())
         finite = bool(torch.isfinite(out_k).all())
         digests[name] = float(out_p[0, 0:5].sum())
-        print(f"[profile workload 1080p] {name} vs plain: max abs err rows "
-              f"0-4 {errs[name]:.3e} (tol {tol}), {exact} exact: {same5}, "
-              f"rows 6-7 zero: {zero67}, finite: {finite}, blocks composited "
-              f"{int(out_k[:, 5, 0].sum())}", flush=True)
+        src = "K1's kernel" if name in K1_BODIES + ("full",) else \
+            "its own template"
+        print(f"[profile workload 1080p] {name} ({src}) vs plain: max abs "
+              f"err rows 0-4 {errs[name]:.3e} (tol {tol}), {exact} exact: "
+              f"{same5}, rows 6-7 zero: {zero67}, finite: {finite}, blocks "
+              f"composited {int(out_k[:, 5, 0].sum())}", flush=True)
         if not (errs[name] <= tol and same5 and zero67 and finite):
             raise SystemExit(f"FAIL: {name} disagrees with its plain version")
+        if name in CULLS:
+            blk, tile, _ = active_blocks(ts, tile_block_offsets(out_p), cfg)
+            n = cull_audit(pf, blk, tile, cfg, rational=CULLS[name])
+            got = int(skipped.item())
+            print(f"[profile workload 1080p] {name}'s cull "
+                  f"({'its own alpha' if CULLS[name] else 'K1'}'s "
+                  f"threshold): the kernel skipped {got} of {n['total']} "
+                  f"(pair, warp), the plain test {n['skipped']} "
+                  f"({n['skipped'] / n['total']:.4f}), all-zero "
+                  f"{n['zero']}, unsafe {n['unsafe']}", flush=True)
+            if got != n["skipped"] or n["unsafe"] != 0 or got == 0:
+                raise SystemExit(f"FAIL: {name}'s cull disagrees with the "
+                                 f"plain test")
         if name == "full":
             k1_plain = out_p
             n = check_cull("profile workload 1080p", pf, ts, tc, out_p, cfg)
@@ -1184,7 +1297,8 @@ def ablation_phase(card, dev):
         del out_k, out_p
     del k1_plain
 
-    # The slice's main path: the profiler, as a user runs it.
+    # The slice's main path: the profiler, as a user runs it. It prints the
+    # attribution table (K1 minus each variant) itself.
     composite_pairs.launches = 0
     for v in ablate.launches:
         ablate.launches[v] = 0
@@ -1193,12 +1307,6 @@ def ablation_phase(card, dev):
     counts = {name: profile_kernel.launch_count(name) for name in pairs}
     print(f"[{card}] profiler launches (counts set to 0 before it): "
           + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
-    # K1 has its per-warp cull and the K3 bodies keep its older skeleton, so
-    # each difference mixes the redesign with the class the variant removes.
-    print(f"[{card}] K1 minus each variant (CUDA events, one call; K1's "
-          f"redesign and the removed class together): "
-          + ", ".join(f"{v} {res['full']['ms'] - res[v]['ms']:+.4f} ms"
-                      for v in pairs if v != "full"), flush=True)
     for name in pairs:
         r = res[name]
         if counts[name] == 0 or r["launches"] != counts[name] \
@@ -1206,6 +1314,16 @@ def ablation_phase(card, dev):
             raise SystemExit(f"FAIL: profiler variant {name}: {r}, plain "
                              f"digest {digests[name]}, {counts[name]} "
                              f"launches")
+    e, nc, k1 = (res[v]["ms"] for v in ("empty", "no-compute", "full"))
+    order = e <= ABLATION_ORDER_SLACK * nc and \
+        nc <= ABLATION_ORDER_SLACK * k1
+    print(f"[{card}] gate empty <= no-compute <= full (x "
+          f"{ABLATION_ORDER_SLACK}): {e:.4f} <= {nc:.4f} <= {k1:.4f} ms: "
+          f"{order}", flush=True)
+    if not order:
+        raise SystemExit("FAIL: the ablations are out of order: a body "
+                         "that does less takes longer than one that does "
+                         "more")
     return errs, plain_ms, res, counts, cull
 
 
@@ -1825,16 +1943,21 @@ def levers_train_phase(pool, batch, start, cfg, bwd_pairs, train_ms, card):
     parts of the batched step. Returns the launches {counter: n}."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+    from gsplat_tpu_torch.utils.memory import estimate_train_memory
 
     B = batch["c2w"].shape[0]
     tcfg = gt.TrainConfig(capacity=pool.capacity, batch_size=B,
                           densification_interval=10**9,
                           opacity_reset_interval=10**9, batched_render=True)
+    state = tpool = step = None
     counters = ("launches", "bwd_launches", "bwd_compact_launches")
     total = dict.fromkeys(counters, 0)
     for label, rcfg in (("batched", cfg),
                         (f"batched, bwd_pairs {bwd_pairs}",
                          cfg.with_(bwd_pairs=bwd_pairs))):
+        state = tpool = step = None  # the previous run's state is freed
+        torch.cuda.synchronize()
+        other = torch.cuda.memory_allocated() - tensor_bytes(batch)
         tpool = gt.pool_from_numpy(start, pool.alive.cpu().numpy(),
                                    device=pool.pos.device)
         state = gt.init_train_state(tpool, tcfg)
@@ -1871,6 +1994,8 @@ def levers_train_phase(pool, batch, start, cfg, bwd_pairs, train_ms, card):
               f"{TRAIN_STEPS} {med:.3f} ms against {train_ms:.3f} ms per "
               f"view-by-view step (phase 8); peak device memory {peak:.2f} "
               f"GiB", flush=True)
+        memory_line(card, f"the step, {label}", other,
+                    estimate_train_memory(rcfg, tcfg), gate=True)
         want = dict(launches=TRAIN_STEPS,
                     bwd_launches=0 if compact else TRAIN_STEPS,
                     bwd_compact_launches=TRAIN_STEPS if compact else 0)
@@ -1930,6 +2055,7 @@ def levers_fit_phase(pool, batch, start, cfg, card):
         points = pool.pos.detach()[pool.alive].cpu().numpy()
         real = _instrument_fit(fit_mod, rec)
         torch.cuda.synchronize()
+        other = torch.cuda.memory_allocated() - tensor_bytes(batch)
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             setattr(composite_pairs, c, 0)
@@ -1955,6 +2081,13 @@ def levers_fit_phase(pool, batch, start, cfg, card):
           f"{float(np.median(rec['ms'])):.3f} (" + ", ".join(
               f"{t:.1f}" for t in rec["ms"]) + f"); peak device memory "
           f"{peak:.2f} GiB; {report.num_gaussians} alive", flush=True)
+    from gsplat_tpu_torch.utils.memory import estimate_train_memory
+
+    # bwd_capacity is the batch's (B x a view's bwd_pairs, rounded).
+    memory_line(card, "fit (e), batched, bwd_pairs grown", other,
+                estimate_train_memory(rcfg.with_(
+                    max_pairs=rec["max_pairs"][-1],
+                    bwd_pairs=int(m["bwd_capacity"]) // B), tcfg))
     if not (grew and all(np.isfinite(losses)) and report.nonfinite_steps == 0
             and n == dict(launches=FIT_ITERS, bwd_launches=0,
                           bwd_compact_launches=FIT_ITERS)
@@ -1981,12 +2114,20 @@ def levers_serve_phase(pool, traj, fx, fy, cx, cy, cfg, served_first,
                               alive=pool.alive, batch=B, report_demand=True)
     d_first = float((fn(traj[:B])[0][0] - served_first).abs().max())
     torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - tensor_bytes(pool.params,
+                                                         pool.alive)
     torch.cuda.reset_peak_memory_stats()
     composite_pairs.launches = 0
     _, st = render_trajectory(fn, traj, batch_size=B, keep_frames=False,
                               pair_capacity=B * cfg.max_pairs)
     k1 = composite_pairs.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
+    from gsplat_tpu_torch.utils.memory import estimate_render_memory
+
+    memory_line(card, f"batched serving, {B} poses a launch (one stacked "
+                f"list)", other, estimate_render_memory(cfg.with_(
+                    height=B * cfg.padded_height, max_pairs=B * cfg.max_pairs,
+                    view_tile_rows=cfg.tiles_y), pool.capacity))
     argv = ["--checkpoint", CKPT, "--num_frames", "8", "--orbit_scale", "4.4",
             "--render_batch", str(B), "--max_pairs", str(cfg.max_pairs),
             "--benchmark_only"]
@@ -2660,6 +2801,7 @@ def dataset_phase(pool, center, radius, card, device="cuda"):
     from gsplat_tpu_torch.data.gsply import import_gaussians_ply
     from gsplat_tpu_torch.ops.raster_cuda import composite_pairs as cp
     from gsplat_tpu_torch.train.__main__ import main as train_main
+    from gsplat_tpu_torch.utils.memory import estimate_train_memory
 
     fit_mod = importlib.import_module("gsplat_tpu_torch.train.fit")
     counts = {}
@@ -2698,6 +2840,7 @@ def dataset_phase(pool, center, radius, card, device="cuda"):
            "snapshot_at": None}
     real = _instrument_fit(fit_mod, rec)
     torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     zero()
     try:
@@ -2707,6 +2850,15 @@ def dataset_phase(pool, center, radius, card, device="cuda"):
     n = read()
     peak = torch.cuda.max_memory_allocated() / 2**30
     views_train = SCENE_VIEWS - -(-SCENE_VIEWS // 8)
+    cached = views_train * TRAIN_H * TRAIN_W * 3 * 4
+    est = estimate_train_memory(
+        gt.RenderConfig(height=TRAIN_H, width=TRAIN_W,
+                        max_pairs=rec["max_pairs"][-1]),
+        gt.TrainConfig(batch_size=TRAIN_BATCH,
+                       capacity=state.pool.capacity, adc_mode="paper"))
+    memory_line(card, f"14b train CLI (its step, and the {views_train} "
+                f"device-cached views, {cached / 1e6:.0f} MB)", other,
+                dict(est, total_mb=est["total_mb"] + cached / 1e6))
     init = [m for m in lines if m.startswith("init from")]
     cache = [m for m in lines if m.startswith(
         f"device-caching {views_train} views")]
@@ -2742,6 +2894,7 @@ def dataset_phase(pool, center, radius, card, device="cuda"):
     lines = []
     real = _instrument_fit(fit_mod, rec)
     torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     zero()
     try:
@@ -2752,6 +2905,12 @@ def dataset_phase(pool, center, radius, card, device="cuda"):
         _restore_fit(fit_mod, real)
     n = read()
     peak_c = torch.cuda.max_memory_allocated() / 2**30
+    est = estimate_train_memory(rcfg.with_(max_pairs=rec["max_pairs"][-1]),
+                                dataclasses.replace(
+                                    tcfg, capacity=state_c.pool.capacity))
+    memory_line(card, f"14c fit() at tile 32, pair_block 512 (and the "
+                f"{views_train} device-cached views)", other,
+                dict(est, total_mb=est["total_mb"] + cached / 1e6))
     for m in lines:
         print(f"  [14c] {m}")
     step_c = check_fit_run("14c fit at tile 32, pair_block 512", state_c,
@@ -3726,6 +3885,7 @@ def gauss_rank(card):
                                            shard_train_state)
     from gsplat_tpu_torch.parallel.sharding import _all_gather
     from gsplat_tpu_torch.train import trainer
+    from gsplat_tpu_torch.utils.memory import estimate_train_memory
 
     cp = raster_cuda.composite_pairs
     mesh = make_mesh(data=GRID_DATA, tile=GRID_TILE)
@@ -3765,15 +3925,32 @@ def gauss_rank(card):
                               opacity_reset_interval=10**9, **kw)
 
     def timed_step(step, state, views):
-        """(state, metrics, ms, peak GiB) of one counted step."""
+        """(state, metrics, ms, peak GiB) of one counted step; what the
+        process held before it, less the step's state and views, goes to
+        ``held_by_others[0]`` (bytes)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        opt = state.opt_state
+        held_by_others[0] = torch.cuda.memory_allocated(dev) - tensor_bytes(
+            state.pool.params, state.pool.alive, views,
+            [[opt.state[q]["exp_avg"], opt.state[q]["exp_avg_sq"]]
+             for q in state.pool.params.values()])
         t0 = time.perf_counter()
         state, m = run(lambda: step(state, views))
         ms = (time.perf_counter() - t0) * 1e3
         return state, m, ms, torch.cuda.max_memory_allocated(dev) / 2**30
 
+    def rank_ratio(tcfg, peak_gib, n_tile):
+        """The memory model's estimate for this rank's gaussian-sharded
+        step over its own peak (its local views)."""
+        est = estimate_train_memory(rcfg, dataclasses.replace(
+            tcfg, batch_size=TRAIN_BATCH // (mesh.size // n_tile)),
+            gauss_sharded_tile=n_tile)
+        return est["total_mb"] * 1e6 / (peak_gib * 2**30
+                                        - held_by_others[0])
+
     # (a) the gaussian-sharded step, four forms, data 2 x tile 2.
+    held_by_others = [0]
     seen, k2_err, mem = {}, 0.0, {}
     real_bwd = raster_cuda.composite_pairs_bwd
     for name, tkw in GRID_STEPS.items():
@@ -3801,7 +3978,7 @@ def gauss_rank(card):
             state, m, ms, peak = timed_step(step, state, lb)
         finally:
             raster_cuda.composite_pairs_bwd = real_bwd
-        mem[name] = (ms, peak)
+        mem[name] = (ms, peak, rank_ratio(tcfg, peak, GRID_TILE))
         if name == "scan_ref":  # K1 and K2 against their plain versions
             pf, ts, tc, out = seen["args"][:4]
             with torch.no_grad():
@@ -3822,7 +3999,7 @@ def gauss_rank(card):
             rstate = fresh(tcfg)
             rstep = make_sharded_train_step(rcfg, tcfg, mesh)
             _, _, rms, rpeak = timed_step(rstep, rstate, lb)
-            mem["replicated"] = (rms, rpeak)
+            mem["replicated"] = (rms, rpeak, None)
             # Steps after the first (median of 3); the gaussian-sharded
             # one on a copy, so that the checks below read the first.
             copy = shard_train_state(gather_train_state(state, mesh), mesh)
@@ -3896,9 +4073,12 @@ def gauss_rank(card):
     dist.all_gather_object(peaks, mem)
     if main_rank:
         print(f"[{card}] 16a per rank, the first step of each (host ms to "
-              f"synchronize, peak GiB torch.cuda.max_memory_allocated): "
+              f"synchronize, peak GiB torch.cuda.max_memory_allocated, and "
+              f"utils.memory's estimate for a gaussian-sharded rank over "
+              f"the step's own peak): "
               + "; ".join(f"rank {r}: " + ", ".join(
-                  f"{k} {v[0]:.3f} ms {v[1]:.3f} GiB"
+                  f"{k} {v[0]:.3f} ms {v[1]:.3f} GiB" + (
+                      "" if v[2] is None else f" (estimate / own {v[2]:.3f})")
                   for k, v in p.items() if k != "later")
                   + ", later steps (median of 3): " + ", ".join(
                       f"{k} {v:.3f} ms" for k, v in p["later"].items())
@@ -3991,9 +4171,11 @@ def gauss_rank(card):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             held = torch.cuda.memory_allocated(dev) / 2**30
+            held_by_others[0] = held * 2**30
             out = fn()
             torch.cuda.synchronize()
-            return out, held, torch.cuda.max_memory_allocated(dev) / 2**30
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            return out, held, peak, rank_ratio(tcfg, peak, GRID_TILE)
 
         fit_mem = {}
         for how in (True, "ring"):
@@ -4016,11 +4198,12 @@ def gauss_rank(card):
     dist.all_gather_object(fit_peaks, fit_mem)
     if main_rank:
         print(f"[{card}] 16c fit() peak memory per rank (GiB held before "
-              f"the fit / torch.cuda.max_memory_allocated during it; the "
-              f"ADC and the checkpoints gather the whole state on every "
-              f"rank): " + "; ".join(
+              f"the fit / torch.cuda.max_memory_allocated during it, and "
+              f"utils.memory's estimate for a gaussian-sharded rank's step "
+              f"over the fit's own peak; the ADC and the checkpoints gather "
+              f"the whole state on every rank): " + "; ".join(
                   f"rank {r}: " + ", ".join(
-                      f"{tag} {p[h][0]:.3f} / {p[h][1]:.3f}"
+                      f"{tag} {p[h][0]:.3f} / {p[h][1]:.3f} ({p[h][2]:.3f})"
                       for h, tag in ((True, "all-gather"), ("ring", "ring")))
                   for r, p in enumerate(fit_peaks))
               + f"; the single-rank fit() in rank 0's process: "
@@ -4168,10 +4351,15 @@ def main():
     print(f"[{card}] raster_bwd<tile 32>: {regs} registers", flush=True)
     regs, smem = kernel_resources(built["raster_fwd"]["ptxas"],
                                   "raster_fwd_kernel")
+    k1_res = (regs, smem, fwd_ctas_per_sm(dev))
     print(f"[{card}] raster_fwd (K1) design: 8x4-pixel warps, per-warp pair "
           f"cull, heavy tiles first; {regs} registers, {smem} B shared, "
-          f"{fwd_ctas_per_sm(dev)} CTAs of 256 threads per SM (occupancy "
-          f"API)", flush=True)
+          f"{k1_res[2]} CTAs of 256 threads per SM (occupancy API); since "
+          f"its redesign {K1_RESOURCES[0]}, {K1_RESOURCES[1]} B, "
+          f"{K1_RESOURCES[2]}", flush=True)
+    if k1_res != K1_RESOURCES:
+        raise SystemExit(f"FAIL: K1's resources moved: {k1_res}, not "
+                         f"{K1_RESOURCES}")
     regs, smem = kernel_resources(built["raster_fwd"]["ptxas"],
                                   "raster_fwd_kernel", log=True)
     bregs = [kernel_resources(built["raster_bwd"]["ptxas"],
@@ -4246,6 +4434,9 @@ def main():
         served.setdefault("first", img)  # the warm-up frame: bench pose
         return img, probe
 
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - tensor_bytes(pool.params,
+                                                         pool.alive)
     torch.cuda.reset_peak_memory_stats()
     composite_pairs.launches = 0
     t0 = time.perf_counter()
@@ -4258,6 +4449,11 @@ def main():
           f"pipelined) in {serve_s:.2f} s; render_fn calls {calls[0]}, "
           f"kernel launches {launches}; peak device memory {peak_gib:.2f} "
           f"GiB")
+    from gsplat_tpu_torch.utils.memory import estimate_render_memory
+
+    memory_line(card, "serving at 1080p (the pool counted as the run's)",
+                other, estimate_render_memory(cfg, pool.capacity),
+                gate=True)
     for i, (ms, npairs, mean) in enumerate(zip(
             stats["frame_ms"], stats["frame_pairs"], stats["frame_mean"])):
         print(f"  [{card}] frame {i}: {ms:.3f} ms (host clock to "
@@ -4325,6 +4521,17 @@ def main():
     # --- 8. training through the port's entry points ---
     train_k1, train_k2, train_ms, trained = train_phase(pool, c2w, center,
                                                         radius, card)
+    # The comm model, fed this card's step per view (no card beyond it).
+    from gsplat_tpu_torch import comm_model
+
+    print(f"[{card}] the comm model (python -m gsplat_tpu_torch.comm_model) "
+          f"with this run's step, {train_ms / TRAIN_BATCH:.3f} ms a view "
+          f"at {TRAIN_W}x{TRAIN_H}; NVLink 4, PCIe Gen5 and NDR rates are "
+          f"NVIDIA's published figures; NCCL on several cards has not run:",
+          flush=True)
+    comm_model.main(["--step_ms_per_view", str(train_ms / TRAIN_BATCH),
+                     "--height", str(TRAIN_H), "--width", str(TRAIN_W),
+                     "--batch", str(2 * TRAIN_BATCH)])
 
     # --- 8b. fit(): density control, checkpoints, growth ---
     fit_k1, fit_k2 = fit_phase(pool, c2w, center, radius, card)

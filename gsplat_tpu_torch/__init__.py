@@ -12,11 +12,12 @@ from .device import resolve_device
 from .models.gaussians import (GaussianPool, init_pool_from_points,
                                pool_from_numpy)
 from .ops.binning import TileBinning, bin_gaussians
-from .ops.camera import inv2x2, project_points
-from .ops.gaussian import build_sigma_from_params
-from .ops.losses import compute_loss
+from .ops.camera import inv2x2, project_points, scale_intrinsics
+from .ops.gaussian import build_sigma_from_params, quat_to_rotmat
+from .ops.losses import compute_loss, l1_loss, ssim_loss
 from .ops.projection import ProjectedGaussians, project_gaussians
 from .ops.rasterize import RenderAux, rasterize
+from .ops.sh import HARMONICS, evaluate_sh
 from .render import (pair_demand, render, render_batch_from_params,
                      render_from_params)
 from .train.fit import FitReport, fit
@@ -36,9 +37,15 @@ __all__ = [
     "TileBinning",
     "bin_gaussians",
     "build_sigma_from_params",
+    "quat_to_rotmat",
     "inv2x2",
     "project_points",
+    "scale_intrinsics",
     "compute_loss",
+    "l1_loss",
+    "ssim_loss",
+    "HARMONICS",
+    "evaluate_sh",
     "ProjectedGaussians",
     "project_gaussians",
     "RenderAux",
@@ -57,3 +64,18 @@ __all__ = [
     "make_train_step",
     "position_lr",
 ]
+
+__version__ = "0.1.0"
+
+# The submodules the JAX package's ``__getattr__`` gives lazily.
+_SUBMODULES = ("data", "viewer", "models", "train", "parallel", "ops")
+
+
+def __getattr__(name):
+    # Lazy submodule access, as ``gsplat_tpu/__init__.py:50-57``: data and
+    # viewer pull PIL and other host-side dependencies only when used.
+    if name in _SUBMODULES:
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -18,6 +18,9 @@ import json
 def main(argv=None):
     """Parse ``argv``, evaluate, print the JSON line and return it as a
     dict."""
+    from .utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()  # the kernel builds' directory
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--checkpoint", required=True)
     ap.add_argument("--scene_dir", required=True)

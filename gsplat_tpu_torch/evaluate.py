@@ -21,6 +21,9 @@ import json
 def main(argv=None):
     """Parse ``argv``, evaluate, print and return ``evaluate_views``'s
     result."""
+    from .utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()  # the kernel builds' directory
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--data_dir", required=True)

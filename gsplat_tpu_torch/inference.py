@@ -42,6 +42,9 @@ def load_trajectory(path: str) -> np.ndarray:
 
 def main(argv=None):
     """Parse ``argv``, render the trajectory and return the frame paths."""
+    from .utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()  # the kernel builds' directory
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--trajectory", required=True,

@@ -62,13 +62,17 @@ SIGNATURES = {
         ctypes.c_int,
     ),
     # raster_ablate(variant, feat, n_pairs, stride, tile_start, tile_count,
-    #               out, num_tiles, tiles_x, G, chi2_clip, alpha_max,
-    #               alpha_cutoff, t_min, stream) -> cudaError_t
+    #               order, out, skipped, num_tiles, tiles_x, tile, G,
+    #               chi2_clip, alpha_max, alpha_cutoff, t_min, margin_rel,
+    #               margin_eps, margin_abs, kappa_min, stream)
+    #               -> cudaError_t   (order: scratch; skipped: may be null)
     "raster_ablate": (
         [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
 }

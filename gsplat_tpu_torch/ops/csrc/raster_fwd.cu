@@ -1,5 +1,9 @@
 // Forward tile compositor for Hopper (sm_90a).
 //
+// The kernel's body is raster_fwd_kernel.cuh (the body kK1), which
+// raster_ablate.cu also instantiates for the profiler's ablations; this
+// file holds K1's design, its instantiations and its launcher.
+//
 // Replaces the TPU kernel gsplat_tpu/ops/raster_pallas.py::_fwd_kernel
 // (launched by _fwd_pallas). Same function: front-to-back alpha
 // compositing of a tile-major, depth-ordered, block-aligned pair list,
@@ -126,237 +130,9 @@
 // (ops/binning.py) keeps a tile's first blocks only, as the TPU kernel
 // walks only the blocks its block_meta lists.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "raster_fwd_kernel.cuh"
 
 namespace {
-
-constexpr int kRows = 10;               // u v a b c op r g b depth
-constexpr int kSlots = 3;               // float4s per staged pair
-constexpr int kWarpW = 8, kWarpH = 4;   // a warp's pixel patch
-constexpr int kOrderThreads = 1024;
-constexpr int kBuckets = 32;  // tile_order: block counts 0..30, 31 and up
-
-// The cull's margins, passed by the launcher from raster_cuda.py's
-// CULL_MARGIN_REL, CULL_MARGIN_EPS, CULL_MARGIN_ABS and CULL_KAPPA_MIN.
-struct CullMargins {
-  float rel, eps, abs, kappa_min;
-};
-
-// The widened threshold t on a pixel's q beyond which pair f (10 rows)
-// has alpha == 0, and the slope m = -b / a; see the header. Operation
-// order is raster_cuda.py::_reach_threshold's.
-__device__ __forceinline__ float reach_threshold(const float* f,
-                                                 float chi2_clip,
-                                                 float alpha_cutoff,
-                                                 const CullMargins& cm,
-                                                 float* m) {
-  *m = 0.0f;
-  bool finite = true;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) finite = finite && isfinite(f[r]);
-  if (!finite || !(alpha_cutoff > 0.0f)) return INFINITY;
-  const float a = f[2], b = f[3], c = f[4], op = f[5];
-  if (op <= 0.0f) return -INFINITY;
-  const float ac = a * c;
-  const float det = ac - b * b;
-  const float kappa = det / ac;
-  if (!(a > 0.0f && c > 0.0f && kappa >= cm.kappa_min)) return INFINITY;
-  *m = -b / a;
-  const float t = fminf(2.0f * logf(op / alpha_cutoff), chi2_clip);
-  return t + fabsf(t) * (cm.rel + cm.eps / kappa) + cm.abs;
-}
-
-// Bucket of a tile in tile_order: 0 for the most blocks.
-__device__ __forceinline__ int order_bucket(int count, int G) {
-  const int nblk = count > 0 ? (count + G - 1) / G : 0;
-  return kBuckets - 1 - min(nblk, kBuckets - 1);
-}
-
-// order[0 .. num_tiles): the tiles by their number of pair blocks, most
-// first (a counting sort in one CTA; within a bucket the order is the
-// atomics', which changes only which CTA takes which tile).
-__global__ void __launch_bounds__(kOrderThreads) tile_order_kernel(
-    const int* __restrict__ tile_count, int num_tiles, int G,
-    int* __restrict__ order) {
-  __shared__ int next[kBuckets];
-  if (threadIdx.x < kBuckets) next[threadIdx.x] = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < num_tiles; i += kOrderThreads) {
-    atomicAdd(&next[order_bucket(tile_count[i], G)], 1);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int sum = 0;
-    for (int b = 0; b < kBuckets; ++b) {
-      const int n = next[b];
-      next[b] = sum;
-      sum += n;
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < num_tiles; i += kOrderThreads) {
-    order[atomicAdd(&next[order_bucket(tile_count[i], G)], 1)] = i;
-  }
-}
-
-template <int kTile, int kMaxG, bool kLog>
-__global__ void __launch_bounds__(kTile * kTile) raster_fwd_kernel(
-    const float* __restrict__ feat, int n_pairs, int stride,
-    const int* __restrict__ tile_start, const int* __restrict__ tile_count,
-    const int* __restrict__ order, float* __restrict__ out,
-    float* __restrict__ state, unsigned long long* __restrict__ skipped,
-    int tiles_x, int rows_mod, int G, float chi2_clip, float alpha_max,
-    float alpha_cutoff, float t_min, CullMargins cm) {
-  constexpr int kPixels = kTile * kTile;  // threads per CTA
-  constexpr int kWarpsX = kTile / kWarpW;  // warp patches across the tile
-  constexpr int kStage = (kMaxG + kPixels - 1) / kPixels;  // pairs a thread
-                                                           // stages
-  static_assert(kTile % kWarpW == 0 && kTile % kWarpH == 0, "warp patches");
-  static_assert(kMaxG % 32 == 0, "pair blocks are whole warps of pairs");
-  __shared__ float4 sm[kSlots * kMaxG];
-
-  const int tile = order[blockIdx.x];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int trow = rows_mod > 0 ? (tile / tiles_x) % rows_mod : tile / tiles_x;
-  const int tx = (tile % tiles_x) * kTile + (warp % kWarpsX) * kWarpW;
-  const int ty = trow * kTile + (warp / kWarpsX) * kWarpH;
-  const int p = ((warp / kWarpsX) * kWarpH + lane / kWarpW) * kTile +
-                (warp % kWarpsX) * kWarpW + lane % kWarpW;
-  const float px = (float)(tx + lane % kWarpW);
-  const float py = (float)(ty + lane / kWarpW);
-  const float x0 = (float)tx, x1 = (float)(tx + kWarpW - 1);
-  const float y0 = (float)ty;
-  const int start = tile_start[tile];
-  const int count = tile_count[tile];
-  const int nblk = count > 0 ? (count + G - 1) / G : 0;
-
-  float T = 1.0f;  // "log": T at the block's start, while in a block
-  float S = 0.0f;  // "log": the block's running sum of log1pf(-alpha)
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
-  int blocks = 0;
-  int reached = 0;  // (pair, warp) walked, uniform over the warp
-  // Thread tid holds pairs tid + i * kPixels (< G) of the next block in
-  // registers, loaded while the warps walk the current one.
-  float f[kStage][kRows];
-  if (nblk > 0 && start + G <= n_pairs) {
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int j = tid + i * kPixels;
-      if (j < G) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          f[i][r] = feat[(size_t)r * stride + start + j];
-      }
-    }
-  }
-
-  for (int k = 0; k < nblk; ++k) {
-    // Saturation skip for continuation blocks. The barrier also keeps the
-    // previous block's shared pairs until every warp has walked them.
-    if (k > 0 && !__syncthreads_or(T > t_min)) break;
-    const int base = start + k * G;
-    if (base + G > n_pairs) break;  // uniform over the CTA: the list's
-                                    // end (see the header)
-    if (state != nullptr) {
-      float* s = state + (size_t)(base / G) * 5 * kPixels + p;
-      s[0 * kPixels] = acc_r;
-      s[1 * kPixels] = acc_g;
-      s[2 * kPixels] = acc_b;
-      s[3 * kPixels] = acc_d;
-      s[4 * kPixels] = T;
-    }
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int j = tid + i * kPixels;
-      if (j < G) {
-        float m;
-        const float t =
-            reach_threshold(f[i], chi2_clip, alpha_cutoff, cm, &m);
-        sm[kSlots * j + 0] = make_float4(f[i][0], f[i][1], f[i][2], f[i][3]);
-        sm[kSlots * j + 1] = make_float4(f[i][4], f[i][5], f[i][6], f[i][7]);
-        sm[kSlots * j + 2] = make_float4(f[i][8], f[i][9], t, m);
-      }
-    }
-    __syncthreads();
-    if (k + 1 < nblk && base + 2 * G <= n_pairs) {
-#pragma unroll
-      for (int i = 0; i < kStage; ++i) {
-        const int j = tid + i * kPixels;
-        if (j < G) {
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            f[i][r] = feat[(size_t)r * stride + base + G + j];
-        }
-      }
-    }
-
-    for (int w0 = 0; w0 < G; w0 += 32) {
-      // Lane `lane` tests pair w0 + lane against this warp's patch.
-      const float4* s = sm + kSlots * (w0 + lane);
-      const float4 A = s[0], B = s[1], C = s[2];
-      const float lo = x0 - A.x, hi = x1 - A.x;
-      bool reach = false;
-#pragma unroll
-      for (int r = 0; r < kWarpH; ++r) {
-        const float dv = (y0 + (float)r) - A.y;
-        const float du = fminf(fmaxf(C.w * dv, lo), hi);
-        const float q = A.z * du * du + 2.0f * A.w * du * dv +
-                        B.x * dv * dv;
-        reach = reach || !(q > C.z);
-      }
-      unsigned mask = __ballot_sync(0xffffffffu, reach);
-      reached += __popc(mask);
-      while (mask != 0u) {
-        const float4* sj = sm + kSlots * (w0 + __ffs(mask) - 1);
-        mask &= mask - 1u;
-        const float4 P = sj[0], Q = sj[1], R = sj[2];
-        const float du = px - P.x;
-        const float dv = py - P.y;
-        const float q = P.z * du * du + 2.0f * P.w * du * dv +
-                        Q.x * dv * dv;
-        // exp on every lane, then a select: a branch around it was slower
-        const float e = expf(-0.5f * q);
-        const float g = q <= chi2_clip ? e : 0.0f;
-        const float a_raw = Q.y * g;
-        const float a = a_raw > alpha_max ? alpha_max : a_raw;
-        const float alpha = a >= alpha_cutoff ? a : 0.0f;
-        float Te = T;
-        if (kLog) {
-          const float sl = log1pf(-alpha);
-          S = S + sl;
-          Te = expf(S - sl) * T;
-        }
-        const float w = Te > t_min ? alpha * Te : 0.0f;
-        acc_r = acc_r + w * Q.z;
-        acc_g = acc_g + w * Q.w;
-        acc_b = acc_b + w * R.x;
-        acc_d = acc_d + w * R.y;
-        if (!kLog) T = T * (1.0f - alpha);
-      }
-    }
-    if (kLog) {
-      T = T * expf(S);
-      S = 0.0f;
-    }
-    blocks += 1;
-  }
-
-  float* o = out + (size_t)tile * 8 * kPixels + p;
-  o[0 * kPixels] = acc_r;
-  o[1 * kPixels] = acc_g;
-  o[2 * kPixels] = acc_b;
-  o[3 * kPixels] = acc_d;
-  o[4 * kPixels] = T;
-  o[5 * kPixels] = (float)blocks;
-  o[6 * kPixels] = 0.0f;
-  o[7 * kPixels] = 0.0f;
-  if (skipped != nullptr && lane == 0 && blocks > 0) {
-    atomicAdd(skipped, (unsigned long long)(blocks * G - reached));
-  }
-}
 
 // The instantiation of raster_fwd_kernel for (tile, G, log_t), or null
 // where none is built: tile 16 stages up to 256 pairs a CTA or 512, tile 32

@@ -58,10 +58,19 @@ mode fills what is unwritten with NaN. Here every row is defined: row 5 is
 the number of blocks composited, as K1's row 5 is (0 for ``empty``), rows
 6-7 are 0, and a tile with no block gets T = 1 and zeros, as in K1.
 
+The kernels (``csrc/raster_ablate.cu``): the six :data:`K1_BODIES` are
+K1's own kernel (``csrc/raster_fwd_kernel.cuh``) with another body, so each
+walks as K1 does (tiles heaviest first, pair-major staging, 8x4-pixel
+warps, the per-warp pair cull) minus one class of work. A body culls only
+(pair, warp) whose alpha under its own definition is exactly 0 at the
+warp's 32 pixels (no-transc with its own threshold, :data:`CULLS`), so
+the cull changes no value of the function above: no-input, which reads
+no feature, culls nothing and walks every pair; empty and no-compute walk
+none. pg-roll and pg-log keep their own template (pairs on lanes).
+
 :func:`ablate` chooses by the tensors' device: CPU tensors take
-:func:`ablate_plain`; CUDA tensors launch the kernel
-(``csrc/raster_ablate.cu``) and count it in ``ablate.launches[variant]``,
-or raise.
+:func:`ablate_plain`; CUDA tensors launch the kernel and count it in
+``ablate.launches[variant]``, or raise.
 """
 
 from __future__ import annotations
@@ -71,14 +80,26 @@ import ctypes
 import torch
 
 from ..config import RenderConfig
-from .raster_cuda import (FEAT_ROWS, _block_alpha, _check_inputs,
-                          _check_kernel_args, _running_sum, _tile_pixels)
+from .raster_cuda import (CULL_KAPPA_MIN, CULL_MARGIN_ABS, CULL_MARGIN_EPS,
+                          CULL_MARGIN_REL, FEAT_ROWS, _block_alpha,
+                          _check_inputs, _check_kernel_args, _rational_alpha,
+                          _running_sum, _tile_pixels)
 
 # Variant name -> the kernel's template argument (raster_ablate.cu).
 VARIANTS = {"empty": 0, "no-compute": 1, "no-transc": 2, "no-mxu": 3,
             "no-input": 4, "cumprod": 5, "pg-roll": 6, "pg-log": 7}
 # The variants that compute K1's function (composite_pairs_plain's).
 K1_FUNCTION = ("cumprod", "pg-roll", "pg-log")
+# The variants built from K1's own kernel (csrc/raster_fwd_kernel.cuh), K1
+# minus one class of work; pg-roll and pg-log have their own template.
+K1_BODIES = ("empty", "no-compute", "no-transc", "no-mxu", "no-input",
+             "cumprod")
+# The bodies that walk only the (pair, warp) their cull reaches: K1's cull
+# (raster_cuda.pair_warp_reach), no-transc's for its own alpha
+# (rational=True). Their kernels count what they skip, as K1's does.
+CULLS = {"no-transc": True, "no-mxu": False, "cumprod": False}
+# The tile and largest pair block the kernels take.
+ABLATE_TILE, ABLATE_MAX_G = 16, 256
 WARP = 32
 CUMPROD_GROUP = 8  # pairs per group of the two-level product
 
@@ -106,18 +127,6 @@ def _block_sum(x):
     for off in (16, 8, 4, 2, 1):
         s = s + s[:, lane ^ off]
     return s[:, 0]
-
-
-def _rational_alpha(f, px, py, cfg: RenderConfig):
-    """no-transc's alpha [m, G, P]: K1's with exp(-q/2) replaced by
-    1 / (1 + q/2), in the kernel's order of operations."""
-    u, v, ca, cb, cc, op = (f[r][:, :, None] for r in range(6))
-    du = px[:, None, :] - u
-    dv = py[:, None, :] - v
-    q = ca * du * du + 2.0 * cb * du * dv + cc * dv * dv
-    g = torch.where(q <= cfg.chi2_clip, torch.reciprocal(1.0 + 0.5 * q), 0.0)
-    a = torch.clamp(op * g, max=cfg.alpha_max)
-    return torch.where(a >= cfg.alpha_cutoff, a, 0.0)
 
 
 def _iota_features(G, m, dev):
@@ -264,13 +273,16 @@ def ablate_plain(variant, pair_feat, tile_start, tile_count,
     return out
 
 
-def ablate(variant, pair_feat, tile_start, tile_count, cfg: RenderConfig):
+def ablate(variant, pair_feat, tile_start, tile_count, cfg: RenderConfig,
+           skipped=None):
     """The ablation ``variant`` of K1 on the pair list (arguments as
     :func:`raster_cuda.composite_pairs`; output as the module docstring).
 
     CPU tensors take :func:`ablate_plain`. CUDA tensors launch the kernel
     and count it in ``ablate.launches[variant]``; anything the kernel does
-    not take raises.
+    not take raises (tile 16, ``pair_block`` a multiple of 32 up to 256).
+    ``skipped``: None, or a [1] int64 tensor on the card to which the
+    bodies of :data:`CULLS` add the (pair, warp) their cull skipped.
     """
     _check_variant(variant)
     _check_inputs(pair_feat, tile_start, tile_count, cfg)
@@ -278,20 +290,36 @@ def ablate(variant, pair_feat, tile_start, tile_count, cfg: RenderConfig):
         return ablate_plain(variant, pair_feat, tile_start, tile_count, cfg)
     _check_kernel_args(cfg, pair_feat=pair_feat, tile_start=tile_start,
                        tile_count=tile_count)
+    if cfg.tile != ABLATE_TILE or cfg.pair_block > ABLATE_MAX_G:
+        raise ValueError(
+            f"the ablation kernels take tile {ABLATE_TILE} and a pair_block "
+            f"up to {ABLATE_MAX_G} (got tile {cfg.tile}, pair_block "
+            f"{cfg.pair_block})")
+    if skipped is not None and (skipped.dtype != torch.int64
+                                or skipped.device != pair_feat.device
+                                or skipped.numel() != 1):
+        raise ValueError("skipped must be one int64 on pair_feat's device")
     from ._build import load_library
 
     lib = load_library("raster_ablate")
+    dev = pair_feat.device
     out = torch.empty(cfg.num_tiles, 8, cfg.tile * cfg.tile,
-                      dtype=torch.float32, device=pair_feat.device)
-    with torch.cuda.device(pair_feat.device):
+                      dtype=torch.float32, device=dev)
+    order = torch.empty(cfg.num_tiles, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.raster_ablate(
             VARIANTS[variant], pair_feat.data_ptr(), pair_feat.shape[1],
             pair_feat.stride(0), tile_start.data_ptr(), tile_count.data_ptr(),
-            out.data_ptr(), cfg.num_tiles, cfg.tiles_x, cfg.pair_block,
+            order.data_ptr(), out.data_ptr(),
+            None if skipped is None else skipped.data_ptr(), cfg.num_tiles,
+            cfg.tiles_x, cfg.tile, cfg.pair_block,
             ctypes.c_float(cfg.chi2_clip), ctypes.c_float(cfg.alpha_max),
             ctypes.c_float(cfg.alpha_cutoff),
-            ctypes.c_float(cfg.transmittance_min), stream,
+            ctypes.c_float(cfg.transmittance_min),
+            ctypes.c_float(CULL_MARGIN_REL), ctypes.c_float(CULL_MARGIN_EPS),
+            ctypes.c_float(CULL_MARGIN_ABS), ctypes.c_float(CULL_KAPPA_MIN),
+            stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -146,6 +146,19 @@ def _block_alpha(f, px, py, cfg: RenderConfig):
     return torch.where(a >= cfg.alpha_cutoff, a, 0.0), du, dv, g, a_raw, a
 
 
+def _rational_alpha(f, px, py, cfg: RenderConfig):
+    """The no-transc ablation's alpha [m, G, P] (``raster_ablate``): K1's
+    with exp(-q/2) replaced by 1 / (1 + q/2), in the kernel's order of
+    operations."""
+    u, v, ca, cb, cc, op = (f[r][:, :, None] for r in range(6))
+    du = px[:, None, :] - u
+    dv = py[:, None, :] - v
+    q = ca * du * du + 2.0 * cb * du * dv + cc * dv * dv
+    g = torch.where(q <= cfg.chi2_clip, torch.reciprocal(1.0 + 0.5 * q), 0.0)
+    a = torch.clamp(op * g, max=cfg.alpha_max)
+    return torch.where(a >= cfg.alpha_cutoff, a, 0.0)
+
+
 def kernel_warps(tile: int) -> int:
     """K1's warps per tile: one 8x4-pixel patch each (8 at tile 16, 32 at
     tile 32)."""
@@ -173,9 +186,13 @@ def warp_pixels(cfg: RenderConfig, device=None):
     return y * cfg.tile + x
 
 
-def _reach_threshold(f, cfg: RenderConfig):
+def _reach_threshold(f, cfg: RenderConfig, rational: bool = False):
     """K1's per-pair cull values for features f [>= 10, m, G]: ``(t, m)``,
-    each [m, G] f32, in the kernel's order of operations.
+    each [m, G] f32, in the kernel's order of operations. ``rational``:
+    for the no-transc ablation's alpha ``op / (1 + q/2)``
+    (:func:`_rational_alpha`), which reaches the cutoff up to ``q = 2
+    (opacity / alpha_cutoff - 1)`` in place of ``2 ln(opacity /
+    alpha_cutoff)``; the margins are the same.
 
     A pair's alpha is non-zero at a pixel only where the pixel's q (as
     rounded) is at most ``min(chi2_clip, 2 ln(opacity / alpha_cutoff))``
@@ -201,8 +218,9 @@ def _reach_threshold(f, cfg: RenderConfig):
     # Divisions by tensors: PyTorch divides by a Python float as a product
     # with its reciprocal (on CUDA), and a Python float over a tensor as a
     # reciprocal and a product; the kernel divides once.
-    t = torch.fmin(2.0 * torch.log(op / torch.full_like(op, cfg.alpha_cutoff)),
-                   torch.full_like(op, cfg.chi2_clip))
+    ratio = op / torch.full_like(op, cfg.alpha_cutoff)
+    reach = 2.0 * (ratio - 1.0) if rational else 2.0 * torch.log(ratio)
+    t = torch.fmin(reach, torch.full_like(op, cfg.chi2_clip))
     t = t + t.abs() * (CULL_MARGIN_REL + torch.full_like(op, CULL_MARGIN_EPS)
                        / kappa) + CULL_MARGIN_ABS
     t = torch.where(tested, t, inf)
@@ -214,7 +232,7 @@ def _reach_threshold(f, cfg: RenderConfig):
     return t, m
 
 
-def pair_warp_reach(f, tiles, cfg: RenderConfig):
+def pair_warp_reach(f, tiles, cfg: RenderConfig, rational: bool = False):
     """K1's per-warp pair cull as plain PyTorch: [m, G, warps] bool, False
     where the kernel's warp w skips pair j of block i (features f
     [>= 10, m, G] of blocks in tiles ``tiles`` [m]).
@@ -225,9 +243,10 @@ def pair_warp_reach(f, tiles, cfg: RenderConfig):
     Conservative: a skipped pair has alpha == 0 at all 32 pixels of the
     warp, so skipping it changes no bit of K1's output. Serving and
     training never call this; the tests, ``chip_smoke.py`` and the
-    profiler's bounds do (through :func:`cull_audit`).
+    profiler's bounds do (through :func:`cull_audit`). ``rational``: the
+    no-transc ablation's cull (its own alpha's threshold).
     """
-    t, m = _reach_threshold(f, cfg)
+    t, m = _reach_threshold(f, cfg, rational)
     t, m = t[..., None], m[..., None]
     u, v, a, b, c = (f[r][..., None] for r in range(5))
     wx, wy = _warp_origins(cfg.tile, f.device)
@@ -247,13 +266,15 @@ def pair_warp_reach(f, tiles, cfg: RenderConfig):
     return reach
 
 
-def cull_audit(pair_feat, blocks, tiles, cfg: RenderConfig, chunk: int = 256):
+def cull_audit(pair_feat, blocks, tiles, cfg: RenderConfig, chunk: int = 256,
+               rational: bool = False):
     """K1's cull over the listed blocks (``blocks``, ``tiles`` [m] int64:
     the pair list's block and its tile), ``chunk`` blocks at a time: a dict
     of (pair, warp) counts, ``total``, ``skipped`` (dropped by
     :func:`pair_warp_reach`), ``zero`` (alpha == 0 at all 32 of the warp's
     pixels) and ``unsafe`` (dropped with a non-zero alpha somewhere: 0 if
-    the cull is conservative)."""
+    the cull is conservative). ``rational``: the no-transc ablation's cull
+    and alpha (:func:`_rational_alpha`)."""
     G = cfg.pair_block
     dev = pair_feat.device
     cols = torch.arange(G, device=dev)
@@ -262,9 +283,10 @@ def cull_audit(pair_feat, blocks, tiles, cfg: RenderConfig, chunk: int = 256):
     for c0 in range(0, blocks.shape[0], chunk):
         blk, tile = blocks[c0:c0 + chunk], tiles[c0:c0 + chunk]
         f = pair_feat[:FEAT_ROWS, blk[:, None] * G + cols]
-        reach = pair_warp_reach(f, tile, cfg)  # [m, G, warps]
+        reach = pair_warp_reach(f, tile, cfg, rational)  # [m, G, warps]
         px, py = _tile_pixels(tile, cfg)
-        alpha = _block_alpha(f, px, py, cfg)[0][:, :, wpix]  # [m, G, w, 32]
+        alpha = (_rational_alpha(f, px, py, cfg) if rational else
+                 _block_alpha(f, px, py, cfg)[0])[:, :, wpix]  # [m, G, w, 32]
         nonzero = (alpha != 0).any(dim=3)
         n["total"] += reach.numel()
         n["skipped"] += int((~reach).sum())

@@ -25,6 +25,26 @@ SH_C3_2 = 0.4570457994644658  # y(4z^2 - x^2 - y^2) and x(...)
 SH_C3_3 = 0.3731763325901154  # z(2z^2 - 3x^2 - 3y^2)
 SH_C3_4 = 1.445305721320277  # z(x^2 - y^2)
 
+# The constants by basis term (``gsplat_tpu/ops/sh.py:35``).
+HARMONICS = {
+    "SH_C0": SH_C0,
+    "SH_C1_x": SH_C1,
+    "SH_C1_y": SH_C1,
+    "SH_C1_z": SH_C1,
+    "SH_C2_xy": SH_C2_0,
+    "SH_C2_xz": SH_C2_0,
+    "SH_C2_yz": SH_C2_0,
+    "SH_C2_zz": SH_C2_1,
+    "SH_C2_xx_yy": SH_C2_2,
+    "SH_C3_yxx_yyy": SH_C3_0,
+    "SH_C3_xyz": SH_C3_1,
+    "SH_C3_yzz_yxx_yyy": SH_C3_2,
+    "SH_C3_zzz_zxx_zyy": SH_C3_3,
+    "SH_C3_xzz_xxx_xyy": SH_C3_2,
+    "SH_C3_zxx_zyy": SH_C3_4,
+    "SH_C3_xxx_xyy": SH_C3_0,
+}
+
 NUM_SH_BASES = 16
 
 

@@ -16,18 +16,19 @@ each take one class of work out of it (``ops/raster_ablate.py``):
   no-input    K1's arithmetic on iota features with log-space T, no read
   empty       the tile's output written, nothing read (launch floor)
 
-The ablations and the other designs keep the skeleton K1 had before its
-per-warp pair cull (``ops/csrc/raster_ablate.cu``), so ``full`` minus one
-of them mixes K1's redesign with the class of work the variant removes or
-the design it tries; among themselves they still compare class by class.
-The bound of K1's function (full, cumprod, pg-roll, pg-log) counts the
-(pair, pixel) that K1's cull reaches on the workload plus the cull's own
-operations; each such line also prints the TPU kernel's work, every
-(pair, pixel) of a composited block, which the bound counted before K1
-had its cull. Each line prints the time
-per launch, per block of the workload, the tile-0 digest (the sum of
-out[0, 0:5], which agrees with the JAX script's) and, on the card, the
-variant's bound and its share of it.
+The five ablations and cumprod are K1's own kernel with another body
+(``ops/csrc/raster_fwd_kernel.cuh``): K1 as serving runs it, minus one
+class of work, so ``full`` minus each reads off that class (the table
+printed last, :data:`ISOLATES`). pg-roll and pg-log are K1's function in
+the TPU's pairs-on-lanes layout, their own kernel. A body that walks only
+the (pair, warp) its cull reaches (full, cumprod, no-mxu: K1's cull;
+no-transc: the cull for its own alpha) is bound by that reached work plus
+the cull's operations, as is K1's function by other designs (pg-*: K1's
+reach); each such line also prints the TPU kernel's work, every (pair,
+pixel) of a composited block. Each line prints the time per launch, per
+block of the workload, the tile-0 digest (the sum of out[0, 0:5], which
+agrees with the JAX script's) and, on the card, the variant's bound and
+its share of it.
 
     python -m gsplat_tpu_torch.profile_kernel [--blocks-per-tile 4]
         [--height 1080] [--width 1920] [--iters 20] [--only full,empty]
@@ -96,8 +97,33 @@ OPS_PER_PAIR_PIXEL.update((name, OPS_PER_PAIR_PIXEL["full"])
 # (9); per staged pair its threshold: a c, det (3), kappa (1), -b/a (1),
 # op/cutoff (1), log (1), 2x (1), min (1), the margin (4), t + (1).
 OPS_CULL_PER_PAIR_WARP = 58
-OPS_CULL_PER_PAIR = 14
-CULLED = ("full",) + K1_FUNCTION  # K1's function: bound by reached work
+OPS_CULL_PER_PAIR = 14  # no-transc's threshold: 2 (op / cutoff - 1), as many
+# Bound by reached work: the bodies that walk only what their cull reaches
+# (full, no-mxu, cumprod: K1's cull; no-transc: its own), and pg-*, which
+# compute K1's function (K1's reach is the least that function needs).
+CULLED = ("full", "no-transc", "no-mxu") + K1_FUNCTION
+# What K1's time minus each variant's isolates on the card (the JAX
+# script's attribution, "differences attribute the unit cost"). The bodies
+# built from K1's kernel differ from it in the one class named; pg-* in
+# the layout.
+ISOLATES = {
+    "cumprod": "K1's per-pair T product against a two-level product "
+               "(groups of 8), same walk",
+    "pg-roll": "K1's design against pairs on lanes with a doubling-scan "
+               "product (another layout)",
+    "pg-log": "K1's design against pairs on lanes with a doubling-scan "
+              "log sum (another layout)",
+    "no-transc": "expf and the per-pair product against a divide and a "
+                 "running sum; no-transc's cull reaches more (pair, warp) "
+                 "(its rows below give each walk's ns per (pair, warp))",
+    "no-mxu": "the dependent per-pair T chain (T*(1-alpha)) against a "
+              "log1pf sum per pair, same walk",
+    "no-compute": "the cull and the walk of the reached pairs (alpha, T, "
+                  "the sums) beyond the staging",
+    "no-input": "the feature read, the staging and the cull, less the "
+                "walk of every pair the cull skips (no-input walks all)",
+    "empty": "all of a block's work: read, staging, cull, walk, barriers",
+}
 
 # The probe kernels that transcendental_instructions compiles: each
 # function alone between a load and a store, and a bare copy.
@@ -197,12 +223,13 @@ def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None,
     at 67 TFLOP/s f32. ``no-compute`` counts the 10 staged rows it is
     defined to read (the TPU body reads the whole feature block) and one
     add per staged u and per pixel; ``no-input`` reads no feature; ``empty``
-    only writes its output. For K1's function, ``reached`` (the (pair,
-    warp) of those blocks that K1's cull does not skip, from
-    ``raster_cuda.cull_audit``) counts 32 pixels for each reached (pair,
+    only writes its output. For :data:`CULLED`, ``reached`` (the (pair,
+    warp) of those blocks that the variant's cull does not skip, from
+    :func:`reached_pair_warps`) counts 32 pixels for each reached (pair,
     warp) plus the cull's operations; without it every (pair, pixel)
-    counts, the TPU kernel's work. ``ops_per_pair_pixel`` replaces the
-    variant's count (K1 in the "log" form: :func:`log_ops_per_pair_pixel`).
+    counts, the TPU kernel's work, as it always does for no-input, which
+    walks every pair. ``ops_per_pair_pixel`` replaces the variant's count
+    (K1 in the "log" form: :func:`log_ops_per_pair_pixel`).
     """
     G, P = cfg.pair_block, cfg.tile * cfg.tile
     per = ops_per_pair_pixel or OPS_PER_PAIR_PIXEL.get(name)
@@ -227,11 +254,13 @@ def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None,
                                  else "bytes")
 
 
-def reached_pair_warps(out, pair_feat, tile_start, cfg: RenderConfig):
+def reached_pair_warps(out, pair_feat, tile_start, cfg: RenderConfig,
+                       rational: bool = False):
     """The (pair, warp) of the blocks a compositor output ``out`` composited
-    (its row 5) that K1's cull does not skip, and their total."""
+    (its row 5) that K1's cull (``rational``: no-transc's) does not skip,
+    and their total."""
     blk, tile, _ = active_blocks(tile_start, tile_block_offsets(out), cfg)
-    n = cull_audit(pair_feat, blk, tile, cfg)
+    n = cull_audit(pair_feat, blk, tile, cfg, rational=rational)
     return n["total"] - n["skipped"], n["total"]
 
 
@@ -283,9 +312,11 @@ def run_variant(name, fn, pair_feat, tile_start, tile_count,
     if on_card:
         reached = None
         if name in CULLED:
-            reached, total = reached_pair_warps(out, pair_feat, tile_start,
-                                                cfg)
+            reached, total = reached_pair_warps(
+                out, pair_feat, tile_start, cfg, rational=name == "no-transc")
             res["cull_skips"] = 1.0 - reached / max(total, 1)
+            res["reached"] = reached
+            res["ns_per_pair_warp"] = ms / max(reached, 1) * 1e6
             res["tpu_work_bound_ms"] = bound_ms(name, res["blocks"], cfg)[0]
         res["bound_ms"], res["bound_by"] = bound_ms(name, res["blocks"], cfg,
                                                     reached)
@@ -294,11 +325,26 @@ def run_variant(name, fn, pair_feat, tile_start, tile_count,
                  f"({res['share']:.1%} of it; {res['blocks']} blocks "
                  f"composited, {res['launches']} launches)")
         if reached is not None:
-            line += (f"; K1's cull skips {res['cull_skips']:.4f} of (pair, "
-                     f"warp); TPU work (every (pair, pixel)) "
+            whose = "its" if name in ("full", "no-transc", "no-mxu",
+                                      "cumprod") else "K1's"
+            line += (f"; {whose} cull skips {res['cull_skips']:.4f} of "
+                     f"(pair, warp), {res['ns_per_pair_warp']:.3f} ns per "
+                     f"reached (pair, warp); TPU work (every (pair, pixel)) "
                      f"{res['tpu_work_bound_ms']:.4f} ms")
     print(line, flush=True)
     return res
+
+
+def attribution(results: list) -> list:
+    """The lines of the attribution table: K1's time minus each variant's,
+    and what the difference isolates (:data:`ISOLATES`). Empty unless
+    ``full`` ran."""
+    by = {r["name"]: r for r in results}
+    if "full" not in by:
+        return []
+    k1 = by["full"]["ms"]
+    return [f"  full - {n:10s} {k1 - by[n]['ms']:+9.4f} ms  {ISOLATES[n]}"
+            for n in by if n != "full"]
 
 
 def main(argv=None) -> list:
@@ -332,8 +378,14 @@ def main(argv=None) -> list:
     print(f"device={dev} ({name}) tiles={cfg.num_tiles} "
           f"blocks={cfg.num_tiles * bpt} ({bpt}/tile); times: {clock}",
           flush=True)
-    return [run_variant(n, VARIANTS[n], pair_feat, tile_start, tile_count,
-                        cfg, args.iters) for n in names]
+    res = [run_variant(n, VARIANTS[n], pair_feat, tile_start, tile_count,
+                       cfg, args.iters) for n in names]
+    table = attribution(res)
+    if table:
+        print("K1 minus each variant (what the difference isolates):",
+              flush=True)
+        print("\n".join(table), flush=True)
+    return res
 
 
 if __name__ == "__main__":

@@ -107,6 +107,9 @@ def main(argv=None):
     demands (``frame_demand``, ``frame_trunc_demand``); with the orbit
     written, ``video`` (the video's path, or the PNG directory) and, with
     ``--save_depth``, ``depth_dir``."""
+    from .utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()  # the kernel builds' directory
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint", required=True,
                    help=".npz checkpoint file, output dir, or a 3DGS .ply")

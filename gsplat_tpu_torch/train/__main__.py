@@ -116,6 +116,9 @@ def main(argv=None):
     """Parse ``argv``, train, and return ``(state, report)`` of ``fit()``;
     over a grid ``(None, report)``: rank 0's report (its checkpoints hold
     the state)."""
+    from ..utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()  # the kernel builds' directory
     args = build_parser().parse_args(argv)
     n_ranks = args.mesh_data * args.mesh_tile
     if n_ranks > 1:

@@ -19,7 +19,11 @@ and runs here:
   checkpoint more than 0.3), so a test that drops nothing cannot pass;
 * on pair features the cull mostly drops, the plain compositor still
   matches the JAX package's Pallas forward kernel (interpret mode) within
-  the 2e-5 of tests/test_torch_raster.py.
+  the 2e-5 of tests/test_torch_raster.py;
+* the no-transc ablation's cull (``rational=True``: the threshold for its
+  alpha ``op / (1 + q/2)``), on the same scenes and edge ellipses: no
+  dropped (pair, warp) has a non-zero rational alpha, and it drops fewer
+  than K1's test, whose threshold would drop live pairs of that alpha.
 """
 
 import os
@@ -78,10 +82,12 @@ def _all_blocks(tile_start, tile_count, cfg):
     return tile_start.long()[tile] // G + rank, tile
 
 
-def _check_blocks(pair_feat, blocks, tiles, cfg, chunk=64):
+def _check_blocks(pair_feat, blocks, tiles, cfg, chunk=64, rational=False):
     """Every (pair, warp) pair_warp_reach drops has alpha == 0 at all 32 of
-    the warp's pixels. Returns the share of (pair, warp) dropped."""
-    n = tras.cull_audit(pair_feat, blocks, tiles, cfg, chunk=chunk)
+    the warp's pixels (``rational``: the no-transc ablation's test and
+    alpha). Returns the share of (pair, warp) dropped."""
+    n = tras.cull_audit(pair_feat, blocks, tiles, cfg, chunk=chunk,
+                        rational=rational)
     assert n["unsafe"] == 0, "a dropped (pair, warp) has a non-zero alpha"
     assert n["total"] > 0
     return n["skipped"] / n["total"]
@@ -223,3 +229,43 @@ def test_cull_is_conservative_at_tile_32(kind, pair_block):
     blocks, tiles = _all_blocks(b.tile_start, b.tile_count, cfg)
     share = _check_blocks(pf, blocks, tiles, cfg)
     assert share > 0.1, share
+
+
+@pytest.mark.parametrize("kind", ["seed0", "saturated", "edges"])
+def test_rational_cull_is_conservative(kind):
+    """The no-transc ablation's cull: exact zeros of its own alpha where it
+    drops, and no more drops than K1's test (1 / (1 + q/2) >= exp(-q/2),
+    so K1's threshold would drop live (pair, warp) of this alpha); fewer
+    where opacities do not put both reaches at ``chi2_clip``."""
+    if kind == "edges":
+        cfg = gt.RenderConfig(height=16, width=16, max_pairs=2**13)
+        r = np.random.default_rng(11)
+        n = 16 * cfg.pair_block
+        th = r.uniform(0, np.pi, n)
+        s1 = np.exp(r.uniform(np.log(0.5), np.log(300.0), n))
+        s2 = np.exp(r.uniform(np.log(0.2), np.log(3.0), n))
+        c, s = np.cos(th), np.sin(th)
+        cxx = c * c * s1**2 + s * s * s2**2
+        cyy = s * s * s1**2 + c * c * s2**2
+        cxy = c * s * (s1**2 - s2**2)
+        det = cxx * cyy - cxy**2
+        op = np.exp(r.uniform(np.log(0.5 / 128), 0.0, n))
+        op[::5] = (1.0 / 128) * (1.0 + r.uniform(-1e-5, 1e-5, op[::5].shape))
+        pf = torch.from_numpy(np.stack([
+            r.uniform(-12, 28, n), r.uniform(-12, 28, n),
+            cyy / det, -cxy / det, cxx / det, op,
+            r.uniform(0, 1, n), r.uniform(0, 1, n), r.uniform(0, 1, n),
+            r.uniform(1, 9, n)]).astype(np.float32))
+        blocks = torch.arange(16)
+        tiles = torch.zeros(16, dtype=torch.int64)
+    else:
+        scene = _saturated_scene() if kind == "saturated" else \
+            make_scene(None, n=600, seed_offset=0)
+        cfg = gt.RenderConfig(height=128, width=192, max_pairs=2**15)
+        pf, b = _pairs(scene, scene["c2w"], cfg, (160.0, 158.0, 96.5, 63.5))
+        blocks, tiles = _all_blocks(b.tile_start, b.tile_count, cfg)
+    share = _check_blocks(pf, blocks, tiles, cfg, rational=True)
+    k1 = _check_blocks(pf, blocks, tiles, cfg)
+    assert 0.05 < share <= k1, (share, k1)
+    if kind != "saturated":  # there opacity puts both reaches at chi2_clip
+        assert share < k1, (share, k1)

@@ -37,7 +37,10 @@ leaf's largest (the JAX gate's bounds). ``evaluate_views`` batched vs per
 view on the card: PSNR 1e-3 dB, L1 1e-6 (the JAX gate's bounds).
 
 The eight K3 kernels of the profiler vs their plain versions: rows 0-4
-within 2e-5 abs, row 5 exact, rows 6-7 zero (built and ordered alike).
+within 2e-5 abs, row 5 exact, rows 6-7 zero (built and ordered alike);
+the six built from K1's kernel also with opacities spread across the
+cutoff, their skip counts equal to the plain test's. K1's registers,
+shared memory and CTAs per SM as its redesign left them.
 cumprod, pg-roll and pg-log compute the forward compositor's function, so
 they are also held against its plain version within the same 2e-5 (their
 T is rounded in another association).
@@ -535,6 +538,57 @@ def test_ablation_kernel_matches_plain(cuda, variant, opacity):
         k1 = tras.composite_pairs_plain(pf, ts, tc, cfg)
         assert float((got[:, :5] - k1[:, :5]).abs().max()) <= TOL
         assert torch.equal(got[:, 5], k1[:, 5])
+
+
+@pytest.mark.parametrize("variant", tabl.K1_BODIES)
+def test_k1_body_matches_plain_and_its_cull(cuda, variant):
+    """The six bodies built from K1's kernel on the profiler's workload at
+    192x128 with opacities spread from below the cutoff to 0.9 (some tiles
+    saturate): rows 0-4 within 2e-5, row 5 exact, rows 6-7 zero; the bodies
+    that cull report the (pair, warp) they skipped, equal to the plain
+    test's count (no-transc's with its own alpha's threshold), none with
+    a non-zero alpha."""
+    cfg = gt.RenderConfig(**CFG)
+    pf, ts, tc = (t.to(cuda) for t in make_workload(cfg, 4))
+    r = np.random.default_rng(3)
+    pf[5] = torch.from_numpy(np.exp(r.uniform(
+        np.log(0.5 / 128), np.log(0.9), pf.shape[1])).astype(np.float32)
+    ).to(cuda)
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    kw = {"skipped": skipped} if variant in tabl.CULLS else {}
+    got = tabl.ablate(variant, pf, ts, tc, cfg, **kw)
+    want = tabl.ablate_plain(variant, pf, ts, tc, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got[:, :5] - want[:, :5]).abs().max()) <= TOL
+    assert torch.equal(got[:, 5], want[:, 5])
+    assert (got[:, 6:] == 0).all()
+    if variant in tabl.CULLS:
+        blk, tile, _ = tras.active_blocks(ts, tras.tile_block_offsets(want),
+                                          cfg)
+        n = tras.cull_audit(pf, blk, tile, cfg, rational=tabl.CULLS[variant])
+        assert n["unsafe"] == 0 and n["skipped"] > 0
+        assert int(skipped.item()) == n["skipped"]
+
+
+def test_k1_resources_unchanged(cuda):
+    """K1 ("cumprod", tile 16, G <= 256) keeps the resources of its
+    redesign now that its body is shared with the ablations: 40 registers,
+    12,288 B of static shared memory, 6 CTAs per SM, and no library
+    spills."""
+    from gsplat_tpu_torch.ops import _build
+    import re
+
+    built = _build.build()
+    ptxas = built["raster_fwd"]["ptxas"]
+    part = ptxas.split("raster_fwd_kernelILi16ELi256ELb0ELi0E", 1)[1]
+    part = part.split("Compiling entry", 1)[0]
+    m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", part)
+    assert (int(m.group(1)), int(m.group(2))) == (40, 12288)
+    assert tras.fwd_ctas_per_sm(cuda) == 6
+    for name, info in built.items():
+        for n in re.findall(r"(\d+) bytes spill stores", info["ptxas"]):
+            assert int(n) == 0, name
 
 
 def test_render_gradients_are_bit_identical_across_runs(cuda):

@@ -254,7 +254,9 @@ def test_profiler_runs_every_ported_variant_on_cpu(capsys):
     assert all(r["launches"] == 0 for r in res)  # no kernel on the CPU
     assert by["full"]["blocks"] == by["no-compute"]["blocks"] == 12
     assert by["empty"]["blocks"] == 0 and by["empty"]["digest"] == 256.0
-    assert "bound" not in capsys.readouterr().out  # no device numbers
+    out = capsys.readouterr().out
+    assert "bound" not in out  # no device numbers
+    assert "K1 minus each variant" in out
 
 
 def test_profiler_rejects_unknown_variant_and_missing_card():
@@ -295,42 +297,65 @@ def test_bounds():
 
 
 def test_k1_bound_counts_reached_work():
-    """K1's function (full, cumprod, pg-*) given the (pair, warp) its cull
-    reaches: 26 operations per reached (pair, pixel) plus the cull's own
-    (58 per (pair, warp), 14 per pair), against the bytes; without them,
-    every (pair, pixel), the TPU kernel's work. Other variants ignore it."""
+    """K1's function (full, cumprod, pg-*) and the bodies that walk only
+    what their cull reaches (no-transc, no-mxu) given those (pair, warp):
+    their operations per reached (pair, pixel) (26; no-transc 29) plus the
+    cull's own (58 per (pair, warp), 14 per pair), against the bytes;
+    without them, every (pair, pixel), the TPU kernel's work. no-input
+    (which walks every pair), no-compute and empty ignore it."""
     cfg = tconfig.RenderConfig(height=1080, width=1920, max_pairs=2**18)
     blocks = cfg.num_tiles * 4
     pw = blocks * 128 * 8
     cull = blocks * 128 * (8 * 58 + 14)
     nbytes = blocks * 10 * 128 * 4 + cfg.num_tiles * (8 * 256 * 4 + 8)
+    culled = {"full": 26, "no-transc": 29, "no-mxu": 26}
+    culled.update((name, 26) for name in tabl.K1_FUNCTION)
+    assert set(culled) == set(tprof.CULLED)
     for reached, by in ((pw, "operations"), (pw // 2, "operations"),
                         (0, "bytes")):
-        ms = max((reached * 32 * 26 + cull) / 67e12, nbytes / 3.35e12) * 1e3
-        for name in ("full",) + tabl.K1_FUNCTION:
+        for name, ops in culled.items():
+            ms = max((reached * 32 * ops + cull) / 67e12,
+                     nbytes / 3.35e12) * 1e3
             got, got_by = tprof.bound_ms(name, blocks, cfg, reached)
-            assert got_by == by and got == pytest.approx(ms)
+            assert got_by == by and got == pytest.approx(ms), name
     assert tprof.bound_ms("full", blocks, cfg, pw)[0] \
         > tprof.bound_ms("full", blocks, cfg)[0]
-    for name in ("no-transc", "no-mxu", "no-input", "no-compute", "empty"):
+    for name in ("no-input", "no-compute", "empty"):
         assert tprof.bound_ms(name, blocks, cfg, 0) == \
             tprof.bound_ms(name, blocks, cfg)
 
 
-def test_reached_pair_warps_on_cpu():
+@pytest.mark.parametrize("rational", [False, True])
+def test_reached_pair_warps_on_cpu(rational):
     """The reached (pair, warp) of the profiler's workload are those
-    pair_warp_reach keeps, over every block the compositor composited."""
+    pair_warp_reach keeps (``rational``: no-transc's cull, which reaches
+    more), over every block the compositor composited."""
     cfg = tconfig.RenderConfig(height=32, width=48, max_pairs=2**12,
                                pair_block=32)
     pf, ts, tc = tprof.make_workload(cfg, 2)
     out = tras.composite_pairs_plain(pf, ts, tc, cfg)
-    reached, total = tprof.reached_pair_warps(out, pf, ts, cfg)
+    reached, total = tprof.reached_pair_warps(out, pf, ts, cfg, rational)
     blocks = cfg.num_tiles * 2
     assert total == blocks * 32 * 8
     f = pf[:10].reshape(10, blocks, 32)
     tiles = torch.arange(blocks) // 2
-    assert reached == int(tras.pair_warp_reach(f, tiles, cfg).sum())
+    assert reached == int(tras.pair_warp_reach(f, tiles, cfg,
+                                               rational).sum())
     assert 0 < reached < total
+    if rational:
+        assert reached > tprof.reached_pair_warps(out, pf, ts, cfg)[0]
+
+
+def test_attribution_table():
+    """K1's time minus each variant's, one line each, naming the class the
+    difference isolates; nothing without ``full``."""
+    res = [{"name": n, "ms": 1.0 + i} for i, n in enumerate(tprof.VARIANTS)]
+    lines = tprof.attribution(res)
+    assert len(lines) == len(tprof.VARIANTS) - 1
+    for i, (name, line) in enumerate(zip(list(tprof.VARIANTS)[1:], lines)):
+        assert name in line and tprof.ISOLATES[name] in line
+        assert f"{-(i + 1):+9.4f} ms" in line
+    assert tprof.attribution(res[1:]) == []
 
 
 def test_ablate_wrapper_on_cpu():

@@ -49,6 +49,14 @@ tile 4 grid of the same processes), with JAX's bounds
   (``:259-263``); the clone-only fit against JAX's, as above;
 * the DCP checkpoint pair: written by the four ranks' shards, read by the
   tile 4 grid and by one process, bit for bit.
+
+The communication model (``gsplat_tpu_torch/comm_model.py``): the bytes
+each rank sends through the four collective sites of
+``parallel/sharding.py`` (counted by wrapping them in the same spawn,
+``torch_sharding_ranks.count_collectives``) in the replicated and the
+gaussian-sharded steps (scan and batched, reference and paper ADC, rect
+and ellipse) and the ring at tile 2 and tile 4 equal the model's closed
+forms for that grid, collective by collective, within 1 %.
 """
 
 import importlib
@@ -69,6 +77,7 @@ from gsplat_tpu.parallel.sharding import (make_gauss_sharded_train_step,
 from gsplat_tpu.models import GaussianPool
 from gsplat_tpu.train import init_train_state
 from gsplat_tpu_torch.models.gaussians import PARAM_KEYS
+from gsplat_tpu_torch import comm_model
 from gsplat_tpu_torch import parallel as tparallel
 from gsplat_tpu_torch.parallel import launch
 from gsplat_tpu_torch.train import trainer as ttrainer
@@ -553,3 +562,32 @@ def test_dcp_checkpoint_loads_into_any_grid_and_one_process(grid, inputs):
     assert int(state.step) == 1
     for k, v in state_arrays(state).items():
         np.testing.assert_array_equal(v, saved[k], err_msg=k)
+
+
+# (the rank's result key, the model's family, its grid (data, tile), paper)
+COUNTED = {f"step_{k}": ("band", (2, 2), v[0].get("adc_mode") == "paper")
+           for k, v in STEPS.items()}
+COUNTED.update({f"gauss_{k}": ("gauss", (2, 2),
+                               v[0].get("adc_mode") == "paper")
+                for k, v in STEPS.items()})
+COUNTED.update({"ring2": ("ring", (2, 2), False),
+                "ring4": ("ring", (1, 4), False),
+                "ring4_starved": ("ring", (1, 4), False)})
+
+
+@pytest.mark.parametrize("case", list(COUNTED))
+def test_comm_model_matches_counted_bytes(grid, case):
+    """Every rank's bytes through each collective in one step equal the
+    model's volume for the grid, collective by collective, within 1 %
+    (the clip's and the NaN guard's scalar reductions included)."""
+    family, (n_data, n_tile), paper = COUNTED[case]
+    want = comm_model.step_volumes(
+        family, TCFG["batch_size"], CFG["height"], CFG["width"],
+        TCFG["capacity"], n_data, n_tile, paper=paper)["kinds"]
+    for r in grid:
+        got = r["bytes_" + case]
+        assert set(got) == set(want)
+        for kind, w in want.items():
+            assert abs(got[kind] - w) <= 0.01 * w, (r["coord"], kind,
+                                                    got[kind], w)
+        assert sum(got.values()) > 0

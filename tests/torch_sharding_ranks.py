@@ -9,6 +9,7 @@ tile 4 grid of the same processes) and writes that rank's results to
 gaussian-sharded train CLI runs.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -25,7 +26,8 @@ from gsplat_tpu_torch.parallel import (adc_on_shards, gather_train_state,
                                        make_sharded_render,
                                        make_sharded_train_step, num_alive,
                                        shard_rows, shard_train_state)
-from gsplat_tpu_torch.parallel.mesh import cli_rank
+from gsplat_tpu_torch.parallel import sharding
+from gsplat_tpu_torch.parallel.mesh import TILE_AXIS, cli_rank
 from gsplat_tpu_torch.train import __main__ as train_cli
 from gsplat_tpu_torch.train import trainer
 
@@ -57,6 +59,55 @@ GAUSS_FIT_TRAIN = dict(iterations=12, batch_size=2, capacity=512,
 ADC_THRESHOLDS, ADC_SEED = (0.01, 1e-3, 0.01), 3
 
 
+@contextlib.contextmanager
+def count_collectives(out: dict):
+    """Wrap the four collective sites of ``parallel/sharding.py``
+    (``_reduce``, ``_all_gather``, ``_reduce_scatter_rows``, ``_permute``)
+    and add to ``out[kind]`` the bytes this rank sends through each, by the
+    ring algorithms' counts over the k ranks of the call: an all-reduce of
+    S bytes 2 (k - 1) S / k, an all-gather of a shard of s bytes (k - 1) s,
+    a reduce-scatter of S bytes (k - 1) S / k, a permute its tensor."""
+    real = {k: getattr(sharding, k) for k in (
+        "_reduce", "_all_gather", "_reduce_scatter_rows", "_permute")}
+    for k in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all"):
+        out.setdefault(k, 0.0)
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def reduce(t, group, n, op=torch.distributed.ReduceOp.SUM):
+        if n > 1:
+            out["all_reduce"] += 2 * (n - 1) / n * nbytes(t)
+        return real["_reduce"](t, group, n, op)
+
+    def all_gather(x, group, n, axis):
+        if n > 1:
+            out["all_gather"] += (n - 1) * nbytes(x)
+        return real["_all_gather"](x, group, n, axis)
+
+    def reduce_scatter_rows(g, mesh):
+        n = mesh.shape[TILE_AXIS]
+        if n > 1:
+            out["reduce_scatter"] += (n - 1) / n * nbytes(g)
+        return real["_reduce_scatter_rows"](g, mesh)
+
+    def permute(x, mesh, shift):
+        if shift % mesh.shape[TILE_AXIS]:
+            out["all_to_all"] += nbytes(x)
+        return real["_permute"](x, mesh, shift)
+
+    wrapped = {"_reduce": reduce, "_all_gather": all_gather,
+               "_reduce_scatter_rows": reduce_scatter_rows,
+               "_permute": permute}
+    try:
+        for k, fn in wrapped.items():
+            setattr(sharding, k, fn)
+        yield out
+    finally:
+        for k, fn in real.items():
+            setattr(sharding, k, fn)
+
+
 def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else x
 
@@ -75,10 +126,11 @@ def state_arrays(state) -> dict:
     return out
 
 
-def run_step(inp, mesh, tkw, cull):
+def run_step(inp, mesh, tkw, cull, counted=None):
     """One sharded (``mesh``) or single-device (None) step from a fresh
     state: (state arrays, metrics, the clipped and masked gradients the
-    update applied), as numpy."""
+    update applied), as numpy. ``counted``: a dict that gets the bytes
+    this rank sends in the step (:func:`count_collectives`)."""
     cfg = gt.RenderConfig(**CFG, cull_mode=cull)
     tcfg = gt.TrainConfig(**TCFG, **tkw)
     pool = gt.pool_from_numpy(inp["params"], inp["alive"], device="cpu")
@@ -87,8 +139,10 @@ def run_step(inp, mesh, tkw, cull):
     if mesh is None:
         state, m = gt.make_train_step(cfg, tcfg)(state, batch)
     else:
-        state, m = make_sharded_train_step(cfg, tcfg, mesh)(
-            state, local_batch(batch, mesh))
+        step = make_sharded_train_step(cfg, tcfg, mesh)
+        batch = local_batch(batch, mesh)
+        with count_collectives({} if counted is None else counted):
+            state, m = step(state, batch)
     grads = {k: _np(p.grad).copy() for k, p in state.pool.params.items()}
     return state_arrays(state), {k: _np(v) for k, v in m.items()}, grads
 
@@ -123,17 +177,20 @@ def fresh_state(inp, tcfg, moments_seed=None):
 
 
 def run_gauss_step(inp, mesh, tkw, cull="rect", ring=False,
-                   ring_capacity=None):
+                   ring_capacity=None, counted=None):
     """One gaussian-sharded step from the sharded fresh state: (the
     gathered state's arrays, the metrics (this rank's rows where
-    per-gaussian), the capacity leaves' local row counts)."""
+    per-gaussian), the capacity leaves' local row counts). ``counted``: a
+    dict that gets the bytes this rank sends in the step."""
     cfg = gt.RenderConfig(**CFG, cull_mode=cull)
     tcfg = gt.TrainConfig(**TCFG, **tkw)
     state = shard_train_state(fresh_state(inp, tcfg), mesh)
     batch = {k: torch.from_numpy(v.copy()) for k, v in inp["batch"].items()}
-    state, m = make_gauss_sharded_train_step(
-        cfg, tcfg, mesh, ring=ring, ring_capacity=ring_capacity)(
-            state, local_batch(batch, mesh))
+    step = make_gauss_sharded_train_step(cfg, tcfg, mesh, ring=ring,
+                                         ring_capacity=ring_capacity)
+    batch = local_batch(batch, mesh)
+    with count_collectives({} if counted is None else counted):
+        state, m = step(state, batch)
     return (state_arrays(gather_train_state(state, mesh)),
             {k: _np(v) for k, v in m.items()}, capacity_shapes(state))
 
@@ -166,12 +223,16 @@ def run_gauss(inp, mesh, mesh4, out_dir):
             {k: torch.from_numpy(v)[rows] for k, v in params.items()},
             torch.from_numpy(alive)[rows], views)[0])
     for name, (tkw, cull) in STEPS.items():
-        res["gauss_" + name] = run_gauss_step(inp, mesh, tkw, cull)
+        counted = res.setdefault("bytes_gauss_" + name, {})
+        res["gauss_" + name] = run_gauss_step(inp, mesh, tkw, cull,
+                                              counted=counted)
     res["gauss_ag4"] = run_gauss_step(inp, mesh4, {})
     for tag, m, cap in (("ring2", mesh, RING_CAP), ("ring4", mesh4, RING_CAP),
                         ("ring4_starved", mesh4, RING_STARVED)):
+        counted = res.setdefault("bytes_" + tag, {})
         res["gauss_" + tag] = run_gauss_step(inp, m, {}, ring=True,
-                                             ring_capacity=cap)
+                                             ring_capacity=cap,
+                                             counted=counted)
     # shard -> gather is the identity; a capacity T does not divide raises.
     tcfg = gt.TrainConfig(**TCFG)
     state = fresh_state(inp, tcfg, moments_seed=1)
@@ -267,7 +328,8 @@ def run_grid(inp, out_dir):
     except ValueError as e:
         res["batch_indivisible"] = str(e)
     for name, (tkw, cull) in STEPS.items():
-        res["step_" + name] = run_step(inp, mesh, tkw, cull)
+        counted = res.setdefault("bytes_step_" + name, {})
+        res["step_" + name] = run_step(inp, mesh, tkw, cull, counted=counted)
     res["eval"] = evaluate_views(params, inp["views"],
                                  gt.RenderConfig(**CFG), alive=alive,
                                  mesh=mesh)
