@@ -265,7 +265,22 @@ Phases (any failure exits non-zero, with no result line):
      gsplat_tpu_torch.train --mesh_data 2 --mesh_tile 2 --gauss_sharded
      [--ring] --dist_backend gloo, 20 iterations each, on phase 14's
      dataset;
- 17. one JSON line {"kernels": [...]} (twenty-four kernels: phase 14's
+ 17. the bench asset's recipe in full: python -m
+     gsplat_tpu_torch.make_bench_asset (scripts/make_bench_asset.sh's
+     train_synthetic flags: 800 iterations, capacity 131,072, 120,000 GT
+     gaussians in 400 clusters, 960x540, 16 views, max_pairs 2**21) into a
+     temporary directory: the asset's keys, shapes and dtypes those of
+     bench_assets/trained_ckpt.npz, __step__ 800, no optimizer leaves,
+     restore_pool on the card equal to fit()'s final pool; a finite final
+     loss; K1 and K2 launched once a step (K1 also for the 16 GT renders
+     and the 16 evaluated views); on the 16 GT views the port's asset's
+     PSNR at least the JAX asset's minus ASSET_PSNR_SLACK; the memory
+     model within MEMORY_TOL of the run's own peak. Printed: growth and
+     overflow events, ADC ms per call, wall time and steps/s, the GT
+     views' demand, and for both assets at their own 1080p bench poses
+     the pair demand (the JAX asset's equal to phase 4's), K1's blocks
+     and ms, and the served frames' median;
+ 18. one JSON line {"kernels": [...]} (twenty-four kernels: phase 14's
      ranges as their own entries), the card line, and the final line
      {"ok": true, "device": {...}}.
 
@@ -4299,6 +4314,247 @@ def gauss_phase(card):
     return k1, k2, res["k2_err"]
 
 
+# --------------------------------------------------------------------------
+# Phase 17: the bench asset's recipe (python -m
+# gsplat_tpu_torch.make_bench_asset) trained in full on the card and held
+# against the JAX package's asset, bench_assets/trained_ckpt.npz.
+# --------------------------------------------------------------------------
+
+# The port's asset may score at most this many dB below the JAX asset on
+# the recipe's ground-truth views.
+ASSET_PSNR_SLACK = 0.5
+# The port's asset scored again after the strip must give main()'s own
+# PSNR: the same pool on the same views.
+ASSET_RESCORE_TOL = 1e-4
+
+
+def _recipe_flag(name):
+    from gsplat_tpu_torch.make_bench_asset import RECIPE_FLAGS
+
+    return int(RECIPE_FLAGS[RECIPE_FLAGS.index(f"--{name}") + 1])
+
+
+def _serve_asset(pool, fx, fy, cx, cy, cfg):
+    """Phase 5's serving of ``pool`` from its own bench pose: the bench pose
+    plus an 8-frame orbit at orbit_scale 4.4 through make_render_fn and
+    render_trajectory. Returns (stats, the bench pose's serving_path)."""
+    from gsplat_tpu_torch.viewer import (create_orbit_trajectory,
+                                         make_render_fn, render_trajectory)
+
+    c2w, center, radius = bench_pose(pool)
+    traj = np.concatenate([c2w[None], create_orbit_trajectory(
+        center, radius * 4.4, num_frames=8, elevation_deg=15.0)])
+    render_fn = make_render_fn(pool.params, cfg, fx, fy, cx, cy,
+                               alive=pool.alive, report_demand=True)
+    _, stats = render_trajectory(render_fn, traj, keep_frames=False,
+                                 pair_capacity=cfg.max_pairs)
+    sp = serving_path(pool.params, c2w, fx, fy, cx, cy, cfg, alive=pool.alive)
+    return stats, sp
+
+
+def _asset_k1(sp, cfg):
+    """K1 at an asset's bench pose: (composited blocks, ms by CUDA events
+    over 20 launches)."""
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+
+    pf, b = sp["pair_feat"], sp["bin"]
+    ts, tc = b.tile_start, b.tile_count
+    out = composite_pairs(pf, ts, tc, cfg)
+    blocks = int(torch.where(tc > 0, out[:, 5, 0], 0.0).sum())
+    for _ in range(3):
+        composite_pairs(pf, ts, tc, cfg)
+    torch.cuda.synchronize()
+    return blocks, device_ms(lambda: composite_pairs(pf, ts, tc, cfg), 20)
+
+
+def asset_phase(jax_pairs, fx, fy, cx, cy, card):
+    """Phase 17: ``make_bench_asset.main`` with the recipe unchanged (800
+    iterations, capacity 131,072, 120,000 GT gaussians in 400 clusters,
+    960x540, 16 views, max_pairs 2**21), workdir and asset in a temporary
+    directory. Gates: the asset's keys, shapes and dtypes equal the JAX
+    asset's, __step__ the iterations, no optimizer leaves; restore_pool
+    reads it on the card equal to fit()'s final pool; K1 and K2 launched
+    as the recipe's steps, GT renders and evaluation ask; a finite final
+    loss; on the recipe's ground-truth views the port's asset within
+    ASSET_PSNR_SLACK dB of the JAX asset's PSNR (or above it) and equal to
+    main()'s own score; the memory model within MEMORY_TOL of the run's
+    own peak. Printed: growth events, overflow and skipped steps, ADC ms
+    per call, wall time and steps/s, the GT views' pair demand, and for
+    both assets at their 1080p bench poses the pair demand (the JAX
+    asset's must be phase 4's), K1's composited blocks and time and the
+    served frame's median. Returns (K1 launches, K2 launches) of the
+    phase's counted runs (the recipe, the evaluations and the serving)."""
+    import importlib
+    import tempfile
+
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch import make_bench_asset, train_synthetic
+    from gsplat_tpu_torch.evaluation import evaluate_views
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+    from gsplat_tpu_torch.utils.memory import estimate_train_memory
+
+    fit_mod = importlib.import_module("gsplat_tpu_torch.train.fit")
+    iters, n_views = _recipe_flag("iterations"), _recipe_flag("views")
+    got = {"max_pairs": [], "adc": [], "lines": []}
+    real = (fit_mod.fit, fit_mod.make_train_step, fit_mod.adc_step,
+            fit_mod.adc_step_paper, train_synthetic.gt_views)
+
+    def tee(msg):
+        got["lines"].append(msg)
+        print(f"  [17 fit] {msg}", flush=True)
+
+    def fit(dataset, cfg, tcfg, **kw):
+        got["tcfg"] = tcfg
+        got["state"], got["report"] = real[0](dataset, cfg, tcfg,
+                                              **dict(kw, log_fn=tee))
+        return got["state"], got["report"]
+
+    def make(render_cfg, train_cfg):
+        got["max_pairs"].append(render_cfg.max_pairs)
+        return real[1](render_cfg, train_cfg)
+
+    def adc(fn):
+        def timed(state, *args, **kw):
+            cap = state.pool.capacity
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, res = fn(state, *args, **kw)
+            ev[1].record()
+            got["adc"].append((int(state.step), cap, ev, res))
+            return state, res
+        return timed
+
+    def views_of(gt_params, n, cfg):
+        got["gt_params"], got["cfg"] = gt_params, cfg
+        got["views"] = real[4](gt_params, n, cfg)
+        return got["views"]
+
+    (fit_mod.fit, fit_mod.make_train_step, fit_mod.adc_step,
+     fit_mod.adc_step_paper, train_synthetic.gt_views) = (
+        fit, make, adc(real[2]), adc(real[3]), views_of)
+    # Removed when the phase ends, or at exit if a gate fails.
+    tmpdir = tempfile.TemporaryDirectory(prefix="gsplat_asset_")
+    tmp = tmpdir.name
+    out = os.path.join(tmp, "trained_ckpt_torch.npz")
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    composite_pairs.launches = composite_pairs.bwd_launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = make_bench_asset.main([os.path.join(tmp, "run"), "--out", out])
+    finally:
+        (fit_mod.fit, fit_mod.make_train_step, fit_mod.adc_step,
+         fit_mod.adc_step_paper, train_synthetic.gt_views) = real
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_k1, build_k2 = composite_pairs.launches, composite_pairs.bwd_launches
+    state, report, tcfg = got["state"], got["report"], got["tcfg"]
+    vcfg, views = got["cfg"], got["views"]
+    final_cfg = vcfg.with_(max_pairs=got["max_pairs"][-1])
+    grow_pool = sum("growing pool capacity" in m for m in got["lines"])
+    grow_pairs = sum("growing max_pairs" in m for m in got["lines"])
+    print(f"[{card}] 17 python -m gsplat_tpu_torch.make_bench_asset (the "
+          f"recipe of scripts/make_bench_asset.sh): {report.iterations} "
+          f"iterations in {build_s:.1f} s (fit() {report.wall_time_s:.1f} s, "
+          f"{res['steps_per_s']:.3f} steps/s); final loss "
+          f"{report.final_loss:.6f}; nonfinite steps "
+          f"{report.nonfinite_steps}; overflow events "
+          f"{report.overflow_events}; growth events: pool {grow_pool} "
+          f"(capacity {tcfg.capacity} -> {state.pool.capacity}), max_pairs "
+          f"{grow_pairs} ({got['max_pairs'][0]} -> {got['max_pairs'][-1]}); "
+          f"K1 launches {build_k1}, K2 {build_k2}", flush=True)
+    for it, cap, ev, r in got["adc"]:
+        print(f"  [{card}] 17 densification at step {it}: pruned "
+              f"{int(r.num_pruned)}, split {int(r.num_split)}, cloned "
+              f"{int(r.num_cloned)}, overflowed {int(r.num_overflowed)} "
+              f"(capacity {cap}); {ev[0].elapsed_time(ev[1]):.3f} ms (CUDA "
+              f"events around the ADC call)", flush=True)
+    memory_line(card, f"17 the recipe's fit() (its step at capacity "
+                f"{state.pool.capacity}, max_pairs {final_cfg.max_pairs}; "
+                f"the GT scene and the evaluation counted as the run's)",
+                other, estimate_train_memory(final_cfg, dataclasses.replace(
+                    tcfg, capacity=state.pool.capacity)), gate=True)
+    if not (np.isfinite(report.final_loss) and report.iterations == iters
+            and build_k2 == iters and build_k1 == iters + 2 * n_views):
+        raise SystemExit(f"FAIL: 17 the recipe's run: final loss "
+                         f"{report.final_loss}, {report.iterations} "
+                         f"iterations, K1 {build_k1}, K2 {build_k2}")
+
+    # The file: the JAX asset's layout, read on the card as fit() left it.
+    with np.load(CKPT) as j, np.load(out) as f:
+        want = {k: (j[k].shape, str(j[k].dtype)) for k in j.files}
+        have = {k: (f[k].shape, str(f[k].dtype)) for k in f.files}
+        step, n_opt = int(f["__step__"]), int(f["__num_opt_leaves__"])
+        jax_alive = int(j["__alive__"].sum())
+    port = gt.restore_pool(out, device="cuda")
+    same = (torch.equal(port.alive, state.pool.alive)
+            and all(torch.equal(port.params[k], state.pool.params[k])
+                    for k in PARAM_KEYS))
+    print(f"[{card}] 17 the asset: keys, shapes and dtypes equal the JAX "
+          f"asset's: {want == have}; __step__ {step}, __num_opt_leaves__ "
+          f"{n_opt}; restore_pool on the card equals fit()'s final pool: "
+          f"{same}; alive {res['alive']} of {port.capacity} (the JAX "
+          f"asset's {jax_alive})", flush=True)
+    if want != have:
+        print(f"  JAX asset {want}\n  port asset {have}", flush=True)
+    if not (want == have and step == iters and n_opt == 0 and same):
+        raise SystemExit("FAIL: 17 the asset's file")
+    tmpdir.cleanup()
+    gt_params = got["gt_params"]
+    del got, state
+
+    # Quality on the recipe's views: both assets, and the GT scene against
+    # its own views (its demand; an overflow of the GT render at the
+    # recipe's max_pairs, which does not grow, would show as a finite
+    # score where the auto-sized re-render differs).
+    composite_pairs.launches = composite_pairs.bwd_launches = 0
+    jax_asset = gt.restore_pool(CKPT, device="cuda")
+    assets = {"port": port, "jax": jax_asset}
+    ev = {name: evaluate_views(p.params, views, vcfg, alive=p.alive)
+          for name, p in assets.items()}
+    ev["gt"] = evaluate_views(gt_params, views, vcfg)
+    del gt_params
+    for name, e in ev.items():
+        print(f"[{card}] 17 {name} on the recipe's {e['num_views']} GT views "
+              f"at {vcfg.width}x{vcfg.height}: PSNR {e['psnr']:.4f} dB, SSIM "
+              f"{e['ssim']:.4f}, L1 {e['l1']:.6f}; largest pair demand "
+              f"{e['max_pair_demand']} (max_pairs {vcfg.max_pairs}, "
+              f"evaluated at {e['eval_max_pairs']})", flush=True)
+    gap = ev["port"]["psnr"] - ev["jax"]["psnr"]
+    rescore = abs(ev["port"]["psnr"] - res["psnr"])
+    print(f"[{card}] 17 PSNR port - JAX asset {gap:+.4f} dB (gate >= "
+          f"-{ASSET_PSNR_SLACK}); the port's asset rescored against main()'s "
+          f"{res['psnr']:.4f} dB: {rescore:.2e} dB (gate "
+          f"{ASSET_RESCORE_TOL}); the GT render's demand "
+          f"{ev['gt']['max_pair_demand']} against its max_pairs "
+          f"{vcfg.max_pairs} (it does not grow): overflow "
+          f"{ev['gt']['max_pair_demand'] > vcfg.max_pairs}", flush=True)
+    if gap < -ASSET_PSNR_SLACK or rescore > ASSET_RESCORE_TOL:
+        raise SystemExit("FAIL: 17 the port's asset against the JAX asset")
+
+    # Both assets at their own 1080p bench poses: the same camera rule on
+    # each asset's alive positions, so the cameras differ slightly.
+    cfg = gt.RenderConfig(height=H, width=W, max_pairs=MAX_PAIRS)
+    served = {name: _serve_asset(p, fx, fy, cx, cy, cfg)
+              for name, p in assets.items()}
+    k1, k2 = composite_pairs.launches, composite_pairs.bwd_launches
+    for name, (stats, sp) in served.items():
+        pairs = int(sp["bin"].num_pairs)
+        blocks, ms = _asset_k1(sp, cfg)
+        print(f"[{card}] 17 {name} asset at its 1080p bench pose: "
+              f"{pairs} pairs (max_pairs {cfg.max_pairs}), K1 {blocks} "
+              f"composited blocks, {ms:.4f} ms (CUDA events, 20 launches); "
+              f"served frames over the pose and the 8-frame orbit: median "
+              f"{stats['median_ms']:.3f} ms, mean {stats['mean_ms']:.3f}, "
+              f"pipelined {stats['pipelined_ms']:.3f} ms/frame, overflow "
+              f"frames {stats['pair_overflow_frames']}", flush=True)
+        if name == "jax" and pairs != jax_pairs:
+            raise SystemExit(f"FAIL: 17 the JAX asset's bench-pose demand "
+                             f"{pairs}, not phase 4's {jax_pairs}")
+    return build_k1 + k1, build_k2 + k2
+
+
 def main():
     # --- 1. card ---
     if not torch.cuda.is_available():
@@ -4635,7 +4891,13 @@ def main():
     print(f"[{card}] phase 16 took {time.perf_counter() - t16:.1f} s; its "
           f"launches: K1 {gauss_k1}, K2 {gauss_k2}", flush=True)
 
-    # --- 17. result lines ---
+    # --- 17. the bench asset's recipe in full, against the JAX asset ---
+    t17 = time.perf_counter()
+    asset_k1, asset_k2 = asset_phase(n_pairs, fx, fy, cx, cy, card)
+    print(f"[{card}] phase 17 took {time.perf_counter() - t17:.1f} s; its "
+          f"launches: K1 {asset_k1}, K2 {asset_k2}", flush=True)
+
+    # --- 18. result lines ---
     kernels = [{
         "name": "raster_fwd",
         "route": "cuda",
@@ -4644,7 +4906,7 @@ def main():
         "launches": launches + fit_k1 + trunc_k1 + bucket_k1
         + lever_n["launches"] + fit_n["launches"] + serve_k1
         + xla_n[0] + eval_k1 + trace_n[0] + tools_n[0] + counts["b"][0]
-        + counts["d"][0] + ell["k1"] + grid_k1 + gauss_k1,
+        + counts["d"][0] + ell["k1"] + grid_k1 + gauss_k1 + asset_k1,
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -4658,7 +4920,7 @@ def main():
         "replaces": "gsplat_tpu/ops/raster_pallas.py:243",
         "launches": train_k2 + fit_k2 + trunc_k2 + lever_n["bwd_launches"]
         + xla_n[1] + trace_n[1] + tools_n[1] + counts["b"][1] + ell["k2"]
-        + grid_k2 + gauss_k2,
+        + grid_k2 + gauss_k2 + asset_k2,
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

@@ -50,6 +50,33 @@ def make_gt_scene(n, seed=0, n_clusters=24, scale_mean=-2.6, device="cpu"):
     return params, cloud
 
 
+def gt_views(gt_params, n_views, cfg):
+    """The ground-truth views of the recipe: ``n_views`` renders of
+    ``gt_params`` at ``cfg`` on an orbit around the scene, as view dicts
+    (image as numpy, c2w, fx, fy, cx, cy), in the JAX script's order.
+    The render keeps ``cfg.max_pairs`` as it is (no growth)."""
+    from .render import render_from_params
+    from .viewer import look_at
+
+    fx = fy = 0.9 * cfg.width
+    cx, cy = cfg.width / 2.0, cfg.height / 2.0
+    center = np.array([0.0, 0.0, 4.5])
+    views = []
+    for i in range(n_views):
+        th = 2.0 * np.pi * i / n_views
+        posn = center + np.array(
+            [4.5 * np.sin(th), 0.8 * np.sin(2 * th), -4.5 * np.cos(th)]
+        )
+        c2w = look_at(posn, center)
+        with torch.no_grad():
+            img = render_from_params(gt_params, c2w, fx, fy, cx, cy,
+                                     cfg)[0].cpu().numpy()
+        views.append(
+            {"image": img, "c2w": c2w, "fx": fx, "fy": fy, "cx": cx, "cy": cy}
+        )
+    return views
+
+
 class _Views:
     """Minimal dataset over in-memory views (numpy batches of random
     views, drawn with ``default_rng(seed)`` as the JAX script draws
@@ -124,9 +151,7 @@ def main(argv=None):
     from .config import RenderConfig, TrainConfig
     from .device import resolve_device
     from .evaluation import evaluate_views
-    from .render import render_from_params
     from .train.fit import fit
-    from .viewer import look_at
 
     dev = resolve_device(args.device)
     cfg = RenderConfig(
@@ -134,29 +159,13 @@ def main(argv=None):
         tile_rank_cap=args.tile_rank_cap, trunc_pairs=args.trunc_pairs,
         bwd_pairs=args.bwd_pairs,
     )
-    fx = fy = 0.9 * args.width
-    cx, cy = args.width / 2.0, args.height / 2.0
 
     gt_params, init_cloud = make_gt_scene(
         args.gt_gaussians, args.seed, n_clusters=args.gt_clusters,
         scale_mean=args.gt_scale, device=dev,
     )
 
-    # Ground-truth views on an orbit around the scene.
-    center = np.array([0.0, 0.0, 4.5])
-    views = []
-    for i in range(args.views):
-        th = 2.0 * np.pi * i / args.views
-        posn = center + np.array(
-            [4.5 * np.sin(th), 0.8 * np.sin(2 * th), -4.5 * np.cos(th)]
-        )
-        c2w = look_at(posn, center)
-        with torch.no_grad():
-            img = render_from_params(gt_params, c2w, fx, fy, cx, cy,
-                                     cfg)[0].cpu().numpy()
-        views.append(
-            {"image": img, "c2w": c2w, "fx": fx, "fy": fy, "cx": cx, "cy": cy}
-        )
+    views = gt_views(gt_params, args.views, cfg)
     print(f"rendered {len(views)} GT views at {args.width}x{args.height}")
 
     # Noisy initialization: GT cloud positions + noise, colors kept;

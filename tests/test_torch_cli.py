@@ -364,18 +364,38 @@ def test_render_trained_dataset_flags_and_exports(trained, tmp_path):
     np.testing.assert_array_equal(params["q_raw"].numpy(), host["q_raw"][:5])
 
 
-def test_train_synthetic_cli_matches_jax_scene():
+def test_train_synthetic_cli_matches_jax_scene(monkeypatch):
     jparams, jcloud = _script("train_synthetic").make_gt_scene(300, seed=4)
     tparams, tcloud = train_synthetic.make_gt_scene(300, seed=4)
     np.testing.assert_array_equal(tcloud, jcloud)
     for k in PARAM_KEYS:
         np.testing.assert_array_equal(tparams[k].numpy(),
                                       np.asarray(jparams[k]))
+    # main renders its ground truth through gt_views and trains on it.
+    seen = {}
+    real_views, real_data = train_synthetic.gt_views, train_synthetic._Views
+
+    def views(gt_params, n, cfg):
+        seen["views"] = real_views(gt_params, n, cfg)
+        seen["args"] = (len(gt_params["pos"]), n, cfg.height, cfg.width,
+                        cfg.max_pairs)
+        return seen["views"]
+
+    def data(v):
+        seen["trained_on"] = v
+        return real_data(v)
+
+    monkeypatch.setattr(train_synthetic, "gt_views", views)
+    monkeypatch.setattr(train_synthetic, "_Views", data)
     res = train_synthetic.main(["--height", "32", "--width", "48",
                                 "--gt_gaussians", "200", "--views", "2",
                                 "--iterations", "2", "--max_pairs", "16384",
                                 "--capacity", "512", "--device", "cpu"])
     assert np.isfinite(res["psnr"]) and res["gaussians"] > 100
+    assert seen["args"] == (200, 2, 32, 48, 16384)
+    assert seen["trained_on"] is seen["views"] and len(seen["views"]) == 2
+    assert seen["views"][0]["image"].shape == (32, 48, 3)
+    assert seen["views"][0]["fx"] == 0.9 * 48
 
 
 @pytest.mark.parametrize("planes", [1, 2])

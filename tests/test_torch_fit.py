@@ -28,6 +28,7 @@ import gsplat_tpu as gj
 import gsplat_tpu.train.trainer as jtrainer
 import gsplat_tpu_torch as gt
 from conftest import make_scene
+from gsplat_tpu_torch import make_bench_asset
 from gsplat_tpu_torch.models.gaussians import PARAM_KEYS, pool_from_dense
 from gsplat_tpu_torch.viewer import look_at
 
@@ -255,7 +256,7 @@ def test_resumed_fit_ends_where_the_run_ends(tmp_path):
             assert torch.equal(a[f], b[f]), (k, f)
 
 
-def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     pts, batches = _scene(n=8)
@@ -270,6 +271,10 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         ("f_rest", (45,)), ("scale_raw", (3,)), ("q_raw", (4,)))}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pool_from_dense(dense, 4)
+    # The bench asset's recipe: before it makes its workdir.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_bench_asset.main([str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
 
 
 @pytest.mark.parametrize("max_pairs", [2**20, 2**22])
