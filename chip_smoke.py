@@ -280,7 +280,20 @@ Phases (any failure exits non-zero, with no result line):
      views' demand, and for both assets at their own 1080p bench poses
      the pair demand (the JAX asset's equal to phase 4's), K1's blocks
      and ms, and the served frames' median;
- 18. one JSON line {"kernels": [...]} (twenty-four kernels: phase 14's
+ 18. the bench: bench.main(["--ellipse-ab"]) in process (python -m
+     gsplat_tpu_torch.bench at full width: 1080p, 2**17 synthetic
+     gaussians, 20 iterations, the checkpoint's 131,072 slots), with the
+     launch counts set to 0 just before it: its last line one JSON object
+     with bench.py's metric and keys (BENCH_r05.json's less pixel_grad_*,
+     plus the ellipse A/B's), no *_error key, no NaN; the checkpoint's pair
+     demand equal to phase 4's, its culled demand and kept pairs to phase
+     11b's, its ellipse demand to phase 15a's with image error 0, the
+     truncated image within 2e-5 of the exact one; K1, K2 and K2 in
+     compact mode launched (its isolated child's launches are not
+     counted). Printed: the line, each integer key beside the TPU v5e's
+     (BENCH_r05.json), the in-bench and isolated fwd+bwd's agreement and
+     the phase's seconds;
+ 19. one JSON line {"kernels": [...]} (twenty-four kernels: phase 14's
      ranges as their own entries), the card line, and the final line
      {"ok": true, "device": {...}}.
 
@@ -293,7 +306,6 @@ import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 import time
 
@@ -306,6 +318,9 @@ from gsplat_tpu_torch.profile_kernel import (PEAK_BYTES, PEAK_F32_FLOPS,
                                              bound_ms, device_ms,
                                              transcendental_instructions)
 from gsplat_tpu_torch.models.gaussians import PARAM_KEYS
+# The card's name and power limit, as nvidia-smi prints them (the bench's
+# "device").
+from gsplat_tpu_torch.bench import device_label
 # One definition of the stage and backward-part timers, shared with the
 # stage profiler.
 from gsplat_tpu_torch.profile_stages import (bench_pose, bwd_parts_ms,
@@ -430,15 +445,6 @@ def memory_line(card, label, other, est, gate=False, dev=None):
         raise SystemExit(f"FAIL: the memory model misses {label}'s peak: "
                          f"estimate / own {ratio:.3f}")
     return own / 2**30, ratio
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
 
 
 def make_scene(n, seed):
@@ -3138,7 +3144,7 @@ def ellipse_phase(pool, c2w, traj, fx, fy, cx, cy, cfg, batch, start,
     --cull_mode ellipse with --auto_pairs and with --bucket_pairs 4 over
     the 8-frame orbit. The launches of (2)-(5) are counted (each with the
     counts set to 0 just before it). Returns {"k1", "k2", "err",
-    "bwd_err"}."""
+    "bwd_err", "pairs": the bench pose's ellipse pair demand}."""
     import importlib
     import tempfile
 
@@ -3345,7 +3351,7 @@ def ellipse_phase(pool, c2w, traj, fx, fy, cx, cy, cfg, batch, start,
               f"{st['pair_overflow_frames']}, K1 {k1}", flush=True)
         if st["pair_overflow_frames"] or k1 < 8 or st["max_rows_seen"] <= 0:
             raise SystemExit("FAIL: 15a render_trained with the ellipse")
-    n.update(err=err, bwd_err=bwd_err)
+    n.update(err=err, bwd_err=bwd_err, pairs=pairs_e)
     return n
 
 
@@ -4555,13 +4561,121 @@ def asset_phase(jax_pairs, fx, fy, cx, cy, card):
     return build_k1 + k1, build_k2 + k2
 
 
+# --------------------------------------------------------------------------
+# Phase 18: the bench, python -m gsplat_tpu_torch.bench, in process.
+# --------------------------------------------------------------------------
+
+BENCH_ARGV = ["--ellipse-ab"]  # full width: 1080p, 2**17 gaussians, 20 iters
+BENCH_TRUNC_TOL = 2e-5  # the truncated frame against the exact one
+# The TPU v5e's readings of the bench's integer keys (BENCH_r05.json), the
+# counts printed beside the card's.
+BENCH_TPU_COUNTS = ("pairs", "max_tile_count", "trained_ckpt_bwd_demand",
+                    "train_bwd_demand", "trained_ckpt_sized_capacity",
+                    "trained_ckpt_trunc_capacity")
+
+
+def bench_keys(ellipse_ab: bool) -> set:
+    """The keys bench.py prints on the same flags (BENCH_r05.json's), less
+    the original reference's pixel_grad_* (not ported), plus the ellipse
+    A/B's three with ``ellipse_ab``."""
+    with open(os.path.join(ROOT, "BENCH_r05.json")) as f:
+        keys = {k for k in json.load(f)["parsed"]
+                if not k.startswith("pixel_grad_")}
+    if ellipse_ab:
+        keys |= {"fps_trained_ckpt_ellipse", "trained_ckpt_pairs_ellipse",
+                 "trained_ckpt_ellipse_img_err"}
+    return keys
+
+
+def bench_phase(jax_pairs, lever, ell_pairs, card):
+    """Phase 18: ``bench.main(BENCH_ARGV)`` in process with the launch
+    counts set to 0 just before it (its isolated child is another process,
+    whose launches are not counted). Gates: the last printed line is one
+    JSON object with bench.py's metric and keys (bench_keys), no *_error
+    key and no NaN; the checkpoint's pair demand equal to phase 4's and
+    within its capacity; the culled demand and kept pairs equal to phase
+    11b's (the same tile_rank_cap and cull_chunks; the bench sizes
+    max_pairs to the culled demand where 11b keeps 2**22, and no list
+    overflows in either); the ellipse demand equal to phase 15a's and its
+    image error 0; the truncated image within BENCH_TRUNC_TOL of the exact
+    one; K1, K2 and K2 in compact mode launched. Prints the line, each
+    integer key beside the TPU's, the agreement of the two fwd+bwd
+    readings and the seconds. Returns the (K1, K2, compact K2) launches."""
+    import contextlib
+    import io
+    import math
+
+    from gsplat_tpu_torch import bench
+    from gsplat_tpu_torch.ops.raster_cuda import composite_pairs as cp
+
+    _zero_counts()
+    cp.bwd_compact_launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench.main(BENCH_ARGV)
+    secs = time.perf_counter() - t0
+    k1, k2, kc = cp.launches, cp.bwd_launches, cp.bwd_compact_launches
+    out = buf.getvalue().strip().splitlines()
+    print(f"[{card}] 18 python -m gsplat_tpu_torch.bench "
+          f"{' '.join(BENCH_ARGV)}: {out[-1] if out else '(no line)'}",
+          flush=True)
+    line = json.loads(out[-1])
+    if not (isinstance(line, dict)
+            and line.get("metric") == "render_fps_1080p_trained"):
+        raise SystemExit("FAIL: 18 the bench's last line")
+    keys = bench_keys("--ellipse-ab" in BENCH_ARGV)
+    errors = [k for k in line if k.endswith("_error")]
+    nans = [k for k, v in line.items()
+            if isinstance(v, float) and math.isnan(v)]
+    if set(line) != keys or errors or nans:
+        raise SystemExit(f"FAIL: 18 the bench's keys: missing "
+                         f"{sorted(keys - set(line))}, extra "
+                         f"{sorted(set(line) - keys)}, errors {errors}, NaN "
+                         f"{nans}")
+    with open(os.path.join(ROOT, "BENCH_r05.json")) as f:
+        tpu = json.load(f)["parsed"]
+    print(f"[{card}] 18 integer keys, this card (the TPU v5e's, "
+          f"BENCH_r05.json): " + ", ".join(
+              f"{k} {line[k]} ({tpu[k]})" for k in BENCH_TPU_COUNTS)
+          + "; " + ", ".join(f"{k} {v}" for k, v in line.items()
+                             if isinstance(v, int) and k not in
+                             BENCH_TPU_COUNTS), flush=True)
+    print(f"[{card}] 18 fwd+bwd in the bench "
+          f"{line['fwd_bwd_fps_trained_ckpt_inbench']} /s, in a fresh "
+          f"process {line['fwd_bwd_fps_trained_ckpt_isolated']} /s, "
+          f"agreement {line['fwd_bwd_inbench_vs_isolated_agreement']}; "
+          f"launches K1 {k1}, K2 {k2}, K2 compact {kc}; {secs:.1f} s",
+          flush=True)
+    checks = {
+        "pairs equal phase 4's": line["trained_ckpt_pairs"] == jax_pairs,
+        "pairs within capacity": line["trained_ckpt_pairs"]
+        <= line["trained_ckpt_pair_capacity"],
+        "culled demand equals 11b's":
+            line["trained_ckpt_demand_culled"] == lever["demand"],
+        "kept pairs equal 11b's":
+            line["trained_ckpt_pairs_kept"] == lever["kept"],
+        "ellipse demand equals 15a's":
+            line["trained_ckpt_pairs_ellipse"] == ell_pairs,
+        "ellipse image error 0": line["trained_ckpt_ellipse_img_err"] == 0,
+        "truncated image error": line["trained_ckpt_trunc_img_err"]
+        <= BENCH_TRUNC_TOL,
+        "K1, K2 and compact K2 launched": k1 > 0 and k2 > 0 and kc > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"FAIL: 18 {failed} (phase 4 pairs {jax_pairs}, "
+                         f"11b {lever}, 15a ellipse pairs {ell_pairs})")
+    return k1, k2, kc
+
+
 def main():
     # --- 1. card ---
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: this smoke test "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    card = card_line()
+    card = device_label(torch.device("cuda"))
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -4897,7 +5011,11 @@ def main():
     print(f"[{card}] phase 17 took {time.perf_counter() - t17:.1f} s; its "
           f"launches: K1 {asset_k1}, K2 {asset_k2}", flush=True)
 
-    # --- 18. result lines ---
+    # --- 18. the bench, python -m gsplat_tpu_torch.bench ---
+    bench_k1, bench_k2, bench_kc = bench_phase(n_pairs, lever, ell["pairs"],
+                                               card)
+
+    # --- 19. result lines ---
     kernels = [{
         "name": "raster_fwd",
         "route": "cuda",
@@ -4906,7 +5024,8 @@ def main():
         "launches": launches + fit_k1 + trunc_k1 + bucket_k1
         + lever_n["launches"] + fit_n["launches"] + serve_k1
         + xla_n[0] + eval_k1 + trace_n[0] + tools_n[0] + counts["b"][0]
-        + counts["d"][0] + ell["k1"] + grid_k1 + gauss_k1 + asset_k1,
+        + counts["d"][0] + ell["k1"] + grid_k1 + gauss_k1 + asset_k1
+        + bench_k1,
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -4920,7 +5039,7 @@ def main():
         "replaces": "gsplat_tpu/ops/raster_pallas.py:243",
         "launches": train_k2 + fit_k2 + trunc_k2 + lever_n["bwd_launches"]
         + xla_n[1] + trace_n[1] + tools_n[1] + counts["b"][1] + ell["k2"]
-        + grid_k2 + gauss_k2 + asset_k2,
+        + grid_k2 + gauss_k2 + asset_k2 + bench_k2,
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
@@ -4934,7 +5053,7 @@ def main():
         "replaces": "gsplat_tpu/ops/raster_pallas.py:243 (over the "
                     "compacted block list of rasterize.py:331)",
         "launches": lever_n["bwd_compact_launches"]
-        + fit_n["bwd_compact_launches"],
+        + fit_n["bwd_compact_launches"] + bench_kc,
         "max_abs_err": comp["err"],
         "ms": comp["ms"],
         "plain_ms": comp["plain_ms"],
@@ -4957,7 +5076,7 @@ def main():
     } for v in ABLATION_REPLACES]
     kernels += range_entries(ranges, counts)
     print(json.dumps({"kernels": kernels}))
-    print(card_line())
+    print(device_label(dev))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

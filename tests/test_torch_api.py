@@ -81,7 +81,7 @@ def test_build_directory_follows_the_cache_variables(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("cli", ["train.__main__", "evaluate",
                                  "eval_checkpoint", "inference",
-                                 "render_trained"])
+                                 "render_trained", "bench"])
 def test_clis_enable_the_cache_at_startup(cli, monkeypatch):
     calls = []
     monkeypatch.setattr(compile_cache, "enable_compilation_cache",

@@ -43,3 +43,14 @@ def test_sources_found():
 def test_no_jax_or_gsplat_tpu_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_bench_imports_neither_jax_nor_the_root_bench():
+    """The port's bench stands alone: it imports neither JAX nor the JAX
+    package, nor the root ``bench.py`` it is the counterpart of (which
+    imports JAX inside its functions)."""
+    path = os.path.join(ROOT, "gsplat_tpu_torch", "bench.py")
+    mods = list(_imports(path))
+    assert "torch" in mods
+    bad = [m for m in mods if m.split(".")[0] in FORBIDDEN | {"bench"}]
+    assert not bad, f"gsplat_tpu_torch/bench.py imports {bad}"
