@@ -10,10 +10,10 @@ Phases (any failure exits non-zero, with no result line):
   2. build every kernel of the serving, training and profiling paths from
      ``gsplat_tpu_torch/ops/csrc`` (raster_fwd = K1, raster_bwd = K2,
      raster_ablate = K3's eight bodies: six built from K1's own kernel,
-     raster_fwd_kernel.cuh, and pg-roll, pg-log in their own template; one
-     nvcc per source, all started together), with ptxas registers/spills
-     (a spill fails the run) and K1's registers, shared memory and CTAs
-     per SM, which must stay as K1_RESOURCES;
+     raster_fwd_kernel.cuh, and pg-roll, pg-log in their own tensor-core
+     template; one nvcc per source, all started together), with ptxas
+     registers/spills (a spill fails the run) and K1's registers, shared
+     memory and CTAs per SM, which must stay as K1_RESOURCES;
   3. K1, then K2 on a seeded cotangent, against their plain PyTorch versions
      on a seeded synthetic scene at 1920x1080 (K1 rows 0-5 bit-identical to
      the plain version; K1 writing its block-start state: output
@@ -69,7 +69,9 @@ Phases (any failure exits non-zero, with no result line):
   9. timing of K2 alone (CUDA events) at the bench pose, on the inputs the
      fwd+bwd of phase 7 gave it, with its registers, CTAs launched and
      active and the state's bytes, beside its plain version and its bound;
- 10. the compositor-ablation profiler (K3): K1 and the eight K3 kernels
+ 10. the compositor-ablation profiler (K3): pg-roll's and pg-log's
+     registers, static shared bytes, CTAs per SM (occupancy API) and
+     spills (phase 2 fails on any); K1 and the eight K3 kernels
      (raster_ablate.cu: cumprod, pg-roll, pg-log, no-transc, no-mxu,
      no-compute, no-input, empty) against their plain versions on the
      profiler's 1080p workload (K1 rows 0-5 bit for bit, and its cull as in
@@ -82,8 +84,9 @@ Phases (any failure exits non-zero, with no result line):
      0 just before it: ms, ns/block and share of bound of each variant, each
      launch count, the tile-0 digests against the plain versions', the
      attribution table (K1's time minus each variant's and the class the
-     difference isolates) and the gate empty <= no-compute <= full within
-     ABLATION_ORDER_SLACK;
+     difference isolates), pg-roll's and pg-log's ps per (pair, pixel)
+     computed beside K1's per (pair, pixel) its cull reaches, and the gate
+     empty <= no-compute <= full within ABLATION_ORDER_SLACK;
  11. the serving levers on the checkpoint at 1920x1080: the SASS
      instructions of expf and log1pf (probe kernels, cuobjdump), which the
      log kernels' bounds count;
@@ -1248,9 +1251,12 @@ def ablation_phase(card, dev):
     share of (pair, warp) K1's cull skips)."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch import profile_kernel
+    from gsplat_tpu_torch.ops import _build
     from gsplat_tpu_torch.ops.raster_ablate import (CULLS, K1_BODIES,
-                                                    K1_FUNCTION, ablate,
-                                                    ablate_plain)
+                                                    K1_FUNCTION, PG_VARIANTS,
+                                                    VARIANTS, ablate,
+                                                    ablate_plain,
+                                                    pg_resources)
     from gsplat_tpu_torch.ops.raster_cuda import (active_blocks,
                                                   composite_pairs,
                                                   composite_pairs_plain,
@@ -1258,6 +1264,18 @@ def ablation_phase(card, dev):
                                                   tile_block_offsets)
 
     cfg = gt.RenderConfig(height=H, width=W, max_pairs=2**18)
+    ptxas = _build.build(("raster_ablate",))["raster_ablate"]["ptxas"]
+    for v in PG_VARIANTS:
+        r = pg_resources(v, dev)
+        part = ptxas.split(f"raster_pg_kernelILi{VARIANTS[v] - 6}E", 1)[1]
+        spills = sum(int(n) for n in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)",
+            part.split("Compiling entry", 1)[0]))
+        print(f"[{card}] {v} (mma.sync m16n8k8 TF32, 8 warps of 2 pixel "
+              f"rows): {r['registers']} registers, {r['shared_bytes']} B "
+              f"static shared, {r['ctas_per_sm']} CTAs of 256 threads per "
+              f"SM (occupancy API), {r['local_bytes']} B local, {spills} B "
+              f"spilled (ptxas)", flush=True)
     pf, ts, tc = (t.to(dev) for t in profile_kernel.make_workload(cfg, 4))
     pairs = {"full": (composite_pairs, composite_pairs_plain)}
     pairs.update({v: (functools.partial(ablate, v),
@@ -1335,6 +1353,14 @@ def ablation_phase(card, dev):
             raise SystemExit(f"FAIL: profiler variant {name}: {r}, plain "
                              f"digest {digests[name]}, {counts[name]} "
                              f"launches")
+    for v in PG_VARIANTS:
+        print(f"[{card}] {v}: {res[v]['ps_per_pair_pixel']:.4f} ps per "
+              f"(pair, pixel) computed (every (pair, pixel) of "
+              f"{res[v]['blocks']} blocks) against K1's "
+              f"{res['full']['ps_per_pair_pixel']:.4f} ps per (pair, pixel) "
+              f"its cull reaches ({res['full']['reached']} (pair, warp) x "
+              f"32); {res[v]['ms']:.4f} ms against K1's "
+              f"{res['full']['ms']:.4f}", flush=True)
     e, nc, k1 = (res[v]["ms"] for v in ("empty", "no-compute", "full"))
     order = e <= ABLATION_ORDER_SLACK * nc and \
         nc <= ABLATION_ORDER_SLACK * k1

@@ -87,6 +87,18 @@ EXTRA_FUNCTIONS = {
                                     ctypes.POINTER(ctypes.c_int)],
                                    ctypes.c_int),
     },
+    # raster_ablate_pg_resources(int variant, int out[4]) -> cudaError_t:
+    # a pg kernel's registers, static shared bytes, local bytes and CTAs
+    # per SM; raster_ablate_tf32_split(x, hi, lo, n, stream) ->
+    # cudaError_t: the pg kernels' TF32 split of n floats
+    "raster_ablate": {
+        "raster_ablate_pg_resources": ([ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)],
+                                       ctypes.c_int),
+        "raster_ablate_tf32_split": ([ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_void_p], ctypes.c_int),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -36,12 +36,22 @@ K1; :data:`K1_FUNCTION`):
   T_in``, ``within`` the exclusive product of ``1 - alpha`` inside each group
   of 8 pairs, ``gpre`` the exclusive product of the group totals; outgoing
   ``T = T_in * (product of all group totals)``.
-* ``pg-roll`` and ``pg-log`` (``_kernel_pg``, ``:231``): the [P, G]
-  orientation, T along the pair axis by an inclusive doubling scan (steps
-  k = 1, 2, 4, ... G/2, ``x = x op where(i >= k, x[i - k], identity)``):
-  of ``1 - alpha`` by products for ``roll`` (T_excl the scan shifted by one
-  pair), of ``log1p(-alpha)`` by sums for ``log`` (``T_excl = exp(cum - s)
-  T_in``). The channel sums follow :func:`_block_sum`'s order.
+* ``pg-roll`` and ``pg-log`` (``_kernel_pg``, ``:231``): the TPU body's
+  matrix form, pixels on the rows of a tensor-core product and pairs on
+  its reduction axis, 8 pairs a k-step (:data:`PG_CHUNK`; lane quad q
+  of the fragments holds pairs 2q, 2q+1 of a step). ``roll``: each
+  lane's two ``1 - alpha`` multiplied, a two-step scan over the quad,
+  and T before the step (``T_in`` times the earlier steps' totals, in
+  order) times the lane's exclusive prefix. ``log``: the inclusive prefix
+  of ``s = log1p(-alpha)`` within the step as a product with the
+  inclusive triangular mask in two TF32 passes (``s = s_hi + s_lo``,
+  :func:`tf32_split_plain`), the running sum of the earlier steps added
+  in f32, ``T_excl = exp(cum - s) T_in``. The channel sums: w and the
+  colours split into TF32 hi and lo parts, accumulated k-step by k-step
+  (hi.hi + hi.lo in 4 columns, lo.hi + lo.lo in 4 more, added at the
+  block's end). :func:`_pg_block` is that arithmetic; the tensor cores'
+  own sums do not follow IEEE order, so kernel and plain version agree
+  within tolerance, not bit for bit.
 
 ``no-transc``, ``no-mxu``, ``no-input``, ``cumprod`` and ``pg-*`` skip a
 continuation block when the tile's largest T is ``<= transmittance_min``
@@ -66,7 +76,8 @@ warps, the per-warp pair cull) minus one class of work. A body culls only
 warp's 32 pixels (no-transc with its own threshold, :data:`CULLS`), so
 the cull changes no value of the function above: no-input, which reads
 no feature, culls nothing and walks every pair; empty and no-compute walk
-none. pg-roll and pg-log keep their own template (pairs on lanes).
+none. pg-roll and pg-log keep their own template (tensor cores, every
+(pair, pixel), no cull).
 
 :func:`ablate` chooses by the tensors' device: CPU tensors take
 :func:`ablate_plain`; CUDA tensors launch the kernel and count it in
@@ -91,9 +102,11 @@ VARIANTS = {"empty": 0, "no-compute": 1, "no-transc": 2, "no-mxu": 3,
 # The variants that compute K1's function (composite_pairs_plain's).
 K1_FUNCTION = ("cumprod", "pg-roll", "pg-log")
 # The variants built from K1's own kernel (csrc/raster_fwd_kernel.cuh), K1
-# minus one class of work; pg-roll and pg-log have their own template.
+# minus one class of work; pg-roll and pg-log have their own template, on
+# tensor cores, and compute every (pair, pixel) of a composited block.
 K1_BODIES = ("empty", "no-compute", "no-transc", "no-mxu", "no-input",
              "cumprod")
+PG_VARIANTS = ("pg-roll", "pg-log")
 # The bodies that walk only the (pair, warp) their cull reaches: K1's cull
 # (raster_cuda.pair_warp_reach), no-transc's for its own alpha
 # (rational=True). Their kernels count what they skip, as K1's does.
@@ -102,6 +115,7 @@ CULLS = {"no-transc": True, "no-mxu": False, "cumprod": False}
 ABLATE_TILE, ABLATE_MAX_G = 16, 256
 WARP = 32
 CUMPROD_GROUP = 8  # pairs per group of the two-level product
+PG_CHUNK = 8  # pairs per k-step of the pg kernels' m16n8k8 products
 
 
 def _check_variant(variant):
@@ -110,15 +124,19 @@ def _check_variant(variant):
                          f"{', '.join(VARIANTS)}")
 
 
+def _check_lanes(G):
+    if G % WARP:
+        raise ValueError(f"pair_block must be a multiple of {WARP} for "
+                         f"no-compute and pg-* (got {G})")
+
+
 def _block_sum(x):
     """Sum of each row of x [m, G] in the kernel's order: lane l of a warp
     adds x[l], x[l+32], x[l+64], ... in turn, then five xor-shuffle steps
     (16, 8, 4, 2, 1) add the lanes; every lane ends with the same float
     (each step adds the same two values on both lanes). Returns [m]."""
     m, G = x.shape
-    if G % WARP:
-        raise ValueError(f"pair_block must be a multiple of {WARP} for "
-                         f"no-compute and pg-* (got {G})")
+    _check_lanes(G)
     cols = x.reshape(m, G // WARP, WARP)
     s = cols[:, 0]
     for r in range(1, G // WARP):
@@ -127,6 +145,67 @@ def _block_sum(x):
     for off in (16, 8, 4, 2, 1):
         s = s + s[:, lane ^ off]
     return s[:, 0]
+
+
+def tf32_round(x):
+    """x (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the
+    nearest, ties away from zero, as an f32 whose low 13 mantissa bits are
+    zero (on the bits: add 0x1000, clear the low 13). NaN and Inf pass
+    through; a finite x that rounds past the largest TF32 becomes Inf."""
+    bits = x.view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def tf32_split_plain(x):
+    """(hi, lo), each TF32: hi = :func:`tf32_round` (x), lo = tf32_round(x
+    - hi), so hi + lo is x to about 2^-22 of |x| (any device)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _pg_prefix_roll(alpha, T_in):
+    """pg-roll's (T_excl, T_out) for alpha [m, P, K, 8] (K k-steps of 8
+    pairs) and T_in [m, P], in the kernel's association: lane q's two
+    factors 1 - alpha multiplied, an inclusive scan of those over the four
+    lanes in two steps (lane q takes lane q-1's, then q-2's, on the
+    left), its exclusive prefix, and T before each k-step the sequential
+    product of T_in and the earlier k-steps' totals."""
+    m, P, K, _ = alpha.shape
+    keep = 1.0 - alpha
+    x = keep[..., 0::2] * keep[..., 1::2]  # [m, P, K, 4]: lane q's product
+    x = torch.cat([x[..., :1], x[..., :-1] * x[..., 1:]], dim=-1)
+    x = torch.cat([x[..., :2], x[..., :-2] * x[..., 2:]], dim=-1)
+    before = torch.cat([torch.ones_like(x[..., :1]), x[..., :-1]], dim=-1)
+    run = torch.cumprod(torch.cat([T_in[:, None], x[..., 3].transpose(1, 2)],
+                                  dim=1), dim=1)  # [m, K + 1, P], in order
+    first = run[:, :-1].transpose(1, 2)[..., None] * before
+    T_excl = torch.stack([first, first * keep[..., 0::2]], dim=-1)
+    return T_excl.reshape(m, P, K, PG_CHUNK), run[:, -1]
+
+
+def _pg_prefix_log(alpha, T_in):
+    """pg-log's (T_excl, T_out) for alpha [m, P, K, 8] and T_in [m, P]: s =
+    log1p(-alpha); within each k-step the inclusive prefix of s_hi plus
+    that of s_lo, each summed in order (the two products with the
+    triangular mask); cum = S + prefix with S the running sum of the
+    earlier k-steps' last cum, from 0; T_excl = exp(cum - s) T_in, T_out =
+    T_in exp(S after the last)."""
+    s = torch.log1p(-alpha)
+    hi, lo = tf32_split_plain(s)
+    pre = [hi[..., 0] + lo[..., 0]]
+    run_hi, run_lo = hi[..., 0], lo[..., 0]
+    for j in range(1, PG_CHUNK):  # in order, on every device
+        run_hi, run_lo = run_hi + hi[..., j], run_lo + lo[..., j]
+        pre.append(run_hi + run_lo)
+    pre = torch.stack(pre, dim=-1)
+    # S before each k-step: a sequential running sum (cumulative op along
+    # a non-innermost dimension), [m, K + 1, P].
+    S = torch.cumsum(torch.cat([torch.zeros_like(T_in)[:, None],
+                                pre[..., -1].transpose(1, 2)], dim=1), dim=1)
+    cum = S[:, :-1].transpose(1, 2)[..., None] + pre
+    T_excl = torch.exp(cum - s) * T_in[:, :, None, None]
+    return T_excl, T_in * torch.exp(S[:, -1])
 
 
 def _iota_features(G, m, dev):
@@ -183,30 +262,32 @@ def _block_weights(variant, f, px, py, T_in, cfg: RenderConfig):
 
 def _pg_block(variant, f, px, py, T_in, cfg: RenderConfig):
     """(the block's channel sums [m, 4, P], outgoing T [m, P]) for pg-roll
-    and pg-log, in the [m, P, G] orientation: the doubling scan along the
-    pairs in the TPU body's association, the sums in _block_sum's order."""
-    alpha = _block_alpha(f, px, py, cfg)[0].transpose(1, 2).contiguous()
-    m, P, G = alpha.shape
-    i = torch.arange(G, device=alpha.device)
-    roll = variant == "pg-roll"
-    s = 1.0 - alpha if roll else torch.log1p(-alpha)
-    x = s
-    k = 1
-    while k < G:
-        part = torch.where(i >= k, torch.roll(x, k, -1), 1.0 if roll else 0.0)
-        x = x * part if roll else x + part
-        k *= 2
-    if roll:  # exclusive: the inclusive scan shifted by one pair
-        T_excl = torch.where(i >= 1, torch.roll(x, 1, -1), 1.0) \
-            * T_in[:, :, None]
-        T_out = T_in * x[:, :, G - 1]
-    else:
-        T_excl = torch.exp(x - s) * T_in[:, :, None]
-        T_out = T_in * torch.exp(x[:, :, G - 1])
+    and pg-log, in the kernels' arithmetic: T by :func:`_pg_prefix_roll`
+    or :func:`_pg_prefix_log`, w = alpha T_excl where T_excl > T_min, and
+    the sums of the tensor-core products, k-step by k-step: D += w_hi B,
+    D += w_lo B with B = [hi | lo of the colours] (8 columns; each
+    product's 8 pairs in order), then hi columns + lo columns."""
+    G = f.shape[2]
+    _check_lanes(G)
+    alpha = _block_alpha(f, px, py, cfg)[0].transpose(1, 2)  # [m, P, G]
+    m, P, _ = alpha.shape
+    K = G // PG_CHUNK
+    alpha = alpha.reshape(m, P, K, PG_CHUNK)
+    prefix = _pg_prefix_roll if variant == "pg-roll" else _pg_prefix_log
+    T_excl, T_out = prefix(alpha, T_in)
     w = torch.where(T_excl > cfg.transmittance_min, alpha * T_excl, 0.0)
-    sums = [_block_sum((w * f[6 + ch][:, None, :]).reshape(m * P, G))
-            .reshape(m, P) for ch in range(4)]
-    return torch.stack(sums, dim=1), T_out
+    col = f[6:10].permute(1, 2, 0).reshape(m, 1, K, PG_CHUNK, 4)
+    B = torch.cat(tf32_split_plain(col), dim=-1)  # [m, 1, K, 8, 8]
+    prods = []
+    for part in tf32_split_plain(w):  # [m, P, K, 8]
+        d = part[..., 0, None] * B[..., 0, :]
+        for k in range(1, PG_CHUNK):
+            d = d + part[..., k, None] * B[..., k, :]
+        prods.append(d)  # [m, P, K, 8]
+    D = torch.zeros_like(prods[0][:, :, 0])
+    for k in range(K):
+        D = (D + prods[0][:, :, k]) + prods[1][:, :, k]
+    return (D[..., :4] + D[..., 4:]).transpose(1, 2), T_out
 
 
 def ablate_plain(variant, pair_feat, tile_start, tile_count,
@@ -253,7 +334,7 @@ def ablate_plain(variant, pair_feat, tile_start, tile_count,
             pcol = start[idx, None] + k * G + cols  # [m, G]
             if variant == "no-compute":
                 T[idx] = T[idx] + _block_sum(pair_feat[0, pcol])[:, None]
-            elif variant in ("pg-roll", "pg-log"):
+            elif variant in PG_VARIANTS:
                 sums, T[idx] = _pg_block(variant, pair_feat[:FEAT_ROWS, pcol],
                                          px[idx], py[idx], T[idx], cfg)
                 acc[idx] = acc[idx] + sums
@@ -329,3 +410,49 @@ def ablate(variant, pair_feat, tile_start, tile_count, cfg: RenderConfig,
 
 
 ablate.launches = {v: 0 for v in VARIANTS}  # kernel launches per variant
+
+
+def tf32_split(x):
+    """:func:`tf32_split_plain` of a contiguous f32 tensor, on a CUDA tensor
+    by the pg kernels' own rounding (a probe kernel in
+    ``csrc/raster_ablate.cu``, counted in ``tf32_split.launches``), on a
+    CPU tensor by the plain version."""
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("tf32_split takes a contiguous float32 tensor")
+    if x.device.type == "cpu":
+        return tf32_split_plain(x)
+    from ._build import load_library
+
+    lib = load_library("raster_ablate")
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.raster_ablate_tf32_split(
+            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.numel(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tf32_split launch failed: CUDA error {err}")
+    tf32_split.launches += 1
+    return hi, lo
+
+
+tf32_split.launches = 0
+
+
+def pg_resources(variant, device) -> dict:
+    """The pg kernel's resources on the CUDA ``device``: registers, static
+    shared bytes, local bytes a thread (spills) and resident CTAs per SM
+    (``cudaFuncGetAttributes`` and the occupancy API)."""
+    if variant not in PG_VARIANTS:
+        raise ValueError(f"pg_resources takes pg-roll or pg-log, not "
+                         f"{variant!r}")
+    from ._build import load_library
+
+    lib = load_library("raster_ablate")
+    vals = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = lib.raster_ablate_pg_resources(VARIANTS[variant], vals)
+    if err != 0:
+        raise RuntimeError(f"raster_ablate_pg_resources failed: CUDA error "
+                           f"{err}")
+    return dict(zip(("registers", "shared_bytes", "local_bytes",
+                     "ctas_per_sm"), vals))

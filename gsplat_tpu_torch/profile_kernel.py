@@ -8,8 +8,10 @@ each take one class of work out of it (``ops/raster_ablate.py``):
 
   full        K1 (ops/csrc/raster_fwd.cu)
   cumprod     K1's function, T a two-level product (groups of 8 pairs)
-  pg-roll     K1's function with pairs on lanes, T a doubling-scan product
-  pg-log      the same, T from a doubling-scan sum of log1p(-alpha)
+  pg-roll     K1's function on tensor cores (pixels x pairs), T a product
+              scanned over each lane quad
+  pg-log      the same, T from log1p(-alpha) summed by a triangular-mask
+              product
   no-transc   exp replaced by 1/(1+q/2), the T product by 1 + a sum
   no-mxu      no per-pair T chain: w = alpha T_in, T_out from a log sum
   no-compute  the feature rows staged and row 0 summed, nothing else
@@ -20,7 +22,10 @@ The five ablations and cumprod are K1's own kernel with another body
 (``ops/csrc/raster_fwd_kernel.cuh``): K1 as serving runs it, minus one
 class of work, so ``full`` minus each reads off that class (the table
 printed last, :data:`ISOLATES`). pg-roll and pg-log are K1's function in
-the TPU's pairs-on-lanes layout, their own kernel. A body that walks only
+the TPU body's matrix form (pixels on the rows of ``mma.sync`` products,
+pairs on their reduction axis, every (pair, pixel) computed), their own
+kernel; their lines also print the time per (pair, pixel) computed, and
+K1's its time per (pair, pixel) its cull reaches. A body that walks only
 the (pair, warp) its cull reaches (full, cumprod, no-mxu: K1's cull;
 no-transc: the cull for its own alpha) is bound by that reached work plus
 the cull's operations, as is K1's function by other designs (pg-*: K1's
@@ -54,7 +59,7 @@ import torch
 
 from .config import RenderConfig
 from .device import resolve_device
-from .ops.raster_ablate import K1_FUNCTION, ablate
+from .ops.raster_ablate import K1_FUNCTION, PG_VARIANTS, ablate
 from .ops.raster_cuda import (FEAT_ROWS, FEAT_WIDTH, active_blocks,
                               composite_pairs, cull_audit, kernel_warps,
                               tile_block_offsets)
@@ -109,10 +114,10 @@ CULLED = ("full", "no-transc", "no-mxu") + K1_FUNCTION
 ISOLATES = {
     "cumprod": "K1's per-pair T product against a two-level product "
                "(groups of 8), same walk",
-    "pg-roll": "K1's design against pairs on lanes with a doubling-scan "
-               "product (another layout)",
-    "pg-log": "K1's design against pairs on lanes with a doubling-scan "
-              "log sum (another layout)",
+    "pg-roll": "K1's culled walk against every (pair, pixel) on tensor "
+               "cores, T a quad-scan product (the TPU body's matrix form)",
+    "pg-log": "K1's culled walk against every (pair, pixel) on tensor "
+              "cores, T's log sum a triangular-mask product",
     "no-transc": "expf and the per-pair product against a divide and a "
                  "running sum; no-transc's cull reaches more (pair, warp) "
                  "(its rows below give each walk's ns per (pair, warp))",
@@ -324,6 +329,16 @@ def run_variant(name, fn, pair_feat, tile_start, tile_count,
         line += (f"  bound {res['bound_ms']:.4f} ms by {res['bound_by']} "
                  f"({res['share']:.1%} of it; {res['blocks']} blocks "
                  f"composited, {res['launches']} launches)")
+        if name in PG_VARIANTS:
+            res["ps_per_pair_pixel"] = ms * 1e9 / max(
+                res["blocks"] * cfg.pair_block * cfg.tile * cfg.tile, 1)
+            line += (f"; {res['ps_per_pair_pixel']:.4f} ps per (pair, pixel) "
+                     f"computed")
+        elif name == "full":
+            res["ps_per_pair_pixel"] = ms * 1e9 / max(
+                reached * (cfg.tile * cfg.tile // kernel_warps(cfg.tile)), 1)
+            line += (f"; {res['ps_per_pair_pixel']:.4f} ps per reached "
+                     f"(pair, pixel)")
         if reached is not None:
             whose = "its" if name in ("full", "no-transc", "no-mxu",
                                       "cumprod") else "K1's"

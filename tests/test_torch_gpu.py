@@ -43,7 +43,10 @@ cutoff, their skip counts equal to the plain test's. K1's registers,
 shared memory and CTAs per SM as its redesign left them.
 cumprod, pg-roll and pg-log compute the forward compositor's function, so
 they are also held against its plain version within the same 2e-5 (their
-T is rounded in another association).
+T is rounded in another association; pg-roll and pg-log sum on tensor
+cores, whose sums are not IEEE sums, with every operand split into two
+TF32 parts). The TF32 split on the card and its plain version: bit for
+bit.
 """
 
 import os
@@ -569,6 +572,60 @@ def test_k1_body_matches_plain_and_its_cull(cuda, variant):
         n = tras.cull_audit(pf, blk, tile, cfg, rational=tabl.CULLS[variant])
         assert n["unsafe"] == 0 and n["skipped"] > 0
         assert int(skipped.item()) == n["skipped"]
+
+
+@pytest.mark.parametrize("pair_block", [32, 160, 256])
+@pytest.mark.parametrize("variant", ["pg-roll", "pg-log"])
+def test_pg_kernel_matches_plain(cuda, variant, pair_block):
+    """pg-roll and pg-log (tensor cores, every (pair, pixel)) at the
+    smallest, an odd and the largest pair_block, at least 512 pairs a tile,
+    opacities spread from below the cutoff to 0.99 and half of them 0.99,
+    so that tiles saturate after different blocks: rows 0-4 within 2e-5
+    of their plain version and of K1's, row 5 exact, rows 6-7 zero; the
+    kernel spills nothing."""
+    cfg = gt.RenderConfig(**CFG, pair_block=pair_block)
+    bpt = max(3, 512 // pair_block)
+    pf, ts, tc = (t.to(cuda) for t in make_workload(cfg, bpt))
+    r = np.random.default_rng(5)
+    op = np.exp(r.uniform(np.log(0.5 / 128), np.log(0.99), pf.shape[1]))
+    op[r.uniform(size=op.shape) < 0.5] = 0.99
+    pf[5] = torch.from_numpy(op.astype(np.float32)).to(cuda)
+    got = tabl.ablate(variant, pf, ts, tc, cfg)
+    want = tabl.ablate_plain(variant, pf, ts, tc, cfg)
+    k1 = tras.composite_pairs_plain(pf, ts, tc, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for ref in (want, k1):
+        assert float((got[:, :5] - ref[:, :5]).abs().max()) <= TOL
+        assert torch.equal(got[:, 5], ref[:, 5])
+    assert (got[:, 6:] == 0).all()
+    assert (got[:, 5, 0] < bpt).any()
+    res = tabl.pg_resources(variant, cuda)
+    assert res["local_bytes"] == 0 and res["ctas_per_sm"] >= 2
+
+
+def test_tf32_split_kernel_matches_plain(cuda):
+    """The pg kernels' TF32 split on the card (cvt.rna) against the plain
+    version's bit arithmetic, bit for bit: random floats over a wide range
+    of exponents, exact ties, subnormals and specials (NaN where NaN)."""
+    r = np.random.default_rng(11)
+    b = r.integers(0, 2**32, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    ties = (b & np.uint32(0xFFFFE000)) | np.uint32(0x1000)
+    wide = r.normal(0, 1, 1 << 16) * np.exp(r.uniform(-80, 80, 1 << 16))
+    x = np.concatenate([
+        wide.astype(np.float32), b.view(np.float32), ties.view(np.float32),
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40,
+                  np.finfo(np.float32).max], np.float32),
+    ])
+    xt = torch.from_numpy(x)
+    before = tabl.tf32_split.launches
+    got = tabl.tf32_split(xt.to(cuda))
+    assert tabl.tf32_split.launches == before + 1
+    for k, p in zip(got, tabl.tf32_split_plain(xt)):
+        k = k.cpu()
+        nan = torch.isnan(p)
+        assert torch.equal(torch.isnan(k), nan)
+        assert torch.equal(k[~nan].view(torch.int32), p[~nan].view(torch.int32))
 
 
 def test_k1_resources_unchanged(cuda):

@@ -358,6 +358,58 @@ def test_attribution_table():
     assert tprof.attribution(res[1:]) == []
 
 
+def _tf32_inputs(kind):
+    """f32 test values for the TF32 split: colours' range, a wide spread of
+    exponents, exact ties (low 13 bits 0x1000), and specials."""
+    r = np.random.default_rng(7)
+    if kind == "unit":
+        return r.uniform(0, 1, 4096).astype(np.float32)
+    if kind == "wide":
+        x = r.normal(0, 1, 4096) * np.exp(r.uniform(-80, 80, 4096))
+        return x.astype(np.float32)
+    if kind == "ties":
+        b = r.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+        b = (b & np.uint32(0xFFFFE000)) | np.uint32(0x1000)
+        return b[((b >> 23) & 0xFF) != 0xFF].view(np.float32)
+    return np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -2.5,
+                     1e-40, -1e-40], np.float32)
+
+
+@pytest.mark.parametrize("kind", ["unit", "wide", "ties", "special"])
+def test_tf32_split(kind):
+    """tf32_round is cvt.rna.tf32.f32 on the CPU: the low 13 mantissa
+    bits of hi are zero, hi is the nearest TF32 with ties away from zero
+    (subnormals rounded on their bits alike), hi + lo is x within 2^-22 of
+    |x| above 2^-100, and NaN, Inf and +-0 pass through
+    (zeros with their sign). The card's own split is held to it bit for
+    bit in tests/test_torch_gpu.py."""
+    x = _tf32_inputs(kind)
+    hi, lo = (t.numpy() for t in tabl.tf32_split_plain(torch.from_numpy(x)))
+    fin = np.isfinite(x)
+    bits, hbits = x.view(np.uint32), hi.view(np.uint32)
+    assert (hbits[fin] & 0x1FFF == 0).all()
+    assert (lo.view(np.uint32)[np.isfinite(lo)] & 0x1FFF == 0).all()
+    down = bits & np.uint32(0xFFFFE000)  # toward zero: the other candidate
+    up = down + np.uint32(0x2000)  # away from zero
+    low = bits & np.uint32(0x1FFF)
+    want = np.where(low >= 0x1000, up, down)
+    np.testing.assert_array_equal(hbits[fin], want[fin])
+    if kind == "ties":
+        assert (low == 0x1000).all() and (np.abs(hi) > np.abs(x)).all()
+    # Where lo is a normal float (|x| >= 2^-100): below, lo keeps fewer
+    # bits, as on the card.
+    ok = fin & (np.abs(x) >= 2.0**-100)
+    x64 = x[ok].astype(np.float64)
+    err = np.abs(hi[ok].astype(np.float64) + lo[ok] - x64)
+    assert (err <= 2.0**-22 * np.abs(x64)).all()
+    np.testing.assert_array_equal(np.isnan(hi), np.isnan(x))
+    inf = np.isinf(x)
+    np.testing.assert_array_equal(hi[inf], x[inf])
+    zero = x == 0
+    np.testing.assert_array_equal(hbits[zero], bits[zero])
+    assert (lo[zero] == 0).all()
+
+
 def test_ablate_wrapper_on_cpu():
     cfg = tconfig.RenderConfig(height=32, width=48, max_pairs=2**12,
                                pair_block=32)
