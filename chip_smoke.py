@@ -2438,9 +2438,12 @@ def trace_phase(pool, c2w, fx, fy, cx, cy, cfg, card):
     (utils.profiling.summarize_trace): the device-busy share of the traced
     window, the kernel launches, the ten kernels with the most time, the
     longest idle gaps. The trace must hold as many K1 and K2 events as
-    their counts say. Then one frame traced stage by stage
-    (profile_trace.trace_stages): each stage's host time, kernel launches
-    and device-busy time, every launch's kernel record in the trace.
+    their counts say. Then one served frame traced under the program's
+    spans (profile_trace.trace_stages, after a frame with no root that
+    absorbs the records a trace can lose at its start): each leaf span's
+    host time, launches and device time, every launch's device record in
+    the trace; the leaves alone are summed, as a span's numbers include
+    the spans it holds.
     Returns (K1, K2) launches."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch.profile_trace import (STAGES, print_stages,
@@ -2487,12 +2490,13 @@ def trace_phase(pool, c2w, fx, fy, cx, cy, cfg, card):
     ranges = [st["ranges"][k] for k in STAGES]
     launched = sum(r["launches"] for r in ranges)
     held = sum(r["kernels"] for r in ranges)
-    print(f"[{card}] stage trace: {launched} launches in the annotated "
-          f"frame, {held} of their kernels in the trace (the served frame's "
-          f"trace: {frame_kernels} launches)", flush=True)
+    print(f"[{card}] stage trace: {launched} launches in the leaf spans "
+          f"of the traced frame, {held} of their device records in the "
+          f"trace (the served frame's trace: {frame_kernels} kernel "
+          f"launches)", flush=True)
     if not (held == launched > 0
             and kernel_events(st, "raster_fwd_kernel") == 2):
-        raise SystemExit("FAIL: the stage trace lost kernel records")
+        raise SystemExit("FAIL: the stage trace lost device records")
     return _since(before)
 
 

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RenderConfig
+from ..utils.profiling import span
 from .projection import ProjectedGaussians
 from .raster_cuda import pack_block_meta
 
@@ -469,72 +470,74 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
     truncation :func:`_compact_blocks` and the exact cover counts. With
     ``cull_mode="ellipse"``, :func:`_expand_ellipse` takes the place of
     the first four."""
-    _check_supported(cfg)
-    dev = proj.depth.device
-    n = proj.depth.shape[0]
-    num_tiles = cfg.num_tiles
+    with span("gs.bin"):
+        _check_supported(cfg)
+        dev = proj.depth.device
+        n = proj.depth.shape[0]
+        num_tiles = cfg.num_tiles
 
-    if cfg.cull_mode == "ellipse":
-        order, total, offsets, slot, pair_ok, tile_id, tile_count, \
-            num_rows = _expand_ellipse(proj, cfg)
-    else:
-        # Footprint counts in DEPTH order, so that capacity overflow drops
-        # the farthest gaussians' pairs first.
-        order, tile_min, n_u, n_v, counts = _footprints(proj)
-        if cfg.tile_rank_cap and cfg.occlusion_cull:
-            # Before the capacity drop, so num_pairs is the demand after it.
-            counts = _occlusion_cull(tile_min, n_u, n_v, counts, cfg)
-        kept_pre = counts > 0  # before the capacity drop
-        total, offsets, slot, pair_ok, tile_id = _expand(counts, tile_min,
-                                                         n_u, cfg)
-        tile_count = _tile_counts(tile_id, num_tiles)
-        num_rows = torch.zeros((), dtype=torch.int64, device=dev)
-    sorted_key = _sort_keys(tile_id, slot, pair_ok, n, num_tiles)
-    pair_slot, padded_count, padded_start = _align(sorted_key, tile_count,
-                                                   n, cfg)
-    block_meta = _block_meta(padded_start, cfg)
-    tile_start = padded_start[:num_tiles]
-    kept_pairs = total
-    trunc_demand = torch.zeros((), dtype=torch.int64, device=dev)
-
-    if cfg.tile_rank_cap:
-        G = cfg.pair_block
-        Kb = cfg.rank_cap_blocks
-        pair_slot, block_meta, new_start_b = _compact_blocks(
-            pair_slot, padded_count, padded_start, cfg)
-        cap_t = Kb * G
         if cfg.cull_mode == "ellipse":
-            # JAX's: the counts of the rows and pairs that fit.
-            tile_count_true = tile_count
+            order, total, offsets, slot, pair_ok, tile_id, tile_count, \
+                num_rows = _expand_ellipse(proj, cfg)
         else:
-            # Reported demand from the tile counts before the capacity
-            # drop, so a probe's own max_pairs cannot hide it.
-            y0g, x0g = tile_min[:, 1], tile_min[:, 0]
-            tile_count_true = _cover_counts(
-                y0g, y0g + n_v, x0g, x0g + n_u, kept_pre, cfg.tiles_y,
-                cfg.tiles_x).reshape(num_tiles)
-        kept_pairs = torch.sum(torch.clamp(tile_count_true, max=cap_t))
-        trunc_demand = torch.sum(
-            torch.clamp((tile_count_true + G - 1) // G, max=Kb)) * G
-        tile_start = torch.clamp(new_start_b[:num_tiles] * G,
-                                 max=cfg.trunc_padded_pairs - 1)
-        # A tile whose first block fell past the capacity is never
-        # composited: count 0. Tiles that lost only deeper blocks keep a
-        # front-most prefix; the overflow is reported by trunc_demand.
-        tile_count = torch.where(
-            new_start_b[:num_tiles] < cfg.num_trunc_blocks,
-            torch.clamp(tile_count, max=cap_t), 0)
+            # Footprint counts in DEPTH order, so that capacity overflow drops
+            # the farthest gaussians' pairs first.
+            order, tile_min, n_u, n_v, counts = _footprints(proj)
+            if cfg.tile_rank_cap and cfg.occlusion_cull:
+                # Before the capacity drop, so num_pairs is the demand
+                # after it.
+                counts = _occlusion_cull(tile_min, n_u, n_v, counts, cfg)
+            kept_pre = counts > 0  # before the capacity drop
+            total, offsets, slot, pair_ok, tile_id = _expand(counts, tile_min,
+                                                             n_u, cfg)
+            tile_count = _tile_counts(tile_id, num_tiles)
+            num_rows = torch.zeros((), dtype=torch.int64, device=dev)
+        sorted_key = _sort_keys(tile_id, slot, pair_ok, n, num_tiles)
+        pair_slot, padded_count, padded_start = _align(sorted_key, tile_count,
+                                                       n, cfg)
+        block_meta = _block_meta(padded_start, cfg)
+        tile_start = padded_start[:num_tiles]
+        kept_pairs = total
+        trunc_demand = torch.zeros((), dtype=torch.int64, device=dev)
 
-    i32 = torch.int32
-    return TileBinning(
-        pair_slot=pair_slot.to(i32),
-        tile_start=tile_start.to(i32),
-        tile_count=tile_count.to(i32),
-        block_meta=block_meta.to(i32),
-        num_pairs=total.to(i32),
-        depth_order=order,
-        gauss_offsets=offsets.to(i32),
-        num_rows=num_rows.to(i32),
-        num_pairs_kept=kept_pairs.to(i32),
-        trunc_demand=trunc_demand.to(i32),
-    )
+        if cfg.tile_rank_cap:
+            G = cfg.pair_block
+            Kb = cfg.rank_cap_blocks
+            pair_slot, block_meta, new_start_b = _compact_blocks(
+                pair_slot, padded_count, padded_start, cfg)
+            cap_t = Kb * G
+            if cfg.cull_mode == "ellipse":
+                # JAX's: the counts of the rows and pairs that fit.
+                tile_count_true = tile_count
+            else:
+                # Reported demand from the tile counts before the capacity
+                # drop, so a probe's own max_pairs cannot hide it.
+                y0g, x0g = tile_min[:, 1], tile_min[:, 0]
+                tile_count_true = _cover_counts(
+                    y0g, y0g + n_v, x0g, x0g + n_u, kept_pre, cfg.tiles_y,
+                    cfg.tiles_x).reshape(num_tiles)
+            kept_pairs = torch.sum(torch.clamp(tile_count_true, max=cap_t))
+            trunc_demand = torch.sum(
+                torch.clamp((tile_count_true + G - 1) // G, max=Kb)) * G
+            tile_start = torch.clamp(new_start_b[:num_tiles] * G,
+                                     max=cfg.trunc_padded_pairs - 1)
+            # A tile whose first block fell past the capacity is never
+            # composited: count 0. Tiles that lost only deeper blocks keep a
+            # front-most prefix; the overflow is reported by trunc_demand.
+            tile_count = torch.where(
+                new_start_b[:num_tiles] < cfg.num_trunc_blocks,
+                torch.clamp(tile_count, max=cap_t), 0)
+
+        i32 = torch.int32
+        return TileBinning(
+            pair_slot=pair_slot.to(i32),
+            tile_start=tile_start.to(i32),
+            tile_count=tile_count.to(i32),
+            block_meta=block_meta.to(i32),
+            num_pairs=total.to(i32),
+            depth_order=order,
+            gauss_offsets=offsets.to(i32),
+            num_rows=num_rows.to(i32),
+            num_pairs_kept=kept_pairs.to(i32),
+            trunc_demand=trunc_demand.to(i32),
+        )

@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
+
 
 def gaussian_window(window_size: int = 11, sigma: float = 1.5,
                     dtype=torch.float32, device=None) -> torch.Tensor:
@@ -94,7 +96,8 @@ def compute_loss(pred: torch.Tensor, target: torch.Tensor,
                  lambda_l1: float = 0.8, lambda_ssim: float = 0.2):
     """Combined loss; returns (total, {'l1', 'ssim', 'total'}) with the
     components as 0-d tensors."""
-    l1 = l1_loss(pred, target)
-    s = ssim_loss(pred, target)
-    total = lambda_l1 * l1 + lambda_ssim * s
+    with span("gs.loss"):
+        l1 = l1_loss(pred, target)
+        s = ssim_loss(pred, target)
+        total = lambda_l1 * l1 + lambda_ssim * s
     return total, {"l1": l1, "ssim": s, "total": total}

@@ -42,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import RenderConfig, cdiv
+from ..utils.profiling import span
 from . import raster_cuda
 from .binning import TileBinning, bin_gaussians, depth_order
 from .clamps import clip, minimum
@@ -264,10 +265,13 @@ class _CompositeGathered(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat10, pair_slot, tile_start, tile_count, cfg):
-        pf = _gather(feat10, pair_slot)
-        raster_cuda._check_inputs(pf, tile_start, tile_count, cfg)
-        out, state = raster_cuda._composite_fwd(pf, tile_start, tile_count,
-                                                cfg, with_state=True)
+        with span("gs.gather"):
+            pf = _gather(feat10, pair_slot)
+        with span("gs.k1"):
+            raster_cuda._check_inputs(pf, tile_start, tile_count, cfg)
+            out, state = raster_cuda._composite_fwd(pf, tile_start,
+                                                    tile_count, cfg,
+                                                    with_state=True)
         ctx.n = feat10.shape[0]
         ctx.cfg = cfg
         ctx.save_for_backward(pf, pair_slot, tile_start, tile_count, out,
@@ -282,11 +286,15 @@ class _CompositeGathered(torch.autograd.Function):
         G = cfg.pair_block
         nb = pf.shape[1] // G
         kb = min(cdiv(cfg.bwd_pairs, G), nb)
-        d = raster_cuda.composite_pairs_bwd(
-            pf, tile_start, tile_count, out, state, gout.contiguous(), cfg,
-            kb=kb)
-        key = composited_pair_keys(pair_slot, tile_start, out, n, kb, cfg)
-        return _reduce_pair_grads(key, d, n), None, None, None, None
+        with span("gs.k2"):
+            d = raster_cuda.composite_pairs_bwd(
+                pf, tile_start, tile_count, out, state, gout.contiguous(),
+                cfg, kb=kb)
+        with span("gs.pair_grads"):
+            key = composited_pair_keys(pair_slot, tile_start, out, n, kb,
+                                       cfg)
+            grad = _reduce_pair_grads(key, d, n)
+        return grad, None, None, None, None
 
 
 def composited_pair_keys(pair_slot, tile_start, fwd_out, n: int, kb: int,
@@ -423,16 +431,20 @@ def rasterize_binned_pallas(
     the gather and the compositor run as :class:`_CompositeGathered`;
     otherwise as the gather and ``composite_pairs`` (no state written).
     """
-    feat10 = _pair_features(proj, colors, torch.float32)[
-        binning.depth_order.to(torch.int64)]
-    if torch.is_grad_enabled() and feat10.requires_grad:
+    with span("gs.gather"):
+        feat10 = _pair_features(proj, colors, torch.float32)[
+            binning.depth_order.to(torch.int64)]
+        recorded = torch.is_grad_enabled() and feat10.requires_grad
+        if not recorded:
+            pf = _gather(feat10, binning.pair_slot)
+    if recorded:
         out = _CompositeGathered.apply(feat10, binning.pair_slot,
                                        binning.tile_start,
                                        binning.tile_count, cfg)
     else:
-        out = raster_cuda.composite_pairs(
-            _gather(feat10, binning.pair_slot), binning.tile_start,
-            binning.tile_count, cfg)
+        with span("gs.k1"):
+            out = raster_cuda.composite_pairs(pf, binning.tile_start,
+                                              binning.tile_count, cfg)
     # out [num_tiles, 8, P]: rows 0-2 rgb, 3 depth, 4 transmittance
 
     # Tiles with no pairs: mask them, as the JAX package must.

@@ -57,6 +57,7 @@ from ..render import (render_batch_from_params, render_from_params,
                       stack_view_projections)
 from ..train.trainer import (TrainState, apply_sh_warmup, apply_update,
                              map_capacity_leaves, tap_norm_sum)
+from ..utils.profiling import span
 from .mesh import DATA_AXIS, TILE_AXIS, Mesh
 
 
@@ -265,7 +266,7 @@ def make_sharded_train_step(render_cfg: RenderConfig,
 
     loss_fn = loss_batched if train_cfg.batched_render else loss_views
 
-    def step_fn(state: TrainState, batch: dict):
+    def step(state: TrainState, batch: dict):
         pool = state.pool
         params = pool.params
         for p in params.values():
@@ -279,7 +280,8 @@ def make_sharded_train_step(render_cfg: RenderConfig,
         total, l1, ssim, demand, radii = loss_fn(
             apply_sh_warmup(params, state.step, train_cfg), pool.alive,
             batch, taps)
-        total.backward()
+        with span("gs.backward"):
+            total.backward()
         with torch.no_grad():
             # Band partials summed over tile, then the mean over data: one
             # all-reduce of every leaf over the whole grid.
@@ -326,6 +328,10 @@ def make_sharded_train_step(render_cfg: RenderConfig,
         new_state, upd = apply_update(state, losses[0], grads, train_cfg)
         metrics.update(upd)
         return new_state, metrics
+
+    def step_fn(state: TrainState, batch: dict):
+        with span("gs.step"):
+            return step(state, batch)
 
     return step_fn
 
@@ -727,7 +733,7 @@ def make_gauss_sharded_train_step(render_cfg: RenderConfig,
                 torch.mean(torch.stack(l1s)), torch.mean(torch.stack(ssims)),
                 demand, ovf, radii.detach())
 
-    def step_fn(state: TrainState, batch: dict):
+    def step(state: TrainState, batch: dict):
         pool = state.pool
         params = pool.params
         for p in params.values():
@@ -741,7 +747,8 @@ def make_gauss_sharded_train_step(render_cfg: RenderConfig,
         total, l1, ssim, demand, ovf, radii = loss_fn(
             apply_sh_warmup(params, state.step, train_cfg), pool.alive,
             batch, taps)
-        total.backward()
+        with span("gs.backward"):
+            total.backward()
         with torch.no_grad():
             # Shard-local already (the exchange's reduce-scatter); the
             # mean over data in one all-reduce of every leaf.
@@ -788,6 +795,10 @@ def make_gauss_sharded_train_step(render_cfg: RenderConfig,
             grid_max=lambda t: _reduce(t, None, n_all, dist.ReduceOp.MAX))
         metrics.update(upd)
         return new_state, metrics
+
+    def step_fn(state: TrainState, batch: dict):
+        with span("gs.step"):
+            return step(state, batch)
 
     return step_fn
 

@@ -11,20 +11,20 @@ times inside ``utils.profiling.trace`` and writes the Chrome trace into
 ``ui.perfetto.dev`` or ``chrome://tracing``). It then prints the trace's
 summary (``utils.profiling.summarize_trace``): the device's busy share of
 the traced window, the kernel launches per iteration, the kernels with the
-most time and the longest idle gaps. Then it traces one frame stage by
-stage (:func:`trace_stages`: covariance + SH, projection, binning,
-``rasterize_binned``, each in a ``record_function`` range) and prints each
-stage's host time, kernel launches and device-busy time. On the CPU the
-trace holds the host operators only.
+most time and the longest idle gaps. Then it traces one served frame
+(:func:`trace_stages`: ``viewer.make_render_fn``'s closure under the
+program's own spans) and prints each span's host time, launches and
+device time. On the CPU the trace holds the host operators only.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 
 import numpy as np
 import torch
+
+from .utils.profiling import SPANS
 
 
 def print_summary(summary: dict, iters: int, label: str = "") -> None:
@@ -49,68 +49,47 @@ def print_summary(summary: dict, iters: int, label: str = "") -> None:
               + ", ".join(f"{g:.1f}" for g in summary["gaps_us"]))
 
 
-STAGES = ("cov3d+sh", "project", "bin", "rasterize_binned")
+# The leaf spans of a served frame: SPANS from the pose's copy to K1.
+STAGES = SPANS[SPANS.index("gs.pose"):SPANS.index("gs.k1") + 1]
 
 
 def trace_stages(params, c2w, fx, fy, cx, cy, cfg, alive, log_dir: str):
-    """One frame of render_from_params, stage by stage (the calls
-    ``profile_stages.stage_ms`` times), each stage inside a
-    ``record_function`` range of :data:`STAGES`. The trace holds an
-    unannotated frame first: a trace can miss kernel records at its start
-    (seen on the card after earlier traces in the same process), which
-    then fall on that frame. Returns the trace's ``summarize_trace`` dict,
-    whose ``ranges`` give each stage's host time, launches, kernels and
-    device-busy time."""
-    from .ops.binning import bin_gaussians
-    from .ops.gaussian import build_cov3d_packed
-    from .ops.projection import project_gaussians
-    from .ops.rasterize import rasterize_binned
-    from .ops.sh import evaluate_sh
+    """One served frame (``viewer.make_render_fn``'s closure over
+    ``render_from_params``) traced under the spans the program records,
+    its root ``gs.frame`` and the leaves :data:`STAGES`. The trace holds a
+    frame of ``render_from_params`` with no root first: a trace can lose
+    device records at its start (seen on the card after earlier traces in
+    the same process), and these then fall outside the served frame,
+    which alone is summed. Returns the trace's ``summarize_trace`` dict
+    (``root="gs.frame"``), whose ``ranges`` give each span's host time,
+    launches, device records, device time and idle time."""
+    from .render import render_from_params
     from .utils.profiling import block_until_ready, summarize_trace, trace
+    from .viewer import make_render_fn
 
-    pos = params["pos"]
-    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=pos.device)
-
-    def frame(annotate: bool):
-        def stage(name):
-            return (torch.profiler.record_function(name) if annotate
-                    else contextlib.nullcontext())
-
-        with torch.no_grad():
-            with stage("cov3d+sh"):
-                cov = build_cov3d_packed(params["scale_raw"],
-                                         params["q_raw"])
-                colors = evaluate_sh(params["f_dc"], params["f_rest"], pos,
-                                     c2w)
-            with stage("project"):
-                proj = project_gaussians(pos, cov, params["opacity_raw"],
-                                         c2w, fx, fy, cx, cy, cfg,
-                                         extra_valid=alive)
-            with stage("bin"):
-                b = bin_gaussians(proj, cfg)
-            with stage("rasterize_binned"):
-                return rasterize_binned(proj, colors, b, cfg)[0]
-
-    block_until_ready(frame(False))
+    fn = make_render_fn(params, cfg, fx, fy, cx, cy, alive=alive)
+    block_until_ready(fn(c2w))
     with trace(log_dir) as prof:
-        block_until_ready(frame(False))
-        block_until_ready(frame(True))
-    return summarize_trace(prof.chrome_trace_path)
+        with torch.no_grad():
+            block_until_ready(render_from_params(params, c2w, fx, fy, cx, cy,
+                                                 cfg, alive=alive)[0])
+        block_until_ready(fn(c2w))
+    return summarize_trace(prof.chrome_trace_path, root="gs.frame")
 
 
 def print_stages(summary: dict, label: str = "") -> None:
     """Print the per-stage ranges of a :func:`trace_stages` summary."""
     pre = f"{label}: " if label else ""
-    print(f"{pre}stages of one traced frame (host ms inside the stage / "
-          f"kernel launches / device-busy ms of those kernels):",
+    print(f"{pre}stages of one traced frame (host ms inside the span / "
+          f"launches / device ms of their kernels, copies and fills):",
           flush=True)
-    for name in STAGES:
+    for name in ("gs.frame",) + STAGES:
         r = summary["ranges"].get(name, {"host_us": 0.0, "launches": 0,
                                          "kernels": 0, "busy_us": 0.0})
         lost = r["launches"] - r["kernels"]
-        print(f"  {name:18s} host {r['host_us'] / 1e3:8.3f} ms  launches "
+        print(f"  {name:12s} host {r['host_us'] / 1e3:8.3f} ms  launches "
               f"{r['launches']:5d}  device busy {r['busy_us'] / 1e3:8.3f} "
-              f"ms" + (f"  ({lost} kernel records missing)" if lost else ""),
+              f"ms" + (f"  ({lost} device records missing)" if lost else ""),
               flush=True)
 
 

@@ -19,10 +19,12 @@ from .ops.gaussian import build_cov3d_packed, pack_cov3d
 from .ops.projection import ProjectedGaussians, project_gaussians
 from .ops.rasterize import rasterize
 from .ops.sh import evaluate_sh
+from .utils.profiling import span
 
 
 def _c2w(c2w, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(c2w, dtype=torch.float32, device=like.device)
+    with span("gs.pose"):
+        return torch.as_tensor(c2w, dtype=torch.float32, device=like.device)
 
 
 def render(
@@ -80,10 +82,12 @@ def pair_demand(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
     last two are 0 in rect mode without truncation.
     """
     pos = params["pos"]
-    cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
+    c2w = _c2w(c2w, pos)
+    with span("gs.cov_sh"):
+        cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
     proj = project_gaussians(
-        pos, cov3d, params["opacity_raw"], _c2w(c2w, pos), fx, fy, cx, cy,
-        cfg, extra_valid=alive,
+        pos, cov3d, params["opacity_raw"], c2w, fx, fy, cx, cy, cfg,
+        extra_valid=alive,
     )
     binning = bin_gaussians(proj, cfg)
     return binning.num_pairs, binning.num_rows, binning.trunc_demand
@@ -105,8 +109,9 @@ def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
     """
     pos = params["pos"]
     c2w = _c2w(c2w, pos)
-    cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
-    colors = evaluate_sh(params["f_dc"], params["f_rest"], pos, c2w)
+    with span("gs.cov_sh"):
+        cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
+        colors = evaluate_sh(params["f_dc"], params["f_rest"], pos, c2w)
     proj = project_gaussians(
         pos, cov3d, params["opacity_raw"], c2w, fx, fy, cx, cy, cfg,
         extra_valid=alive, uv_tap=uv_tap,
@@ -188,11 +193,13 @@ def render_batch_from_params(params: dict, c2w, fx, fy, cx, cy,
     B = c2w.shape[0]
     n = pos.shape[0]
     fx, fy, cx, cy = (_per_view(a, B, pos) for a in (fx, fy, cx, cy))
-    cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
+    with span("gs.cov_sh"):
+        cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
     colors, projs = [], []
     for v in range(B):
-        colors.append(evaluate_sh(params["f_dc"], params["f_rest"], pos,
-                                  c2w[v]))
+        with span("gs.cov_sh"):
+            colors.append(evaluate_sh(params["f_dc"], params["f_rest"], pos,
+                                      c2w[v]))
         projs.append(project_gaussians(
             pos, cov3d, params["opacity_raw"], c2w[v], fx[v], fy[v], cx[v],
             cy[v], cfg, extra_valid=alive,

@@ -54,6 +54,7 @@ from ..models.adc import (densify_and_prune, densify_and_prune_paper,
 from ..models.gaussians import PARAM_KEYS, GaussianPool, pool_from_numpy
 from ..ops.losses import compute_loss
 from ..render import render_batch_from_params, render_from_params
+from ..utils.profiling import span
 
 
 def position_lr(step, cfg: TrainConfig) -> torch.Tensor:
@@ -356,7 +357,8 @@ def value_and_grads(state: TrainState, batch: dict,
         apply_sh_warmup(params, state.step, train_cfg), pool.alive,
         batch, render_cfg, train_cfg, uv_taps=taps,
     )
-    loss.backward()
+    with span("gs.backward"):
+        loss.backward()
     with torch.no_grad():
         if taps is not None:
             g = taps.grad if taps.grad is not None else torch.zeros_like(taps)
@@ -380,7 +382,7 @@ def apply_update(state: TrainState, loss: torch.Tensor, grads: dict,
     pool, opt = state.pool, state.opt_state
     params = pool.params
     metrics = {}
-    with torch.no_grad():
+    with span("gs.update"), torch.no_grad():
         grads = _clip_pos_grad(grads, train_cfg.grad_clip_pos, shard_sum)
         # Dead slots must not drift.
         grads = {
@@ -423,9 +425,10 @@ def make_train_step(render_cfg: RenderConfig, train_cfg: TrainConfig):
         raise ValueError(f"unknown adc_mode {train_cfg.adc_mode!r}")
 
     def step_fn(state: TrainState, batch: dict):
-        loss, metrics, grads = value_and_grads(state, batch, render_cfg,
-                                               train_cfg)
-        new_state, upd = apply_update(state, loss, grads, train_cfg)
+        with span("gs.step"):
+            loss, metrics, grads = value_and_grads(state, batch, render_cfg,
+                                                   train_cfg)
+            new_state, upd = apply_update(state, loss, grads, train_cfg)
         metrics.update(upd)
         return new_state, metrics
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .config import RenderConfig
+from .utils.profiling import span
 
 
 def look_at(position: np.ndarray, target: np.ndarray,
@@ -340,15 +341,15 @@ def make_render_fn(params: dict, cfg: RenderConfig, fx, fy, cx, cy,
     from .render import render_from_params
 
     def fn(c2w):
-        with torch.no_grad():
+        with span("gs.frame"), torch.no_grad():
             img, aux = render_from_params(
                 params, c2w, fx, fy, cx, cy, cfg, alive=alive
             )
-        if with_depth:
-            return img, aux.depth, aux.alpha
-        if report_demand:
-            return img, _demand_probe(img, aux)
-        return img
+            if with_depth:
+                return img, aux.depth, aux.alpha
+            if report_demand:
+                return img, _demand_probe(img, aux)
+            return img
 
     return fn
 
@@ -366,12 +367,12 @@ def make_batch_render_fn(params: dict, cfg: RenderConfig, fx, fy, cx, cy,
     from .render import render_batch_from_params
 
     def fn(c2w_b):
-        with torch.no_grad():
+        with span("gs.frame"), torch.no_grad():
             imgs, aux = render_batch_from_params(
                 params, np.asarray(c2w_b), fx, fy, cx, cy, cfg, alive=alive)
-        if report_demand:
-            return imgs, _demand_probe(imgs, aux)
-        return imgs
+            if report_demand:
+                return imgs, _demand_probe(imgs, aux)
+            return imgs
 
     return fn
 

@@ -174,9 +174,10 @@ def test_summarize_trace_on_a_written_trace(tmp_path):
     """``summarize_trace`` on a small Chrome trace in the profiler's
     format: device busy as the union of kernel, copy and fill intervals,
     the idle gaps between them, counts per kernel name, and each
-    ``record_function`` range's launches, the kernels the trace holds for
-    them (matched by correlation id; one record missing here) and their
-    busy union."""
+    ``record_function`` range's launches (kernels, copies and fills),
+    the device records the trace holds for them (matched by correlation
+    id; one record missing here), their busy union and the range's idle
+    time."""
     def x(cat, name, ts, dur, corr=None):
         e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
         if corr is not None:
@@ -207,9 +208,12 @@ def test_summarize_trace_on_a_written_trace(tmp_path):
     assert s["gaps_us"] == [50.0, 10.0]
     assert s["cpu_ops"] == {"aten::sort": 1}
     assert s["ranges"]["stage_a"] == {"host_us": 100.0, "launches": 2,
-                                      "kernels": 2, "busy_us": 50.0}
-    assert s["ranges"]["stage_b"] == {"host_us": 100.0, "launches": 2,
-                                      "kernels": 1, "busy_us": 20.0}
+                                      "kernels": 2, "busy_us": 50.0,
+                                      "self_busy_us": 50.0, "idle_us": 50.0}
+    # The fill counts as the range's: its call and record share an id.
+    assert s["ranges"]["stage_b"] == {"host_us": 100.0, "launches": 3,
+                                      "kernels": 2, "busy_us": 30.0,
+                                      "self_busy_us": 30.0, "idle_us": 70.0}
 
 
 def test_make_scene_matches_bench():
@@ -273,7 +277,7 @@ def test_profile_trace_cli_on_cpu(tmp_path, capsys):
     assert r["summary"]["cpu_ops"]["aten::sort"] >= 2
     assert "no device activity" in capsys.readouterr().out
     ranges = r["stages"]["ranges"]
-    assert set(ranges) == set(profile_trace.STAGES)
+    assert set(ranges) == {"gs.frame", *profile_trace.STAGES}
     assert all(v["host_us"] > 0 and v["kernels"] == 0
                for v in ranges.values())
 
