@@ -14,6 +14,13 @@ Phases (any failure exits non-zero, with no result line):
      template; one nvcc per source, all started together), with ptxas
      registers/spills (a spill fails the run) and K1's registers, shared
      memory and CTAs per SM, which must stay as K1_RESOURCES;
+ 2b. the binning kernels (binning.cu: emission, tile sort, aligned
+     scatter) against the plain steps on profile_binning.kernel_cases
+     (binning_phase: the checkpoint's orbit, three stacked views, the
+     ellipse cull and the rank truncation; the 3 M garden scene near the
+     origin camera and at a third of its capacity), every TileBinning
+     field bit for bit and each launch counter risen; each kernel's time
+     at the 3 M frame beside its plain version's and its bound by bytes;
   3. K1, then K2 on a seeded cotangent, against their plain PyTorch versions
      on a seeded synthetic scene at 1920x1080 (K1 rows 0-5 bit-identical to
      the plain version; K1 writing its block-start state: output
@@ -27,7 +34,8 @@ Phases (any failure exits non-zero, with no result line):
      bench pose (camera at center + (0, -0.6R, -4.4R));
   5. serving: restore_pool -> make_render_fn -> render_trajectory over the
      bench pose plus an 8-frame orbit at orbit_scale 4.4, with the kernel's
-     launch count read around the run, and the served bench-pose frame held
+     launch count read around the run (and the binning kernels', which
+     must launch once a binned frame), and the served bench-pose frame held
      against the image assembled from the plain compositor's output; the
      memory model's estimate (utils.memory) beside the run's own peak
      (the peak less what earlier phases held), within MEMORY_TOL;
@@ -45,7 +53,7 @@ Phases (any failure exits non-zero, with no result line):
      960x540 on the checkpoint with f_dc and opacity perturbed, ground truth
      rendered from the unperturbed checkpoint: the loss falls, no step is
      skipped, dead slots do not move, K1 and K2 launch views x steps times,
-     no pair overflow; step ms, per-view ms, peak device memory and the
+     the binning kernels once a binned view, no pair overflow; step ms, per-view ms, peak device memory and the
      memory model's estimate within MEMORY_TOL of the step's own peak;
      then the comm model (python -m gsplat_tpu_torch.comm_model) fed this
      step's ms per view;
@@ -296,9 +304,11 @@ Phases (any failure exits non-zero, with no result line):
      counted). Printed: the line, each integer key beside the TPU v5e's
      (BENCH_r05.json), the in-bench and isolated fwd+bwd's agreement and
      the phase's seconds;
- 19. one JSON line {"kernels": [...]} (twenty-four kernels: phase 14's
-     ranges as their own entries), the card line, and the final line
-     {"ok": true, "device": {...}}.
+ 19. one JSON line {"kernels": [...]} (twenty-seven kernels: phase 14's
+     ranges as their own entries; binning_emit, binning_sort and
+     binning_align with their launches in phases 5 and 8, counted from 0
+     there, and phase 2b's error and times), the card line, and the final line {"ok": true, "device":
+     {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -681,7 +691,7 @@ def train_views(pool, bench_c2w, center, radius):
 def train_phase(pool, bench_c2w, center, radius, card):
     """TRAIN_STEPS steps of the port's train step at 960x540, batch 4.
     Returns (K1 launches, K2 launches, step ms, the parameters after the
-    steps)."""
+    steps, the binning kernels' launches in the steps)."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
 
@@ -705,13 +715,15 @@ def train_phase(pool, bench_c2w, center, radius, card):
     composite_pairs.launches = 0
     composite_pairs.bwd_launches = 0
     ms, metrics = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        metrics.append(m)
+    with BinCalls() as bins:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
     k1, k2 = composite_pairs.launches, composite_pairs.bwd_launches
+    bin_n = bins.check(card, f"train {TRAIN_STEPS} steps")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["total"]) for m in metrics]
     skipped = [int(m["nonfinite_skipped"]) for m in metrics]
@@ -733,7 +745,8 @@ def train_phase(pool, bench_c2w, center, radius, card):
     views = TRAIN_BATCH * TRAIN_STEPS
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
             and skipped == [0] * TRAIN_STEPS and dead_same
-            and k1 == k2 == views and max(demand) <= cfg.max_pairs):
+            and k1 == k2 == views and max(demand) <= cfg.max_pairs
+            and bins.calls >= views):
         raise SystemExit("FAIL: training phase")
     memory_line(card, f"the per-view step ({TRAIN_BATCH} views at "
                 f"{TRAIN_W}x{TRAIN_H})", other,
@@ -744,7 +757,7 @@ def train_phase(pool, bench_c2w, center, radius, card):
           f"checked steps): " + ", ".join(f"{k} {v:.3f} ms"
                                          for k, v in parts.items()),
           flush=True)
-    return k1, k2, step_ms, trained
+    return k1, k2, step_ms, trained, bin_n
 
 
 def train_parts_ms(state, batch, cfg, tcfg, reps=3):
@@ -2498,6 +2511,118 @@ def trace_phase(pool, c2w, fx, fy, cx, cy, cfg, card):
             and kernel_events(st, "raster_fwd_kernel") == 2):
         raise SystemExit("FAIL: the stage trace lost device records")
     return _since(before)
+
+
+BINNING_SOURCE = "gsplat_tpu_torch/ops/csrc/binning.cu"
+BINNING_SEED = 2718281830  # the garden scene's draw in phase 2b
+
+
+def binning_phase(dev, card):
+    """Phase 2b: the binning kernels (emission, tile sort, aligned scatter)
+    against the plain steps they replace, on every case of
+    ``profile_binning.kernel_cases`` (the checkpoint's orbit, the 3 M
+    garden scene near the origin camera and at a third of its capacity,
+    three stacked views, the ellipse cull, the rank truncation): every
+    TileBinning field bit for bit, each launch counter risen. Then, at the
+    first garden pose, each kernel's device time beside its plain
+    version's (``profile_binning.step_times``) and its bound by bytes: the
+    emission writes 8 B a slot and reads 32 B a gaussian; a stable sort
+    reads and writes each 8 B pair once; the alignment reads the 4 B tile
+    of every slot, the 4 B slot of every kept pair and two [T+1] int64
+    starts, and writes 4 B a kept pair. Returns ({step: {ms, plain_ms,
+    bound_ms}}, the largest integer difference over every case's
+    fields)."""
+    from gsplat_tpu_torch import profile_binning as PB
+    from gsplat_tpu_torch.ops import binning as B
+
+    err, frame = 0, None
+    with torch.no_grad():
+        for case in PB.CHECK_CASES:
+            for label, proj, cfg, emits in PB.kernel_cases(
+                    case, dev, seed=BINNING_SEED, checkpoint=CKPT):
+                r = PB.compare_kernels(proj, cfg)
+                torch.cuda.synchronize()
+                err = max(err, r["max_abs_err"])
+                print(f"[{card}] binning {label}: demand {r['num_pairs']}, "
+                      f"capacity {cfg.max_pairs}, kernels vs plain "
+                      + ("bit for bit" if not r["bad"] else
+                         f"DIFFER in {r['bad']} (max abs "
+                         f"{r['max_abs_err']})")
+                      + f", launches +{r['launches']}", flush=True)
+                if r["bad"] or r["launches"] != [emits, 1, 1]:
+                    raise SystemExit(f"FAIL: binning kernels on {label}")
+                if case == "garden3m-drift" and frame is None:
+                    frame = (proj, cfg)
+                del proj
+
+        # --- the steps' times at the first garden pose ---
+        proj, cfg = frame
+        kern = PB.step_times(proj, cfg, 10)
+        plain = PB.step_times(proj, cfg, 2, plain=True)
+        _, _, _, _, counts = B._footprints(proj)
+        m, n = cfg.max_pairs, counts.shape[0]
+        d = int(B._capacity_drop(counts, cfg)[1][-1])
+        T = cfg.num_tiles
+        nbytes = {"emit": 8 * m + 32 * n, "sort": 16 * m,
+                  "align": 4 * m + 8 * d + 16 * (T + 1)}
+    out = {}
+    for step, b in nbytes.items():
+        out[step] = r = {"ms": kern[step], "plain_ms": plain[step],
+                         "bound_ms": b / PEAK_BYTES * 1e3}
+        print(f"[{card}] binning {step} at the 3 M frame ({m} slots, {d} "
+              f"pairs): {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by bytes "
+              f"({100 * r['bound_ms'] / r['ms']:.1f} %)", flush=True)
+    return out, err
+
+
+class BinCalls:
+    """Counts ``bin_gaussians`` calls on the serving and training paths
+    (``ops.rasterize`` and ``render.pair_demand`` look it up by name) and
+    the binning kernels' launches while inside: ``check()`` fails unless
+    each kernel launched once a call (the emission once a rect call)."""
+
+    def __enter__(self):
+        import importlib
+
+        from gsplat_tpu_torch.ops import binning
+
+        # The modules, by name: the package's ``render`` is a function.
+        self.mods = [importlib.import_module(f"gsplat_tpu_torch.{m}")
+                     for m in ("render", "ops.rasterize")]
+        self.real = binning.bin_gaussians
+        self.calls = self.rect = 0
+
+        def counted(proj, cfg):
+            self.calls += 1
+            self.rect += cfg.cull_mode == "rect"
+            return self.real(proj, cfg)
+
+        for mod in self.mods:
+            mod.bin_gaussians = counted
+        binning.emit_pairs.launches = 0
+        binning.sort_pairs.launches = 0
+        binning.align_pairs.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        from gsplat_tpu_torch.ops import binning
+
+        for mod in self.mods:
+            mod.bin_gaussians = self.real
+        self.launches = [binning.emit_pairs.launches,
+                         binning.sort_pairs.launches,
+                         binning.align_pairs.launches]
+        return False
+
+    def check(self, card, what):
+        print(f"[{card}] {what}: bin_gaussians calls {self.calls} ({self.rect}"
+              f" rect); binning_emit, binning_sort, binning_align launches "
+              f"{self.launches}", flush=True)
+        if self.calls == 0 or self.launches != [self.rect, self.calls,
+                                                self.calls]:
+            raise SystemExit(f"FAIL: the binning kernels on {what}")
+        return self.launches
 
 
 def tools_phase(pool, c2w, fx, fy, cx, cy, cfg, lever, card):
@@ -4771,6 +4896,9 @@ def main():
           f"{bregs[1]}", flush=True)
     errs, bwd_errs = [], []
 
+    # --- 2b. the binning kernels against the plain steps ---
+    bin_t, bin_err = binning_phase(dev, card)
+
     # --- 3. kernel vs plain, synthetic scene ---
     cfg = gt.RenderConfig(height=H, width=W, max_pairs=MAX_PAIRS)
     fx = fy = 0.85 * W
@@ -4840,8 +4968,9 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     composite_pairs.launches = 0
     t0 = time.perf_counter()
-    _, stats = render_trajectory(counted, traj, keep_frames=False,
-                                 pair_capacity=cfg.max_pairs)
+    with BinCalls() as serve_bins:
+        _, stats = render_trajectory(counted, traj, keep_frames=False,
+                                     pair_capacity=cfg.max_pairs)
     serve_s = time.perf_counter() - t0
     launches = composite_pairs.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -4866,6 +4995,9 @@ def main():
     if launches != calls[0] or launches < len(traj):
         raise SystemExit(f"FAIL: {launches} kernel launches for {calls[0]} "
                          f"rendered frames")
+    serve_bin_n = serve_bins.check(card, f"served {len(traj)} poses")
+    if serve_bins.calls < calls[0]:
+        raise SystemExit("FAIL: a served frame was not binned")
     img = served["first"]
     if tuple(img.shape) != (H, W, 3) or not bool(torch.isfinite(img).all()):
         raise SystemExit(f"FAIL: served frame {tuple(img.shape)} not finite")
@@ -4919,8 +5051,8 @@ def main():
     del gparams
 
     # --- 8. training through the port's entry points ---
-    train_k1, train_k2, train_ms, trained = train_phase(pool, c2w, center,
-                                                        radius, card)
+    train_k1, train_k2, train_ms, trained, train_bin_n = train_phase(
+        pool, c2w, center, radius, card)
     # The comm model, fed this card's step per view (no card beyond it).
     from gsplat_tpu_torch import comm_model
 
@@ -5105,6 +5237,19 @@ def main():
         "library_ms": None,
     } for v in ABLATION_REPLACES]
     kernels += range_entries(ranges, counts)
+    kernels += [{
+        "name": f"binning_{step}",
+        "route": "cuda",
+        "source": BINNING_SOURCE,
+        "replaces": "none (the JAX package bins with XLA operations)",
+        "launches": serve_bin_n[i] + train_bin_n[i],
+        "max_abs_err": bin_err,
+        "ms": bin_t[step]["ms"],
+        "plain_ms": bin_t[step]["plain_ms"],
+        "bound_ms": bin_t[step]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    } for i, step in enumerate(("emit", "sort", "align"))]
     print(json.dumps({"kernels": kernels}))
     print(device_label(dev))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
 compiled at first use into ``gsplat_tpu_torch/_build/<name>-<hash>/``
 (listed in ``.gitignore``), keyed by a hash of the sources and flags, so
 an edit rebuilds and an unchanged tree loads what is there. No PyTorch
-header is compiled: a build takes seconds.
+header is compiled: a build takes seconds (``binning.cu``, which
+instantiates CUB's radix sort, longer). :data:`FUNCTIONS` lists each
+library's exports and their ctypes signatures.
 
 ``-fmad=false`` keeps each kernel's rounding equal to its plain PyTorch
 version's (see the note in each source). ``-Xptxas -v`` reports registers,
@@ -28,76 +30,103 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas", "-v",
 )
 
-SIGNATURES = {
-    # raster_fwd(feat, n_pairs, stride, tile_start, tile_count, order, out,
-    #            state, skipped, log_t, num_tiles, tiles_x, rows_mod, tile,
-    #            G, chi2_clip, alpha_max, alpha_cutoff, t_min, margin_rel,
-    #            margin_eps, margin_abs, kappa_min, stream) -> cudaError_t
-    #            (order: scratch; state, skipped: may be null; log_t: 1 for
-    #            transmittance_math="log", 0 for "cumprod"; rows_mod: a
-    #            view's tile rows for batched views, else 0)
-    "raster_fwd": (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-    # raster_bwd(feat, n_blocks, stride, tile_start, tile_off, num_tiles,
-    #            fwd, gout, state, dfeat, dstride, log_t, tiles_x, rows_mod,
-    #            kb, tile, G, chi2_clip, alpha_max, alpha_cutoff,
-    #            one_minus_max, t_min, ctas, stream) -> cudaError_t   (ctas: CTAs
-    #            launched, may be null; log_t and rows_mod as raster_fwd's;
-    #            kb > 0: compact mode, dfeat [10, kb * G])
-    "raster_bwd": (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.POINTER(ctypes.c_int),
-         ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-    # raster_ablate(variant, feat, n_pairs, stride, tile_start, tile_count,
-    #               order, out, skipped, num_tiles, tiles_x, tile, G,
-    #               chi2_clip, alpha_max, alpha_cutoff, t_min, margin_rel,
-    #               margin_eps, margin_abs, kappa_min, stream)
-    #               -> cudaError_t   (order: scratch; skipped: may be null)
-    "raster_ablate": (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-}
-
-# The other functions a library exports: {library: {function: signature}}.
-EXTRA_FUNCTIONS = {
-    # raster_fwd_ctas_per_sm(int tile, int G, int log_t, int* n) ->
-    # cudaError_t: K1's resident CTAs per SM on the current device (the
-    # occupancy API)
+# Every library and the functions it exports: {library: {function:
+# (argtypes, restype)}}. Each library is csrc/<library>.cu.
+FUNCTIONS = {
     "raster_fwd": {
+        # raster_fwd(feat, n_pairs, stride, tile_start, tile_count, order,
+        #            out, state, skipped, log_t, num_tiles, tiles_x,
+        #            rows_mod, tile, G, chi2_clip, alpha_max, alpha_cutoff,
+        #            t_min, margin_rel, margin_eps, margin_abs, kappa_min,
+        #            stream) -> cudaError_t   (order: scratch; state,
+        #            skipped: may be null; log_t: 1 for
+        #            transmittance_math="log", 0 for "cumprod"; rows_mod: a
+        #            view's tile rows for batched views, else 0)
+        "raster_fwd": (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        # raster_fwd_ctas_per_sm(int tile, int G, int log_t, int* n) ->
+        # cudaError_t: K1's resident CTAs per SM on the current device (the
+        # occupancy API)
         "raster_fwd_ctas_per_sm": ([ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                     ctypes.POINTER(ctypes.c_int)],
                                    ctypes.c_int),
     },
-    # raster_ablate_pg_resources(int variant, int out[4]) -> cudaError_t:
-    # a pg kernel's registers, static shared bytes, local bytes and CTAs
-    # per SM; raster_ablate_tf32_split(x, hi, lo, n, stream) ->
-    # cudaError_t: the pg kernels' TF32 split of n floats
+    "raster_bwd": {
+        # raster_bwd(feat, n_blocks, stride, tile_start, tile_off,
+        #            num_tiles, fwd, gout, state, dfeat, dstride, log_t,
+        #            tiles_x, rows_mod, kb, tile, G, chi2_clip, alpha_max,
+        #            alpha_cutoff, one_minus_max, t_min, ctas, stream) ->
+        #            cudaError_t   (ctas: CTAs launched, may be null; log_t
+        #            and rows_mod as raster_fwd's; kb > 0: compact mode,
+        #            dfeat [10, kb * G])
+        "raster_bwd": (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, ctypes.POINTER(ctypes.c_int),
+             ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+    },
     "raster_ablate": {
+        # raster_ablate(variant, feat, n_pairs, stride, tile_start,
+        #               tile_count, order, out, skipped, num_tiles, tiles_x,
+        #               tile, G, chi2_clip, alpha_max, alpha_cutoff, t_min,
+        #               margin_rel, margin_eps, margin_abs, kappa_min,
+        #               stream) -> cudaError_t   (order: scratch; skipped:
+        #               may be null)
+        "raster_ablate": (
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        # raster_ablate_pg_resources(int variant, int out[4]) ->
+        # cudaError_t: a pg kernel's registers, static shared bytes, local
+        # bytes and CTAs per SM; raster_ablate_tf32_split(x, hi, lo, n,
+        # stream) -> cudaError_t: the pg kernels' TF32 split of n floats
         "raster_ablate_pg_resources": ([ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)],
                                        ctypes.c_int),
         "raster_ablate_tf32_split": ([ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_void_p], ctypes.c_int),
+    },
+    "binning": {
+        # binning_emit(offsets, n, tile_min, n_u, max_pairs, tiles_x,
+        #              num_tiles, tile_id, slot, stream) -> cudaError_t
+        "binning_emit": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p], ctypes.c_int),
+        # binning_sort(temp, temp_bytes, keys, keys_alt, vals, vals_alt,
+        #              num_items, end_bit, selector, stream) -> cudaError_t
+        #              (temp null: only the scratch size into *temp_bytes)
+        "binning_sort": ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t),
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
+                         ctypes.c_int),
+        # binning_align(tile, slot, num_items, padded_start, real_start,
+        #               num_tiles, padded_pairs, pair_slot, stream) ->
+        #               cudaError_t
+        "binning_align": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_longlong, ctypes.c_void_p,
+                           ctypes.c_void_p], ctypes.c_int),
     },
 }
 
@@ -124,7 +153,7 @@ def _target_dir(name: str) -> Path:
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"
 
 
-def build(names=tuple(SIGNATURES)) -> dict:
+def build(names=tuple(FUNCTIONS)) -> dict:
     """Build every named kernel that is not built yet, all nvcc processes
     started together. Returns {name: {"lib": path, "ptxas": nvcc's -v
     report}}; raises if nvcc is missing or any build fails."""
@@ -170,8 +199,7 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         path = build((name,))[name]["lib"]
         lib = ctypes.CDLL(str(path))
-        sigs = {name: SIGNATURES[name], **EXTRA_FUNCTIONS.get(name, {})}
-        for fname, sig in sigs.items():
+        for fname, sig in FUNCTIONS[name].items():
             fn = getattr(lib, fname)
             fn.argtypes, fn.restype = sig
         _loaded[name] = lib

@@ -15,16 +15,24 @@ gaussians are dropped from the back of the depth order.
 
 The JAX package built these outputs around TPU costs (int8 MXU cover
 counts, a two-level cumsum, 10-bit packed delta cumsums). The port
-computes them directly: a binary search expands the pairs, a scatter-add
-counts pairs per tile, one int64 sort orders them, and cover counts are a
-four-corner integer scatter-add and two cumulative sums (integer adds are
-exact in any order). Every shape stays static (the capacities
-``cfg.max_pairs``, ``cfg.row_capacity`` and ``cfg.trunc_padded_pairs``),
-so a frame needs no host sync.
+computes them directly, in three steps over the ``max_pairs`` pair slots,
+all int32: each gaussian's pairs are written at its offsets in depth
+order (:func:`emit_pairs`), stably sorted by their tile alone
+(:func:`sort_pairs`: within a tile they stay front to back) and scattered
+to their block-aligned places (:func:`align_pairs`), which each tile's
+run in the sorted list gives (one binary search a tile). On CUDA tensors
+the three steps are the kernels of ``csrc/binning.cu``; on CPU tensors
+their plain versions (``*_plain``), which the kernels equal bit for bit.
+The truncation's demand comes from exact cover counts: a four-corner
+integer scatter-add and two cumulative sums (integer adds are exact in
+any order). Every shape stays static (the capacities ``cfg.max_pairs``,
+``cfg.row_capacity`` and ``cfg.trunc_padded_pairs``), so a frame needs
+no host sync.
 
 ``cull_mode="ellipse"`` expands each gaussian's tile rows first and then,
 per row, the tiles of the exact x-interval of its alpha-cutoff ellipse
-(:func:`_expand_ellipse`). Its interval ends are floors of float32
+(:func:`_expand_ellipse`), then sorts and aligns its pairs as the rect
+mode does. Its interval ends are floors of float32
 expressions, written in the JAX package's order of operations so that
 every integer output equals JAX's. It keeps two JAX behaviours that
 ``ROADMAP.md`` lists as known faults: the pair and truncation demands are
@@ -34,6 +42,7 @@ counted over the rows that fit ``row_capacity`` and the pairs that fit
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -198,22 +207,25 @@ def _footprints(proj: ProjectedGaussians):
     return order, tile_min, n_u, n_v, n_u * n_v
 
 
-def _expand(counts, tile_min, n_u, cfg: RenderConfig):
-    """The capacity drop and the pair expansion: (total demand, offsets
-    [N+1] after the drop, owner depth slot [max_pairs] (N past the end),
-    pair_ok, tile_id (num_tiles for unused slots)). Overflow drops WHOLE
-    gaussians from the back of the depth order."""
-    dev = counts.device
-    n = counts.shape[0]
+def _capacity_drop(counts, cfg: RenderConfig):
+    """The capacity drop: (total demand, offsets [N+1] after the drop),
+    int64. Overflow drops WHOLE gaussians from the back of the depth
+    order."""
     full_cum = torch.cumsum(counts, 0)
     total = full_cum[-1]  # true demand (reported; may exceed cap)
     counts = torch.where(full_cum <= cfg.max_pairs, counts, 0)
-    offsets = torch.cat(
-        [torch.zeros(1, dtype=torch.int64, device=dev),
-         torch.cumsum(counts, 0)]
-    )  # [N+1] exclusive offsets (post-drop)
-    # Owner depth-slot of pair p = #(offsets <= p) - 1.
-    p = torch.arange(cfg.max_pairs, dtype=torch.int64, device=dev)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return total, offsets
+
+
+def emit_pairs_plain(offsets, tile_min, n_u, cfg: RenderConfig):
+    """Every depth slot's pairs at its offsets, tile rows then columns:
+    (tile_id, slot) ``[max_pairs]`` int32, the sentinel tile ``num_tiles``
+    (slot N) past the kept demand ``offsets[N]``. Inputs as
+    :func:`emit_pairs`'; the owner of pair p is found by a binary search
+    over the offsets."""
+    n = offsets.shape[0] - 1
+    p = torch.arange(cfg.max_pairs, dtype=torch.int64, device=offsets.device)
     slot = torch.searchsorted(offsets, p, right=True) - 1  # n past the end
     pair_ok = slot < n
     s = torch.clamp(slot, max=n - 1)
@@ -222,7 +234,37 @@ def _expand(counts, tile_min, n_u, cfg: RenderConfig):
     tx = tile_min[s, 0] + local % nu
     ty = tile_min[s, 1] + local // nu
     tile_id = torch.where(pair_ok, ty * cfg.tiles_x + tx, cfg.num_tiles)
-    return total, offsets, slot, pair_ok, tile_id
+    return tile_id.to(torch.int32), slot.to(torch.int32)
+
+
+def emit_pairs(offsets, tile_min, n_u, cfg: RenderConfig):
+    """The rect expansion: (tile_id, slot) ``[max_pairs]`` int32 from the
+    post-drop ``offsets`` [N+1] and the depth-ordered ``tile_min`` [N, 2]
+    and ``n_u`` [N] (int64, contiguous). CPU tensors take
+    :func:`emit_pairs_plain`; CUDA tensors launch ``binning_emit``
+    (``csrc/binning.cu``), counted in ``emit_pairs.launches``, or raise."""
+    if offsets.device.type == "cpu":
+        return emit_pairs_plain(offsets, tile_min, n_u, cfg)
+    n = offsets.shape[0] - 1
+    _check_args(offsets=(offsets, (n + 1,), torch.int64),
+                tile_min=(tile_min, (n, 2), torch.int64),
+                n_u=(n_u, (n,), torch.int64))
+    _check_index(cfg.max_pairs, n, cfg.num_tiles)
+    dev = offsets.device
+    tile_id = torch.empty(cfg.max_pairs, dtype=torch.int32, device=dev)
+    slot = torch.empty(cfg.max_pairs, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _library().binning_emit(
+            offsets.data_ptr(), n, tile_min.data_ptr(), n_u.data_ptr(),
+            cfg.max_pairs, cfg.tiles_x, cfg.num_tiles, tile_id.data_ptr(),
+            slot.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"binning_emit launch failed: CUDA error {err}")
+    emit_pairs.launches += 1
+    return tile_id, slot
+
+
+emit_pairs.launches = 0  # binning_emit launches
 
 
 def _ellipse_table(proj: ProjectedGaussians, order, cfg: RenderConfig):
@@ -305,18 +347,17 @@ def _expand_ellipse(proj: ProjectedGaussians, cfg: RenderConfig):
     """Two-level (tile rows -> pairs) expansion with the exact per-row
     ellipse x-intervals (JAX ``_expand_pairs_ellipse``). Same contract as
     the rect branch, with fewer pairs: (order, total pair demand, offsets
-    [N+1], owner depth slot [max_pairs], pair_ok, tile_id, tile_count
-    [num_tiles], row demand), int64.
+    [N+1] int64, tile_id and slot [max_pairs] int32 as
+    :func:`emit_pairs` gives them, row demand).
 
     Rows stage: each gaussian's AABB tile rows, whole gaussians dropped
     from the back of the depth order at ``row_capacity``; each row finds
     its gaussian by a binary search over the row offsets and its interval
     in closed form. Pairs stage: the per-gaussian pair totals, whole
-    gaussians dropped at ``max_pairs``; the exact per-tile counts from a
-    +1/-1 interval scatter and a prefix sum over x; each pair finds its
-    row by a binary search over the row pair-offsets. The row demand is
-    the true one, past the capacity too; the pair demand counts the rows
-    that fit (JAX's)."""
+    gaussians dropped at ``max_pairs``; each pair finds its row by a
+    binary search over the row pair-offsets. The row demand is the true
+    one, past the capacity too; the pair demand counts the rows that fit
+    (JAX's)."""
     dev = proj.depth.device
     i64 = torch.int64
     n = proj.depth.shape[0]
@@ -354,65 +395,164 @@ def _expand_ellipse(proj: ProjectedGaussians, cfg: RenderConfig):
     S2 = torch.cat([zero1, torch.cumsum(rlen, 0)])  # [cap_r + 1]
     offsets = S2[row_off]  # [N+1] presort pair boundaries per gaussian
 
-    # --- exact per-tile counts before the sort (interval scatter) ---
-    TX = cfg.tiles_x
-    one = (rlen > 0).to(i64)
-    base = torch.where(rlen > 0, ty, 0) * (TX + 1)
-    grid = torch.zeros(cfg.tiles_y * (TX + 1), dtype=i64, device=dev)
-    grid.scatter_add_(0, torch.cat([base + txlo, base + txlo + rlen]),
-                      torch.cat([one, -one]))
-    tile_count = torch.cumsum(grid.view(cfg.tiles_y, TX + 1), 1)[
-        :, :TX].reshape(cfg.num_tiles)
-
     # --- pairs stage: each pair's row, then its tile and depth slot ---
     p = torch.arange(cap, dtype=i64, device=dev)
     pair_ok = p < S2[-1]
     row = torch.clamp(torch.searchsorted(S2, p, right=True) - 1, 0,
                       cap_r - 1)
     tx = txlo[row] + (p - S2[row])
-    tile_id = torch.where(pair_ok, ty[row] * TX + tx, cfg.num_tiles)
+    tile_id = torch.where(pair_ok, ty[row] * cfg.tiles_x + tx, cfg.num_tiles)
     slot = torch.where(pair_ok, gslot[row], n)
-    return order, total, offsets, slot, pair_ok, tile_id, tile_count, \
-        rows_total
+    return order, total, offsets, tile_id.to(torch.int32), \
+        slot.to(torch.int32), rows_total
 
 
-def _tile_counts(tile_id, num_tiles: int):
-    """Exact per-tile pair counts (integer scatter-add: deterministic)."""
-    tile_count = torch.zeros(num_tiles + 1, dtype=torch.int64,
-                             device=tile_id.device)
-    tile_count.scatter_add_(0, tile_id, torch.ones_like(tile_id))
-    return tile_count[:num_tiles]
+def _end_bit(num_tiles: int) -> int:
+    """Key bits the tile sort reads: enough for the sentinel ``num_tiles``."""
+    return int(num_tiles).bit_length()
 
 
-def _sort_keys(tile_id, slot, pair_ok, n: int, num_tiles: int):
-    """One sort: tile-major, depth-ordered within a tile. Keys are unique
-    for real pairs; every unused capacity slot carries the sentinel (tile
-    num_tiles) and sorts last."""
-    key = torch.where(pair_ok, tile_id * (n + 1) + slot, num_tiles * (n + 1))
-    return torch.sort(key)[0]
+def sort_pairs_plain(tile_id, slot, num_tiles: int):
+    """The pairs stably sorted by tile: (tile, slot), int32. Pairs are in
+    depth-slot order and a gaussian has at most one pair per tile, so this
+    is the order of the unique key ``tile * (N + 1) + slot``: tile-major,
+    front to back within a tile; sentinel slots last."""
+    sorted_tile, perm = torch.sort(tile_id, stable=True)
+    return sorted_tile, slot[perm]
 
 
-def _align(sorted_key, tile_count, n: int, cfg: RenderConfig):
-    """Block alignment: each tile's run padded to a multiple of
-    ``pair_block``. Returns (pair_slot [padded_pairs] int64, -1 padding;
-    padded_count [num_tiles]; padded_start [num_tiles + 1])."""
-    dev = sorted_key.device
-    i64 = torch.int64
-    G, T, cap_pad = cfg.pair_block, cfg.num_tiles, cfg.padded_pairs
-    st = sorted_key // (n + 1)  # owning tile; num_tiles = unused
-    ss = sorted_key % (n + 1)  # depth slot
-    padded_count = tile_count + (-tile_count) % G
-    zero1 = torch.zeros(1, dtype=i64, device=dev)
-    padded_start = torch.cat([zero1, torch.cumsum(padded_count, 0)])  # [T+1]
-    real_start = torch.cat([zero1, torch.cumsum(tile_count, 0)])  # [T+1]
+def sort_pairs(tile_id, slot, num_tiles: int):
+    """:func:`sort_pairs_plain`'s result. CPU tensors take it; CUDA tensors
+    launch ``binning_sort`` (CUB's stable radix sort over the key's low
+    ``bit_length(num_tiles)`` bits, ``csrc/binning.cu``), counted in
+    ``sort_pairs.launches``, or raise. The returned tensors may be the
+    inputs' storage (the sort ping-pongs between them and two others)."""
+    if tile_id.device.type == "cpu":
+        return sort_pairs_plain(tile_id, slot, num_tiles)
+    m = tile_id.shape[0]
+    _check_args(tile_id=(tile_id, (m,), torch.int32),
+                slot=(slot, (m,), torch.int32))
+    _check_index(m, 0, num_tiles)
+    lib = _library()
+    end_bit = _end_bit(num_tiles)
+    keys_alt, vals_alt = torch.empty_like(tile_id), torch.empty_like(slot)
+    dev = tile_id.device
+    with torch.cuda.device(dev):
+        size = ctypes.c_size_t(0)
+        err = lib.binning_sort(None, ctypes.byref(size), None, None, None,
+                               None, m, end_bit, None, None)
+        if err != 0:
+            raise RuntimeError(
+                f"binning_sort size query failed: CUDA error {err}")
+        temp = torch.empty(max(size.value, 1), dtype=torch.uint8, device=dev)
+        selector = ctypes.c_int(0)
+        err = lib.binning_sort(
+            temp.data_ptr(), ctypes.byref(size), tile_id.data_ptr(),
+            keys_alt.data_ptr(), slot.data_ptr(), vals_alt.data_ptr(), m,
+            end_bit, ctypes.byref(selector),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"binning_sort launch failed: CUDA error {err}")
+    sort_pairs.launches += 1
+    return (keys_alt, vals_alt) if selector.value else (tile_id, slot)
+
+
+sort_pairs.launches = 0  # binning_sort calls (CUB's passes in each)
+
+
+def _tile_runs(sorted_tile, cfg: RenderConfig):
+    """Each tile's run in the sorted pairs and in the aligned list:
+    (tile_count [T], padded_count [T], real_start [T+1], padded_start
+    [T+1]), int64. ``real_start[t]`` is the number of sorted pairs of
+    tiles below t, one binary search a tile over the sorted tiles (exact:
+    ``real_start[T]`` is the kept demand); runs are padded to a multiple
+    of ``pair_block``."""
+    T = cfg.num_tiles
+    real_start = torch.searchsorted(sorted_tile, torch.arange(
+        T + 1, dtype=sorted_tile.dtype, device=sorted_tile.device))
+    tile_count = real_start[1:] - real_start[:-1]
+    padded_count = tile_count + (-tile_count) % cfg.pair_block
+    padded_start = torch.cat([padded_count.new_zeros(1),
+                              torch.cumsum(padded_count, 0)])
+    return tile_count, padded_count, real_start, padded_start
+
+
+def align_pairs_plain(sorted_tile, sorted_slot, padded_start, real_start,
+                      cfg: RenderConfig):
+    """The block-aligned ``pair_slot`` [padded_pairs] int32 (-1 padding):
+    sorted pair p of tile t at ``padded_start[t] + p - real_start[t]``."""
+    T, cap_pad = cfg.num_tiles, cfg.padded_pairs
+    st = sorted_tile.to(torch.int64)
     ok = st < T
-    p = torch.arange(cfg.max_pairs, dtype=i64, device=dev)
-    dest = padded_start[st] + (p - real_start[st])
+    stc = torch.clamp(st, max=T - 1)
+    p = torch.arange(st.shape[0], dtype=torch.int64, device=st.device)
+    dest = padded_start[stc] + (p - real_start[stc])
     # Unused slots scatter to one extra trailing element, cut off below.
-    pair_slot = torch.full((cap_pad + 1,), -1, dtype=i64, device=dev)
+    pair_slot = torch.full((cap_pad + 1,), -1, dtype=torch.int32,
+                           device=st.device)
     pair_slot.scatter_(0, torch.where(ok, dest, cap_pad),
-                       torch.where(ok, ss, -1))
-    return pair_slot[:cap_pad], padded_count, padded_start
+                       torch.where(ok, sorted_slot, -1))
+    return pair_slot[:cap_pad]
+
+
+def align_pairs(sorted_tile, sorted_slot, padded_start, real_start,
+                cfg: RenderConfig):
+    """:func:`align_pairs_plain`'s ``pair_slot``. CPU tensors take it; CUDA
+    tensors fill -1 and launch ``binning_align`` (``csrc/binning.cu``),
+    counted in ``align_pairs.launches``, or raise."""
+    if sorted_tile.device.type == "cpu":
+        return align_pairs_plain(sorted_tile, sorted_slot, padded_start,
+                                 real_start, cfg)
+    m, T = sorted_tile.shape[0], cfg.num_tiles
+    _check_args(sorted_tile=(sorted_tile, (m,), torch.int32),
+                sorted_slot=(sorted_slot, (m,), torch.int32),
+                padded_start=(padded_start, (T + 1,), torch.int64),
+                real_start=(real_start, (T + 1,), torch.int64))
+    _check_index(m, 0, T)
+    dev = sorted_tile.device
+    pair_slot = torch.full((cfg.padded_pairs,), -1, dtype=torch.int32,
+                           device=dev)
+    with torch.cuda.device(dev):
+        err = _library().binning_align(
+            sorted_tile.data_ptr(), sorted_slot.data_ptr(), m,
+            padded_start.data_ptr(), real_start.data_ptr(), T,
+            cfg.padded_pairs, pair_slot.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"binning_align launch failed: CUDA error {err}")
+    align_pairs.launches += 1
+    return pair_slot
+
+
+align_pairs.launches = 0  # binning_align launches
+
+
+def _library():
+    from ._build import load_library
+
+    return load_library("binning")
+
+
+def _check_args(**tensors):
+    """Raise unless each (tensor, shape, dtype) is contiguous, of that
+    shape and dtype, and on the first one's CUDA device."""
+    dev = next(iter(tensors.values()))[0].device
+    for name, (a, shape, dtype) in tensors.items():
+        if a.dtype != dtype or tuple(a.shape) != shape \
+                or not a.is_contiguous():
+            raise ValueError(
+                f"{name} must be contiguous {list(shape)} {dtype}, got "
+                f"{tuple(a.shape)} {a.dtype}")
+        if a.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} is on {a.device}; the binning kernels "
+                             f"take CUDA tensors on one device")
+
+
+def _check_index(pairs: int, n: int, num_tiles: int):
+    if max(pairs, n, num_tiles) >= 2**31 - 1:
+        raise ValueError(
+            f"{pairs} pairs, {n} gaussians or {num_tiles} tiles exceed the "
+            f"binning kernels' int32 index")
 
 
 def _block_meta(padded_start, cfg: RenderConfig):
@@ -465,20 +605,21 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
 
     The steps are module functions, in order (``profile_binning`` times
     each on a frame's tensors): :func:`_footprints`, the occlusion cull
-    (with truncation), :func:`_expand`, :func:`_tile_counts`,
-    :func:`_sort_keys`, :func:`_align`, :func:`_block_meta`, and with
-    truncation :func:`_compact_blocks` and the exact cover counts. With
+    (with truncation), :func:`_capacity_drop`, :func:`emit_pairs`,
+    :func:`sort_pairs`, the tile runs (:func:`_tile_runs`),
+    :func:`align_pairs`, :func:`_block_meta`, and with truncation
+    :func:`_compact_blocks` and the exact cover counts. With
     ``cull_mode="ellipse"``, :func:`_expand_ellipse` takes the place of
-    the first four."""
+    the first four. On CUDA tensors the emission, the sort and the
+    alignment are the kernels of ``csrc/binning.cu``."""
     with span("gs.bin"):
         _check_supported(cfg)
         dev = proj.depth.device
-        n = proj.depth.shape[0]
         num_tiles = cfg.num_tiles
 
         if cfg.cull_mode == "ellipse":
-            order, total, offsets, slot, pair_ok, tile_id, tile_count, \
-                num_rows = _expand_ellipse(proj, cfg)
+            order, total, offsets, tile_id, slot, num_rows = \
+                _expand_ellipse(proj, cfg)
         else:
             # Footprint counts in DEPTH order, so that capacity overflow drops
             # the farthest gaussians' pairs first.
@@ -487,14 +628,14 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
                 # Before the capacity drop, so num_pairs is the demand
                 # after it.
                 counts = _occlusion_cull(tile_min, n_u, n_v, counts, cfg)
-            kept_pre = counts > 0  # before the capacity drop
-            total, offsets, slot, pair_ok, tile_id = _expand(counts, tile_min,
-                                                             n_u, cfg)
-            tile_count = _tile_counts(tile_id, num_tiles)
+            total, offsets = _capacity_drop(counts, cfg)
+            tile_id, slot = emit_pairs(offsets, tile_min, n_u, cfg)
             num_rows = torch.zeros((), dtype=torch.int64, device=dev)
-        sorted_key = _sort_keys(tile_id, slot, pair_ok, n, num_tiles)
-        pair_slot, padded_count, padded_start = _align(sorted_key, tile_count,
-                                                       n, cfg)
+        sorted_tile, sorted_slot = sort_pairs(tile_id, slot, num_tiles)
+        tile_count, padded_count, real_start, padded_start = _tile_runs(
+            sorted_tile, cfg)
+        pair_slot = align_pairs(sorted_tile, sorted_slot, padded_start,
+                                real_start, cfg)
         block_meta = _block_meta(padded_start, cfg)
         tile_start = padded_start[:num_tiles]
         kept_pairs = total
@@ -512,9 +653,9 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> TileBinning:
             else:
                 # Reported demand from the tile counts before the capacity
                 # drop, so a probe's own max_pairs cannot hide it.
-                y0g, x0g = tile_min[:, 1], tile_min[:, 0]
+                y0, x0 = tile_min[:, 1], tile_min[:, 0]
                 tile_count_true = _cover_counts(
-                    y0g, y0g + n_v, x0g, x0g + n_u, kept_pre, cfg.tiles_y,
+                    y0, y0 + n_v, x0, x0 + n_u, counts > 0, cfg.tiles_y,
                     cfg.tiles_x).reshape(num_tiles)
             kept_pairs = torch.sum(torch.clamp(tile_count_true, max=cap_t))
             trunc_demand = torch.sum(

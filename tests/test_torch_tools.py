@@ -287,7 +287,7 @@ def test_profile_binning_cli_on_cpu():
                               "--height", "32", "--width", "48",
                               "--max_pairs", "65536", "--iters", "1"])
     assert set(t) == {"project", "bin-full", "bin-trunc", "argsortN",
-                      "expand", "count", "sort", "decode", "meta",
+                      "drop", "emit", "sort", "runs", "align", "meta",
                       "corners", "cull", "compact", "gather"}
     assert all(v > 0 for v in t.values())
 
