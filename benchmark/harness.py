@@ -2,15 +2,21 @@
 traced stretch, the comparison with the plain reference, the result.
 
 Everything about a cell comes from files found by name: the cell's entry
-in ``BENCHMARK.json``, its configuration (``configs/<config>.json``), its
-traffic mix (``traffic/<mix>.json``), its limits
-(``limits/<cell>.json``) and one reader per per-layer metric
+in ``BENCHMARK.json``, its configuration (``configs/<config>.json``), the
+configuration's model (``models/<model>.py``, ``gs3d`` where the
+configuration names none), its traffic mix (``traffic/<mix>.json``), its
+limits (``limits/<cell>.json``) and one reader per per-layer metric
 (``layer_metrics/<metric>.py``). A mix's ``kind`` picks the driver:
-``serve`` (one viewer in a closed loop through ``viewer.make_render_fn``)
-or ``train`` (``train.trainer.make_train_step`` over seeded views).
+``serve`` (one viewer in a closed loop through the model's serve entry)
+or ``train`` (the model's train step over seeded views), or a kind that
+the model's own ``DRIVERS`` names.
 
-The program (``gsplat_tpu_torch``) is imported inside the drivers; the
-reference (``reference/``) imports nothing of it.
+The drivers keep the loops, the clocks, the failure rules, the traced
+stretch and the result; every piece that depends on the model (the
+scene, the program's entry and state, the reference, the numbers
+compared) is the model's. The model imports the program only inside its
+program-side functions; the reference (``reference/``) imports nothing
+of it.
 """
 
 from __future__ import annotations
@@ -27,11 +33,11 @@ import torch
 
 from . import counts as work
 from . import poses, scenes, stats, tracing
-from .reference import compare
 from .reference import render as ref
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+DEFAULT_MODEL = "gs3d"  # a configuration that names no model: plain 3DGS
 
 
 def load_json(path: Path) -> dict:
@@ -50,6 +56,8 @@ class Cell:
         self.entry = cells[name]
         conf = {c["name"]: c for c in bench["configs"]}[self.entry["config"]]
         self.config = load_json(ROOT / conf["file"])
+        self.model = load_model(self.config.get("model", DEFAULT_MODEL),
+                                here)
         self.mix = load_json(here / "traffic" / f"{self.entry['traffic']}.json")
         self.limits = load_json(here / "limits" / f"{name}.json")
         self.e2e = [m for m in bench["end_to_end"]
@@ -62,14 +70,23 @@ class Cell:
         self.here = here
 
 
-def load_reader(name: str, here: Path = HERE):
-    """The reader module of per-layer metric ``name``."""
-    path = here / "layer_metrics" / f"{name}.py"
+def _load(kind: str, name: str, here: Path):
+    path = here / kind / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
-        "benchmark.layer_metrics." + name.replace(".", "_"), path)
+        f"benchmark.{kind}." + name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_reader(name: str, here: Path = HERE):
+    """The reader module of per-layer metric ``name``."""
+    return _load("layer_metrics", name, here)
+
+
+def load_model(name: str, here: Path = HERE):
+    """The model module ``name`` (``models/<name>.py``)."""
+    return _load("models", name, here)
 
 
 def _sync(dev):
@@ -93,11 +110,6 @@ def _free(dev):
         torch.cuda.empty_cache()
 
 
-def _rup(demand: int, headroom: float) -> int:
-    """``demand`` x ``headroom`` rounded up to 4,096 (``--auto_pairs``)."""
-    return max(4096, -(-int(demand * headroom) // 4096) * 4096)
-
-
 def _camera(mix: dict, c2w) -> ref.Camera:
     fx, fy, cx, cy = poses.intrinsics(mix)
     return ref.Camera(c2w, fx, fy, cx, cy, mix["height"], mix["width"])
@@ -108,59 +120,20 @@ def _center_radius(params: dict, alive):
     return poses.scene_center_radius(pos)
 
 
-def _render_config(config: dict, mix: dict):
-    from gsplat_tpu_torch.config import RenderConfig
-    return RenderConfig(height=mix["height"], width=mix["width"],
-                        **config["render"])
-
-
-def _size_pairs(params, alive, cams, cfg, mix):
-    """max_pairs from the program's pair demand over every pose: the
-    largest x ``headroom``, rounded up to 4,096."""
-    from gsplat_tpu_torch.render import pair_demand
-
-    fx, fy, cx, cy = poses.intrinsics(mix)
-    probe = cfg.with_(max_pairs=4096)
-    with torch.no_grad():
-        dem = [int(pair_demand(params, c, fx, fy, cx, cy, probe,
-                               alive=alive)[0]) for c in cams]
-    return _rup(max(dem), mix["capacity_headroom"]), dem
-
-
 # -- serving ------------------------------------------------------------------
-
-def _program_scene(cell: Cell, seed: int, dev):
-    """The program's pool: a checkpoint through ``restore_pool``, a garden
-    scene handed over as made."""
-    from gsplat_tpu_torch.models.gaussians import GaussianPool
-    from gsplat_tpu_torch.train.trainer import restore_pool
-
-    sc = cell.config["scene"]
-    if sc["kind"] == "checkpoint":
-        return restore_pool(ROOT / sc["file"], device=dev)
-    params, alive = scenes.scene(cell.config, seed, dev, ROOT)
-    return GaussianPool(params, alive)
-
 
 def run_serve(cell: Cell, seed: int, seconds: float, trace: bool, dev,
               t_start: float, hooks=None):
-    from gsplat_tpu_torch.viewer import make_render_fn
-
-    mix, hooks = cell.mix, hooks or {}
+    mix, model, hooks = cell.mix, cell.model, hooks or {}
     parts = {"start": time.perf_counter() - t_start}
-    pool = _program_scene(cell, seed, dev)
+    pool = model.program_pool(cell, seed, dev)
     parts["scene"] = time.perf_counter() - t_start
     center, radius = _center_radius(pool.params, pool.alive)
     path = poses.path_poses(mix["path"], center, radius)
     off = poses.start(len(path), seed)
-    fx, fy, cx, cy = poses.intrinsics(mix)
-    cfg0 = _render_config(cell.config, mix)
-    max_pairs, demands = _size_pairs(pool.params, pool.alive, path, cfg0, mix)
-    cfg = cfg0.with_(max_pairs=max_pairs)
+    cfg, demands = model.render_config(cell, pool, path)
     parts["sized"] = time.perf_counter() - t_start
-    fn = hooks.get("make_render_fn", make_render_fn)(
-        pool.params, cfg, fx, fy, cx, cy, alive=pool.alive,
-        report_demand=True)
+    fn = model.serve_entry(cell, pool, cfg, hooks)
     for i in range(mix["warmup"]):
         fn(path[(off + i) % len(path)])
     _sync(dev)
@@ -223,17 +196,16 @@ def run_serve(cell: Cell, seed: int, seconds: float, trace: bool, dev,
     t_ref = time.perf_counter()
     del fn, pool
     _free(dev)
-    params, alive = scenes.scene(cell.config, seed, dev, ROOT)
-    rnd = ref.Renderer.from_config(cell.config["render"])
+    params, alive = model.scene(cell, seed, dev)
     pairs, unit_counts = [], []
     for k in sorted(kept):
         cam = _camera(mix, path[(off + k) % len(path)])
-        pairs.append((kept.pop(k), ref.render(params, alive, cam, rnd)[0]))
+        pairs.append((kept.pop(k), model.frame(cell, params, alive, cam)[0]))
     for k in traced:  # the work of the traced frames, by the reference
         cam = _camera(mix, path[(off + k) % len(path)])
-        c = ref.render(params, alive, cam, rnd, count_work=True)[1]
-        unit_counts.append(dict(c, slots=int(alive.shape[0])))
-    out["numbers"] = compare.frame_numbers(pairs)
+        unit_counts.append(model.frame(cell, params, alive, cam,
+                                       count_work=True)[1])
+    out["numbers"] = model.frame_numbers(pairs)
     out["info"]["compare_s"] = time.perf_counter() - t_ref
     if trace:
         out["ctx"] = {"kind": "serve", "units": len(traced),
@@ -247,62 +219,54 @@ def run_serve(cell: Cell, seed: int, seconds: float, trace: bool, dev,
 def _train_inputs(cell: Cell, seed: int, dev):
     """The views, their ground truth (rendered by the reference from the
     unperturbed scene) and the seeded view order."""
-    mix = cell.mix
-    params, alive = scenes.scene(cell.config, seed, dev, ROOT)
+    mix, model = cell.mix, cell.model
+    params, alive = model.scene(cell, seed, dev)
     center, radius = _center_radius(params, alive)
     views = poses.view_poses(mix["views"], center, radius)
-    rnd = ref.Renderer.from_config(cell.config["render"])
-    gt = [ref.render(params, alive, _camera(mix, v), rnd)[0] for v in views]
+    gt = [model.frame(cell, params, alive, _camera(mix, v))[0]
+          for v in views]
     order = poses.view_order(len(views), seed)
-    return views, gt, order, rnd
+    return views, gt, order
 
 
-def _program_train_pool(cell: Cell, seed: int, dev):
-    from gsplat_tpu_torch.models.gaussians import GaussianPool
-
-    pool = _program_scene(cell, seed, dev)
-    if cell.config["scene"]["kind"] == "checkpoint":
-        with torch.no_grad():
-            for k, v in scenes.noise(pool.params, cell.mix["perturb"],
-                                     seed).items():
-                pool.params[k].add_(v)
-        return pool
-    return GaussianPool(scenes.perturbed(pool.params, cell.mix["perturb"],
-                                         seed), pool.alive)
+def reference_steps(cell: Cell, seed: int, dev, views, gt, order,
+                    dtype=torch.float32, steps: int = 3):
+    """The reference's first ``steps`` steps in ``dtype`` from the cell's
+    inputs: (losses, the first gradient as the optimizer got it, the
+    start, the alive mask, the change over the steps)."""
+    mix, model = cell.mix, cell.model
+    params, alive = model.scene(cell, seed, dev)
+    start = scenes.perturbed(params, mix["perturb"], seed)
+    del params
+    opt = model.optimizer(cell, start, dtype)
+    cur, losses, g1 = start, [], None
+    for k in range(steps):
+        v = int(order[k % len(order)])
+        loss, grads = model.loss_grad(cell, cur, alive,
+                                      _camera(mix, views[v]), gt[v], dtype)
+        g = opt.prepare(grads, alive)
+        del grads
+        if k == 0:
+            g1 = {name: x.float() for name, x in g.items()}
+        losses.append(loss)
+        cur = opt.step(cur, g)
+    delta = {name: cur[name].float() - start[name] for name in start}
+    return losses, g1, start, alive, delta
 
 
 def run_train(cell: Cell, seed: int, seconds: float, trace: bool, dev,
               t_start: float, hooks=None):
-    from gsplat_tpu_torch.config import TrainConfig
-    from gsplat_tpu_torch.train.trainer import (init_train_state,
-                                                make_train_step)
-
-    mix, hooks = cell.mix, hooks or {}
+    mix, model, hooks = cell.mix, cell.model, hooks or {}
     parts = {"start": time.perf_counter() - t_start}
-    views, gt, order, rnd = _train_inputs(cell, seed, dev)
+    views, gt, order = _train_inputs(cell, seed, dev)
     parts["ground_truth"] = time.perf_counter() - t_start
     _free(dev)
     _reset_peak(dev)  # the system's peak, not the ground truth's render
-    pool = _program_train_pool(cell, seed, dev)
-    fx, fy, cx, cy = poses.intrinsics(mix)
-    cfg0 = _render_config(cell.config, mix)
-    max_pairs, demands = _size_pairs(pool.params, pool.alive, views, cfg0,
-                                     mix)
-    cfg = cfg0.with_(max_pairs=max_pairs)
+    pool = model.program_train_pool(cell, seed, dev)
+    cfg, demands = model.render_config(cell, pool, views)
     parts["sized"] = time.perf_counter() - t_start
-    tcfg = TrainConfig(capacity=pool.capacity, batch_size=1, **mix["train"])
-    state = init_train_state(pool, tcfg)
-    step = hooks.get("make_train_step", make_train_step)(cfg, tcfg)
-
-    def batch(v):
-        return {"image": gt[v][None],
-                "c2w": torch.from_numpy(views[v][None]).to(dev),
-                **{k: torch.full((1,), x, dtype=torch.float32, device=dev)
-                   for k, x in (("fx", fx), ("fy", fy), ("cx", cx),
-                                ("cy", cy))}}
-
-    batches = [batch(v) for v in range(len(views))]
-    opt = state.opt_state
+    state, step, batches = model.train_entry(cell, pool, cfg, views, gt,
+                                             hooks)
     records, losses, g1, p3 = [], [], None, None
     n = len(order)
     for k in range(mix["warmup"]):  # the first steps, compared below
@@ -314,11 +278,9 @@ def run_train(cell: Cell, seed: int, seconds: float, trace: bool, dev,
         if k < 3:
             losses.append(float(m["total"]))
         if k == 0:
-            g1 = {name: (opt.state[p]["exp_avg"] / 0.1).detach().cpu()
-                  for name, p in state.pool.params.items()}
+            g1 = model.first_grad(state)
         if k == 2:
-            p3 = {name: p.detach().to("cpu", copy=True)
-                  for name, p in state.pool.params.items()}
+            p3 = model.trained_params(state)
     _sync(dev)
     _settle()
     setup_s = time.perf_counter() - t_start
@@ -372,39 +334,23 @@ def run_train(cell: Cell, seed: int, seconds: float, trace: bool, dev,
         out["memory_peak_bytes"] = max(out["memory_peak_bytes"], _peak(dev))
         state = st["state"]
     t_ref = time.perf_counter()
-    del state, step, opt, pool, batches, records, win
+    del state, step, pool, batches, records, win
     _free(dev)
 
     # The reference follows the first three steps from the same inputs.
-    params, alive = scenes.scene(cell.config, seed, dev, ROOT)
-    start = scenes.perturbed(params, mix["perturb"], seed)
-    del params
-    t = mix["train"]
-    adam = ref.Adam(start, t)
-    cur, ref_losses, ref_g1 = start, [], None
-    for k in range(3):
-        v = int(order[k % n])
-        loss, grads = ref.render_grad(
-            cur, alive, _camera(mix, views[v]), rnd,
-            ref.photo_loss(gt[v], t["lambda_l1"], t["lambda_ssim"]))
-        g = adam.prepare(grads, alive)
-        del grads
-        if k == 0:
-            ref_g1 = g
-        ref_losses.append(loss)
-        cur = adam.step(cur, g)
-    ref_delta = {name: cur[name] - start[name] for name in start}
+    ref_losses, ref_g1, start, alive, ref_delta = reference_steps(
+        cell, seed, dev, views, gt, order)
     prog_delta = {name: p3[name].to(dev) - start[name] for name in start}
     prog_g1 = {name: v.to(dev) for name, v in g1.items()}
-    out["numbers"] = compare.train_numbers(losses, ref_losses, prog_g1,
-                                           ref_g1, prog_delta, ref_delta)
-    del cur, adam, ref_delta, prog_delta, prog_g1, ref_g1
+    out["numbers"] = model.train_numbers(losses, ref_losses, prog_g1,
+                                         ref_g1, prog_delta, ref_delta)
+    del ref_delta, prog_delta, prog_g1, ref_g1
     if trace:
         per_view = {}
         for v in sorted(set(traced)):
-            c = ref.render(start, alive, _camera(mix, views[v]), rnd,
-                           count_work=True)[1]
-            per_view[v] = dict(c, slots=int(alive.shape[0]))
+            per_view[v] = model.frame(cell, start, alive,
+                                      _camera(mix, views[v]),
+                                      count_work=True)[1]
         out["ctx"] = {"kind": "train", "units": len(traced),
                       "unit_s": window_s / steps,
                       "counts": work.add([per_view[v] for v in traced])}
@@ -448,6 +394,17 @@ def _train_failures(records: list, cfg) -> int:
 DRIVERS = {"serve": run_serve, "train": run_train}
 
 
+def driver(cell: Cell):
+    """The driver of the cell's traffic ``kind``: the harness's, or one
+    that the cell's model adds in its ``DRIVERS`` (same signature and
+    result as :func:`run_serve`)."""
+    kind = cell.mix["kind"]
+    found = DRIVERS.get(kind) or getattr(cell.model, "DRIVERS", {}).get(kind)
+    if found is None:
+        raise KeyError(f"no driver for traffic kind {kind!r}")
+    return found
+
+
 def layer_metrics(cell: Cell, out: dict) -> dict:
     """Each per-layer metric's reader over the traced stretch; a reader
     that finds nothing to read returns None and the metric is left out."""
@@ -471,8 +428,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter() if t_start is None else t_start
-    out = DRIVERS[cell.mix["kind"]](cell, seed, seconds, trace, dev,
-                                    t_start, hooks)
+    out = driver(cell)(cell, seed, seconds, trace, dev, t_start, hooks)
     checks = {name: {"value": out["numbers"][name], "limit": limit}
               for name, limit in cell.limits.items()}
     correct = out["failed"] == 0 and all(

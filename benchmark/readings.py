@@ -24,54 +24,38 @@ import time
 
 import torch
 
-from . import faults, harness, poses, scenes
+from . import faults, harness, poses
 from .reference import compare
-from .reference import render as ref
 
 
 def control_serve(cell, seed, dev) -> dict:
-    mix = cell.mix
-    params, alive = scenes.scene(cell.config, seed, dev, harness.ROOT)
+    mix, model = cell.mix, cell.model
+    params, alive = model.scene(cell, seed, dev)
     center, radius = harness._center_radius(params, alive)
     path = poses.path_poses(mix["path"], center, radius)
     off = poses.start(len(path), seed)
-    rnd = ref.Renderer.from_config(cell.config["render"])
     pairs = []
     for k in poses.sample(mix["compare_frames"], len(path), seed):
         cam = harness._camera(mix, path[(off + k) % len(path)])
-        low = ref.render(params, alive, cam, rnd, dtype=torch.bfloat16)[0]
-        pairs.append((low, ref.render(params, alive, cam, rnd)[0]))
-    return compare.frame_numbers(pairs)
+        low = model.frame(cell, params, alive, cam, dtype=torch.bfloat16)[0]
+        pairs.append((low, model.frame(cell, params, alive, cam)[0]))
+    return model.frame_numbers(pairs)
 
 
 def reference_steps(cell, seed, dev, dtype, steps=3):
     """(losses, first gradient, change over the steps) of the reference in
     ``dtype`` from the cell's inputs."""
-    mix, t = cell.mix, cell.mix["train"]
-    views, gt, order, rnd = harness._train_inputs(cell, seed, dev)
-    params, alive = scenes.scene(cell.config, seed, dev, harness.ROOT)
-    start = scenes.perturbed(params, mix["perturb"], seed)
-    adam = ref.Adam(start, t, dtype=dtype)
-    cur, losses, g1 = start, [], None
-    for k in range(steps):
-        v = int(order[k % len(order)])
-        loss, grads = ref.render_grad(
-            cur, alive, harness._camera(mix, views[v]), rnd,
-            ref.photo_loss(gt[v], t["lambda_l1"], t["lambda_ssim"]),
-            dtype=dtype)
-        g = adam.prepare(grads, alive)
-        if k == 0:
-            g1 = {n: x.float() for n, x in g.items()}
-        losses.append(loss)
-        cur = adam.step(cur, g)
-    delta = {n: cur[n].float() - start[n] for n in start}
+    views, gt, order = harness._train_inputs(cell, seed, dev)
+    losses, g1, _, _, delta = harness.reference_steps(
+        cell, seed, dev, views, gt, order, dtype, steps)
     return losses, g1, delta
 
 
 def control_train(cell, seed, dev) -> dict:
     lo = reference_steps(cell, seed, dev, torch.bfloat16)
     hi = reference_steps(cell, seed, dev, torch.float32)
-    return compare.train_numbers(lo[0], hi[0], lo[1], hi[1], lo[2], hi[2])
+    return cell.model.train_numbers(lo[0], hi[0], lo[1], hi[1], lo[2],
+                                    hi[2])
 
 
 def _detail(prog_g1, ref_g1, prog_delta, ref_delta) -> dict:
@@ -121,7 +105,7 @@ def main(argv=None):
     seeds = [int(s) for s in args.seeds.split(",") if s]
     detail = {}
     if args.detail and cell.mix["kind"] == "train":
-        plain = compare.train_numbers
+        plain = cell.model.train_numbers
 
         def spy(*a):
             detail.update(_detail(*a[2:]))
@@ -129,7 +113,7 @@ def main(argv=None):
                 a[4], a[5], compare.moved_leaves(a[3]))
             return plain(*a)
 
-        compare.train_numbers = spy
+        cell.model.train_numbers = spy
     for s in seeds:
         t0 = time.perf_counter()
         line = harness.run_cell(

@@ -135,10 +135,16 @@ def sh_colors(f_dc, f_rest, pos, cam_pos):
     return torch.sigmoid(raw)
 
 
-def project(params: dict, alive, cam: Camera, rnd: Renderer, dtype):
+def project(params: dict, alive, cam: Camera, rnd: Renderer, dtype,
+            filter2d=None):
     """Screen-space splats of every gaussian: a dict of uv [N, 2], depth,
     conic [N, 3], opacity, rgb [N, 3], valid [N] and the tile rectangle
-    (tx0, ty0, tx1, ty1) [N, 4] int64 (empty for invalid gaussians)."""
+    (tx0, ty0, tx1, ty1) [N, 4] int64 (empty for invalid gaussians).
+
+    ``filter2d``, where a model's reference gives one, maps each splat's
+    2D covariance and opacity ``(sa, sb, sc, opacity)`` to new ones
+    before the eigenvalue clamp (an anti-aliasing filter); plain 3DGS has
+    none."""
     dev = params["pos"].device
     p = {k: v.to(dtype) for k, v in params.items()}
     c2w = torch.as_tensor(cam.c2w, dtype=torch.float32, device=dev).to(dtype)
@@ -186,6 +192,8 @@ def project(params: dict, alive, cam: Camera, rnd: Renderer, dtype):
     sa = torch.where(valid, sa, 1.0)
     sb = torch.where(valid, sb, 0.0)
     sc = torch.where(valid, sc, 1.0)
+    if filter2d is not None:
+        sa, sb, sc, opacity = filter2d(sa, sb, sc, opacity)
 
     # Eigenvalues clamped to [1e-6, 1e4]; the input is kept where neither
     # clamp acts.
@@ -357,12 +365,12 @@ def _assemble(tiles_rgb, bn: Binning, cam: Camera, tile: int):
 
 
 def render(params: dict, alive, cam: Camera, rnd: Renderer,
-           dtype=torch.float32, count_work=False):
+           dtype=torch.float32, count_work=False, filter2d=None):
     """The frame [H, W, 3] (float32, clamped to [0, 1]) and, with
     ``count_work``, the work counts: gaussians in view, (gaussian, tile)
-    pairs and composited (pair, pixel)."""
+    pairs and composited (pair, pixel). ``filter2d``: as :func:`project`."""
     with torch.no_grad():
-        splats = project(params, alive, cam, rnd, dtype)
+        splats = project(params, alive, cam, rnd, dtype, filter2d)
         bn = bin_pairs(splats, cam, rnd)
         feat = _feat(splats, bn.vis)
         P = rnd.tile * rnd.tile
@@ -388,7 +396,7 @@ def render(params: dict, alive, cam: Camera, rnd: Renderer,
 
 
 def render_grad(params: dict, alive, cam: Camera, rnd: Renderer, loss_fn,
-                dtype=torch.float32):
+                dtype=torch.float32, filter2d=None):
     """Loss of the frame and its gradients with respect to ``params``.
 
     Two passes: the frame without autograd, the loss and its gradient with
@@ -396,10 +404,10 @@ def render_grad(params: dict, alive, cam: Camera, rnd: Renderer, loss_fn,
     again under autograd, back-propagated with that image gradient into
     the visible gaussians' screen-space features, and those through the
     projection and the SH colour into the parameters. Returns (loss,
-    {name: grad}) in float32."""
+    {name: grad}) in float32. ``filter2d``: as :func:`project`."""
     leaves = {k: v.detach().to(dtype).requires_grad_(True)
               for k, v in params.items()}
-    splats = project(leaves, alive, cam, rnd, dtype)
+    splats = project(leaves, alive, cam, rnd, dtype, filter2d)
     with torch.no_grad():
         bn = bin_pairs(splats, cam, rnd)
     feat = _feat(splats, bn.vis)

@@ -31,9 +31,9 @@ The readers of the spans, each per traced unit (``layer_metrics/``):
 * ``pair_grads_device_ms.train``: device ms of ``gs.pair_grads``;
 * ``update_device_ms.train``: device ms of ``gs.update``.
 
-They report once ``tracing.Trace`` carries ``ranges`` and ``calls`` (two
-list fields that ``read_events`` fills from :func:`read_spans`) and
-``BENCHMARK.json`` names them; until then they are not run.
+``tracing.capture`` fills a traced stretch's ``ranges`` and ``calls``
+from :func:`read_spans`; ``tracing.read_events`` alone leaves them
+empty.
 """
 
 from __future__ import annotations

@@ -16,21 +16,23 @@ if str(ROOT) not in sys.path:
 
 
 def small_cell(name: str, gaussians: int = 3000, width: int = 64,
-               height: int = 48):
-    """The cell ``name`` of ``BENCHMARK.json`` at a CPU test's size: the
-    garden scene cut to ``gaussians``, the image to ``width`` x
-    ``height``, six poses or four views, two traced units."""
+               height: int = 48, bench: dict | None = None, here=None):
+    """The cell ``name`` of ``BENCHMARK.json`` (or of ``bench``, its files
+    found under ``here``) at a CPU test's size: the garden scene cut to
+    ``gaussians``, the image to ``width`` x ``height``, six poses or four
+    views, two traced units."""
     from benchmark import harness
 
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    cell = harness.Cell(bench, name)
+    if bench is None:
+        bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cell = harness.Cell(bench, name, here or harness.HERE)
     if cell.config["scene"]["kind"] == "garden":
         cell.config = dict(cell.config, gaussians=gaussians)
     mix = dict(cell.mix, width=width, height=height, trace_units=2)
-    if mix["kind"] == "serve":
+    if "path" in mix:
         mix["path"] = dict(mix["path"], poses=6)
         mix["compare_frames"] = 2
-    else:
+    if "views" in mix:
         mix["views"] = dict(mix["views"], count=4)
     cell.mix = mix
     return cell

@@ -36,6 +36,10 @@ def test_a_cell_runs_correct_on_the_card(card, trace):
     assert line["device"]["memory_peak_bytes"] > 0
     if trace:
         assert line["device"]["busy_s"] > 0
+        bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+        named = {m["name"] for m in bench["per_layer"]
+                 if "serve-ckpt120k-orbit" in m.get("workloads", [])}
+        assert named <= set(line["metrics"]), named - set(line["metrics"])
         assert "k1_roofline.serve" in line["metrics"]
         assert line["metrics"]["k1_roofline.serve"]["value"] <= 100
     else:

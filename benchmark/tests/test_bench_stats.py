@@ -104,3 +104,25 @@ def test_a_reader_with_nothing_to_read_returns_none():
     assert harness.load_reader("k1_roofline.serve").read(ctx) is None
     assert harness.load_reader("k2_roofline.train").read(
         _ctx("serve")) is None
+
+
+def test_a_captured_stretch_carries_the_program_spans():
+    import torch
+
+    def frame():
+        with torch.profiler.record_function("gs.frame"):
+            with torch.profiler.record_function("gs.bin"):
+                torch.ones(64).cumsum(0)
+
+    tr = tracing.capture(frame, 2)
+    names = [r[0] for r in tr.ranges]
+    assert names.count("gs.frame") == 2 and names.count("gs.bin") == 2
+    assert len(tr.calls) == len(tr.device)
+    ctx = dict(_ctx("serve"), trace=tr)
+    host = harness.load_reader("host_enqueue_ms.serve").read(ctx)
+    assert host == pytest.approx(
+        sum(d for n, _, _, d in tr.ranges if n == "gs.frame") * 1e3 / 2)
+    # Chrome-trace events alone: no spans, the span readers stay silent.
+    assert tracing.read_events(_events()).ranges == []
+    assert harness.load_reader("host_enqueue_ms.serve").read(
+        _ctx("serve")) is None

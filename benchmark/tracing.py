@@ -1,6 +1,7 @@
 """The traced stretch: ``torch.profiler`` over CPU and CUDA activities,
-read back into kernel records, the device's busy time and the longest
-idle gaps with what the host was doing in each.
+read back into kernel records, the device's busy time, the longest idle
+gaps with what the host was doing in each, and the program's ``gs.*``
+spans with each device record's launching call (``spans.py``).
 
 The reading is a frozen copy of the arithmetic of
 ``gsplat_tpu_torch/utils/profiling.py::summarize_trace``: the window runs
@@ -15,6 +16,7 @@ import os
 import tempfile
 from dataclasses import dataclass, field
 
+from . import spans
 from .stats import merged
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -33,6 +35,10 @@ class Trace:
     kernels: list  # [(name, start_s, dur_s)] of kernel records
     device: list  # [(cat, name, start_s, dur_s)] of every device record
     gaps: list = field(default_factory=list)  # [(host activity, seconds)]
+    # The program's spans (``spans.read_spans``): [(name, tid, start_s,
+    # dur_s)] of its gs.* ranges, and each device record's call.
+    ranges: list = field(default_factory=list)
+    calls: list = field(default_factory=list)
 
     def kernel_time(self, match) -> float:
         """Merged device seconds of the kernels whose name ``match``es."""
@@ -63,11 +69,14 @@ def capture(step, units: int) -> Trace:
             events = json.load(f)["traceEvents"]
     finally:
         os.remove(path)
-    return read_events(events)
+    tr = read_events(events)
+    tr.ranges, tr.calls = spans.read_spans(events)
+    return tr
 
 
 def read_events(events: list) -> Trace:
-    """A :class:`Trace` from Chrome-trace events (times in microseconds)."""
+    """A :class:`Trace` from Chrome-trace events (times in microseconds),
+    without the program's spans (:func:`capture` adds them)."""
     spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
     t0 = min((float(e["ts"]) for e in spans), default=0.0)
     t1 = max((float(e["ts"]) + float(e["dur"]) for e in spans), default=0.0)
