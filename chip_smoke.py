@@ -21,6 +21,14 @@ Phases (any failure exits non-zero, with no result line):
      origin camera and at a third of its capacity), every TileBinning
      field bit for bit and each launch counter risen; each kernel's time
      at the 3 M frame beside its plain version's and its bound by bytes;
+ 2c. Feature 3DGS's compositors (raster_feat.cu: F1, the feature map,
+     and F2, its backward; feat_phase): on the 3 M garden scene with 128
+     feature channels at 1297x840, F1 against its plain version bit for
+     bit, F2 within FEAT_BWD_TOL in d f_sem and the six geometry rows,
+     each kernel's time beside its plain version's and its bound, then
+     FEAT_STEPS x FEAT_VIEWS views of make_train_step on that pool with a
+     decoder to 512 channels, F1's and F2's counters set to 0 first: one
+     launch of each a view;
   3. K1, then K2 on a seeded cotangent, against their plain PyTorch versions
      on a seeded synthetic scene at 1920x1080 (K1 rows 0-5 bit-identical to
      the plain version; K1 writing its block-start state: output
@@ -304,10 +312,12 @@ Phases (any failure exits non-zero, with no result line):
      counted). Printed: the line, each integer key beside the TPU v5e's
      (BENCH_r05.json), the in-bench and isolated fwd+bwd's agreement and
      the phase's seconds;
- 19. one JSON line {"kernels": [...]} (twenty-seven kernels: phase 14's
+ 19. one JSON line {"kernels": [...]} (twenty-nine kernels: phase 14's
      ranges as their own entries; binning_emit, binning_sort and
      binning_align with their launches in phases 5 and 8, counted from 0
-     there, and phase 2b's error and times), the card line, and the final line {"ok": true, "device":
+     there, and phase 2b's error and times; feat_fwd and feat_bwd with
+     their launches in phase 2c's training steps, counted from 0 there,
+     and that phase's errors and times), the card line, and the final line {"ok": true, "device":
      {...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -404,6 +414,22 @@ SCENE_PAIRS = 2**21  # the training run's max_pairs (the train CLI's)
 SCENE_ITERS = 60
 SCENE_INTERVAL = 20
 RANGE_ITERS = 4
+# Phase 2c: Feature 3DGS's compositors (F1, F2) on the 3 M garden scene
+# with C = 128 feature floats a gaussian (the paper's speed-up setting) at
+# the benchmark's training view, 1297x840, and the teacher map at half
+# that on each side with LSeg's 512 channels; FEAT_VIEWS views a step,
+# one at a time, for FEAT_STEPS steps.
+FEAT_C, FEAT_D = 128, 512
+FEAT_H, FEAT_W = 840, 1297
+FEAT_VIEWS, FEAT_STEPS = 2, 2
+FEAT_SEED = 24
+# F2 vs plain, d f_sem and the six geometry rows it adds, relative to each
+# output's largest value: F2 sums with float atomics in no fixed order (d f
+# over a gaussian's pairs and the warps of its tiles, the geometry partials
+# over the four channel groups and the warps), the plain version in
+# sequential and einsum order; each output sums up to a few hundred terms
+# of one sign or both, a few hundred float32 roundings of 6e-8 at most.
+FEAT_BWD_TOL = 1e-5
 
 
 def kernel_resources(ptxas: str, kernel: str, log: bool = False,
@@ -2574,6 +2600,201 @@ def binning_phase(dev, card):
               f"bound {r['bound_ms']:.4f} ms by bytes "
               f"({100 * r['bound_ms'] / r['ms']:.1f} %)", flush=True)
     return out, err
+
+
+def feat_phase(dev, card):
+    """Phase 2c: Feature 3DGS's compositors on the 3 M garden scene
+    (``scene.make_scene``, ``profile_binning.GARDEN_GAUSSIANS``) with
+    ``f_sem`` ~ N(0, 1) of FEAT_C channels, at FEAT_W x FEAT_H from the
+    garden's first pose: F1 (``raster_feat.composite_features``) equal to
+    its plain version bit for bit; F2 (``composite_features_bwd``, on a
+    seeded cotangent of the map and of K1's tiles) within FEAT_BWD_TOL of
+    its plain version in d f_sem and in each of the six geometry rows it
+    adds to K2's output, K2's other rows untouched; each kernel's device
+    time (20 launches) beside its plain version's and its bound: F1 two
+    operations a channel per (pair, pixel) of non-zero weight against the
+    contributing pairs' feature floats read and the map written, F2 four
+    against those floats read and their gradient written and the map and
+    its cotangent read (``raster_feat.weight_counts``; the alpha and
+    transmittance are K1's work). Then the main path's own training:
+    ``init_train_state`` over the pool with features and a drawn decoder,
+    ``make_train_step``, FEAT_STEPS steps of FEAT_VIEWS views one at a time
+    against teacher maps decoded from the unperturbed scene, with F1's and
+    F2's counters set to 0 first: one launch of each a view, finite losses,
+    no step skipped. Returns {"F1": entry, "F2": entry} with ms, plain_ms,
+    bound_ms, bound_by, max_abs_err (relative for F2) and launches."""
+    import gsplat_tpu_torch as gt
+    from gsplat_tpu_torch import profile_binning as PB
+    from gsplat_tpu_torch.models.gaussians import init_decoder
+    from gsplat_tpu_torch.ops import raster_feat as rf
+    from gsplat_tpu_torch.ops.losses import decode_features
+    from gsplat_tpu_torch.ops.raster_cuda import (_composite_fwd,
+                                                  composite_pairs,
+                                                  composite_pairs_bwd)
+    from gsplat_tpu_torch.render import pair_demand
+    from gsplat_tpu_torch.scene import make_scene
+
+    t_phase = time.perf_counter()
+    params = make_scene(PB.GARDEN_GAUSSIANS, FEAT_SEED, dev)
+    n = params["pos"].shape[0]
+    g = torch.Generator(device=dev).manual_seed(FEAT_SEED)
+    params["f_sem"] = torch.randn(n, FEAT_C, generator=g, device=dev)
+    f, cx, cy = 0.85 * FEAT_W, FEAT_W / 2.0, FEAT_H / 2.0
+    poses = [PB._origin_pose(*p) for p in PB.GARDEN_POSES[:FEAT_VIEWS]]
+    cfg = gt.RenderConfig(height=FEAT_H, width=FEAT_W, max_pairs=4096)
+    demand = max(int(pair_demand(params, c, f, f, cx, cy, cfg)[0])
+                 for c in poses)
+    cfg = cfg.with_(max_pairs=PB._sized(demand))
+    res = rf.feat_resources(dev, cfg.pair_block)
+    print(f"[{card}] feature compositors at pair_block {cfg.pair_block}: "
+          + "; ".join(f"{k} {v['registers']} registers, {v['local_bytes']} "
+                      f"B local, {v['ctas_per_sm']} CTAs of 256 threads per "
+                      f"SM" for k, v in res.items()), flush=True)
+    if res["F1"]["local_bytes"] or res["F2"]["local_bytes"]:
+        raise SystemExit("FAIL: a feature compositor spills")
+
+    # --- F1 and F2 against their plain versions at the first pose ---
+    with torch.no_grad():
+        sp = serving_path(params, poses[0], f, f, cx, cy, cfg)
+        pf, bn = sp["pair_feat"], sp["bin"]
+        del sp
+        ts, tc = bn.tile_start, bn.tile_count
+        out, state = _composite_fwd(pf, ts, tc, cfg, with_state=True)
+        args = (pf, bn.pair_slot, bn.depth_order, params["f_sem"], ts, out)
+        n0 = rf.composite_features.launches
+        fmap = rf.composite_features(*args, cfg)
+        f1_n = rf.composite_features.launches - n0
+        fplain = rf.composite_features_plain(*args, cfg)
+        torch.cuda.synchronize()
+        f1_err = float((fmap - fplain).abs().max())
+        print(f"[{card}] F1 at {FEAT_W}x{FEAT_H}, {n} gaussians, "
+              f"{int(bn.num_pairs)} pairs of {cfg.max_pairs}, C {FEAT_C}: "
+              f"launches +{f1_n}; vs plain "
+              + ("bit for bit" if torch.equal(fmap, fplain) else
+                 f"DIFFERS (max abs {f1_err:.3e})")
+              + f"; map max {float(fmap.abs().max()):.4f}", flush=True)
+        if f1_n != 1 or not torch.equal(fmap, fplain) \
+                or not float(fmap.abs().max()) > 0.0:
+            raise SystemExit("FAIL: F1 against its plain version")
+        del fplain
+        gF = torch.randn(fmap.shape, generator=g, device=dev) * 1e-6
+        gout = torch.randn(out.shape, generator=g, device=dev) * 1e-6
+        d0 = composite_pairs_bwd(pf, ts, tc, out, state, gout, cfg)
+        dk, dp = d0.clone(), d0.clone()
+        n0 = rf.composite_features.bwd_launches
+        gk = rf.composite_features_bwd(*args, fmap, gF, dk, cfg)
+        f2_n = rf.composite_features.bwd_launches - n0
+        gp = rf.composite_features_bwd_plain(*args, fmap, gF, dp, cfg)
+        torch.cuda.synchronize()
+        errs = {"d f_sem": float((gk - gp).abs().max())
+                / float(gp.abs().max())}
+        for r, name in enumerate(("u", "v", "a", "b", "c", "opacity")):
+            add_k, add_p = dk[r] - d0[r], dp[r] - d0[r]
+            top = float(add_p.abs().max())
+            errs[name] = (float((add_k - add_p).abs().max()) / top
+                          if top > 0 else float("inf"))
+        rest = torch.equal(dk[6:], d0[6:])
+        f2_err = max(errs.values())
+        print(f"[{card}] F2 vs plain, max abs difference over each "
+              f"output's largest: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tolerance {FEAT_BWD_TOL}); launches +{f2_n}; K2's rows "
+              f"6-9 untouched: {rest}", flush=True)
+        if f2_n != 1 or f2_err > FEAT_BWD_TOL or not rest:
+            raise SystemExit("FAIL: F2 against its plain version")
+        del gp, dp
+
+        # --- times and bounds ---
+        pair_pixels, contrib = rf.weight_counts(pf, ts, out, cfg)
+        pixels = FEAT_H * FEAT_W
+        work = {"F1": (2 * FEAT_C * pair_pixels,
+                       4 * FEAT_C * (contrib + pixels)),
+                "F2": (4 * FEAT_C * pair_pixels,
+                       4 * FEAT_C * (2 * contrib + 2 * pixels))}
+        scratch = d0.clone()
+        kern = {"F1": lambda: rf.composite_features(*args, cfg),
+                "F2": lambda: rf.composite_features_bwd(*args, fmap, gF,
+                                                        scratch, cfg)}
+        plain = {"F1": lambda: rf.composite_features_plain(*args, cfg),
+                 "F2": lambda: rf.composite_features_bwd_plain(
+                     *args, fmap, gF, scratch, cfg)}
+        entries = {}
+        for k in ("F1", "F2"):
+            for _ in range(3):
+                kern[k]()
+            ms = device_ms(kern[k], 20)
+            plain_ms = device_ms(plain[k], 1)
+            ops, nbytes = work[k]
+            by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+            entries[k] = {
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(by_ops, by_bytes) * 1e3,
+                "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+                "max_abs_err": f1_err if k == "F1" else f2_err}
+            e = entries[k]
+            print(f"[{card}] {k} at the garden's first pose: {ms:.4f} ms "
+                  f"(CUDA events, 20 launches), plain {plain_ms:.3f} ms; "
+                  f"bound {e['bound_ms']:.4f} ms by {e['bound_by']} "
+                  f"({pair_pixels} (pair, pixel) of non-zero weight, "
+                  f"{contrib} contributing pairs; share of bound "
+                  f"{100 * e['bound_ms'] / ms:.1f} %)", flush=True)
+        del args, pf, bn, out, state, fmap, gF, gout, d0, dk, gk, scratch
+
+    # --- the main path's feature training steps ---
+    dec = init_decoder(FEAT_C, FEAT_D, FEAT_SEED, dev)
+    th, tw = FEAT_H // 2, FEAT_W // 2
+    with torch.no_grad():  # ground truth: the unperturbed scene
+        frames = [gt.render_from_params(params, c, f, f, cx, cy, cfg)
+                  for c in poses]
+        images = torch.stack([im for im, _ in frames])
+        teacher = torch.stack([decode_features(aux.features, (th, tw), dec)
+                               for _, aux in frames])
+        del frames
+    batches = [{"image": images[i:i + 1], "teacher": teacher[i:i + 1],
+                "c2w": torch.from_numpy(poses[i][None]).to(dev),
+                **{k: torch.full((1,), v, device=dev)
+                   for k, v in (("fx", f), ("fy", f), ("cx", cx),
+                                ("cy", cy))}}
+               for i in range(FEAT_VIEWS)]
+    with torch.no_grad():
+        for k in ("f_sem", "opacity_raw"):
+            params[k] += 0.1 * torch.randn(params[k].shape, generator=g,
+                                           device=dev)
+    pool = gt.GaussianPool(params, torch.ones(n, dtype=torch.bool,
+                                              device=dev))
+    tcfg = gt.TrainConfig(capacity=n, batch_size=1,
+                          densification_interval=10**9,
+                          opacity_reset_interval=10**9)
+    state = gt.init_train_state(pool, tcfg, gt.FeatureConfig(), dec)
+    step = gt.make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    rf.composite_features.launches = 0
+    rf.composite_features.bwd_launches = 0
+    composite_pairs.launches = composite_pairs.bwd_launches = 0
+    losses, skipped = [], []
+    for _ in range(FEAT_STEPS):
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["total"]))
+            skipped.append(int(m["nonfinite_skipped"]))
+    torch.cuda.synchronize()
+    f1_n, f2_n = (rf.composite_features.launches,
+                  rf.composite_features.bwd_launches)
+    k1_n, k2_n = composite_pairs.launches, composite_pairs.bwd_launches
+    views = FEAT_STEPS * FEAT_VIEWS
+    print(f"[{card}] Feature 3DGS training through make_train_step: "
+          f"{views} views ({FEAT_STEPS} steps of {FEAT_VIEWS} views one at "
+          f"a time), losses " + ", ".join(f"{v:.6f}" for v in losses)
+          + f", skipped {skipped}; launches F1 {f1_n}, F2 {f2_n}, K1 "
+          f"{k1_n}, K2 {k2_n}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not (f1_n == f2_n == k1_n == k2_n == views
+            and all(np.isfinite(losses)) and not any(skipped)):
+        raise SystemExit("FAIL: Feature 3DGS training steps")
+    entries["F1"]["launches"], entries["F2"]["launches"] = f1_n, f2_n
+    del state, pool, params, images, teacher, batches, step
+    torch.cuda.empty_cache()
+    return entries
 
 
 class BinCalls:
@@ -4899,6 +5120,9 @@ def main():
     # --- 2b. the binning kernels against the plain steps ---
     bin_t, bin_err = binning_phase(dev, card)
 
+    # --- 2c. Feature 3DGS's compositors, F1 and F2 ---
+    feat = feat_phase(dev, card)
+
     # --- 3. kernel vs plain, synthetic scene ---
     cfg = gt.RenderConfig(height=H, width=W, max_pairs=MAX_PAIRS)
     fx = fy = 0.85 * W
@@ -5250,6 +5474,14 @@ def main():
         "bound_by": "bytes",
         "library_ms": None,
     } for i, step in enumerate(("emit", "sort", "align"))]
+    kernels += [{
+        "name": name,
+        "route": "cuda",
+        "source": "gsplat_tpu_torch/ops/csrc/raster_feat.cu",
+        "replaces": "none (the JAX package has no per-gaussian features)",
+        **feat[k],
+        "library_ms": None,
+    } for k, name in (("F1", "feat_fwd"), ("F2", "feat_bwd"))]
     print(json.dumps({"kernels": kernels}))
     print(device_label(dev))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ path is a kernel written by hand for Hopper (``ops/csrc``), built with
 nvcc at first use. Importing the package needs neither CUDA nor nvcc.
 """
 
-from .config import RenderConfig, TrainConfig, cdiv, parse_background
+from .config import (FeatureConfig, RenderConfig, TrainConfig, cdiv,
+                     parse_background)
 from .device import resolve_device
 from .models.gaussians import (GaussianPool, init_pool_from_points,
                                pool_from_numpy)
@@ -26,6 +27,7 @@ from .train.trainer import (TrainState, init_train_state, load_checkpoint,
                             save_checkpoint)
 
 __all__ = [
+    "FeatureConfig",
     "RenderConfig",
     "TrainConfig",
     "cdiv",

@@ -197,3 +197,31 @@ class TrainConfig:
     sh_warmup_interval: int = 0
     nan_guard: bool = True
     batched_render: bool = False
+
+
+# The pool leaf of per-gaussian features, and the decoder's leaves in
+# ``train.trainer.TrainState.decoder`` (Feature 3DGS, below).
+FEATURE_KEY = "f_sem"
+DECODER_KEYS = ("dec_w", "dec_b")
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureConfig:
+    """Feature 3DGS's training (Zhou et al., CVPR 2024, arXiv:2312.03203):
+    each gaussian carries C feature floats (the pool's ``f_sem`` leaf [N,
+    C]), composited with colour's own weights into a ``[C, H, W]`` map
+    (``ops/raster_feat.py``); training resizes the map bilinearly
+    (``align_corners=True``) to the teacher map's size, decodes it with a
+    1x1 convolution with bias to D channels (``dec_w`` [D, C], ``dec_b``
+    [D]) and adds ``semantic_loss_weight`` times the L1 distance to the
+    teacher map to the photometric loss; Adam trains ``f_sem`` at
+    ``semantic_feature_lr`` and the decoder at ``decoder_lr`` (the
+    authors' code's values). C and D are the tensors' own.
+
+    The port's own configuration: the JAX package has no features, so
+    ``TrainConfig`` keeps its fields (and its ``feature_lr`` is the SH
+    colour's rate)."""
+
+    semantic_feature_lr: float = 0.001
+    decoder_lr: float = 0.0001
+    semantic_loss_weight: float = 1.0

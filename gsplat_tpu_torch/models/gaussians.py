@@ -7,6 +7,12 @@ the pool is an ``nn.Module`` whose six parameters are ``nn.Parameter``s
 buffer. The constructors from host arrays (``pool_from_numpy``,
 ``init_pool_from_points``, ``pool_from_dense``) take an explicit
 ``device``, ``"cuda"`` by default.
+
+A pool may also carry per-gaussian features (Feature 3DGS): a seventh
+parameter ``f_sem`` [capacity, C] (``config.FEATURE_KEY``), which
+``params`` then lists last, so that everything that maps the pool's
+leaves (the ADC's children, growth, compaction, checkpoints) carries it.
+The JAX package has no such leaf.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..config import FEATURE_KEY
 from ..device import resolve_device
 
 PARAM_KEYS = ("pos", "opacity_raw", "f_dc", "f_rest", "scale_raw", "q_raw")
@@ -28,14 +35,17 @@ class GaussianPool(nn.Module):
         missing = set(PARAM_KEYS) - set(params)
         if missing:
             raise ValueError(f"pool parameters missing: {sorted(missing)}")
-        for k in PARAM_KEYS:
+        self.leaf_names = PARAM_KEYS + (
+            (FEATURE_KEY,) if FEATURE_KEY in params else ())
+        for k in self.leaf_names:
             self.register_parameter(k, nn.Parameter(params[k]))
         self.register_buffer("alive", alive)
 
     @property
     def params(self) -> dict:
-        """The six parameters by name, as ``render_from_params`` takes them."""
-        return {k: getattr(self, k) for k in PARAM_KEYS}
+        """The six parameters by name (and ``f_sem`` where the pool has
+        features), as ``render_from_params`` takes them."""
+        return {k: getattr(self, k) for k in self.leaf_names}
 
     @property
     def capacity(self) -> int:
@@ -52,7 +62,7 @@ def pool_from_numpy(params: dict, alive, device="cuda") -> GaussianPool:
     dev = resolve_device(device)
     tensors = {
         k: torch.from_numpy(np.array(params[k], np.float32, order="C")).to(dev)
-        for k in PARAM_KEYS
+        for k in PARAM_KEYS + (FEATURE_KEY,)
         if k in params
     }
     alive_t = torch.from_numpy(np.array(alive, bool, order="C")).to(dev)
@@ -147,8 +157,37 @@ def pool_from_dense(params: dict, capacity: int, device="cuda") -> GaussianPool:
     if n > capacity:
         raise ValueError(f"{n} gaussians exceed capacity {capacity}")
     padded = {k: _pad_rows(np.asarray(params[k]), capacity)
-              for k in PARAM_KEYS}
+              for k in PARAM_KEYS + (FEATURE_KEY,) if k in params}
     padded["opacity_raw"][n:] = -10.0
     padded["scale_raw"][n:] = -10.0
     padded["q_raw"][n:, 3] = 1.0
     return pool_from_numpy(padded, np.arange(capacity) < n, device)
+
+
+def with_features(pool: GaussianPool, features: torch.Tensor) -> GaussianPool:
+    """A pool of ``pool``'s parameters (the same tensors) and ``alive``
+    with per-gaussian features ``f_sem`` = ``features`` [capacity, C]."""
+    if features.shape[0] != pool.capacity or features.dim() != 2:
+        raise ValueError(f"features must be [{pool.capacity}, C], got "
+                         f"{tuple(features.shape)}")
+    params = {k: v.detach() for k, v in pool.params.items()}
+    params[FEATURE_KEY] = features.to(pool.pos.device, torch.float32)
+    return GaussianPool(params, pool.alive)
+
+
+def init_decoder(in_dim: int, out_dim: int, seed: int = 0,
+                 device="cuda") -> dict:
+    """The Feature 3DGS decoder, a 1x1 convolution with bias from ``in_dim``
+    to ``out_dim`` channels, drawn as ``torch.nn.Conv2d`` draws its
+    default: weight and bias uniform in +-1/sqrt(in_dim) (Kaiming-uniform
+    with a = sqrt(5) gives that bound), from ``torch.Generator(seed)`` on
+    ``device``. Returns {"dec_w": [out_dim, in_dim], "dec_b": [out_dim]}."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bound = 1.0 / in_dim ** 0.5
+
+    def draw(*shape):
+        u = torch.rand(shape, generator=g, device=dev, dtype=torch.float32)
+        return (2.0 * u - 1.0) * bound
+
+    return {"dec_w": draw(out_dim, in_dim), "dec_b": draw(out_dim)}

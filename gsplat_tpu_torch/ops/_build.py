@@ -105,6 +105,42 @@ FUNCTIONS = {
                                       ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_void_p], ctypes.c_int),
     },
+    "raster_feat": {
+        # feat_fwd(feat, stride, pair_slot, depth_order, fsem, C,
+        #          tile_start, fwd, fmap, num_tiles, tiles_x, H, W, tile, G,
+        #          chi2_clip, alpha_max, alpha_cutoff, t_min, margin_rel,
+        #          margin_eps, margin_abs, kappa_min, stream) -> cudaError_t
+        "feat_fwd": (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        # feat_bwd(feat, stride, pair_slot, depth_order, fsem, C,
+        #          tile_start, fwd, fmap, gfmap, dgeo, dstride, dfsem,
+        #          num_tiles, tiles_x, H, W, tile, G, chi2_clip, alpha_max,
+        #          alpha_cutoff, one_minus_max, t_min, margin_rel,
+        #          margin_eps, margin_abs, kappa_min, stream) -> cudaError_t
+        "feat_bwd": (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        # feat_resources(int G, int out[6]) -> cudaError_t: F1's then F2's
+        # registers, local bytes and CTAs per SM
+        "feat_resources": ([ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                           ctypes.c_int),
+    },
     "binning": {
         # binning_emit(offsets, n, tile_min, n_u, max_pairs, tiles_x,
         #              num_tiles, tile_id, slot, stream) -> cudaError_t

@@ -5,7 +5,10 @@ Counterpart of ``gsplat_tpu/ops/losses.py:26-125``:
 * L1 = mean |pred - target|,
 * SSIM with an 11x11 Gaussian window (sigma=1.5), C1=0.01^2, C2=0.03^2,
   zero ("same") padding, computed per channel and averaged,
-* combined loss = lambda_l1 * L1 + lambda_ssim * (1 - SSIM).
+* combined loss = lambda_l1 * L1 + lambda_ssim * (1 - SSIM);
+* Feature 3DGS's feature term (:func:`feature_loss`, the port's own): the
+  feature map resized to the teacher map's size, decoded by a 1x1
+  convolution, L1 to the teacher.
 
 All channels and all five filtered statistics (mu1, mu2, E[p^2], E[t^2],
 E[pt]) go through one depthwise ``F.conv2d`` (``groups=C``), as the JAX
@@ -101,3 +104,28 @@ def compute_loss(pred: torch.Tensor, target: torch.Tensor,
         s = ssim_loss(pred, target)
         total = lambda_l1 * l1 + lambda_ssim * s
     return total, {"l1": l1, "ssim": s, "total": total}
+
+
+def decode_features(fmap: torch.Tensor, size: tuple,
+                    decoder: dict) -> torch.Tensor:
+    """Feature 3DGS's decoder on a ``[C, H, W]`` feature map: resized
+    bilinearly with ``align_corners=True`` to ``size`` (h, w), then the 1x1
+    convolution with bias ``decoder`` (``dec_w`` [D, C], ``dec_b`` [D]) as
+    one float32 matrix product. Returns [D, h, w]."""
+    C = fmap.shape[0]
+    h, w = size
+    x = F.interpolate(fmap[None], size=(h, w), mode="bilinear",
+                      align_corners=True)[0]
+    W, b = decoder["dec_w"], decoder["dec_b"]
+    return (W @ x.reshape(C, h * w)).reshape(W.shape[0], h, w) \
+        + b[:, None, None]
+
+
+def feature_loss(fmap: torch.Tensor, teacher: torch.Tensor,
+                 decoder: dict) -> torch.Tensor:
+    """Mean absolute difference between the decoded feature map
+    (:func:`decode_features` at the teacher's size) and the teacher map
+    ``[D, h, w]``: Feature 3DGS's distillation term, as a 0-d tensor."""
+    with span("gs.feat_loss"):
+        dec = decode_features(fmap, tuple(teacher.shape[1:]), decoder)
+        return torch.mean(torch.abs(dec - teacher))

@@ -43,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import RenderConfig, cdiv
 from ..utils.profiling import span
-from . import raster_cuda
+from . import raster_cuda, raster_feat
 from .binning import TileBinning, bin_gaussians, depth_order
 from .clamps import clip, minimum
 from .projection import ProjectedGaussians
@@ -69,6 +69,9 @@ class RenderAux(NamedTuple):
     # Pair slots of the blocks the compositor composited (row 5).
     bwd_demand: torch.Tensor | None = None
     bwd_capacity: int = 0
+    # The feature map [C, H, W] of a pool with per-gaussian features
+    # (Feature 3DGS, ``ops/raster_feat.py``), else None.
+    features: torch.Tensor | None = None
 
 
 def _composite_chunk(feats: torch.Tensor, mask: torch.Tensor,
@@ -241,6 +244,37 @@ def gather_pair_features(feat10: torch.Tensor, pair_slot: torch.Tensor,
     return _gather(feat10, pair_slot)
 
 
+def _gather_k1(feat10, pair_slot, tile_start, tile_count, cfg):
+    """The forward of :class:`_CompositeGathered`: the gather, then K1
+    writing its block-start state. Returns (pair rows, out, state)."""
+    with span("gs.gather"):
+        pf = _gather(feat10, pair_slot)
+    with span("gs.k1"):
+        raster_cuda._check_inputs(pf, tile_start, tile_count, cfg)
+        out, state = raster_cuda._composite_fwd(pf, tile_start, tile_count,
+                                                cfg, with_state=True)
+    return pf, out, state
+
+
+def _k2_reduce(pf, pair_slot, tile_start, tile_count, out, state, gout,
+               n, cfg, then=None):
+    """The backward of :class:`_CompositeGathered`: K2 (compact with
+    ``cfg.bwd_pairs``), then ``then`` (a function of K2's [10, pairs]
+    output, which it may add to in place), then the keyed reduction.
+    Returns (per-gaussian gradients [n, 10], what ``then`` returned)."""
+    G = cfg.pair_block
+    nb = pf.shape[1] // G
+    kb = min(cdiv(cfg.bwd_pairs, G), nb)
+    with span("gs.k2"):
+        d = raster_cuda.composite_pairs_bwd(
+            pf, tile_start, tile_count, out, state, gout.contiguous(), cfg,
+            kb=kb)
+    got = then(d) if then is not None else None
+    with span("gs.pair_grads"):
+        key = composited_pair_keys(pair_slot, tile_start, out, n, kb, cfg)
+        return _reduce_pair_grads(key, d, n), got
+
+
 class _CompositeGathered(torch.autograd.Function):
     """The gather and the compositor as one function of ``feat10`` (the
     JAX package's ``_composite_gathered``, ``rasterize.py:289-373``).
@@ -265,13 +299,8 @@ class _CompositeGathered(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat10, pair_slot, tile_start, tile_count, cfg):
-        with span("gs.gather"):
-            pf = _gather(feat10, pair_slot)
-        with span("gs.k1"):
-            raster_cuda._check_inputs(pf, tile_start, tile_count, cfg)
-            out, state = raster_cuda._composite_fwd(pf, tile_start,
-                                                    tile_count, cfg,
-                                                    with_state=True)
+        pf, out, state = _gather_k1(feat10, pair_slot, tile_start,
+                                    tile_count, cfg)
         ctx.n = feat10.shape[0]
         ctx.cfg = cfg
         ctx.save_for_backward(pf, pair_slot, tile_start, tile_count, out,
@@ -281,20 +310,50 @@ class _CompositeGathered(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
-        pf, pair_slot, tile_start, tile_count, out, state = ctx.saved_tensors
-        cfg, n = ctx.cfg, ctx.n
-        G = cfg.pair_block
-        nb = pf.shape[1] // G
-        kb = min(cdiv(cfg.bwd_pairs, G), nb)
-        with span("gs.k2"):
-            d = raster_cuda.composite_pairs_bwd(
-                pf, tile_start, tile_count, out, state, gout.contiguous(),
-                cfg, kb=kb)
-        with span("gs.pair_grads"):
-            key = composited_pair_keys(pair_slot, tile_start, out, n, kb,
-                                       cfg)
-            grad = _reduce_pair_grads(key, d, n)
+        grad, _ = _k2_reduce(*ctx.saved_tensors, gout, ctx.n, ctx.cfg)
         return grad, None, None, None, None
+
+
+class _CompositeGatheredFeatures(torch.autograd.Function):
+    """:class:`_CompositeGathered` with the feature map of per-gaussian
+    features ``f_sem`` [N, C] (Feature 3DGS): the same gather, K1 and K2,
+    and between them F1 and F2 (``raster_feat``), which read each pair's
+    feature row by its gaussian (``depth_order[pair_slot]``). Outputs K1's
+    tiles and the map [C, H, W]. Backward: K2, then F2 adds the feature
+    channels' part of each pair's geometry gradient into K2's rows 0-5 and
+    gives ``d f_sem``, then the keyed reduction of :class:`_CompositeGathered`
+    over the whole list (``bwd_pairs`` must be 0)."""
+
+    @staticmethod
+    def forward(ctx, feat10, f_sem, depth_order, pair_slot, tile_start,
+                tile_count, cfg):
+        pf, out, state = _gather_k1(feat10, pair_slot, tile_start,
+                                    tile_count, cfg)
+        with span("gs.feat_k1"):
+            fmap = raster_feat.composite_features(
+                pf, pair_slot, depth_order, f_sem, tile_start, out, cfg)
+        ctx.n = feat10.shape[0]
+        ctx.cfg = cfg
+        ctx.save_for_backward(pf, pair_slot, tile_start, tile_count, out,
+                              state, f_sem, depth_order, fmap)
+        return out, fmap
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout, gfmap):
+        (pf, pair_slot, tile_start, tile_count, out, state, f_sem,
+         depth_order, fmap) = ctx.saved_tensors
+        cfg = ctx.cfg
+
+        def f2(d):
+            with span("gs.feat_k2"):
+                return raster_feat.composite_features_bwd(
+                    pf, pair_slot, depth_order, f_sem, tile_start, out,
+                    fmap, gfmap.contiguous(), d, cfg)
+
+        grad, g_sem = _k2_reduce(pf, pair_slot, tile_start, tile_count, out,
+                                 state, gout, ctx.n, cfg, then=f2)
+        return grad, g_sem, None, None, None, None, None
 
 
 def composited_pair_keys(pair_slot, tile_start, fwd_out, n: int, kb: int,
@@ -422,6 +481,7 @@ def rasterize_binned_pallas(
     colors: torch.Tensor,
     binning: TileBinning,
     cfg: RenderConfig,
+    features: torch.Tensor | None = None,
 ):
     """Rasterize a precomputed aligned binning through ``raster_cuda`` (the
     kernels on CUDA tensors, their plain versions on CPU tensors). Returns
@@ -430,14 +490,26 @@ def rasterize_binned_pallas(
     When autograd records (``colors`` or the projection requires grad),
     the gather and the compositor run as :class:`_CompositeGathered`;
     otherwise as the gather and ``composite_pairs`` (no state written).
+    ``features`` [N, C] (per-gaussian features, Feature 3DGS) adds their
+    map [C, H, W] as ``aux.features``: F1 and F2 of ``raster_feat``
+    (:class:`_CompositeGatheredFeatures` when autograd records).
     """
+    fmap = None
+    if features is not None:
+        raster_feat.check_config(cfg, features.shape[1])
     with span("gs.gather"):
         feat10 = _pair_features(proj, colors, torch.float32)[
             binning.depth_order.to(torch.int64)]
-        recorded = torch.is_grad_enabled() and feat10.requires_grad
+        recorded = torch.is_grad_enabled() and (
+            feat10.requires_grad
+            or (features is not None and features.requires_grad))
         if not recorded:
             pf = _gather(feat10, binning.pair_slot)
-    if recorded:
+    if recorded and features is not None:
+        out, fmap = _CompositeGatheredFeatures.apply(
+            feat10, features, binning.depth_order, binning.pair_slot,
+            binning.tile_start, binning.tile_count, cfg)
+    elif recorded:
         out = _CompositeGathered.apply(feat10, binning.pair_slot,
                                        binning.tile_start,
                                        binning.tile_count, cfg)
@@ -445,6 +517,11 @@ def rasterize_binned_pallas(
         with span("gs.k1"):
             out = raster_cuda.composite_pairs(pf, binning.tile_start,
                                               binning.tile_count, cfg)
+        if features is not None:
+            with span("gs.feat_k1"):
+                fmap = raster_feat.composite_features(
+                    pf, binning.pair_slot, binning.depth_order, features,
+                    binning.tile_start, out, cfg)
     # out [num_tiles, 8, P]: rows 0-2 rgb, 3 depth, 4 transmittance
 
     # Tiles with no pairs: mask them, as the JAX package must.
@@ -472,6 +549,7 @@ def rasterize_binned_pallas(
             binning.tile_count > 0, out[:, 5, 0], 0.0).to(torch.int32).sum()
         * cfg.pair_block,
         bwd_capacity=cfg.bwd_capacity,
+        features=fmap,
     )
     return img, aux
 
@@ -497,18 +575,27 @@ def rasterize_binned(
     colors: torch.Tensor,
     binning: TileBinning,
     cfg: RenderConfig,
+    features: torch.Tensor | None = None,
 ):
     """Rasterize a precomputed aligned binning with ``cfg``'s compositor
-    (:func:`resolve_backend`). Returns (image, aux)."""
+    (:func:`resolve_backend`). Returns (image, aux). ``features`` [N, C]:
+    per-gaussian features whose map becomes ``aux.features`` (the kernel
+    compositor only)."""
     if resolve_backend(cfg) == "xla":
+        if features is not None:
+            raise ValueError("per-gaussian features take the kernel "
+                             "compositor (backend 'auto' or 'pallas'), "
+                             "not 'xla'")
         return rasterize_binned_xla(proj, colors, binning, cfg)
-    return rasterize_binned_pallas(proj, colors, binning, cfg)
+    return rasterize_binned_pallas(proj, colors, binning, cfg, features)
 
 
 def rasterize(proj: ProjectedGaussians, colors: torch.Tensor,
-              cfg: RenderConfig):
-    """Bin + rasterize one view. Returns (image [H, W, 3], RenderAux)."""
-    img, aux = rasterize_binned(proj, colors, bin_gaussians(proj, cfg), cfg)
+              cfg: RenderConfig, features: torch.Tensor | None = None):
+    """Bin + rasterize one view. Returns (image [H, W, 3], RenderAux);
+    ``features`` as :func:`rasterize_binned`."""
+    img, aux = rasterize_binned(proj, colors, bin_gaussians(proj, cfg), cfg,
+                                features)
     if cfg.background != (0.0, 0.0, 0.0):
         bg = torch.tensor(cfg.background, dtype=img.dtype, device=img.device)
         img = img + (1.0 - aux.alpha)[..., None] * bg

@@ -45,7 +45,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..config import RenderConfig, TrainConfig
+from ..config import FEATURE_KEY, RenderConfig, TrainConfig
 from ..models.gaussians import GaussianPool
 from ..ops.binning import bin_gaussians
 from ..ops.gaussian import build_cov3d_packed
@@ -59,6 +59,14 @@ from ..train.trainer import (TrainState, apply_sh_warmup, apply_update,
                              map_capacity_leaves, tap_norm_sum)
 from ..utils.profiling import span
 from .mesh import DATA_AXIS, TILE_AXIS, Mesh
+
+
+def _refuse_features(state: TrainState):
+    """The sharded steps train plain 3DGS: a pool with per-gaussian
+    features (Feature 3DGS) trains on one device."""
+    if state.decoder is not None or FEATURE_KEY in state.pool.params:
+        raise ValueError("the sharded train steps do not train per-gaussian "
+                         "features (f_sem): train such a pool on one device")
 
 
 def band_config(cfg: RenderConfig, n_bands: int) -> tuple[RenderConfig, int]:
@@ -330,6 +338,7 @@ def make_sharded_train_step(render_cfg: RenderConfig,
         return new_state, metrics
 
     def step_fn(state: TrainState, batch: dict):
+        _refuse_features(state)
         with span("gs.step"):
             return step(state, batch)
 
@@ -376,6 +385,7 @@ def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
     step) is replicated. The result is a :class:`TrainState` whose
     ``pool.capacity`` is the local C/T. ValueError unless T divides C;
     a one-band grid returns ``state`` itself."""
+    _refuse_features(state)
     rows = shard_rows(state.pool.capacity, mesh)
     if mesh.shape[TILE_AXIS] == 1:
         return state
@@ -797,6 +807,7 @@ def make_gauss_sharded_train_step(render_cfg: RenderConfig,
         return new_state, metrics
 
     def step_fn(state: TrainState, batch: dict):
+        _refuse_features(state)
         with span("gs.step"):
             return step(state, batch)
 

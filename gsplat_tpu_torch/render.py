@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .config import RenderConfig
+from .config import FEATURE_KEY, RenderConfig
 from .ops.binning import bin_gaussians
 from .ops.gaussian import build_cov3d_packed, pack_cov3d
 from .ops.projection import ProjectedGaussians, project_gaussians
@@ -101,7 +101,10 @@ def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
     Args:
         params: dict with pos [N,3], scale_raw [N,3], q_raw [N,4],
             opacity_raw [N], f_dc [N,3], f_rest [N,45|9|0], all on one
-            device (e.g. ``GaussianPool.params``).
+            device (e.g. ``GaussianPool.params``), and optionally f_sem
+            [N, C], per-gaussian features (Feature 3DGS): their map
+            [C, H, W], composited with the frame's own weights, is then
+            ``aux.features`` (``ops/raster_feat.py``).
         c2w: [4, 4] camera-to-world (tensor or array), moved to that device.
         alive: optional [N] bool pool-slot mask.
         uv_tap: optional [N, 2] zeros; the gradient w.r.t. it is the
@@ -116,7 +119,7 @@ def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
         pos, cov3d, params["opacity_raw"], c2w, fx, fy, cx, cy, cfg,
         extra_valid=alive, uv_tap=uv_tap,
     )
-    return rasterize(proj, colors, cfg)
+    return rasterize(proj, colors, cfg, params.get(FEATURE_KEY))
 
 
 def stack_view_projections(proj_b: ProjectedGaussians, cfg: RenderConfig):
@@ -188,6 +191,9 @@ def render_batch_from_params(params: dict, c2w, fx, fy, cx, cy,
         ``screen_radius`` [B, N]; the counts and capacities are the
         batch's.
     """
+    if FEATURE_KEY in params:
+        raise ValueError("batched views do not composite per-gaussian "
+                         "features: render the views one at a time")
     pos = params["pos"]
     c2w = _c2w(c2w, pos)
     B = c2w.shape[0]

@@ -16,6 +16,9 @@ Counterpart of ``gsplat_tpu/train/fit.py`` (``FitReport`` :42, ``fit``
   gradient norms, visibility counts and the largest screen radius;
 * checkpoints hold the optimizer state, in the JAX package's ``.npz``
   layout;
+* with ``features`` (Feature 3DGS) the pool starts with zero feature
+  vectors and a drawn decoder, batches carry ``teacher`` maps, and the
+  ADC's children copy their parent's features (one device only);
 * ``max_pairs``, the pool capacity, in ellipse mode the row stage's
   ``max_rows``, with ``tile_rank_cap`` the truncated list's
   ``trunc_pairs`` and with ``bwd_pairs`` the compacted backward's
@@ -37,11 +40,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..config import RenderConfig, TrainConfig
+from ..config import FeatureConfig, RenderConfig, TrainConfig
 from ..data.pointcloud import load_point_cloud
 from ..device import resolve_device
 from ..models.adc import pos_grad_norm
-from ..models.gaussians import init_pool_from_points
+from ..models.gaussians import (init_decoder, init_pool_from_points,
+                                with_features)
 from ..utils.logging import MetricsLogger
 from ..parallel.mesh import TILE_AXIS
 from ..parallel.sharding import (adc_on_shards, gather_train_state,
@@ -110,6 +114,8 @@ def fit(
     seed: int = 0,
     device="cuda",
     device_cache_bytes: int = 4 << 30,
+    features: FeatureConfig | None = None,
+    feature_dims: tuple[int, int] = (128, 512),
 ) -> tuple[TrainState, FitReport]:
     """Train a Gaussian pool on a dataset. Returns (state, report).
 
@@ -147,6 +153,13 @@ def fit(
             ``size_bytes()`` fits, else as uint8 (``size_bytes(1)``,
             dequantized after the gather), else batches come from the host
             each step. 0 turns the cache off.
+        features: train Feature 3DGS at these rates and loss weight
+            (``config.FeatureConfig``). Not with ``mesh``.
+        feature_dims: (C, D) with ``features``: the pool gets C zero
+            feature floats a gaussian (as the authors' code starts them)
+            and the decoder to D channels is drawn from ``seed``
+            (``models.gaussians.init_decoder``); every batch must carry
+            ``teacher`` [B, D, h, w].
 
     Static capacities grow from the observed demand: a pair-capacity
     overflow (checked at log_every boundaries; the steps between are still
@@ -167,6 +180,9 @@ def fit(
     ``fit()``'s ``auto_capacity=False``, which only logs the overflow, is
     not ported.
     """
+    if features is not None and mesh is not None:
+        raise ValueError("per-gaussian features train on one device: "
+                         "fit(features=...) takes no mesh")
     dev = mesh.device if mesh is not None else resolve_device(device)
     sharded = mesh is not None and bool(gauss_sharded)
     main = mesh is None or mesh.rank == 0
@@ -210,7 +226,13 @@ def fit(
         seed=seed,
         device=dev,
     )
-    state = init_train_state(pool, train_cfg)
+    decoder = None
+    if features is not None:
+        C, D = feature_dims
+        pool = with_features(pool, torch.zeros(
+            pool.capacity, C, dtype=torch.float32, device=dev))
+        decoder = init_decoder(C, D, seed, dev)
+    state = init_train_state(pool, train_cfg, features, decoder)
 
     if resume_from:
         state = load_checkpoint(resume_from, state)

@@ -27,6 +27,12 @@ Counterpart of ``gsplat_tpu/train/trainer.py:43-582``:
   ``grow_state_capacity`` makes a larger pool and optimizer;
 * ``save_checkpoint``/``load_checkpoint``: the JAX package's ``.npz``
   layout, readable by both packages (optax's 19 leaves, below);
+* a pool with per-gaussian features (``f_sem``, Feature 3DGS; the port's
+  own, ``config.FeatureConfig``) trains its decoder beside it
+  (``TrainState.decoder``): the loss adds the decoded feature map's L1 to
+  the batch's teacher maps, Adam takes ``f_sem`` and the decoder at their
+  own rates, and the checkpoints carry both with their Adam state in keys
+  of their own beside the JAX layout;
   ``save_checkpoint_dcp``/``load_checkpoint_dcp``: the orbax pair's
   collective directory checkpoints, on ``torch.distributed.checkpoint``,
   for a state sharded over a process grid.
@@ -47,12 +53,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import RenderConfig, TrainConfig
+from ..config import (DECODER_KEYS, FEATURE_KEY, FeatureConfig,
+                      RenderConfig, TrainConfig)
 from ..device import resolve_device
 from ..models.adc import (densify_and_prune, densify_and_prune_paper,
                           raise_low_opacity)
 from ..models.gaussians import PARAM_KEYS, GaussianPool, pool_from_numpy
-from ..ops.losses import compute_loss
+from ..ops.losses import compute_loss, feature_loss
 from ..render import render_batch_from_params, render_from_params
 from ..utils.profiling import span
 
@@ -71,15 +78,21 @@ def position_lr(step, cfg: TrainConfig) -> torch.Tensor:
     return torch.where(delay, lr * 0.01, lr)
 
 
-def _fixed_lrs(cfg: TrainConfig) -> dict:
-    """The constant LRs of every leaf but pos (reference train.py:394-401)."""
-    return {
+def _fixed_lrs(cfg: TrainConfig, features: FeatureConfig | None = None
+               ) -> dict:
+    """The constant LRs of every leaf but pos (reference train.py:394-401),
+    and with ``features`` those of ``f_sem`` and the decoder."""
+    lrs = {
         "opacity_raw": cfg.opacity_lr,
         "f_dc": cfg.feature_lr,
         "f_rest": cfg.feature_lr / 20.0,
         "scale_raw": cfg.scaling_lr,
         "q_raw": cfg.rotation_lr,
     }
+    if features is not None:
+        lrs[FEATURE_KEY] = features.semantic_feature_lr
+        lrs.update({k: features.decoder_lr for k in DECODER_KEYS})
+    return lrs
 
 
 def _count_device(params: dict) -> torch.device:
@@ -89,16 +102,17 @@ def _count_device(params: dict) -> torch.device:
 
 
 def _build_adam(params: dict, lrs: dict, eps: float) -> torch.optim.Adam:
-    """One Adam group per leaf, named by ``group["name"]``, with its state
-    created here, zeroed, so the first update reads step count 0 like
-    every other. On CUDA it is ``capturable``."""
+    """One Adam group per leaf of ``params``, in its order, named by
+    ``group["name"]``, with its state created here, zeroed, so the first
+    update reads step count 0 like every other. On CUDA it is
+    ``capturable``."""
     count_dev = _count_device(params)
     opt = torch.optim.Adam(
-        [{"params": [params[k]], "lr": lrs[k], "name": k} for k in PARAM_KEYS],
+        [{"params": [params[k]], "lr": lrs[k], "name": k} for k in params],
         betas=(0.9, 0.999), eps=eps, foreach=False, fused=False,
         capturable=count_dev.type == "cuda",
     )
-    for k in PARAM_KEYS:
+    for k in params:
         p = params[k]
         opt.state[p] = {
             "step": torch.zeros((), dtype=torch.float32, device=count_dev),
@@ -109,11 +123,14 @@ def _build_adam(params: dict, lrs: dict, eps: float) -> torch.optim.Adam:
     return opt
 
 
-def make_optimizer(params: dict, cfg: TrainConfig) -> torch.optim.Adam:
-    """Per-parameter Adam groups matching reference train.py:394-401."""
+def make_optimizer(params: dict, cfg: TrainConfig,
+                   features: FeatureConfig | None = None
+                   ) -> torch.optim.Adam:
+    """Per-parameter Adam groups matching reference train.py:394-401 (and,
+    with ``features``, the feature leaf's and the decoder's)."""
     count_dev = _count_device(params)
     lr0 = position_lr(torch.zeros((), device=count_dev), cfg)
-    lrs = dict(_fixed_lrs(cfg),
+    lrs = dict(_fixed_lrs(cfg, features),
                pos=lr0 if count_dev.type == "cuda" else float(lr0))
     return _build_adam(params, lrs, cfg.adam_eps)
 
@@ -131,14 +148,51 @@ class TrainState(NamedTuple):
     pool: GaussianPool
     opt_state: torch.optim.Adam
     step: torch.Tensor  # [] int32
+    # Feature 3DGS's decoder ({"dec_w": [D, C], "dec_b": [D]} leaf
+    # tensors) and its rates and loss weight when the pool carries
+    # features, else None.
+    decoder: dict | None = None
+    features: FeatureConfig | None = None
 
 
-def init_train_state(pool: GaussianPool, cfg: TrainConfig) -> TrainState:
+def _leaves(state: TrainState) -> dict:
+    """Every leaf the optimizer updates: the pool's, then the decoder's."""
+    return {**state.pool.params, **(state.decoder or {})}
+
+
+def init_train_state(pool: GaussianPool, cfg: TrainConfig,
+                     features: FeatureConfig | None = None,
+                     decoder: dict | None = None) -> TrainState:
+    """The state training starts from. A pool with features (``f_sem``
+    [N, C]) needs Feature 3DGS's ``decoder`` (``dec_w`` [D, C], ``dec_b``
+    [D], e.g. :func:`models.gaussians.init_decoder`), whose tensors
+    become leaves, and trains with ``features`` (``FeatureConfig()``
+    where None); a pool without takes neither."""
     dev = resolve_device(pool.pos.device)  # on CUDA: TF32 off for SSIM
+    if FEATURE_KEY not in pool.params:
+        if features is not None or decoder is not None:
+            raise ValueError("a decoder and a FeatureConfig take a pool with "
+                             "per-gaussian features (f_sem)")
+    else:
+        if decoder is None:
+            raise ValueError("a pool with per-gaussian features (f_sem) "
+                             "trains with a decoder: pass decoder=")
+        C = pool.f_sem.shape[1]
+        w, b = decoder["dec_w"], decoder["dec_b"]
+        if w.dim() != 2 or w.shape[1] != C or tuple(b.shape) != w.shape[:1]:
+            raise ValueError(f"the decoder must be dec_w [D, {C}] and dec_b "
+                             f"[D], got {tuple(w.shape)} and "
+                             f"{tuple(b.shape)}")
+        features = features or FeatureConfig()
+        decoder = {k: torch.nn.Parameter(decoder[k].detach().to(
+            dev, torch.float32).contiguous()) for k in DECODER_KEYS}
     return TrainState(
         pool=pool,
-        opt_state=make_optimizer(pool.params, cfg),
+        opt_state=make_optimizer({**pool.params, **(decoder or {})}, cfg,
+                                 features),
         step=torch.zeros((), dtype=torch.int32, device=dev),
+        decoder=decoder,
+        features=features,
     )
 
 
@@ -207,6 +261,8 @@ def batch_loss_fn(
     render_cfg: RenderConfig,
     train_cfg: TrainConfig,
     uv_taps: torch.Tensor | None = None,
+    decoder: dict | None = None,
+    features: FeatureConfig | None = None,
 ):
     """Mean L1+SSIM loss over a batch of views, rendered one after another.
 
@@ -229,7 +285,15 @@ def batch_loss_fn(
     the batch's images is the mean of the per-view losses up to the order
     of float sums. The demands and capacities are then the batch's
     (``pair_capacity`` B x ``max_pairs``, as the JAX package reports it).
+
+    With ``decoder`` (params carrying ``f_sem``) each view's loss adds
+    ``features.semantic_loss_weight`` times ``ops.losses.feature_loss`` of
+    its feature map against ``batch["teacher"][i]`` ([B, D, h, w]), and
+    the metrics gain ``feat_l1``; views go one at a time.
     """
+    if decoder is not None and train_cfg.batched_render:
+        raise ValueError("per-gaussian features train one view at a time: "
+                         "batched_render must be False")
     if train_cfg.batched_render:
         imgs, aux = render_batch_from_params(
             params, batch["c2w"], batch["fx"], batch["fy"], batch["cx"],
@@ -258,8 +322,8 @@ def batch_loss_fn(
                                            dim=0, dtype=torch.int32)
             metrics["max_radius"] = torch.amax(radii, dim=0)
         return total, metrics
-    totals, l1s, ssims, pairs, rows, tds, bds, radii = ([] for _ in
-                                                        range(8))
+    totals, l1s, ssims, pairs, rows, tds, bds, radii, feats = (
+        [] for _ in range(9))
     for i in range(batch["c2w"].shape[0]):
         img, aux = render_from_params(
             params, batch["c2w"][i], batch["fx"][i], batch["fy"][i],
@@ -269,6 +333,10 @@ def batch_loss_fn(
         total, comps = compute_loss(img, batch["image"][i],
                                     train_cfg.lambda_l1,
                                     train_cfg.lambda_ssim)
+        if decoder is not None:
+            fl = feature_loss(aux.features, batch["teacher"][i], decoder)
+            total = total + features.semantic_loss_weight * fl
+            feats.append(fl)
         totals.append(total)
         l1s.append(comps["l1"])
         ssims.append(comps["ssim"])
@@ -287,6 +355,8 @@ def batch_loss_fn(
         "pair_demand": torch.max(torch.stack(pairs)),
         "pair_capacity": render_cfg.max_pairs,
     }
+    if feats:
+        metrics["feat_l1"] = torch.mean(torch.stack(feats)).detach()
     if render_cfg.cull_mode == "ellipse":
         # The row stage's capacity: its overflow drops whole gaussians,
         # so fit() reads and grows it.
@@ -343,10 +413,14 @@ def value_and_grads(state: TrainState, batch: dict,
     pixels; the paper thresholds its statistic in NDC units (INRIA's
     ndc2Pix: d pix / d ndc = size / 2), so the scale keeps
     ``densify_grad_threshold`` at the paper's 2e-4 meaning.
+
+    A state with a decoder (a pool with features) adds the feature term
+    at ``state.features``' weight, and its grads hold the decoder's
+    leaves too.
     """
     pool = state.pool
     params = pool.params
-    for p in params.values():
+    for p in _leaves(state).values():
         p.grad = None
     taps = None
     if train_cfg.adc_mode == "paper":
@@ -355,7 +429,8 @@ def value_and_grads(state: TrainState, batch: dict,
                            requires_grad=True)
     loss, metrics = batch_loss_fn(
         apply_sh_warmup(params, state.step, train_cfg), pool.alive,
-        batch, render_cfg, train_cfg, uv_taps=taps,
+        batch, render_cfg, train_cfg, uv_taps=taps, decoder=state.decoder,
+        features=state.features,
     )
     with span("gs.backward"):
         loss.backward()
@@ -364,7 +439,7 @@ def value_and_grads(state: TrainState, batch: dict,
             g = taps.grad if taps.grad is not None else torch.zeros_like(taps)
             metrics["uv_grad_sum"] = tap_norm_sum(g, render_cfg)
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in params.items()}
+                 for k, p in _leaves(state).items()}
     return loss.detach(), metrics, grads
 
 
@@ -380,13 +455,13 @@ def apply_update(state: TrainState, loss: torch.Tensor, grads: dict,
     (new_state, metrics: ``total``, ``pos_grad`` and with ``nan_guard``
     ``nonfinite_skipped``)."""
     pool, opt = state.pool, state.opt_state
-    params = pool.params
+    params = _leaves(state)
     metrics = {}
     with span("gs.update"), torch.no_grad():
         grads = _clip_pos_grad(grads, train_cfg.grad_clip_pos, shard_sum)
-        # Dead slots must not drift.
+        # Dead slots must not drift (the decoder has no slots).
         grads = {
-            k: torch.where(
+            k: g if k in DECODER_KEYS else torch.where(
                 pool.alive.reshape((-1,) + (1,) * (g.dim() - 1)), g, 0.0)
             for k, g in grads.items()
         }
@@ -408,7 +483,7 @@ def apply_update(state: TrainState, loss: torch.Tensor, grads: dict,
         if train_cfg.nan_guard:
             metrics["nonfinite_skipped"] = _guard_nonfinite(
                 loss, grads, tensors, saved, grid_max)
-    new_state = TrainState(pool=pool, opt_state=opt, step=state.step + 1)
+    new_state = state._replace(step=state.step + 1)
     metrics.update(total=loss, pos_grad=grads["pos"])
     return new_state, metrics
 
@@ -419,7 +494,9 @@ def make_train_step(render_cfg: RenderConfig, train_cfg: TrainConfig):
 
     With ``train_cfg.adc_mode == "paper"`` the metrics also hold
     ``uv_grad_sum``, ``visible`` and ``max_radius`` (see
-    :func:`value_and_grads`).
+    :func:`value_and_grads`). A state whose pool carries features trains
+    Feature 3DGS with ``state.features``: its batches carry ``teacher``
+    maps, and the decoder is updated with the pool.
     """
     if train_cfg.adc_mode not in ("reference", "paper"):
         raise ValueError(f"unknown adc_mode {train_cfg.adc_mode!r}")
@@ -444,9 +521,13 @@ def reset_opt_state_slots(opt: torch.optim.Adam,
                           slot_mask: torch.Tensor) -> torch.optim.Adam:
     """Zero the Adam moments (``exp_avg``, ``exp_avg_sq``) of the slots
     the ADC rewrote, in every leaf; the step counts stay, as optax leaves
-    ``count``. In place; returns ``opt``."""
+    ``count``; the decoder's moments are not the slots'. In place;
+    returns ``opt``."""
     with torch.no_grad():
-        for st in opt.state.values():
+        for group in opt.param_groups:
+            if group["name"] in DECODER_KEYS:
+                continue
+            st = opt.state[group["params"][0]]
             for key in ("exp_avg", "exp_avg_sq"):
                 m = st[key]
                 m.masked_fill_(slot_mask.reshape((-1,) + (1,) * (m.dim() - 1)),
@@ -465,13 +546,16 @@ def map_capacity_leaves(state: TrainState, take) -> TrainState:
         params = {k: take(v.detach(), -10.0 if k == "opacity_raw" else 0.0)
                   for k, v in state.pool.params.items()}
         pool = GaussianPool(params, take(state.pool.alive, False))
-        opt = _rebuild_optimizer(old, pool.params)
-        for k, p_old in state.pool.params.items():
-            src, dst = old.state[p_old], opt.state[pool.params[k]]
+        opt = _rebuild_optimizer(old, {**pool.params,
+                                       **(state.decoder or {})})
+        for k, p_old in _leaves(state).items():
+            p_new = pool.params[k] if k in pool.params else p_old
+            src, dst = old.state[p_old], opt.state[p_new]
             dst["step"].copy_(src["step"])
             for key in ("exp_avg", "exp_avg_sq"):
-                dst[key].copy_(take(src[key], 0.0))
-    return TrainState(pool=pool, opt_state=opt, step=state.step)
+                dst[key].copy_(src[key] if k in DECODER_KEYS
+                               else take(src[key], 0.0))
+    return state._replace(pool=pool, opt_state=opt)
 
 
 def grow_state_capacity(state: TrainState, new_capacity: int) -> TrainState:
@@ -550,10 +634,18 @@ OPT_LEAVES = tuple(
 )
 
 
+# The optimizer fields of the leaves outside the JAX layout (``f_sem`` and
+# the decoder's), each saved as ``optx_<leaf>_<field>``.
+EXTRA_OPT_FIELDS = ("step", "exp_avg", "exp_avg_sq")
+
+
 def save_checkpoint(path, state: TrainState):
     """Single-file ``.npz`` checkpoint in the JAX package's layout:
     ``__step__``, ``__alive__``, ``__num_opt_leaves__`` (19),
-    ``param_<name>`` and ``opt_0`` .. ``opt_18`` (``OPT_LEAVES``)."""
+    ``param_<name>`` and ``opt_0`` .. ``opt_18`` (``OPT_LEAVES``). A pool
+    with features adds ``param_f_sem``, the decoder's ``decoder_dec_w``
+    and ``decoder_dec_b``, and each of those three leaves' Adam state as
+    ``optx_<leaf>_<field>`` (``EXTRA_OPT_FIELDS``)."""
     pool, opt = state.pool, state.opt_state
     leaves = []
     for k, field in OPT_LEAVES:
@@ -562,6 +654,14 @@ def save_checkpoint(path, state: TrainState):
             leaves.append(np.asarray(int(st["step"]), np.int32))
         else:
             leaves.append(st[field].detach().cpu().numpy())
+    extra = {}
+    for k, p in _leaves(state).items():
+        if k in PARAM_KEYS:
+            continue
+        st = opt.state[p]
+        extra[f"optx_{k}_step"] = np.asarray(int(st["step"]), np.int32)
+        for field in EXTRA_OPT_FIELDS[1:]:
+            extra[f"optx_{k}_{field}"] = st[field].detach().cpu().numpy()
     np.savez(
         path,
         __step__=np.asarray(int(state.step), np.int32),
@@ -570,6 +670,9 @@ def save_checkpoint(path, state: TrainState):
         **{f"param_{k}": v.detach().cpu().numpy()
            for k, v in pool.params.items()},
         **{f"opt_{i}": x for i, x in enumerate(leaves)},
+        **{f"decoder_{k}": v.detach().cpu().numpy()
+           for k, v in (state.decoder or {}).items()},
+        **extra,
     )
 
 
@@ -589,8 +692,9 @@ def restore_pool(path, device="cuda") -> GaussianPool:
 def load_checkpoint(path, state: TrainState) -> TrainState:
     """Restore a checkpoint on ``state``'s device: a new pool (of the
     file's capacity) and a new optimizer with ``state``'s LRs, holding the
-    file's moments and step counts. Refuses a file whose optimizer leaves
-    do not match (``OPT_LEAVES``) or whose two pos counts differ."""
+    file's moments and step counts (and a file's features and decoder,
+    which ``state`` must have had too). Refuses a file whose optimizer
+    leaves do not match (``OPT_LEAVES``) or whose two pos counts differ."""
     with np.load(path) as data:
         n = int(data["__num_opt_leaves__"])
         if n != len(OPT_LEAVES):
@@ -598,6 +702,10 @@ def load_checkpoint(path, state: TrainState) -> TrainState:
                 f"checkpoint has {n} optimizer leaves, expected "
                 f"{len(OPT_LEAVES)} (optimizer config changed?)")
         leaves = dict(zip(OPT_LEAVES, (data[f"opt_{i}"] for i in range(n))))
+        extra = {k[len("optx_"):]: data[k] for k in data.files
+                 if k.startswith("optx_")}
+        decoder = {k: data[f"decoder_{k}"] for k in DECODER_KEYS
+                   if f"decoder_{k}" in data.files}
         step = int(data["__step__"])
     if int(leaves["pos", "step"]) != int(leaves["pos", "schedule_step"]):
         raise ValueError(
@@ -606,19 +714,34 @@ def load_checkpoint(path, state: TrainState) -> TrainState:
             f"the port keeps one count")
     dev = state.pool.pos.device
     pool = restore_pool(path, device=dev)
-    opt = _rebuild_optimizer(state.opt_state, pool.params)
+    decoder = {k: torch.nn.Parameter(torch.from_numpy(v).to(dev))
+               for k, v in decoder.items()} or None
+    params = {**pool.params, **(decoder or {})}
+    if (FEATURE_KEY in params) != (state.decoder is not None):
+        raise ValueError(
+            "checkpoint and state disagree on features: "
+            f"file {'with' if FEATURE_KEY in params else 'without'}, state "
+            f"{'with' if state.decoder is not None else 'without'}")
+    opt = _rebuild_optimizer(state.opt_state, params)
     with torch.no_grad():
-        for k, p in pool.params.items():
+        for k, p in params.items():
             st = opt.state[p]
-            st["step"].fill_(float(leaves[k, "step"]))
+            if k in PARAM_KEYS:
+                got = {f: leaves[k, f] for f in ("step", "exp_avg",
+                                                 "exp_avg_sq")}
+            else:
+                got = {f: extra[f"{k}_{f}"] for f in EXTRA_OPT_FIELDS}
+            st["step"].fill_(float(got["step"]))
             for field in ("exp_avg", "exp_avg_sq"):
-                m = leaves[k, field]
+                m = got[field]
                 if m.shape != tuple(p.shape):
                     raise ValueError(f"checkpoint's {k} {field} has shape "
                                      f"{m.shape}, the parameter {tuple(p.shape)}")
                 st[field].copy_(torch.from_numpy(m))
-    return TrainState(pool=pool, opt_state=opt,
-                      step=torch.tensor(step, dtype=torch.int32, device=dev))
+    return state._replace(
+        pool=pool, opt_state=opt,
+        step=torch.tensor(step, dtype=torch.int32, device=dev),
+        decoder=decoder)
 
 
 # --------------------------------------------------------------------------

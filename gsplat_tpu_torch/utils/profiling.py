@@ -39,9 +39,12 @@ LAUNCH_WORDS = ("LaunchKernel", "Memcpy", "Memset")
 # Every span the program records, in nesting order: the root of a served
 # frame (the viewer's closures) and of a train step, the forward's stages,
 # then the loss, the backward (K2 and the keyed reduction run on
-# autograd's device thread inside it) and the update.
+# autograd's device thread inside it) and the update. A pool with
+# per-gaussian features adds the feature map (F1) after K1, its decoder
+# and L1 after the loss, and F2 after K2.
 SPANS = ("gs.frame", "gs.step", "gs.pose", "gs.cov_sh", "gs.project",
-         "gs.bin", "gs.gather", "gs.k1", "gs.loss", "gs.backward", "gs.k2",
+         "gs.bin", "gs.gather", "gs.k1", "gs.feat_k1", "gs.loss",
+         "gs.feat_loss", "gs.backward", "gs.k2", "gs.feat_k2",
          "gs.pair_grads", "gs.update")
 
 _OFF = contextlib.nullcontext()

@@ -337,6 +337,8 @@ def make_render_fn(params: dict, cfg: RenderConfig, fx, fy, cx, cy,
 
     With ``with_depth`` the closure returns (rgb, depth, alpha) planes.
     With ``report_demand`` it returns (img, probe[3]) — see _demand_probe.
+    Where ``params`` carry per-gaussian features (``f_sem``), ``img`` is
+    the pair (rgb [H, W, 3], the feature map [C, H, W]) of the pose.
     """
     from .render import render_from_params
 
@@ -345,10 +347,13 @@ def make_render_fn(params: dict, cfg: RenderConfig, fx, fy, cx, cy,
             img, aux = render_from_params(
                 params, c2w, fx, fy, cx, cy, cfg, alive=alive
             )
+            rgb = img
+            if aux.features is not None:
+                img = (rgb, aux.features)
             if with_depth:
                 return img, aux.depth, aux.alpha
             if report_demand:
-                return img, _demand_probe(img, aux)
+                return img, _demand_probe(rgb, aux)
             return img
 
     return fn
