@@ -27,8 +27,14 @@ Phases (any failure exits non-zero, with no result line):
      bit, F2 within FEAT_BWD_TOL in d f_sem and the six geometry rows,
      each kernel's time beside its plain version's and its bound, then
      FEAT_STEPS x FEAT_VIEWS views of make_train_step on that pool with a
-     decoder to 512 channels, F1's and F2's counters set to 0 first: one
-     launch of each a view;
+     decoder to 512 channels, F1's, F2's and the update's counters set to
+     0 first: one launch of each a view, and of U1 and U2 each;
+ 2d. the training update's kernels (update.cu: U1, the check, and U2, the
+     apply; update_phase): at the training cells' 2,959,677 slots of 59
+     and of 187 floats (with the 512 x 128 decoder), dead slots and the
+     clip engaged, against adam_update_plain bit for bit over two updates;
+     each kernel's time beside its bound by bytes (32 B a float in all)
+     and the plain version's time;
   3. K1, then K2 on a seeded cotangent, against their plain PyTorch versions
      on a seeded synthetic scene at 1920x1080 (K1 rows 0-5 bit-identical to
      the plain version; K1 writing its block-start state: output
@@ -61,7 +67,9 @@ Phases (any failure exits non-zero, with no result line):
      960x540 on the checkpoint with f_dc and opacity perturbed, ground truth
      rendered from the unperturbed checkpoint: the loss falls, no step is
      skipped, dead slots do not move, K1 and K2 launch views x steps times,
-     the binning kernels once a binned view, no pair overflow; step ms, per-view ms, peak device memory and the
+     the binning kernels once a binned view, U1 and U2 once each a step
+     (counted from 0), no pair overflow; step ms, per-view ms, the step's
+     parts (forward, backward, the update), peak device memory and the
      memory model's estimate within MEMORY_TOL of the step's own peak;
      then the comm model (python -m gsplat_tpu_torch.comm_model) fed this
      step's ms per view;
@@ -312,13 +320,15 @@ Phases (any failure exits non-zero, with no result line):
      counted). Printed: the line, each integer key beside the TPU v5e's
      (BENCH_r05.json), the in-bench and isolated fwd+bwd's agreement and
      the phase's seconds;
- 19. one JSON line {"kernels": [...]} (twenty-nine kernels: phase 14's
+ 19. one JSON line {"kernels": [...]} (thirty-three kernels: phase 14's
      ranges as their own entries; binning_emit, binning_sort and
      binning_align with their launches in phases 5 and 8, counted from 0
      there, and phase 2b's error and times; feat_fwd and feat_bwd with
      their launches in phase 2c's training steps, counted from 0 there,
-     and that phase's errors and times), the card line, and the final line {"ok": true, "device":
-     {...}}.
+     and that phase's errors and times; update_check and update_apply at
+     both of phase 2d's shapes, with the launches of phase 8's (rgb59)
+     and phase 2c's (feat187) training steps), the card line, and the
+     final line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -430,6 +440,10 @@ FEAT_SEED = 24
 # sequential and einsum order; each output sums up to a few hundred terms
 # of one sign or both, a few hundred float32 roundings of 6e-8 at most.
 FEAT_BWD_TOL = 1e-5
+# Phase 2d: the training update's kernels at the training cells' pool
+# (the Mip-NeRF 360 average of Kerbl et al., 2,959,677 slots).
+UPDATE_SLOTS = 2_959_677
+UPDATE_SEED = 25
 
 
 def kernel_resources(ptxas: str, kernel: str, log: bool = False,
@@ -715,11 +729,14 @@ def train_views(pool, bench_c2w, center, radius):
 
 
 def train_phase(pool, bench_c2w, center, radius, card):
-    """TRAIN_STEPS steps of the port's train step at 960x540, batch 4.
-    Returns (K1 launches, K2 launches, step ms, the parameters after the
-    steps, the binning kernels' launches in the steps)."""
+    """TRAIN_STEPS steps of the port's train step at 960x540, batch 4;
+    U1 and U2 (``ops.update.adam_update``, counted from 0) must launch
+    once each a step. Returns (K1 launches, K2 launches, step ms, the
+    parameters after the steps, the binning kernels' launches in the
+    steps, the update's launches)."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch.ops.raster_cuda import composite_pairs
+    from gsplat_tpu_torch.ops.update import adam_update
 
     from gsplat_tpu_torch.utils.memory import estimate_train_memory
 
@@ -740,6 +757,7 @@ def train_phase(pool, bench_c2w, center, radius, card):
     torch.cuda.reset_peak_memory_stats()
     composite_pairs.launches = 0
     composite_pairs.bwd_launches = 0
+    adam_update.launches = 0
     ms, metrics = [], []
     with BinCalls() as bins:
         for _ in range(TRAIN_STEPS):
@@ -749,6 +767,7 @@ def train_phase(pool, bench_c2w, center, radius, card):
             ms.append((time.perf_counter() - t0) * 1e3)
             metrics.append(m)
     k1, k2 = composite_pairs.launches, composite_pairs.bwd_launches
+    upd_n = adam_update.launches
     bin_n = bins.check(card, f"train {TRAIN_STEPS} steps")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["total"]) for m in metrics]
@@ -761,8 +780,8 @@ def train_phase(pool, bench_c2w, center, radius, card):
           f"{TRAIN_W}x{TRAIN_H}, {int(tpool.num_alive())} alive of "
           f"{tpool.capacity}: losses " + ", ".join(f"{v:.6f}" for v in losses)
           + f"; skipped {skipped}; pair demand {demand} of {cfg.max_pairs}; "
-          f"K1 launches {k1}, K2 launches {k2}; dead slots unchanged: "
-          f"{dead_same}", flush=True)
+          f"K1 launches {k1}, K2 launches {k2}, update (U1 + U2) launches "
+          f"{upd_n}; dead slots unchanged: {dead_same}", flush=True)
     print(f"[{card}] train step ms (host clock to synchronize): "
           + ", ".join(f"{t:.3f}" for t in ms) + f"; median of steps 2-"
           f"{TRAIN_STEPS} {step_ms:.3f} ms, per view "
@@ -772,7 +791,7 @@ def train_phase(pool, bench_c2w, center, radius, card):
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
             and skipped == [0] * TRAIN_STEPS and dead_same
             and k1 == k2 == views and max(demand) <= cfg.max_pairs
-            and bins.calls >= views):
+            and bins.calls >= views and upd_n == 2 * TRAIN_STEPS):
         raise SystemExit("FAIL: training phase")
     memory_line(card, f"the per-view step ({TRAIN_BATCH} views at "
                 f"{TRAIN_W}x{TRAIN_H})", other,
@@ -783,15 +802,17 @@ def train_phase(pool, bench_c2w, center, radius, card):
           f"checked steps): " + ", ".join(f"{k} {v:.3f} ms"
                                          for k, v in parts.items()),
           flush=True)
-    return k1, k2, step_ms, trained, bin_n
+    return k1, k2, step_ms, trained, bin_n, upd_n
 
 
 def train_parts_ms(state, batch, cfg, tcfg, reps=3):
     """Device time of a train step and of its parts: the forward of the
-    batch (renders + losses), its backward, Adam's update alone, and what
-    is left of the step (gradient clip and mask, the non-finite guard)."""
+    batch (renders + losses), its backward, the update (``apply_update``:
+    the position LR, then U1 and U2: clip, mask, guard and Adam), and what
+    is left of the step."""
     import gsplat_tpu_torch as gt
-    from gsplat_tpu_torch.train.trainer import apply_sh_warmup, batch_loss_fn
+    from gsplat_tpu_torch.train.trainer import (apply_sh_warmup,
+                                                apply_update, batch_loss_fn)
 
     params, alive = state.pool.params, state.pool.alive
     step = gt.make_train_step(cfg, tcfg)
@@ -809,14 +830,20 @@ def train_parts_ms(state, batch, cfg, tcfg, reps=3):
     def full_step():
         holder[0] = step(holder[0], batch)[0]
 
+    def update():  # on the last backward's gradients, re-clipped each time
+        loss = torch.zeros((), device=params["pos"].device)
+        apply_update(holder[0], loss, {k: p.grad for k, p in params.items()},
+                     tcfg)
+
     t = {}
     for name, fn in (("fwd", forward), ("fwd+bwd", forward_backward),
-                     ("adam", state.opt_state.step), ("step", full_step)):
+                     ("update", update), ("step", full_step)):
         fn()
         t[name] = float(np.median([device_ms(fn, 1) for _ in range(reps)]))
     return {"step": t["step"], "forward (4 views + loss)": t["fwd"],
-            "backward": t["fwd+bwd"] - t["fwd"], "Adam": t["adam"],
-            "clip + mask + guard": t["step"] - t["fwd+bwd"] - t["adam"]}
+            "backward": t["fwd+bwd"] - t["fwd"],
+            "update (U1 + U2)": t["update"],
+            "rest": t["step"] - t["fwd+bwd"] - t["update"]}
 
 
 def _state_snapshot(state) -> dict:
@@ -2620,9 +2647,11 @@ def feat_phase(dev, card):
     ``init_train_state`` over the pool with features and a drawn decoder,
     ``make_train_step``, FEAT_STEPS steps of FEAT_VIEWS views one at a time
     against teacher maps decoded from the unperturbed scene, with F1's and
-    F2's counters set to 0 first: one launch of each a view, finite losses,
-    no step skipped. Returns {"F1": entry, "F2": entry} with ms, plain_ms,
-    bound_ms, bound_by, max_abs_err (relative for F2) and launches."""
+    F2's counters set to 0 first: one launch of each a view, and of U1 and
+    U2 (``ops.update.adam_update``) each, finite losses, no step skipped.
+    Returns {"F1": entry, "F2": entry} with ms, plain_ms, bound_ms,
+    bound_by, max_abs_err (relative for F2) and launches, and
+    "update_launches"."""
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch import profile_binning as PB
     from gsplat_tpu_torch.models.gaussians import init_decoder
@@ -2631,6 +2660,7 @@ def feat_phase(dev, card):
     from gsplat_tpu_torch.ops.raster_cuda import (_composite_fwd,
                                                   composite_pairs,
                                                   composite_pairs_bwd)
+    from gsplat_tpu_torch.ops.update import adam_update
     from gsplat_tpu_torch.render import pair_demand
     from gsplat_tpu_torch.scene import make_scene
 
@@ -2771,6 +2801,7 @@ def feat_phase(dev, card):
     rf.composite_features.launches = 0
     rf.composite_features.bwd_launches = 0
     composite_pairs.launches = composite_pairs.bwd_launches = 0
+    adam_update.launches = 0
     losses, skipped = [], []
     for _ in range(FEAT_STEPS):
         for b in batches:
@@ -2781,20 +2812,136 @@ def feat_phase(dev, card):
     f1_n, f2_n = (rf.composite_features.launches,
                   rf.composite_features.bwd_launches)
     k1_n, k2_n = composite_pairs.launches, composite_pairs.bwd_launches
+    upd_n = adam_update.launches
     views = FEAT_STEPS * FEAT_VIEWS
     print(f"[{card}] Feature 3DGS training through make_train_step: "
           f"{views} views ({FEAT_STEPS} steps of {FEAT_VIEWS} views one at "
           f"a time), losses " + ", ".join(f"{v:.6f}" for v in losses)
           + f", skipped {skipped}; launches F1 {f1_n}, F2 {f2_n}, K1 "
-          f"{k1_n}, K2 {k2_n}; phase "
+          f"{k1_n}, K2 {k2_n}, update (U1 + U2) {upd_n}; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    if not (f1_n == f2_n == k1_n == k2_n == views
+    if not (f1_n == f2_n == k1_n == k2_n == views and upd_n == 2 * views
             and all(np.isfinite(losses)) and not any(skipped)):
         raise SystemExit("FAIL: Feature 3DGS training steps")
     entries["F1"]["launches"], entries["F2"]["launches"] = f1_n, f2_n
+    entries["update_launches"] = upd_n
     del state, pool, params, images, teacher, batches, step
     torch.cuda.empty_cache()
     return entries
+
+
+def update_shapes(dev, features, seed):
+    """The training cells' optimizer at UPDATE_SLOTS slots, as
+    ``init_train_state`` builds it (capturable), with moments and counts as
+    after four steps, 5 % of the slots dead, the position LR a tensor as
+    ``apply_update`` sets it, and seeded gradients (the clip engaged).
+    Returns (opt, alive, grads)."""
+    from gsplat_tpu_torch.config import FeatureConfig, TrainConfig
+    from gsplat_tpu_torch.train.trainer import make_optimizer, position_lr
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    widths = {"pos": 3, "scale_raw": 3, "q_raw": 4, "opacity_raw": 1,
+              "f_dc": 3, "f_rest": 45, **({"f_sem": FEAT_C} if features
+                                          else {})}
+    shapes = {k: (UPDATE_SLOTS,) if w == 1 else (UPDATE_SLOTS, w)
+              for k, w in widths.items()}
+    if features:
+        shapes.update(dec_w=(FEAT_D, FEAT_C), dec_b=(FEAT_D,))
+    params = {k: torch.nn.Parameter(torch.randn(s, generator=g, device=dev))
+              for k, s in shapes.items()}
+    tcfg = TrainConfig(capacity=UPDATE_SLOTS)
+    opt = make_optimizer(params, tcfg, FeatureConfig() if features else None)
+    for group in opt.param_groups:
+        st = opt.state[group["params"][0]]
+        st["exp_avg"].normal_(0.0, 1e-3, generator=g)
+        st["exp_avg_sq"].copy_(torch.randn(st["exp_avg_sq"].shape,
+                                           generator=g, device=dev) ** 2
+                               * 1e-6)
+        st["step"].fill_(4.0)
+        if group["name"] == "pos":
+            group["lr"] = position_lr(st["step"], tcfg)
+    alive = torch.rand(UPDATE_SLOTS, generator=g, device=dev) >= 0.05
+    grads = {k: torch.randn(s, generator=g, device=dev)
+             for k, s in shapes.items()}
+    return opt, alive, grads
+
+
+def update_phase(dev, card):
+    """Phase 2d: the training update's kernels (``ops/csrc/update.cu``) at
+    the training cells' leaf shapes, UPDATE_SLOTS slots of the six RGB
+    leaves (59 floats a slot) and of those with FEAT_C feature channels and
+    the FEAT_D x FEAT_C decoder (187 floats a slot and 66,048 more): U1 +
+    U2 against ``adam_update_plain`` (on the card, from clones) bit for
+    bit over two updates; then 20 updates timed with CUDA events (the
+    pair), 10 under ``torch.profiler`` for each kernel's own device time,
+    beside their bounds (U1 reads every gradient float and the alive mask;
+    U2 reads gradient, parameter and moments and writes the last three,
+    the mask read and the position gradient written back: 32 B a float in
+    all, at PEAK_BYTES) and the plain version's time. Returns the
+    ``kernels`` line's entries, by shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsplat_tpu_torch.ops.update import adam_update, adam_update_plain
+    from gsplat_tpu_torch.train.trainer import _optimizer_tensors
+
+    t_phase = time.perf_counter()
+    loss = torch.tensor(0.25, device=dev)
+    out = {}
+    for shape, features in (("rgb59", False), ("feat187", True)):
+        opt, alive, grads = update_shapes(dev, features, UPDATE_SEED)
+        floats = sum(p.numel() for grp in opt.param_groups
+                     for p in grp["params"])
+        ref, _, ref_grads = update_shapes(dev, features, UPDATE_SEED)
+        same = True
+        for _ in range(2):
+            k = adam_update(opt, grads, alive, loss, 1.0)
+            r = adam_update_plain(ref, ref_grads, alive, loss, 1.0)
+            same = same and int(k[0]) == int(r[0]) == 0 \
+                and torch.equal(k[1], r[1]) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        _optimizer_tensors(opt), _optimizer_tensors(ref)))
+        del ref, ref_grads, r
+        torch.cuda.empty_cache()
+        pair_ms = device_ms(lambda: adam_update(opt, grads, alive, loss, 1.0),
+                            20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                adam_update(opt, grads, alive, loss, 1.0)
+            torch.cuda.synchronize()
+        own = {"check": 0.0, "apply": 0.0}
+        for e in prof.key_averages():
+            for name in own:
+                if f"{name}_kernel" in e.key:
+                    own[name] += getattr(e, "device_time_total",
+                                         getattr(e, "cuda_time_total", 0.0))
+        own = {k: v / 10 / 1e3 for k, v in own.items()}  # us -> ms a call
+        plain_ms = device_ms(lambda: adam_update_plain(opt, grads, alive,
+                                                       loss, 1.0), 1)
+        pos = alive.numel() * 3
+        nbytes = {"check": 4 * floats + alive.numel(),
+                  "apply": 28 * floats + alive.numel() + 4 * pos}
+        bound = {k: v / PEAK_BYTES * 1e3 for k, v in nbytes.items()}
+        print(f"[{card}] update at {shape} ({floats} floats, "
+              f"{UPDATE_SLOTS} slots): kernels vs plain over two updates "
+              + ("bit for bit" if same else "DIFFER")
+              + f"; U1 + U2 {pair_ms:.4f} ms (CUDA events, 20 updates), "
+              f"bound {sum(bound.values()):.4f} ms by bytes "
+              f"({sum(nbytes.values()) / floats:.2f} B a float; share "
+              f"{100 * sum(bound.values()) / pair_ms:.1f} %); U1 "
+              f"{own['check']:.4f} ms (bound {bound['check']:.4f}), U2 "
+              f"{own['apply']:.4f} ms (bound {bound['apply']:.4f}) "
+              f"(torch.profiler, 10 updates); plain {plain_ms:.3f} ms",
+              flush=True)
+        if not same:
+            raise SystemExit(f"FAIL: the update's kernels at {shape}")
+        out[shape] = {k: {"ms": own[k], "plain_ms": plain_ms,
+                          "bound_ms": bound[k], "bound_by": "bytes",
+                          "max_abs_err": 0.0} for k in own}
+        del opt, grads, alive, prof
+        torch.cuda.empty_cache()
+    print(f"[{card}] phase 2d took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
 
 
 class BinCalls:
@@ -3748,6 +3895,16 @@ def _max_diff(a, b):
     return float((a.detach().float() - b.detach().float()).abs().max())
 
 
+def clip_pos_grad(grads: dict, max_norm: float) -> dict:
+    """The step's clip_grad_norm_ on the position leaf only (train.py:536),
+    written out with PyTorch operations for the banded references."""
+    g = grads["pos"]
+    norm = torch.sqrt(torch.sum(g * g))
+    out = dict(grads)
+    out["pos"] = g * torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    return out
+
+
 def banded_grads(pool, start, batch, rcfg, tcfg):
     """What the grid's step computes, in one process: each view's
     GRID_TILE bands rendered one after another (render_from_params, or
@@ -3757,7 +3914,7 @@ def banded_grads(pool, start, batch, rcfg, tcfg):
     import gsplat_tpu_torch as gt
     from gsplat_tpu_torch.ops.losses import compute_loss
     from gsplat_tpu_torch.parallel import band_config
-    from gsplat_tpu_torch.train.trainer import _clip_pos_grad, tap_norm_sum
+    from gsplat_tpu_torch.train.trainer import tap_norm_sum
 
     dev = pool.pos.device
     params = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
@@ -3797,7 +3954,7 @@ def banded_grads(pool, start, batch, rcfg, tcfg):
         loss = torch.mean(torch.stack(totals))
     loss.backward()
     with torch.no_grad():
-        grads = _clip_pos_grad({k: p.grad for k, p in params.items()},
+        grads = clip_pos_grad({k: p.grad for k, p in params.items()},
                                tcfg.grad_clip_pos)
         grads = {k: torch.where(pool.alive.reshape(
             (-1,) + (1,) * (g.dim() - 1)), g, 0.0) for k, g in grads.items()}
@@ -4160,7 +4317,7 @@ def banded_gauss(pool, start, batch, rcfg, tcfg, n_tile):
     from gsplat_tpu_torch.ops.sh import evaluate_sh
     from gsplat_tpu_torch.parallel import band_config, band_localize
     from gsplat_tpu_torch.render import stack_view_projections
-    from gsplat_tpu_torch.train.trainer import _clip_pos_grad, tap_norm_sum
+    from gsplat_tpu_torch.train.trainer import tap_norm_sum
 
     dev = pool.pos.device
     params = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
@@ -4220,7 +4377,7 @@ def banded_gauss(pool, start, batch, rcfg, tcfg, n_tile):
         radii = torch.stack(radii)
     loss.backward()
     with torch.no_grad():
-        grads = _clip_pos_grad({k: p.grad for k, p in params.items()},
+        grads = clip_pos_grad({k: p.grad for k, p in params.items()},
                                tcfg.grad_clip_pos)
         grads = {k: torch.where(pool.alive.reshape(
             (-1,) + (1,) * (g.dim() - 1)), g, 0.0) for k, g in grads.items()}
@@ -5123,6 +5280,9 @@ def main():
     # --- 2c. Feature 3DGS's compositors, F1 and F2 ---
     feat = feat_phase(dev, card)
 
+    # --- 2d. the training update's kernels, U1 and U2 ---
+    upd = update_phase(dev, card)
+
     # --- 3. kernel vs plain, synthetic scene ---
     cfg = gt.RenderConfig(height=H, width=W, max_pairs=MAX_PAIRS)
     fx = fy = 0.85 * W
@@ -5275,8 +5435,8 @@ def main():
     del gparams
 
     # --- 8. training through the port's entry points ---
-    train_k1, train_k2, train_ms, trained, train_bin_n = train_phase(
-        pool, c2w, center, radius, card)
+    train_k1, train_k2, train_ms, trained, train_bin_n, train_upd_n = \
+        train_phase(pool, c2w, center, radius, card)
     # The comm model, fed this card's step per view (no card beyond it).
     from gsplat_tpu_torch import comm_model
 
@@ -5482,6 +5642,16 @@ def main():
         **feat[k],
         "library_ms": None,
     } for k, name in (("F1", "feat_fwd"), ("F2", "feat_bwd"))]
+    kernels += [{
+        "name": f"update_{k}[{shape}]",
+        "route": "cuda",
+        "source": "gsplat_tpu_torch/ops/csrc/update.cu",
+        "replaces": "none (the JAX package updates with optax under XLA)",
+        "launches": (train_upd_n if shape == "rgb59"
+                     else feat["update_launches"]) // 2,
+        **upd[shape][k],
+        "library_ms": None,
+    } for shape in ("rgb59", "feat187") for k in ("check", "apply")]
     print(json.dumps({"kernels": kernels}))
     print(device_label(dev))
     print(json.dumps({"ok": True, "device": {

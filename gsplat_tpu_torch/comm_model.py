@@ -21,7 +21,7 @@ JAX's:
   this shard's rows (no ``n_tile`` division), are all-reduced over
   ``data``; the losses over ``data``; the worst demand and ring overflow
   (three int32) over the grid; the position clip's sum of squares (one
-  float) over ``tile`` and the NaN guard's flag (one int32) over the grid;
+  float) over ``tile`` and the NaN guard's flag (one float) over the grid;
 * the ring (``ring=True``): in place of the all-gather, ``tile - 1``
   permutes of the shard's float features forward and as many of their
   cotangent backward, and ``tile - 1`` of its int32 fields, each an

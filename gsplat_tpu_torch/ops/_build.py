@@ -164,6 +164,19 @@ FUNCTIONS = {
                            ctypes.c_longlong, ctypes.c_void_p,
                            ctypes.c_void_p], ctypes.c_int),
     },
+    "update": {
+        # update_check(table, work, stream) -> cudaError_t (U1);
+        # update_apply(table, work, skipped, stream) -> cudaError_t (U2).
+        # table: ops/update.py's _Table, by reference; work:
+        # update_work_bytes() bytes, zeroed once; skipped: [] int32, may
+        # be null
+        "update_check": ([ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p], ctypes.c_int),
+        "update_apply": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p], ctypes.c_int),
+        "update_work_bytes": ([], ctypes.c_longlong),
+        "update_table_bytes": ([], ctypes.c_longlong),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -6,14 +6,18 @@ Counterpart of ``gsplat_tpu/train/trainer.py:43-582``:
 * per-parameter Adam groups (eps = ``adam_eps``) with the reference LRs
   (pos on the exponential schedule with its 1 %-delay phase, opacity,
   f_dc, f_rest = feature_lr / 20, scale, rotation): ``torch.optim.Adam``,
-  one parameter group per leaf, ``foreach`` and ``fused`` off;
+  one parameter group per leaf, holds the state (moments and counts) but
+  does not step: ``ops.update.adam_update`` updates every leaf at once
+  (on CUDA two hand-written kernels, ``csrc/update.cu``: one read of the
+  gradients, then one pass over gradient, parameter and moments);
 * the position LR reads the OPTIMIZER's own update count, 0 at the first
   update (optax ``scale_by_learning_rate(schedule)``);
 * the position gradient is L2-clipped at ``grad_clip_pos``, then dead
-  slots' gradients are zeroed;
-* with ``nan_guard``, a non-finite loss or gradient restores the
-  parameters, the Adam moments and the Adam step counts on the device,
-  with no host sync, and the step reports ``nonfinite_skipped``;
+  slots' gradients are zeroed, inside that update;
+* with ``nan_guard``, a non-finite loss or gradient makes the update
+  write no parameter, Adam moment or step count (decided on the device,
+  with no host sync, and no copy kept), and the step reports
+  ``nonfinite_skipped``;
 * the views of a batch are rendered one after the other (``lax.scan``
   becomes a Python loop) and the loss is the mean of the per-view losses,
   or, with ``batched_render``, all at once through one binning and one
@@ -60,6 +64,7 @@ from ..models.adc import (densify_and_prune, densify_and_prune_paper,
                           raise_low_opacity)
 from ..models.gaussians import PARAM_KEYS, GaussianPool, pool_from_numpy
 from ..ops.losses import compute_loss, feature_loss
+from ..ops.update import adam_update
 from ..render import render_batch_from_params, render_from_params
 from ..utils.profiling import span
 
@@ -194,41 +199,6 @@ def init_train_state(pool: GaussianPool, cfg: TrainConfig,
         decoder=decoder,
         features=features,
     )
-
-
-def _guard_nonfinite(loss, grads: dict, tensors: list, saved: list,
-                     grid_max=None):
-    """Keep the previous values of ``tensors`` (the parameters and the
-    optimizer's moments and counts, ``saved`` before the update) when the
-    loss or any gradient is non-finite: each is overwritten in place by
-    ``where(finite, new, old)`` on its device, with no host sync. With
-    ``grid_max`` (an in-place MAX over every rank that applies the update)
-    the non-finite flag is decided over all of them, so that no shard of
-    a sharded pool skips an update that the others apply. Returns the
-    skipped flag, [] int32."""
-    finite = torch.isfinite(loss)
-    for g in grads.values():
-        finite = finite & torch.all(torch.isfinite(g))
-    if grid_max is not None:
-        finite = grid_max((~finite).to(torch.int32).reshape(1))[0] == 0
-    for new, old in zip(tensors, saved):
-        new.copy_(torch.where(finite.to(new.device), new, old))
-    return torch.where(finite, 0, 1).to(torch.int32)
-
-
-def _clip_pos_grad(grads: dict, max_norm: float, shard_sum=None) -> dict:
-    """clip_grad_norm_ on the position leaf only (train.py:536). With
-    ``shard_sum`` (an in-place SUM over the ranks that hold the pool's
-    other rows) the norm is the whole pool's."""
-    g = grads["pos"]
-    sq = torch.sum(g * g)
-    if shard_sum is not None:
-        sq = shard_sum(sq.reshape(1))[0]
-    norm = torch.sqrt(sq)
-    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-    out = dict(grads)
-    out["pos"] = g * scale
-    return out
 
 
 def sh_warmup_mask(step, cfg: TrainConfig):
@@ -446,45 +416,35 @@ def value_and_grads(state: TrainState, batch: dict,
 def apply_update(state: TrainState, loss: torch.Tensor, grads: dict,
                  train_cfg: TrainConfig, shard_sum=None, grid_max=None):
     """One optimizer update from the batch's loss and gradients, in
-    place: the position gradient clipped at ``grad_clip_pos``, dead
-    slots' gradients zeroed, the position LR read from the optimizer's
-    own count, Adam, and with ``nan_guard`` the restore of a non-finite
-    update. On a gaussian-sharded pool ``shard_sum`` sums the clip's
-    sum of squares over the shards and ``grid_max`` decides the NaN
-    guard over every rank (both in-place all-reduces). Returns
-    (new_state, metrics: ``total``, ``pos_grad`` and with ``nan_guard``
-    ``nonfinite_skipped``)."""
-    pool, opt = state.pool, state.opt_state
-    params = _leaves(state)
+    place (:func:`ops.update.adam_update`): the position gradient clipped
+    at ``grad_clip_pos``, dead slots' gradients zeroed, the position LR
+    read from the optimizer's own count, Adam, and with ``nan_guard`` no
+    write at all where the step is non-finite. On a gaussian-sharded pool
+    ``shard_sum`` sums the clip's sum of squares over the shards and
+    ``grid_max`` decides the NaN guard over every rank (both in-place
+    all-reduces). Each leaf's ``.grad`` is left as the gradient the update
+    took: the position leaf's clipped and masked in place, the others as
+    they came (dead slots' rows unmasked). Returns (new_state, metrics:
+    ``total``, ``pos_grad``, the clipped and masked position gradient,
+    and with ``nan_guard`` ``nonfinite_skipped``)."""
+    opt = state.opt_state
     metrics = {}
     with span("gs.update"), torch.no_grad():
-        grads = _clip_pos_grad(grads, train_cfg.grad_clip_pos, shard_sum)
-        # Dead slots must not drift (the decoder has no slots).
-        grads = {
-            k: g if k in DECODER_KEYS else torch.where(
-                pool.alive.reshape((-1,) + (1,) * (g.dim() - 1)), g, 0.0)
-            for k, g in grads.items()
-        }
-        for k, p in params.items():
-            p.grad = grads[k]
         # The position schedule reads the optimizer's own update count.
         for group in opt.param_groups:
             if group["name"] == "pos":
-                lr = position_lr(opt.state[params["pos"]]["step"], train_cfg)
+                lr = position_lr(opt.state[group["params"][0]]["step"],
+                                 train_cfg)
                 group["lr"] = lr if group["capturable"] else float(lr)
+        skipped, pos_grad = adam_update(
+            opt, grads, state.pool.alive, loss, train_cfg.grad_clip_pos,
+            shard_sum, grid_max, nan_guard=train_cfg.nan_guard)
+        for group in opt.param_groups:  # the gradients the update took
+            group["params"][0].grad = grads[group["name"]]
         if train_cfg.nan_guard:
-            tensors = _optimizer_tensors(opt)
-            saved = [t.clone() for t in tensors]
-        with warnings.catch_warnings():
-            # capturable=True keeps the counts on the device; it is not
-            # used for graph capture here, which Adam warns about.
-            warnings.filterwarnings("ignore", message=".*capturable=True.*")
-            opt.step()
-        if train_cfg.nan_guard:
-            metrics["nonfinite_skipped"] = _guard_nonfinite(
-                loss, grads, tensors, saved, grid_max)
+            metrics["nonfinite_skipped"] = skipped
     new_state = state._replace(step=state.step + 1)
-    metrics.update(total=loss, pos_grad=grads["pos"])
+    metrics.update(total=loss, pos_grad=pos_grad)
     return new_state, metrics
 
 

@@ -38,8 +38,8 @@ Every term is a tensor's shape times its dtype's size (the ``*_mb`` keys,
   its mask, the int64 key, the sort's values and indices and the radix
   sort's alternate buffers), and the SSIM map's temporaries;
 * the state: parameters, Adam's two moments, the batch's ground truth on
-  the device, the gradients and, at the update, the clipped and masked
-  gradients and the NaN guard's copies of parameters and moments.
+  the device and, at the update, the gradients (the update,
+  ``ops.update.adam_update``, works in place and keeps no copy).
 
 The peak is the largest of the step's phases: the last list's binning and
 its gather, the loss at the end of the forward, the first compositor
@@ -172,7 +172,7 @@ def _train_parts(cfg: RenderConfig, train_cfg: TrainConfig, n: int,
         "gather": before + (4 + GATHER_BYTES_PER_SLOT) * last.padded_pairs,
         "loss": state + held + ssim_tmp,
         "backward": state + held - loss_last + backward,
-        "update": state + 3 * params + 3 * params * train_cfg.nan_guard,
+        "update": state + params,
     }
     peak = max(phases, key=phases.get)
     return {"held_lists": held_lists, "held_gauss": gauss, "held_loss": loss,
