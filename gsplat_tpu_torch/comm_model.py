@@ -49,8 +49,9 @@ port's grid has not run NCCL across several cards, so no rate below is
 measured.
 
 Compute (the ``--step_ms_per_view`` flag): the port's single-card train
-step per view on the H100 (``chip_smoke.py`` passes the one it has just
-measured); without it only the volumes and the link times are printed.
+step per view on the H100 (1000 / a training cell's ``train_views_per_s``
+in ``PERF_LEDGER.jsonl``); without it only the volumes and the link times
+are printed.
 The band step repeats the per-gaussian stages (covariance, SH,
 projection) on every tile rank, a share ``--band_nonscaling`` of the step
 that does not shrink with ``tile``; its default, 0.217, is that share of

@@ -79,8 +79,8 @@
 // warp skips the pair when that q exceeds t on all 4 rows (NaN reaches).
 // This is the least q over each row's pixel segment, not the ellipse's
 // bounding box: at the trained scene's 1080p bench pose it skips nearly
-// every (pair, warp) whose alphas are all zero (chip_smoke.py prints both
-// shares); a bounding-box test skips fewer. Its plain version is
+// every (pair, warp) whose alphas are all zero (raster_cuda.py::cull_audit
+// counts both); a bounding-box test skips fewer. Its plain version is
 // raster_cuda.py::pair_warp_reach.
 //
 // Transmittance, a compile-time template parameter (kLog), so the
@@ -111,8 +111,8 @@
 // ones included (gsplat_tpu_torch/profile_kernel.py: bound_ms). The bytes
 // bind at the trained scene's 1080p bench pose, the operations on the
 // profiler's denser workload. The TPU kernel computes every (pair, pixel)
-// of a composited block; chip_smoke.py and the profiler print that figure
-// beside the bound.
+// of a composited block; the profiler prints that figure beside the
+// bound.
 // Tiles stay unbalanced (a CTA's time grows with its tile's active depth);
 // the tile order only starts the deepest first.
 //

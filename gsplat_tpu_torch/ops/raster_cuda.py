@@ -242,8 +242,7 @@ def pair_warp_reach(f, tiles, cfg: RenderConfig, rational: bool = False):
     pair when that q exceeds ``t`` (:func:`_reach_threshold`) on every row.
     Conservative: a skipped pair has alpha == 0 at all 32 pixels of the
     warp, so skipping it changes no bit of K1's output. Serving and
-    training never call this; the tests, ``chip_smoke.py`` and the
-    profiler's bounds do (through :func:`cull_audit`). ``rational``: the
+    training never call this; the tests and the profiler's bounds do (through :func:`cull_audit`). ``rational``: the
     no-transc ablation's cull (its own alpha's threshold).
     """
     t, m = _reach_threshold(f, cfg, rational)

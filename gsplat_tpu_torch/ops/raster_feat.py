@@ -210,27 +210,6 @@ def composite_features_bwd_plain(pair_feat, pair_slot, depth_order, f_sem,
     return dfs
 
 
-def weight_counts(pair_feat, tile_start, fwd_out, cfg: RenderConfig):
-    """(the composited (pair, pixel) whose weight is not 0, the pairs with
-    such a pixel) of the frame K1 composited into ``fwd_out``: what F1 and
-    F2 at least work on, counted on K1's walk as the plain versions take
-    it (plain PyTorch, any device)."""
-    dev = pair_feat.device
-    T = torch.ones(cfg.num_tiles, cfg.tile * cfg.tile, dtype=torch.float32,
-                   device=dev)
-    px, py = rc._tile_pixels(torch.arange(cfg.num_tiles, device=dev), cfg)
-    pair_pixels = contrib = torch.zeros((), dtype=torch.int64, device=dev)
-    for idx, pcol in _walk(fwd_out, tile_start, cfg):
-        alpha = rc._block_alpha(pair_feat[:rc.FEAT_ROWS, pcol], px[idx],
-                                py[idx], cfg)[0]
-        T_excl, T_out = rc._block_transmittance(alpha, T[idx], cfg)
-        nz = (T_excl > cfg.transmittance_min) & (alpha > 0)  # [m, G, P]
-        pair_pixels = pair_pixels + nz.sum()
-        contrib = contrib + nz.any(dim=2).sum()
-        T[idx] = T_out
-    return int(pair_pixels), int(contrib)
-
-
 def _check_tensors(pair_feat, pair_slot, depth_order, f_sem, tile_start,
                    fwd_out, cfg: RenderConfig, **more):
     # (no tile_count: the blocks walked are K1's row 5)

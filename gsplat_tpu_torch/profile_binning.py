@@ -41,8 +41,7 @@ trained checkpoint (about 120k gaussians) on a 4.4-radius orbit, and
 ``scene.make_scene`` at Kerbl et al.'s Mip-NeRF 360 average count
 (:data:`GARDEN_GAUSSIANS`) from poses near the origin camera, each
 sized to its demand with 1.2x headroom. The card tests
-(``tests/test_torch_gpu_binning.py``) and ``chip_smoke.py`` both run
-them.
+(``tests/test_torch_gpu_binning.py``) run them.
 
 The JAX labels are kept where the operation has a counterpart (``sort``,
 ``corners``, ``argsortN``, ``bin-full``, ``bin-trunc``, ``gather``,

@@ -49,9 +49,6 @@ from __future__ import annotations
 
 import argparse
 import functools
-import os
-import re
-import subprocess
 import time
 
 import numpy as np
@@ -130,61 +127,6 @@ ISOLATES = {
     "empty": "all of a block's work: read, staging, cull, walk, barriers",
 }
 
-# The probe kernels that transcendental_instructions compiles: each
-# function alone between a load and a store, and a bare copy.
-_PROBE_SRC = r"""
-extern "C" __global__ void probe_copy(const float* x, float* y) {
-  y[threadIdx.x] = x[threadIdx.x];
-}
-extern "C" __global__ void probe_expf(const float* x, float* y) {
-  y[threadIdx.x] = expf(x[threadIdx.x]);
-}
-extern "C" __global__ void probe_log1pf(const float* x, float* y) {
-  y[threadIdx.x] = log1pf(x[threadIdx.x]);
-}
-"""
-
-
-def transcendental_instructions() -> dict:
-    """{"expf": n, "log1pf": n}: the SASS instructions each function
-    compiles to with the kernels' flags (``nvcc -cubin`` of a probe kernel
-    per function, ``cuobjdump -sass``, the copy probe's count subtracted;
-    NOPs not counted). The "log" transmittance's bound counts them so.
-    Needs ``nvcc`` and ``cuobjdump`` (the card's machine)."""
-    from .ops import _build
-
-    nvcc = _build.find_nvcc()
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    d = _build.BUILD_ROOT / "probe_transc"
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "probe.cu").write_text(_PROBE_SRC)
-    subprocess.run([nvcc, "-cubin", *_build.NVCC_FLAGS[:2], "-O3",
-                    "-fmad=false", "-o", str(d / "probe.cubin"),
-                    str(d / "probe.cu")], check=True, capture_output=True,
-                   timeout=300)
-    sass = subprocess.run([cuobjdump, "-sass", str(d / "probe.cubin")],
-                          check=True, capture_output=True, text=True,
-                          timeout=300).stdout
-    counts = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
-        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
-                         part)
-        counts[name] = sum(op != "NOP" for op in ops)
-    return {f: counts[f"probe_{f}"] - counts["probe_copy"]
-            for f in ("expf", "log1pf")}
-
-
-def log_ops_per_pair_pixel(base: int, instr: dict) -> int:
-    """Operations per (pair, pixel) of a compositor with the "log"
-    transmittance (``transmittance_math="log"``) whose "cumprod" form
-    counts ``base``: the product T * (1 - alpha) (2) out; log1pf and a
-    second expf in, each as the instructions it compiles to (``instr``,
-    from :func:`transcendental_instructions`), and S + s, S - s and the
-    product with T_in (3)."""
-    return base - 2 + 3 + instr["log1pf"] + instr["expf"]
-
-
 def make_workload(cfg: RenderConfig, blocks_per_tile: int, seed: int = 0):
     """The JAX script's synthetic workload (``scripts/profile_kernel.py``,
     ``main``): every tile owns ``blocks_per_tile`` consecutive full blocks;
@@ -220,8 +162,7 @@ def make_workload(cfg: RenderConfig, blocks_per_tile: int, seed: int = 0):
     return torch.from_numpy(feat), tile_start, tile_count
 
 
-def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None,
-             ops_per_pair_pixel=None):
+def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None):
     """(least time on one H100 in ms, "bytes" or "operations") for the
     variant over ``blocks`` composited blocks: each input byte read once
     and each output byte written once at 3.35 TB/s, against the operations
@@ -233,11 +174,10 @@ def bound_ms(name: str, blocks: int, cfg: RenderConfig, reached=None,
     :func:`reached_pair_warps`) counts 32 pixels for each reached (pair,
     warp) plus the cull's operations; without it every (pair, pixel)
     counts, the TPU kernel's work, as it always does for no-input, which
-    walks every pair. ``ops_per_pair_pixel`` replaces the variant's count
-    (K1 in the "log" form: :func:`log_ops_per_pair_pixel`).
+    walks every pair.
     """
     G, P = cfg.pair_block, cfg.tile * cfg.tile
-    per = ops_per_pair_pixel or OPS_PER_PAIR_PIXEL.get(name)
+    per = OPS_PER_PAIR_PIXEL.get(name)
     out_bytes = cfg.num_tiles * 8 * P * 4
     if name == "empty":
         ops, nbytes = 0, out_bytes

@@ -22,8 +22,8 @@ prints:
 Stage times are device times on a card (CUDA events behind a busy stream,
 ``profile_kernel.device_ms``) and host-clock times on the CPU, labelled
 so. ``--cull_mode ellipse`` (with ``--max_rows``) profiles the ellipse
-cull's binning. :func:`serving_path`, :func:`stage_ms`, :func:`bwd_parts_ms`
-and :func:`bench_pose` are also the timers ``chip_smoke.py`` uses.
+cull's binning. :func:`serving_path`, :func:`record_backward` and
+:func:`bench_pose` are also the card tests' (``tests/test_torch_gpu*.py``).
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ gsplat_tpu_torch.make_bench_asset``) against ``scripts/make_bench_asset.sh``.
   port's ``restore_pool`` read the port's asset alike (exact);
 * ``build`` refuses the repository's ``bench_assets/`` before it trains.
 
-The full recipe needs the card (``chip_smoke.py`` phase 17); ``fit()``'s
+The full recipe needs the card (``tests/test_torch_gpu_flows.py``); ``fit()``'s
 parity with JAX, its ADC counts included, is ``tests/test_torch_fit.py``'s.
 """
 

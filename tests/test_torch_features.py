@@ -496,27 +496,53 @@ def cuda():
     return gt.resolve_device("cuda")
 
 
-def _card_inputs(dev, n=200_000, height=840, width=1297):
-    """A scene at the benchmark cell's image size, its K1 frame and state."""
-    r = np.random.default_rng(5)
-    p = {"pos": np.stack([r.uniform(-4, 4, n), r.uniform(-2.5, 2.5, n),
-                          r.uniform(3, 12, n)], -1),
-         "scale_raw": r.normal(0, 0.3, (n, 3)) - 3.0,
-         "q_raw": r.normal(0, 1, (n, 4)) + np.array([0, 0, 0, 2]),
-         "opacity_raw": r.normal(0.5, 1, n),
-         "f_dc": r.normal(0, 0.8, (n, 3)),
-         "f_rest": r.normal(0, 0.05, (n, 45)),
-         "f_sem": r.normal(0, 1, (n, C))}
-    p = {k: torch.tensor(v, dtype=torch.float32, device=dev)
-         for k, v in p.items()}
-    cfg = RenderConfig(height=height, width=width, max_pairs=2**23)
+def _garden(dev):
+    """The 3 M garden scene (the training cells' pool, ``scene.make_scene``)
+    with ``f_sem`` ~ N(0, 1) of C channels, its first two poses at the
+    feature cell's 1297x840, max_pairs sized to their demand: (params,
+    poses, (fx, fy, cx, cy), cfg)."""
+    from gsplat_tpu_torch import profile_binning as PB
+    from gsplat_tpu_torch.render import pair_demand
+    from gsplat_tpu_torch.scene import make_scene
+
+    params = make_scene(PB.GARDEN_GAUSSIANS, 24, dev)
+    g = torch.Generator(device=dev).manual_seed(24)
+    params["f_sem"] = torch.randn(params["pos"].shape[0], C, generator=g,
+                                  device=dev)
+    cam = (0.85 * 1297, 0.85 * 1297, 1297 / 2.0, 840 / 2.0)
+    poses = [PB._origin_pose(*p) for p in PB.GARDEN_POSES[:2]]
+    cfg = RenderConfig(height=840, width=1297, max_pairs=4096)
+    demand = max(int(pair_demand(params, c, *cam, cfg)[0]) for c in poses)
+    return params, poses, cam, cfg.with_(max_pairs=PB._sized(demand))
+
+
+def _card_inputs(dev, scene="200k", n=200_000, height=840, width=1297):
+    """A scene at the benchmark cell's image size, its K1 frame and state:
+    200k random gaussians from the origin camera, or the 3 M garden scene
+    (:func:`_garden`) from its first pose."""
+    if scene == "garden3m":
+        p, poses, cam, cfg = _garden(dev)
+        c2w = torch.from_numpy(poses[0]).to(dev)
+    else:
+        r = np.random.default_rng(5)
+        p = {"pos": np.stack([r.uniform(-4, 4, n), r.uniform(-2.5, 2.5, n),
+                              r.uniform(3, 12, n)], -1),
+             "scale_raw": r.normal(0, 0.3, (n, 3)) - 3.0,
+             "q_raw": r.normal(0, 1, (n, 4)) + np.array([0, 0, 0, 2]),
+             "opacity_raw": r.normal(0.5, 1, n),
+             "f_dc": r.normal(0, 0.8, (n, 3)),
+             "f_rest": r.normal(0, 0.05, (n, 45)),
+             "f_sem": r.normal(0, 1, (n, C))}
+        p = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in p.items()}
+        cfg = RenderConfig(height=height, width=width, max_pairs=2**23)
+        c2w = torch.eye(4, device=dev)
+        cam = (0.85 * width, 0.85 * width, width / 2, height / 2)
     from gsplat_tpu_torch.ops.binning import bin_gaussians
     from gsplat_tpu_torch.ops.gaussian import build_cov3d_packed
     from gsplat_tpu_torch.ops.projection import project_gaussians
     from gsplat_tpu_torch.ops.sh import evaluate_sh
-    c2w = torch.eye(4, device=dev)
-    cam = [torch.tensor(v, device=dev) for v in
-           (0.85 * width, 0.85 * width, width / 2, height / 2)]
+    cam = [torch.tensor(v, device=dev) for v in cam]
     with torch.no_grad():
         cov = build_cov3d_packed(p["scale_raw"], p["q_raw"])
         colors = evaluate_sh(p["f_dc"], p["f_rest"], p["pos"], c2w)
@@ -532,9 +558,13 @@ def _card_inputs(dev, n=200_000, height=840, width=1297):
     return p, cfg, bn, pf, out, state
 
 
+CARD_SCENES = ["200k", "garden3m"]
+
+
 @pytest.mark.gpu
-def test_f1_equals_its_plain_version_on_the_card(cuda):
-    p, cfg, bn, pf, out, _ = _card_inputs(cuda)
+@pytest.mark.parametrize("scene", CARD_SCENES)
+def test_f1_equals_its_plain_version_on_the_card(cuda, scene):
+    p, cfg, bn, pf, out, _ = _card_inputs(cuda, scene)
     with torch.no_grad():
         n0 = rf.composite_features.launches
         got = rf.composite_features(pf, bn.pair_slot, bn.depth_order,
@@ -548,11 +578,12 @@ def test_f1_equals_its_plain_version_on_the_card(cuda):
 
 
 @pytest.mark.gpu
-def test_f2_matches_its_plain_version_on_the_card(cuda):
+@pytest.mark.parametrize("scene", CARD_SCENES)
+def test_f2_matches_its_plain_version_on_the_card(cuda, scene):
     """F2 adds with float atomics in no fixed order; against the plain
     version's sums it agrees to 1e-5 of each output's largest value
     (measured 2e-6 at the benchmark cell's size)."""
-    p, cfg, bn, pf, out, state = _card_inputs(cuda)
+    p, cfg, bn, pf, out, state = _card_inputs(cuda, scene)
     g = torch.Generator(device=cuda).manual_seed(3)
     with torch.no_grad():
         fmap = rf.composite_features(pf, bn.pair_slot, bn.depth_order,
@@ -579,29 +610,78 @@ def test_f2_matches_its_plain_version_on_the_card(cuda):
     assert torch.equal(dk[6:], d0[6:])
 
 
+def _garden_training(dev):
+    """The garden scene (:func:`_garden`) as a training workload: a decoder
+    to 512 channels, each of the two poses one batch with the unperturbed
+    scene's frame and its decoded feature map at half size as ground
+    truth, the state over the scene with f_sem and opacity perturbed."""
+    from gsplat_tpu_torch.ops.losses import decode_features
+
+    p, poses, cam, cfg = _garden(dev)
+    g = torch.Generator(device=dev).manual_seed(25)
+    dec = init_decoder(C, 512, 24, dev)
+    with torch.no_grad():
+        batches = []
+        for c2w in poses:
+            img, aux = render_from_params(p, c2w, *cam, cfg)
+            batches.append({
+                "image": img[None], "c2w": torch.from_numpy(c2w[None]).to(dev),
+                "teacher": decode_features(aux.features, (420, 648), dec)[None],
+                **{k: torch.full((1,), v, device=dev)
+                   for k, v in zip(("fx", "fy", "cx", "cy"), cam)}})
+        for k in ("f_sem", "opacity_raw"):
+            p[k] += 0.1 * torch.randn(p[k].shape, generator=g, device=dev)
+    n = p["pos"].shape[0]
+    pool = GaussianPool(p, torch.ones(n, dtype=torch.bool, device=dev))
+    tcfg = TrainConfig(capacity=n, batch_size=1,
+                       densification_interval=10**9,
+                       opacity_reset_interval=10**9)
+    return ttr.init_train_state(pool, tcfg, FeatureConfig(), dec), \
+        ttr.make_train_step(cfg, tcfg), batches * 2
+
+
 @pytest.mark.gpu
-def test_a_feature_train_step_launches_f1_and_f2_once(cuda):
-    p = {k: v.to(cuda) for k, v in _scene(seed=15).items()}
-    c2w = _pose(15)
-    rgb, fmap, _ = fref.render(p, None, _rcam(c2w), rref.Renderer())
-    target = (rgb, fref.decode(fmap, (H // 2, W // 2), p["dec_w"],
-                               p["dec_b"]))
-    pool = GaussianPool({k: v.clone() for k, v in _gauss(p).items()},
-                        torch.ones(p["pos"].shape[0], dtype=torch.bool,
-                                   device=cuda))
-    tcfg = TrainConfig(capacity=pool.capacity)
-    st = ttr.init_train_state(pool, tcfg, decoder=_decoder(p))
-    batch = {k: v.to(cuda) for k, v in _batch(target, c2w).items()}
-    step = ttr.make_train_step(CFG, tcfg)
-    counts = (rf.composite_features.launches,
-              rf.composite_features.bwd_launches,
-              rc.composite_pairs.launches, rc.composite_pairs.bwd_launches)
-    st, m = step(st, batch)
+@pytest.mark.parametrize("scene", ["small", "garden3m"])
+def test_a_feature_train_step_launches_f1_and_f2_once(cuda, scene):
+    """make_train_step on a pool with features: F1, F2, K1 and K2 once a
+    view and U1 and U2 once each a step, counted from 0, finite losses,
+    no step skipped: one step of the small scene, and two steps of two
+    views one at a time on the 3 M garden scene at 1297x840 with a
+    decoder to 512 channels. Neither feature compositor spills."""
+    from gsplat_tpu_torch.ops.update import adam_update
+
+    if scene == "garden3m":
+        st, step, batches = _garden_training(cuda)
+    else:
+        p = {k: v.to(cuda) for k, v in _scene(seed=15).items()}
+        c2w = _pose(15)
+        rgb, fmap, _ = fref.render(p, None, _rcam(c2w), rref.Renderer())
+        target = (rgb, fref.decode(fmap, (H // 2, W // 2), p["dec_w"],
+                                   p["dec_b"]))
+        pool = GaussianPool({k: v.clone() for k, v in _gauss(p).items()},
+                            torch.ones(p["pos"].shape[0], dtype=torch.bool,
+                                       device=cuda))
+        tcfg = TrainConfig(capacity=pool.capacity)
+        st = ttr.init_train_state(pool, tcfg, decoder=_decoder(p))
+        batches = [{k: v.to(cuda) for k, v in _batch(target, c2w).items()}]
+        step = ttr.make_train_step(CFG, tcfg)
+    counters = ((rf.composite_features, "launches"),
+                (rf.composite_features, "bwd_launches"),
+                (rc.composite_pairs, "launches"),
+                (rc.composite_pairs, "bwd_launches"),
+                (adam_update, "launches"))
+    for obj, name in counters:
+        setattr(obj, name, 0)
+    losses = []
+    for batch in batches:
+        st, m = step(st, batch)
+        assert int(m["nonfinite_skipped"]) == 0
+        losses.append(float(m["total"]))
     torch.cuda.synchronize()
-    now = (rf.composite_features.launches, rf.composite_features.bwd_launches,
-           rc.composite_pairs.launches, rc.composite_pairs.bwd_launches)
-    assert [b - a for a, b in zip(counts, now)] == [1, 1, 1, 1]
-    assert int(m["nonfinite_skipped"]) == 0
+    views = len(batches)
+    assert [getattr(obj, name) for obj, name in counters] \
+        == [views] * 4 + [2 * views]
+    assert all(np.isfinite(losses))
     res = rf.feat_resources(cuda, 128)
     assert res["F1"]["local_bytes"] == 0 and res["F2"]["local_bytes"] == 0
 

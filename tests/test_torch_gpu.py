@@ -49,13 +49,16 @@ TF32 parts). The TF32 split on the card and its plain version: bit for
 bit.
 """
 
+import functools
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 import gsplat_tpu_torch as gt
+import torch_card_cases as C
 from gsplat_tpu_torch.ops import raster_ablate as tabl
 from gsplat_tpu_torch.ops import raster_cuda as tras
 from gsplat_tpu_torch.ops.binning import bin_gaussians
@@ -64,6 +67,7 @@ from gsplat_tpu_torch.ops.projection import project_gaussians
 from gsplat_tpu_torch.ops.rasterize import _pair_features, gather_pair_features
 from gsplat_tpu_torch.ops.sh import evaluate_sh
 from gsplat_tpu_torch.profile_kernel import make_workload
+from gsplat_tpu_torch.profile_stages import serving_path
 
 # One intra-op thread: the suite's xdist workers run side by side, and
 # torch's default of one thread per core each oversubscribes the CPU.
@@ -123,21 +127,90 @@ def _active_slots(b, fwd_out, cfg):
     return active.repeat_interleave(G)
 
 
-@pytest.mark.parametrize("pair_block", [32, 128, 256])
-@pytest.mark.parametrize("kind", ["plain", "saturated"])
+# The full-size cases, 1920x1080 with the bench's camera: "synthetic1080p"
+# 32,768 random gaussians seen from a camera turned 0.08 rad off the
+# origin's (the suite's make_scene), "bench1080p" the bench checkpoint from
+# its bench pose, "workload1080p" the profiler's workload (every tile four
+# full blocks, max_pairs 2**18).
+FULL = dict(height=1080, width=1920, max_pairs=2**22)
+FULL_CAM = C.camera(1920, 1080)
+FULL_KINDS = [(k, G) for k in ("synthetic1080p", "bench1080p")
+              for G in (128, 256)]
+SMALL_KINDS = [(k, G) for k in ("plain", "saturated") for G in (32, 128, 256)]
+
+
+@functools.lru_cache(maxsize=1)
+def _bench(dev):
+    """(pool, bench pose, center, radius) of the bench checkpoint."""
+    return C.checkpoint(dev)
+
+
+def _synthetic(n):
+    params, _ = _scene(n, 0)
+    th = 0.08
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, :3] = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                            [-np.sin(th), 0, np.cos(th)]], np.float32)
+    c2w[:3, 3] = [0.1, -0.05, 0.2]
+    return params, c2w
+
+
+def _full_inputs(kind, cfg, dev):
+    """(pair features, binning) of a full-size case at ``cfg``; for
+    "workload1080p" the workload's tile ranges stand for the binning."""
+    if kind == "workload1080p":
+        pf, ts, tc = (t.to(dev) for t in make_workload(cfg, 4))
+        return pf, SimpleNamespace(tile_start=ts, tile_count=tc)
+    if kind == "bench1080p":
+        pool, c2w, _, _ = _bench(dev)
+        params, alive = pool.params, pool.alive
+    else:
+        params, c2w = _synthetic(32768)
+        params = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+        alive = None
+    sp = serving_path(params, c2w, *FULL_CAM, cfg, alive=alive)
+    return sp["pair_feat"], sp["bin"]
+
+
+def _case(kind, pair_block, dev, **kw):
+    """(pair features, binning, cfg) of a small case ("plain", "saturated":
+    600 gaussians at 192x128) or a full-size one."""
+    if kind in ("plain", "saturated"):
+        shift = dict(opacity_shift=6.0, scale_shift=1.0) \
+            if kind == "saturated" else {}
+        params, c2w = _scene(600, 0, **shift)
+        cfg = gt.RenderConfig(**CFG, pair_block=pair_block, **kw)
+        return (*_inputs(params, c2w, cfg, dev), cfg)
+    full = dict(FULL, max_pairs=2**18) if kind == "workload1080p" else FULL
+    cfg = gt.RenderConfig(**full, pair_block=pair_block, **kw)
+    return (*_full_inputs(kind, cfg, dev), cfg)
+
+
+def _plain_chunks(cfg):
+    """(tiles, blocks) per chunk of the plain K1 and K2: 1,024 tiles and
+    256 blocks at tile 16 and pair_block 128, scaled so that a chunk's
+    [m, G, tile^2] temporaries keep their size."""
+    work = cfg.pair_block * cfg.tile * cfg.tile
+    return (max(1024 * 128 * 256 // work, 16),
+            max(256 * 128 * 256 // work, 8))
+
+
+@pytest.mark.parametrize("kind,pair_block", SMALL_KINDS + FULL_KINDS
+                         + [("workload1080p", 128)])
 def test_kernel_matches_plain(cuda, kind, pair_block):
-    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
-        else {}
-    params, c2w = _scene(600, 0, **shift)
-    cfg = gt.RenderConfig(**CFG, pair_block=pair_block)
-    pf, b = _inputs(params, c2w, cfg, cuda)
+    """K1 against its plain version, rows 0-5 bit for bit, finite, and the
+    (pair, warp) its cull skips against the plain test's count: the small
+    scenes, and at 1920x1080 the synthetic scene, the bench checkpoint at
+    its bench pose and the profiler's workload."""
+    pf, b, cfg = _case(kind, pair_block, cuda)
     before = tras.composite_pairs.launches
     got = tras.composite_pairs(pf, b.tile_start, b.tile_count, cfg)
     assert tras.composite_pairs.launches == before + 1
-    want = tras.composite_pairs_plain(pf, b.tile_start, b.tile_count, cfg)
+    want = tras.composite_pairs_plain(pf, b.tile_start, b.tile_count, cfg,
+                                      tile_chunk=_plain_chunks(cfg)[0])
     torch.cuda.synchronize()
     assert torch.equal(got[:, :6], want[:, :6])
-    assert (got[:, 6:] == 0).all()
+    assert (got[:, 6:] == 0).all() and torch.isfinite(got).all()
     if kind == "saturated":
         nblk = (b.tile_count + pair_block - 1) // pair_block
         assert (got[:, 5, 0] < nblk).any(), "no tile was skipped"
@@ -175,10 +248,12 @@ def _check_fwd_bwd(cuda, pf, b, cfg, counter, bwd_counter):
     each row's max, zeros off the composited blocks, two runs equal; each
     launch counted once in its own counter. Returns the forward output."""
     args = (pf, b.tile_start, b.tile_count)
+    tchunk, bchunk = _plain_chunks(cfg)
     before = getattr(tras.composite_pairs, counter)
     fwd, state = tras._composite_fwd(*args, cfg, with_state=True)
     assert getattr(tras.composite_pairs, counter) == before + 1
     want, want_state = tras.composite_pairs_plain(*args, cfg,
+                                                  tile_chunk=tchunk,
                                                   with_state=True)
     torch.cuda.synchronize()
     assert torch.equal(fwd[:, :6], want[:, :6])
@@ -192,7 +267,8 @@ def _check_fwd_bwd(cuda, pf, b, cfg, counter, bwd_counter):
     before = getattr(tras.composite_pairs, bwd_counter)
     got = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg)
     assert getattr(tras.composite_pairs, bwd_counter) == before + 1
-    want_d = tras.composite_pairs_bwd_plain(*args, fwd, state, gout, cfg)
+    want_d = tras.composite_pairs_bwd_plain(*args, fwd, state, gout, cfg,
+                                            block_chunk=bchunk)
     again = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -204,17 +280,14 @@ def _check_fwd_bwd(cuda, pf, b, cfg, counter, bwd_counter):
     return fwd
 
 
-@pytest.mark.parametrize("pair_block", [32, 128])
-@pytest.mark.parametrize("kind", ["plain", "saturated"])
+@pytest.mark.parametrize("kind,pair_block", [
+    (k, G) for k in ("plain", "saturated") for G in (32, 128)]
+    + [("bench1080p", 128)])
 def test_log_kernels_match_plain(cuda, kind, pair_block):
     """transmittance_math="log": K1 bit for bit with its plain version, its
-    cull's count equal to the plain test's; K2 from K1's state."""
-    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
-        else {}
-    params, c2w = _scene(600, 0, **shift)
-    cfg = gt.RenderConfig(**CFG, pair_block=pair_block,
-                          transmittance_math="log")
-    pf, b = _inputs(params, c2w, cfg, cuda)
+    cull's count equal to the plain test's; K2 from K1's state. On the
+    small scenes the colour rows within 2e-6 of the cumprod kernel's."""
+    pf, b, cfg = _case(kind, pair_block, cuda, transmittance_math="log")
     fwd = _check_fwd_bwd(cuda, pf, b, cfg, "log_launches",
                          "bwd_log_launches")
     skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
@@ -224,36 +297,63 @@ def test_log_kernels_match_plain(cuda, kind, pair_block):
     n = tras.cull_audit(pf, blk, tile, cfg)
     torch.cuda.synchronize()
     assert n["unsafe"] == 0 and int(skipped.item()) == n["skipped"] > 0
-    # The colour rows against the cumprod kernel's: the JAX package's 2e-6
-    # gate between its two modes, held on the image.
-    cum = tras.composite_pairs(pf, b.tile_start, b.tile_count,
-                               cfg.with_(transmittance_math="cumprod"))
-    assert float((cum[:, 0:3] - fwd[:, 0:3]).abs().max()) <= 2e-6
+    if kind != "bench1080p":
+        # The colour rows against the cumprod kernel's: the JAX package's
+        # 2e-6 gate between its two modes (on its 64x64 scene).
+        cum = tras.composite_pairs(pf, b.tile_start, b.tile_count,
+                                   cfg.with_(transmittance_math="cumprod"))
+        assert float((cum[:, 0:3] - fwd[:, 0:3]).abs().max()) <= 2e-6
     if kind == "saturated":
         nblk = (b.tile_count + pair_block - 1) // pair_block
         assert (fwd[:, 5, 0] < nblk).any(), "no tile was skipped"
 
 
-@pytest.mark.parametrize("trunc_pairs", [0, 10 * 32])
-def test_truncated_kernels_match_plain(cuda, trunc_pairs):
+@pytest.mark.parametrize("case", ["sized", "overflow", "bench1080p",
+                                  "bench1080p_overflow"])
+def test_truncated_kernels_match_plain(cuda, case):
     """A rank-truncated list (tile_rank_cap 64, the occlusion cull on), and
     one whose capacity overflows (trunc_pairs 320, where one tile's second
-    block lies past the end): the forward stops at the list's end as its
-    plain version does, the backward follows it."""
-    params, c2w = _dense_scene()
-    cfg = gt.RenderConfig(**CFG, pair_block=32, tile_rank_cap=64,
-                          trunc_pairs=trunc_pairs)
-    pf, b = _inputs(params, c2w, cfg, cuda)
+    block lies past the end); at the bench checkpoint's 1080p bench pose
+    with tile_rank_cap 1024 and 64 depth chunks, trunc_pairs sized as
+    --auto_pairs sizes it and at half the truncated demand: the forward
+    stops at the list's end as its plain version does, the backward
+    follows it. The overflowing frame at the bench pose reports its
+    overflow and equals the plain compositor's image on the same list."""
+    from gsplat_tpu_torch.render import pair_demand
+
+    overflow = case.endswith("overflow")
+    if case.startswith("bench"):
+        pool, c2w, _, _ = _bench(cuda)
+        cfg = gt.RenderConfig(**FULL, tile_rank_cap=1024, cull_chunks=64)
+        with torch.no_grad():
+            tk = int(pair_demand(pool.params, c2w, *FULL_CAM, cfg,
+                                 alive=pool.alive)[2])
+        cfg = cfg.with_(trunc_pairs=tk // 2 if overflow else C.rup(tk))
+        pf, b = _full_inputs("bench1080p", cfg, cuda)
+    else:
+        params, c2w = _dense_scene()
+        cfg = gt.RenderConfig(**CFG, pair_block=32, tile_rank_cap=64,
+                              trunc_pairs=10 * 32 if overflow else 0)
+        pf, b = _inputs(params, c2w, cfg, cuda)
+        assert int(b.num_pairs_kept) < int(b.num_pairs)
+    G = cfg.pair_block
     assert pf.shape[1] == cfg.trunc_padded_pairs
-    assert int(b.num_pairs_kept) < int(b.num_pairs)
-    overflow = int(b.trunc_demand) > cfg.trunc_padded_pairs
-    assert overflow == bool(trunc_pairs)
+    assert (int(b.trunc_demand) > cfg.trunc_padded_pairs) == overflow
     fwd = _check_fwd_bwd(cuda, pf, b, cfg, "launches", "bwd_launches")
-    nblk = (b.tile_count.long() + 31) // 32
-    walked = (b.tile_start.long() + nblk * 32 <= pf.shape[1]) | (nblk == 0)
+    ts = b.tile_start.long()
+    nblk = (b.tile_count.long() + G - 1) // G
+    walked = (ts + nblk * G <= pf.shape[1]) | (nblk == 0)
     # Overflow: some tile's blocks run past the end and it stops there.
     assert bool((~walked).any()) == overflow
+    assert bool((ts + fwd[:, 5, 0].long() * G <= pf.shape[1]).all())
     assert torch.isfinite(fwd).all()
+    if case == "bench1080p_overflow":
+        with torch.no_grad():
+            img, aux = gt.render_from_params(pool.params, c2w, *FULL_CAM,
+                                             cfg, alive=pool.alive)
+        assert int(aux.trunc_demand) > aux.trunc_capacity
+        assert torch.isfinite(img).all()
+        assert torch.equal(img, C.image_from_tiles(fwd, b.tile_count, cfg))
 
 
 def _stacked_inputs(params, cfg, dev, views=3):
@@ -281,14 +381,46 @@ def _stacked_inputs(params, cfg, dev, views=3):
             bcfg
 
 
-@pytest.mark.parametrize("math", ["cumprod", "log"])
-def test_wrapped_rows_kernels_match_plain(cuda, math):
+def _train_batch_inputs(dev):
+    """The bench checkpoint's training batch (its bench pose and three
+    orbit poses at 960x540) stacked as render_batch_from_params stacks
+    it: (pair features, binning, the stacked config, a view's config)."""
+    from gsplat_tpu_torch.render import stack_view_projections
+
+    pool, c2w, center, radius = _bench(dev)
+    cfg, batch, _ = C.train_views(pool, c2w, center, radius)
+    p = pool.params
+    views = range(batch["c2w"].shape[0])
+    with torch.no_grad():
+        cov = build_cov3d_packed(p["scale_raw"], p["q_raw"])
+        projs = [project_gaussians(
+            p["pos"], cov, p["opacity_raw"], batch["c2w"][v], batch["fx"][v],
+            batch["fy"][v], batch["cx"][v], batch["cy"][v], cfg,
+            extra_valid=pool.alive) for v in views]
+        colors = [evaluate_sh(p["f_dc"], p["f_rest"], p["pos"],
+                              batch["c2w"][v]) for v in views]
+        stacked, bcfg = stack_view_projections(
+            type(projs[0])(*(torch.stack(f) for f in zip(*projs))), cfg)
+        b = bin_gaussians(stacked, bcfg)
+        feat = _pair_features(stacked, torch.cat(colors), torch.float32)[
+            b.depth_order.long()]
+        return gather_pair_features(feat, b.pair_slot, b.gauss_offsets), b, \
+            bcfg, cfg
+
+
+@pytest.mark.parametrize("math,views", [("cumprod", "small"), ("log", "small"),
+                                        ("cumprod", "train_batch")])
+def test_wrapped_rows_kernels_match_plain(cuda, math, views):
     """Batched views (view_tile_rows > 0): K1 bit for bit with its plain
     version and its cull's count equal to the plain test's under the row
-    wrap; K2 from K1's state within 1e-5."""
-    params, _ = _scene(600, 0)
-    cfg = gt.RenderConfig(**CFG, transmittance_math=math)
-    pf, b, bcfg = _stacked_inputs(params, cfg, cuda)
+    wrap; K2 from K1's state within 1e-5. Three views of the small scene,
+    and the bench checkpoint's training batch, four views at 960x540."""
+    if views == "train_batch":
+        pf, b, bcfg, cfg = _train_batch_inputs(cuda)
+    else:
+        params, _ = _scene(600, 0)
+        cfg = gt.RenderConfig(**CFG, transmittance_math=math)
+        pf, b, bcfg = _stacked_inputs(params, cfg, cuda)
     assert bcfg.view_tile_rows == cfg.tiles_y
     log = math == "log"
     fwd = _check_fwd_bwd(cuda, pf, b, bcfg,
@@ -391,18 +523,14 @@ def test_render_on_card_matches_cpu(cuda):
     assert float((aux_g.alpha.cpu() - aux_c.alpha).abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("pair_block", [32, 128, 256])
-@pytest.mark.parametrize("kind", ["plain", "saturated"])
+@pytest.mark.parametrize("kind,pair_block", SMALL_KINDS + FULL_KINDS)
 def test_forward_kernel_state_matches_plain(cuda, kind, pair_block):
-    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
-        else {}
-    params, c2w = _scene(600, 0, **shift)
-    cfg = gt.RenderConfig(**CFG, pair_block=pair_block)
-    pf, b = _inputs(params, c2w, cfg, cuda)
+    pf, b, cfg = _case(kind, pair_block, cuda)
     args = (pf, b.tile_start, b.tile_count, cfg)
     bare = tras._composite_fwd(*args)
     out, state = tras._composite_fwd(*args, with_state=True)
-    _, want = tras.composite_pairs_plain(*args, with_state=True)
+    _, want = tras.composite_pairs_plain(*args, with_state=True,
+                                         tile_chunk=_plain_chunks(cfg)[0])
     torch.cuda.synchronize()
     assert torch.equal(out, bare)
     active = _active_slots(b, out, cfg)[::pair_block]
@@ -410,14 +538,9 @@ def test_forward_kernel_state_matches_plain(cuda, kind, pair_block):
     assert torch.equal(state[active], want[active])
 
 
-@pytest.mark.parametrize("pair_block", [32, 128, 256])
-@pytest.mark.parametrize("kind", ["plain", "saturated"])
+@pytest.mark.parametrize("kind,pair_block", SMALL_KINDS + FULL_KINDS)
 def test_backward_kernel_matches_plain(cuda, kind, pair_block):
-    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
-        else {}
-    params, c2w = _scene(600, 0, **shift)
-    cfg = gt.RenderConfig(**CFG, pair_block=pair_block)
-    pf, b = _inputs(params, c2w, cfg, cuda)
+    pf, b, cfg = _case(kind, pair_block, cuda)
     args = (pf, b.tile_start, b.tile_count)
     fwd, state = tras._composite_fwd(*args, cfg, with_state=True)
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -426,7 +549,8 @@ def test_backward_kernel_matches_plain(cuda, kind, pair_block):
     before = tras.composite_pairs.bwd_launches
     got = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg)
     assert tras.composite_pairs.bwd_launches == before + 1
-    want = tras.composite_pairs_bwd_plain(*args, fwd, state, gout, cfg)
+    want = tras.composite_pairs_bwd_plain(*args, fwd, state, gout, cfg,
+                                          block_chunk=_plain_chunks(cfg)[1])
     again = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -517,30 +641,76 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert float((got - want).abs().max()) <= 5e-4 * scale, k
 
 
-@pytest.mark.parametrize("opacity", [0.05, 0.9])
+@pytest.mark.parametrize("opacity", [0.05, 0.9, "workload1080p"])
 @pytest.mark.parametrize("variant", list(tabl.VARIANTS))
 def test_ablation_kernel_matches_plain(cuda, variant, opacity):
     """The profiler's workload at 192x128; at opacity 0.9 every variant
     with the skip rule (all but empty, no-compute and no-input, whose
-    features ignore the opacity) skips continuation blocks."""
-    cfg = gt.RenderConfig(**CFG)
-    pf, ts, tc = (t.to(cuda) for t in make_workload(cfg, 4))
-    pf[5] = opacity
+    features ignore the opacity) skips continuation blocks. And the
+    profiler's own workload at 1920x1080 (opacity 0.05), where the bodies
+    that cull report the (pair, warp) they skipped, equal to the plain
+    test's count (no-transc's with its own alpha's threshold)."""
+    if opacity == "workload1080p":
+        cfg = gt.RenderConfig(**dict(FULL, max_pairs=2**18))
+        pf, ts, tc = (t.to(cuda) for t in make_workload(cfg, 4))
+    else:
+        cfg = gt.RenderConfig(**CFG)
+        pf, ts, tc = (t.to(cuda) for t in make_workload(cfg, 4))
+        pf[5] = opacity
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    kw = {"skipped": skipped} if variant in tabl.CULLS else {}
     before = tabl.ablate.launches[variant]
-    got = tabl.ablate(variant, pf, ts, tc, cfg)
+    got = tabl.ablate(variant, pf, ts, tc, cfg, **kw)
     assert tabl.ablate.launches[variant] == before + 1
-    want = tabl.ablate_plain(variant, pf, ts, tc, cfg)
+    want = tabl.ablate_plain(variant, pf, ts, tc, cfg, tile_chunk=512)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert float((got[:, :5] - want[:, :5]).abs().max()) <= TOL
     assert torch.equal(got[:, 5], want[:, 5])
     assert (got[:, 6:] == 0).all()
-    if opacity > 0.5 and variant not in ("empty", "no-compute", "no-input"):
+    if opacity == 0.9 and variant not in ("empty", "no-compute", "no-input"):
         assert (got[:, 5, 0] < 4).any(), "no tile was skipped"
+    if opacity == "workload1080p" and variant in tabl.CULLS:
+        blk, tile, _ = tras.active_blocks(ts, tras.tile_block_offsets(want),
+                                          cfg)
+        n = tras.cull_audit(pf, blk, tile, cfg, rational=tabl.CULLS[variant])
+        assert n["unsafe"] == 0 and n["skipped"] > 0
+        assert int(skipped.item()) == n["skipped"]
     if variant in tabl.K1_FUNCTION:
-        k1 = tras.composite_pairs_plain(pf, ts, tc, cfg)
+        k1 = tras.composite_pairs_plain(pf, ts, tc, cfg, tile_chunk=512)
         assert float((got[:, :5] - k1[:, :5]).abs().max()) <= TOL
         assert torch.equal(got[:, 5], k1[:, 5])
+
+
+def test_profiler_runs_every_variant_in_order(cuda):
+    """python -m gsplat_tpu_torch.profile_kernel --iters 20 through its
+    main, the launch counts set to 0 just before: every variant launched,
+    its count the profiler's own, a positive time, its tile-0 digest
+    within 1e-3 of its plain version's on the same 1080p workload; and
+    the times in the order of the work the bodies do, empty <= no-compute
+    <= full, each within 5 %."""
+    from gsplat_tpu_torch import profile_kernel
+
+    cfg = gt.RenderConfig(**dict(FULL, max_pairs=2**18))
+    pf, ts, tc = (t.to(cuda) for t in make_workload(cfg, 4))
+    digests = {"full": float(tras.composite_pairs_plain(
+        pf, ts, tc, cfg, tile_chunk=512)[0, 0:5].sum())}
+    for v in profile_kernel.VARIANTS:
+        if v != "full":
+            digests[v] = float(tabl.ablate_plain(
+                v, pf, ts, tc, cfg, tile_chunk=512)[0, 0:5].sum())
+    del pf, ts, tc
+    tras.composite_pairs.launches = 0
+    for v in tabl.ablate.launches:
+        tabl.ablate.launches[v] = 0
+    res = {r["name"]: r for r in profile_kernel.main(
+        ["--iters", "20", "--device", str(cuda)])}
+    for name, digest in digests.items():
+        r, n = res[name], profile_kernel.launch_count(name)
+        assert n > 0 and r["launches"] == n and r["ms"] > 0, (name, r)
+        assert abs(r["digest"] - digest) <= 1e-3, (name, r, digest)
+    e, nc, k1 = (res[v]["ms"] for v in ("empty", "no-compute", "full"))
+    assert e <= 1.05 * nc and nc <= 1.05 * k1, (e, nc, k1)
 
 
 @pytest.mark.parametrize("variant", tabl.K1_BODIES)
@@ -909,18 +1079,24 @@ def _check_cull_count(cuda, pf, b, fwd, cfg):
 
 
 @pytest.mark.parametrize("tile,pair_block", NEW_RANGES)
-@pytest.mark.parametrize("kind", ["plain", "saturated"])
+@pytest.mark.parametrize("kind", ["plain", "saturated", "synthetic1080p",
+                                  "bench1080p"])
 def test_kernels_match_plain_at_new_ranges(cuda, kind, tile, pair_block):
     """K1 (rows 0-5 and state bit for bit, its cull's count equal to the
     plain test's) and K2 from K1's state (1e-5 of each row's max, zeros
     off the composited blocks, two runs equal) at tile 32 and at
-    pair_block 512, as at tile 16."""
-    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
-        else {}
-    params, c2w = _scene(3000, 0, **shift)
-    cfg = gt.RenderConfig(**{**CFG, "max_pairs": 2**17}, tile=tile,
-                          pair_block=pair_block)
-    pf, b = _inputs(params, c2w, cfg, cuda)
+    pair_block 512, as at tile 16: 3,000 gaussians at 192x128, and the
+    full-size cases at 1920x1080."""
+    if kind in ("plain", "saturated"):
+        shift = dict(opacity_shift=6.0, scale_shift=1.0) \
+            if kind == "saturated" else {}
+        params, c2w = _scene(3000, 0, **shift)
+        cfg = gt.RenderConfig(**{**CFG, "max_pairs": 2**17}, tile=tile,
+                              pair_block=pair_block)
+        pf, b = _inputs(params, c2w, cfg, cuda)
+    else:
+        cfg = gt.RenderConfig(**FULL, tile=tile, pair_block=pair_block)
+        pf, b = _full_inputs(kind, cfg, cuda)
     fwd = _check_fwd_bwd(cuda, pf, b, cfg, "launches", "bwd_launches")
     _check_cull_count(cuda, pf, b, fwd, cfg)
     bare = tras.composite_pairs(pf, b.tile_start, b.tile_count, cfg)
@@ -931,12 +1107,14 @@ def test_kernels_match_plain_at_new_ranges(cuda, kind, tile, pair_block):
         assert (fwd[:, 5, 0] < nblk).any(), "no tile was skipped"
 
 
-@pytest.mark.parametrize("mode", ["log", "compact", "rows_mod", "truncated"])
+@pytest.mark.parametrize("mode", ["log", "compact", "rows_mod", "truncated",
+                                  "log_bench1080p", "compact_bench1080p"])
 def test_kernel_modes_match_plain_at_tile_32(cuda, mode):
     """Each mode of the kernels at tile 32 and pair_block 256: the log
     transmittance, K2's compact mode (kb at and below the composited
     blocks), batched views (rows_mod) and a rank-truncated list that
-    overflows its capacity."""
+    overflows its capacity; the log form and the compact mode also on the
+    bench checkpoint at its 1080p bench pose."""
     tile, G = 32, 256
     if mode == "rows_mod":
         params, _ = _scene(1500, 0)
@@ -954,12 +1132,17 @@ def test_kernel_modes_match_plain_at_tile_32(cuda, mode):
         fwd = _check_fwd_bwd(cuda, pf, b, cfg, "launches", "bwd_launches")
         assert torch.isfinite(fwd).all()
         return
-    params, c2w = _scene(3000, 0)
-    cfg = gt.RenderConfig(**{**CFG, "max_pairs": 2**17}, tile=tile,
-                          pair_block=G, transmittance_math="log"
-                          if mode == "log" else "cumprod")
-    pf, b = _inputs(params, c2w, cfg, cuda)
-    if mode == "log":
+    math = "log" if mode.startswith("log") else "cumprod"
+    if mode.endswith("bench1080p"):
+        cfg = gt.RenderConfig(**FULL, tile=tile, pair_block=G,
+                              transmittance_math=math)
+        pf, b = _full_inputs("bench1080p", cfg, cuda)
+    else:
+        params, c2w = _scene(3000, 0)
+        cfg = gt.RenderConfig(**{**CFG, "max_pairs": 2**17}, tile=tile,
+                              pair_block=G, transmittance_math=math)
+        pf, b = _inputs(params, c2w, cfg, cuda)
+    if math == "log":
         fwd = _check_fwd_bwd(cuda, pf, b, cfg, "log_launches",
                              "bwd_log_launches")
         _check_cull_count(cuda, pf, b, fwd, cfg)
@@ -975,8 +1158,9 @@ def test_kernel_modes_match_plain_at_tile_32(cuda, mode):
         before = tras.composite_pairs.bwd_compact_launches
         got = tras.composite_pairs_bwd(*args, fwd, state, gout, cfg, kb=kb)
         assert tras.composite_pairs.bwd_compact_launches == before + 1
-        want = tras.composite_pairs_bwd_plain(*args, fwd, state, gout, cfg,
-                                              kb=kb)
+        want = tras.composite_pairs_bwd_plain(
+            *args, fwd, state, gout, cfg, kb=kb,
+            block_chunk=_plain_chunks(cfg)[1])
         torch.cuda.synchronize()
         for r in range(10):
             scale = float(want[r].abs().max())
@@ -1031,19 +1215,27 @@ def test_device_batches_on_card_match_host_batches(cuda, tmp_path):
 
 # --- the ellipse cull and the (data, tile) grid (slice 11) -------------------
 
-@pytest.mark.parametrize("kind", ["plain", "saturated"])
+@pytest.mark.parametrize("kind", ["plain", "saturated", "bench1080p"])
 def test_kernels_match_plain_on_ellipse_list(cuda, kind):
     """K1 and K2 on the ellipse cull's shorter pair list (fewer pairs a
-    tile, shifted block boundaries), as on the rect list."""
-    shift = dict(opacity_shift=6.0, scale_shift=1.0) if kind == "saturated" \
-        else {}
-    params, c2w = _scene(600, 0, **shift)
-    params["scale_raw"][:, 0] += 1.6  # elongated: the ellipse culls pairs
-    rect = gt.RenderConfig(**CFG)
-    cfg = rect.with_(cull_mode="ellipse")
-    pf, b = _inputs(params, c2w, cfg, cuda)
-    _, b_rect = _inputs(params, c2w, rect, cuda)
+    tile, shifted block boundaries), as on the rect list: elongated
+    splats at 192x128, and the bench checkpoint at its 1080p bench pose."""
+    if kind == "bench1080p":
+        rect = gt.RenderConfig(**FULL)
+        cfg = rect.with_(cull_mode="ellipse")
+        pf, b = _full_inputs(kind, cfg, cuda)
+        _, b_rect = _full_inputs(kind, rect, cuda)
+    else:
+        shift = dict(opacity_shift=6.0, scale_shift=1.0) \
+            if kind == "saturated" else {}
+        params, c2w = _scene(600, 0, **shift)
+        params["scale_raw"][:, 0] += 1.6  # elongated: the ellipse culls
+        rect = gt.RenderConfig(**CFG)
+        cfg = rect.with_(cull_mode="ellipse")
+        pf, b = _inputs(params, c2w, cfg, cuda)
+        _, b_rect = _inputs(params, c2w, rect, cuda)
     assert 0 < int(b.num_pairs) < int(b_rect.num_pairs)
+    assert int(b.num_pairs) <= cfg.max_pairs
     assert 0 < int(b.num_rows) <= cfg.row_capacity
     _check_fwd_bwd(cuda, pf, b, cfg, "launches", "bwd_launches")
 

@@ -11,8 +11,7 @@ the aligned scatter as kernels; the same call with the three steps
 swapped for their plain versions (PyTorch on the card) is the reference.
 Every ``TileBinning`` field must be equal bit for bit (they are
 integers), and each kernel's launch counter must have risen. The scenes
-and cases are ``profile_binning.kernel_cases``', which ``chip_smoke.py``
-runs too.
+and cases are ``profile_binning.kernel_cases``'.
 """
 
 import pytest
@@ -33,17 +32,18 @@ def cuda():
     return gt.resolve_device("cuda")
 
 
+@pytest.mark.parametrize("seed", [2718281829, 2718281830])
 @pytest.mark.parametrize("case", CHECK_CASES)
-def test_binning_kernels_match_plain(cuda, case):
+def test_binning_kernels_match_plain(cuda, case, seed):
     """The 120k checkpoint at four orbit poses; the 3 M garden scene at
     three poses near the origin camera (~52 M pairs); the garden at a
     third of its demand (whole gaussians dropped); three orbit views
     stacked (``view_tile_rows``, 15-bit keys); the ellipse cull's pairs
-    through the sort and scatter; the rank truncation with the cull."""
+    through the sort and scatter; the rank truncation with the cull. Two
+    draws of the garden scene."""
     seen = 0
     with torch.no_grad():
-        for label, proj, cfg, emits in kernel_cases(case, cuda,
-                                                    seed=2718281829):
+        for label, proj, cfg, emits in kernel_cases(case, cuda, seed=seed):
             r = compare_kernels(proj, cfg)
             assert r["bad"] == [], label
             assert r["launches"] == [emits, 1, 1], label

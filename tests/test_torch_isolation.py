@@ -1,5 +1,6 @@
-"""The port stands alone: no module of gsplat_tpu_torch, nor chip_smoke.py,
-imports JAX (jax, jaxlib, optax, orbax) or the JAX package gsplat_tpu."""
+"""The port stands alone: no module of gsplat_tpu_torch, nor the card
+tests (the machine with the card has no JAX), imports JAX (jax, jaxlib,
+optax, orbax) or the JAX package gsplat_tpu."""
 
 import ast
 import os
@@ -16,7 +17,10 @@ FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "gsplat_tpu"}
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    tests = os.path.join(ROOT, "tests")
+    out = [os.path.join(tests, f) for f in os.listdir(tests)
+           if f.endswith(".py") and (f.startswith("test_torch_gpu")
+                                     or f == "torch_card_cases.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "gsplat_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

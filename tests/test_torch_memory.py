@@ -8,7 +8,7 @@ holds to its backward; the model's ``held_to_backward_mb``, built from the
 shapes of the tensors the port allocates, must lie within 15 % of that
 sum (a few hundred gaussians, 64x48 pixels, ``max_pairs`` 4,096, 1 and 2
 views). The card's peaks are held to the whole estimate in
-``chip_smoke.py``. The JAX package's keys keep the JAX values
+``tests/test_torch_gpu_flows.py``. The JAX package's keys keep the JAX values
 (tests/test_torch_fit.py, tests/test_torch_batched.py).
 """
 
