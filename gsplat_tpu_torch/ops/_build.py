@@ -177,6 +177,14 @@ FUNCTIONS = {
         "update_work_bytes": ([], ctypes.c_longlong),
         "update_table_bytes": ([], ctypes.c_longlong),
     },
+    "preprocess": {
+        # preprocess(args, sh_bases, stream) -> cudaError_t (P1). args:
+        # ops/preprocess.py's _Args, by reference; sh_bases 1, 4, 9 or 16
+        # writes the colour, 0 does not
+        "preprocess": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+                       ctypes.c_int),
+        "preprocess_args_bytes": ([], ctypes.c_longlong),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -6,7 +6,10 @@ signature (``:25-75``), ``pair_demand`` (``:78-107``),
 ``stack_view_projections`` (``:139-177``) and ``render_batch_from_params``
 (``:180-268``: B views through one binning and one compositor launch).
 Inputs are tensors on one device; the compositor runs the CUDA kernel for
-CUDA tensors and its plain version for CPU tensors.
+CUDA tensors and its plain version for CPU tensors. The per-gaussian
+stages (covariance, SH colour, projection) go through
+``ops.preprocess.preprocess``: one kernel, P1, for CUDA tensors autograd
+does not record, else the plain chain.
 """
 
 from __future__ import annotations
@@ -15,10 +18,10 @@ import torch
 
 from .config import FEATURE_KEY, RenderConfig
 from .ops.binning import bin_gaussians
-from .ops.gaussian import build_cov3d_packed, pack_cov3d
+from .ops.gaussian import pack_cov3d
+from .ops.preprocess import preprocess
 from .ops.projection import ProjectedGaussians, project_gaussians
 from .ops.rasterize import rasterize
-from .ops.sh import evaluate_sh
 from .utils.profiling import span
 
 
@@ -81,14 +84,9 @@ def pair_demand(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
     Returns (num_pairs, num_rows, trunc_demand) as 0-d int32 tensors; the
     last two are 0 in rect mode without truncation.
     """
-    pos = params["pos"]
-    c2w = _c2w(c2w, pos)
-    with span("gs.cov_sh"):
-        cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
-    proj = project_gaussians(
-        pos, cov3d, params["opacity_raw"], c2w, fx, fy, cx, cy, cfg,
-        extra_valid=alive,
-    )
+    c2w = _c2w(c2w, params["pos"])
+    proj, _, _ = preprocess(params, c2w, fx, fy, cx, cy, cfg, alive=alive,
+                            colour=False)
     binning = bin_gaussians(proj, cfg)
     return binning.num_pairs, binning.num_rows, binning.trunc_demand
 
@@ -110,15 +108,9 @@ def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
         uv_tap: optional [N, 2] zeros; the gradient w.r.t. it is the
             view-space positional gradient (paper-style ADC statistic).
     """
-    pos = params["pos"]
-    c2w = _c2w(c2w, pos)
-    with span("gs.cov_sh"):
-        cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
-        colors = evaluate_sh(params["f_dc"], params["f_rest"], pos, c2w)
-    proj = project_gaussians(
-        pos, cov3d, params["opacity_raw"], c2w, fx, fy, cx, cy, cfg,
-        extra_valid=alive, uv_tap=uv_tap,
-    )
+    c2w = _c2w(c2w, params["pos"])
+    proj, colors, _ = preprocess(params, c2w, fx, fy, cx, cy, cfg,
+                                 alive=alive, uv_tap=uv_tap)
     return rasterize(proj, colors, cfg, params.get(FEATURE_KEY))
 
 
@@ -199,17 +191,13 @@ def render_batch_from_params(params: dict, c2w, fx, fy, cx, cy,
     B = c2w.shape[0]
     n = pos.shape[0]
     fx, fy, cx, cy = (_per_view(a, B, pos) for a in (fx, fy, cx, cy))
-    with span("gs.cov_sh"):
-        cov3d = build_cov3d_packed(params["scale_raw"], params["q_raw"])
-    colors, projs = [], []
+    colors, projs, cov3d = [], [], None
     for v in range(B):
-        with span("gs.cov_sh"):
-            colors.append(evaluate_sh(params["f_dc"], params["f_rest"], pos,
-                                      c2w[v]))
-        projs.append(project_gaussians(
-            pos, cov3d, params["opacity_raw"], c2w[v], fx[v], fy[v], cx[v],
-            cy[v], cfg, extra_valid=alive,
-            uv_tap=None if uv_taps is None else uv_taps[v]))
+        proj, col, cov3d = preprocess(
+            params, c2w[v], fx[v], fy[v], cx[v], cy[v], cfg, alive=alive,
+            uv_tap=None if uv_taps is None else uv_taps[v], cov3d=cov3d)
+        colors.append(col)
+        projs.append(proj)
     proj_b = ProjectedGaussians(*(torch.stack(f) for f in zip(*projs)))
     stacked, bcfg = stack_view_projections(proj_b, cfg)
     img, aux = rasterize(stacked, torch.cat(colors), bcfg)

@@ -829,7 +829,8 @@ def test_traces_hold_the_counted_kernels(bench, tmp_path):
     events, as many K1 and K2 events as their counts (one K1 each); then
     one frame traced under the program's spans (profile_trace.
     trace_stages): every launch of a leaf span has its device record in
-    the trace, and K1 two."""
+    the trace, and K1 two; the stages run as P1 (two events, the served
+    frame's one launch in ``gs.project``), with no ``gs.cov_sh``."""
     from gsplat_tpu_torch.profile_trace import STAGES, trace_stages
     from gsplat_tpu_torch.utils.profiling import summarize_trace, trace
 
@@ -857,10 +858,13 @@ def test_traces_hold_the_counted_kernels(bench, tmp_path):
         assert _kernel_events(s, "raster_bwd_kernel") == n2
     st = trace_stages(pool.params, bench.c2w, *cam, cfg, pool.alive,
                       str(tmp_path))
-    ranges = [st["ranges"][k] for k in STAGES]
+    assert "gs.cov_sh" not in st["ranges"]
+    ranges = [st["ranges"][k] for k in STAGES if k != "gs.cov_sh"]
     launched = sum(r["launches"] for r in ranges)
     assert sum(r["kernels"] for r in ranges) == launched > 0
     assert _kernel_events(st, "raster_fwd_kernel") == 2
+    assert _kernel_events(st, "preprocess_kernel") == 2
+    assert st["ranges"]["gs.project"]["launches"] == 1
 
 
 def test_measuring_clis_at_the_bench_pose(bench, lever):
