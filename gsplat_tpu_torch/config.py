@@ -225,3 +225,38 @@ class FeatureConfig:
     semantic_feature_lr: float = 0.001
     decoder_lr: float = 0.0001
     semantic_loss_weight: float = 1.0
+
+
+# A pool whose ``scale_raw`` leaf has this many columns is a surfel pool
+# (2D Gaussian Splatting, below); three columns is 3DGS.
+SURFEL_SCALES = 2
+
+
+def is_surfel_pool(params: dict) -> bool:
+    """Whether ``params`` are a surfel pool's: a two-column ``scale_raw``."""
+    s = params["scale_raw"]
+    return s.dim() == 2 and s.shape[1] == SURFEL_SCALES
+
+
+@dataclasses.dataclass(frozen=True)
+class SurfelConfig:
+    """2D Gaussian Splatting (Huang et al., SIGGRAPH 2024,
+    arXiv:2403.17888): each primitive is a surfel, a flat disc with two
+    scales in its tangent plane, composited by ray-splat intersection
+    (``ops/surfel.py``, ``ops/raster_surfel.py``). Training adds the
+    depth-distortion term at ``lambda_dist`` and the normal-consistency
+    term at ``lambda_normal`` (``ops/losses.py::geometry_loss``). The
+    distortion maps depth z to ``far / (far - near) * (1 - near / z)``
+    with ``dist_near`` and ``dist_far``, and a ray-splat intersection
+    nearer than ``dist_near`` adds nothing (the authors' code).
+    ``filter_inv_square`` is the low-pass filter's ``1 / sigma^2`` in
+    pixels (the authors' ``FilterInvSquare``, sigma = sqrt(2) / 2).
+
+    The port's own configuration: the JAX package has no surfels, so
+    ``RenderConfig`` and ``TrainConfig`` keep their fields."""
+
+    lambda_dist: float = 100.0
+    lambda_normal: float = 0.05
+    dist_near: float = 0.2
+    dist_far: float = 100.0
+    filter_inv_square: float = 2.0

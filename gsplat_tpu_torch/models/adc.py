@@ -18,6 +18,11 @@ Randomness comes from an explicit ``torch.Generator`` on the pool's
 device. ``noise=`` supplies the standard-normal draws instead (the JAX
 package's ``jax.random.normal`` draws, in the tests), so both packages can
 be compared exactly.
+
+A surfel pool (a two-column ``scale_raw``: 2D Gaussian Splatting) splits
+in the surfel's tangent plane: its scales are taken as ``(s_u, s_v, 0)``,
+so the third standard deviation of the draw is 0, and the offset is
+rotated into the world by the surfel's rotation in both forms.
 """
 
 from __future__ import annotations
@@ -81,6 +86,26 @@ def _write_children(pool: GaussianPool, child: dict, fits, dest):
     return new_slot
 
 
+def _scales3(scale_raw: torch.Tensor) -> torch.Tensor:
+    """[cap, 3] scales: ``exp(scale_raw)``, a surfel's with a zero third
+    (its normal's) column."""
+    scales = torch.exp(scale_raw)
+    if scales.shape[1] == 3:
+        return scales
+    return torch.cat([scales, torch.zeros_like(scales[:, :1])], dim=1)
+
+
+def _rotate(q_raw: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """R @ e for [cap, 3] vectors ``e`` and each slot's rotation from its
+    normalised quaternion, written out (no matmul)."""
+    q = q_raw
+    n4 = torch.sqrt(q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]
+                    + q[:, 2] * q[:, 2] + q[:, 3] * q[:, 3])
+    R = quat_to_rotmat(q / (n4[:, None] + 1e-12))  # [cap, 3, 3]
+    return torch.stack([R[:, i, 0] * e[:, 0] + R[:, i, 1] * e[:, 1]
+                        + R[:, i, 2] * e[:, 2] for i in range(3)], -1)
+
+
 def pos_grad_norm(g: torch.Tensor) -> torch.Tensor:
     """Per-slot L2 norm of [cap, 3] vectors, summed in component order."""
     return torch.sqrt(g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1]
@@ -108,7 +133,9 @@ def densify_and_prune(
     ``pos_grad`` is [cap, 3] gradient vectors or a [cap] norm statistic
     (accumulate NORMS over an interval, never signed vectors).
     ``noise`` [cap, 3]: the standard-normal draws; else drawn from
-    ``generator``. Pruned and new slots are in ``new_slot_mask``.
+    ``generator``. Pruned and new slots are in ``new_slot_mask``. A
+    surfel's split offset is ``R (noise * (s_u, s_v, 0)) * 0.1``, in its
+    tangent plane.
     """
     with torch.no_grad():
         params = pool.params
@@ -127,7 +154,11 @@ def densify_and_prune(
         if noise is None:
             noise = torch.randn(params["pos"].shape, generator=generator,
                                 device=scales.device, dtype=scales.dtype)
-        offset = noise * scales * 0.1
+        if scales.shape[1] == 3:
+            offset = noise * scales * 0.1
+        else:
+            offset = _rotate(params["q_raw"],
+                             noise * _scales3(params["scale_raw"])) * 0.1
         child = {k: v.detach() for k, v in params.items()}
         child["pos"] = params["pos"] + torch.where(split[:, None], offset, 0.0)
         child["scale_raw"] = params["scale_raw"] - torch.where(
@@ -185,6 +216,7 @@ def densify_and_prune_paper(
 
     ``noise``: the pair (eps_a, eps_b) of [cap, 3] standard-normal draws
     before the ``* scales``; else both drawn from ``generator``, a first.
+    A surfel's scales are ``(s_u, s_v, 0)`` there.
     Replaced parents are in ``new_slot_mask`` with the pruned and new
     slots.
     """
@@ -208,21 +240,13 @@ def densify_and_prune_paper(
         clone = alive & ~big & high_grad
         fits, dest, num_overflowed = allocate_slots(alive, split | clone)
 
+        scales3 = _scales3(scale_raw)
         if noise is None:
-            noise = tuple(torch.randn(scales.shape, generator=generator,
+            noise = tuple(torch.randn(scales3.shape, generator=generator,
                                       device=scales.device, dtype=f32)
                           for _ in range(2))
-        q = params["q_raw"]
-        n4 = torch.sqrt(q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]
-                        + q[:, 2] * q[:, 2] + q[:, 3] * q[:, 3])
-        R = quat_to_rotmat(q / (n4[:, None] + 1e-12))  # [cap, 3, 3]
-
-        def rotate(eps):  # R @ (eps * scales), written out (no matmul)
-            e = eps * scales
-            return torch.stack([R[:, i, 0] * e[:, 0] + R[:, i, 1] * e[:, 1]
-                                + R[:, i, 2] * e[:, 2] for i in range(3)], -1)
-
-        off_a, off_b = rotate(noise[0]), rotate(noise[1])
+        off_a, off_b = (_rotate(params["q_raw"], eps * scales3)
+                        for eps in noise)
         log16 = torch.log(torch.tensor(1.6, dtype=f32, device=pos.device))
         split_scale_raw = scale_raw - log16
 

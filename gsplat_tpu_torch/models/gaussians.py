@@ -13,6 +13,10 @@ parameter ``f_sem`` [capacity, C] (``config.FEATURE_KEY``), which
 ``params`` then lists last, so that everything that maps the pool's
 leaves (the ADC's children, growth, compaction, checkpoints) carries it.
 The JAX package has no such leaf.
+
+A pool whose ``scale_raw`` leaf has two columns is a pool of surfels (2D
+Gaussian Splatting, ``config.is_surfel_pool``); every function here
+carries that leaf at its width (:func:`to_surfels` makes one).
 """
 
 from __future__ import annotations
@@ -172,6 +176,15 @@ def with_features(pool: GaussianPool, features: torch.Tensor) -> GaussianPool:
                          f"{tuple(features.shape)}")
     params = {k: v.detach() for k, v in pool.params.items()}
     params[FEATURE_KEY] = features.to(pool.pos.device, torch.float32)
+    return GaussianPool(params, pool.alive)
+
+
+def to_surfels(pool: GaussianPool) -> GaussianPool:
+    """A surfel pool of ``pool``'s parameters (the same tensors but
+    ``scale_raw``, of which it keeps the first two columns) and
+    ``alive``."""
+    params = {k: v.detach() for k, v in pool.params.items()}
+    params["scale_raw"] = params["scale_raw"][:, :2].contiguous()
     return GaussianPool(params, pool.alive)
 
 

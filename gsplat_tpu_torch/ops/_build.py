@@ -141,6 +141,26 @@ FUNCTIONS = {
         "feat_resources": ([ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
                            ctypes.c_int),
     },
+    "raster_surfel": {
+        # surfel_fwd(tab, pair_slot, n_pairs, tile_start, tile_count, out,
+        #            num_tiles, tiles_x, consts, stream) -> cudaError_t (S1;
+        #            consts: raster_surfel.py's _Consts, by reference)
+        "surfel_fwd": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p], ctypes.c_int),
+        # surfel_bwd(tab, pair_slot, n_pairs, tile_start, tile_count, fwd,
+        #            gout, d, num_tiles, tiles_x, consts, stream) ->
+        #            cudaError_t (S2)
+        "surfel_bwd": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                       ctypes.c_int),
+        # surfel_resources(int out[6]) -> cudaError_t: S1's then S2's
+        # registers, local bytes and CTAs per SM
+        "surfel_resources": ([ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+    },
     "binning": {
         # binning_emit(offsets, n, tile_min, n_u, max_pairs, tiles_x,
         #              num_tiles, tile_id, slot, stream) -> cudaError_t

@@ -8,7 +8,11 @@ Counterpart of ``gsplat_tpu/ops/losses.py:26-125``:
 * combined loss = lambda_l1 * L1 + lambda_ssim * (1 - SSIM);
 * Feature 3DGS's feature term (:func:`feature_loss`, the port's own): the
   feature map resized to the teacher map's size, decoded by a 1x1
-  convolution, L1 to the teacher.
+  convolution, L1 to the teacher;
+* 2D Gaussian Splatting's geometric terms (:func:`geometry_loss`, the
+  port's own): the depth distortion and the normal consistency between
+  the rendered normals and those of the expected depth map
+  (:func:`depth_to_normal`).
 
 All channels and all five filtered statistics (mu1, mu2, E[p^2], E[t^2],
 E[pt]) go through one depthwise ``F.conv2d`` (``groups=C``), as the JAX
@@ -129,3 +133,42 @@ def feature_loss(fmap: torch.Tensor, teacher: torch.Tensor,
     with span("gs.feat_loss"):
         dec = decode_features(fmap, tuple(teacher.shape[1:]), decoder)
         return torch.mean(torch.abs(dec - teacher))
+
+
+def depth_to_normal(depth: torch.Tensor, fx, fy, cx, cy) -> torch.Tensor:
+    """The normals [H, W, 3] (camera space) of a depth map [H, W], as the
+    2D Gaussian Splatting authors' ``depth_to_normal`` makes them: each
+    pixel (x, y) unprojected to ``depth * ((x - cx) / fx, (y - cy) / fy,
+    1)``, central differences down the rows and along the columns, their
+    cross product (rows x columns) normalised; zero on the border."""
+    H, W = depth.shape
+    dev = depth.device
+    xs = (torch.arange(W, dtype=depth.dtype, device=dev) - cx) / fx
+    ys = (torch.arange(H, dtype=depth.dtype, device=dev) - cy) / fy
+    pts = torch.stack([depth * xs[None, :], depth * ys[:, None], depth],
+                      dim=-1)
+    dr = pts[2:, 1:-1] - pts[:-2, 1:-1]
+    dc = pts[1:-1, 2:] - pts[1:-1, :-2]
+    n = F.normalize(torch.cross(dr, dc, dim=-1), dim=-1)
+    return F.pad(n, (0, 0, 1, 1, 1, 1))
+
+
+def geometry_loss(aux, fx, fy, cx, cy, surfel):
+    """2D Gaussian Splatting's geometric terms of a frame's maps (a surfel
+    frame's ``RenderAux``): ``lambda_dist mean(D) + lambda_normal mean(1 -
+    N_r . N_d)``, with ``D`` the distortion map, ``N_r`` the rendered
+    normals (sum w n) and ``N_d`` the normals of the expected depth (sum
+    w z / sum w, 0 where nothing was composited) times the detached alpha
+    map, as the authors' training computes them with ``depth_ratio`` 0.
+    ``surfel``: the ``config.SurfelConfig``. Returns (total, {'dist',
+    'normal'}) as 0-d tensors."""
+    with span("gs.geo_loss"):
+        alpha = aux.alpha
+        hit = alpha > 0.0
+        depth = torch.where(hit, aux.depth / torch.where(hit, alpha, 1.0),
+                            0.0)
+        nd = depth_to_normal(depth, fx, fy, cx, cy) * alpha.detach()[..., None]
+        dist = torch.mean(aux.distortion)
+        normal = torch.mean(1.0 - torch.sum(aux.normal * nd, dim=-1))
+        total = surfel.lambda_dist * dist + surfel.lambda_normal * normal
+    return total, {"dist": dist, "normal": normal}

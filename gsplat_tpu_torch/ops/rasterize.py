@@ -41,9 +41,9 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config import RenderConfig, cdiv
+from ..config import RenderConfig, SurfelConfig, cdiv
 from ..utils.profiling import span
-from . import raster_cuda, raster_feat
+from . import raster_cuda, raster_feat, raster_surfel
 from .binning import TileBinning, bin_gaussians, depth_order
 from .clamps import clip, minimum
 from .projection import ProjectedGaussians
@@ -72,6 +72,11 @@ class RenderAux(NamedTuple):
     # The feature map [C, H, W] of a pool with per-gaussian features
     # (Feature 3DGS, ``ops/raster_feat.py``), else None.
     features: torch.Tensor | None = None
+    # A surfel pool's (2D Gaussian Splatting, ``ops/raster_surfel.py``)
+    # normal map [H, W, 3] (sum w n, camera space) and distortion map
+    # [H, W]; else None. Its ``depth`` is then sum w z and ``alpha`` sum w.
+    normal: torch.Tensor | None = None
+    distortion: torch.Tensor | None = None
 
 
 def _composite_chunk(feats: torch.Tensor, mask: torch.Tensor,
@@ -354,6 +359,87 @@ class _CompositeGatheredFeatures(torch.autograd.Function):
         grad, g_sem = _k2_reduce(pf, pair_slot, tile_start, tile_count, out,
                                  state, gout, ctx.n, cfg, then=f2)
         return grad, g_sem, None, None, None, None, None
+
+
+class _CompositeSurfels(torch.autograd.Function):
+    """S1 and S2 (``raster_surfel``) as one function of the surfels' rows
+    [N, SURFEL_ROWS] in depth order (``ops.surfel``). Forward: S1 over the
+    binning's pairs, reading each pair's row by its surfel
+    (``rows[pair_slot]``; no per-pair buffer). Backward: S2's per-pair
+    gradients ``[SURFEL_ROWS, pairs]``, then the keyed reduction of
+    :class:`_CompositeGathered` (:func:`_reduce_pair_grads`, keyed by
+    ``pair_slot``, padding keyed ``n``; the pairs S2 does not reach are
+    exact zeros)."""
+
+    @staticmethod
+    def forward(ctx, rows, pair_slot, tile_start, tile_count, cfg, sc):
+        tab = raster_surfel.table(rows.detach())
+        with span("gs.s1"):
+            out = raster_surfel.composite_surfels(tab, pair_slot, tile_start,
+                                                  tile_count, cfg, sc)
+        ctx.n = rows.shape[0]
+        ctx.cfg, ctx.sc = cfg, sc
+        ctx.save_for_backward(tab, pair_slot, tile_start, tile_count, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        tab, pair_slot, tile_start, tile_count, out = ctx.saved_tensors
+        with span("gs.s2"):
+            d = raster_surfel.composite_surfels_bwd(
+                tab, pair_slot, tile_start, tile_count, out,
+                gout.contiguous(), ctx.cfg, ctx.sc)
+        with span("gs.pair_grads"):
+            key = torch.where(pair_slot >= 0, pair_slot, ctx.n)
+            grad = _reduce_pair_grads(key, d, ctx.n)
+        return grad, None, None, None, None, None
+
+
+def rasterize_surfels(proj: ProjectedGaussians, rows: torch.Tensor,
+                      cfg: RenderConfig, sc: SurfelConfig):
+    """Bin and composite one view of surfels (``ops.surfel``'s projection
+    and rows) through ``raster_surfel``: S1 on CUDA tensors, its plain
+    version on CPU tensors, as :class:`_CompositeSurfels` when autograd
+    records. Returns (image [H, W, 3] clipped to [0, 1], RenderAux with
+    ``depth`` sum w z, ``alpha`` sum w, ``normal`` and ``distortion``)."""
+    raster_surfel.check_config(cfg)
+    binning = bin_gaussians(proj, cfg)
+    with span("gs.gather"):
+        rows_d = rows.index_select(0, binning.depth_order.to(torch.int64))
+    if torch.is_grad_enabled() and rows_d.requires_grad:
+        out = _CompositeSurfels.apply(rows_d, binning.pair_slot,
+                                      binning.tile_start, binning.tile_count,
+                                      cfg, sc)
+    else:
+        with span("gs.s1"):
+            out = raster_surfel.composite_surfels(
+                raster_surfel.table(rows_d), binning.pair_slot,
+                binning.tile_start, binning.tile_count, cfg, sc)
+    T = cfg.tile
+    planes = out[:, :9].reshape(cfg.tiles_y, cfg.tiles_x, 9, T, T).permute(
+        0, 3, 1, 4, 2).reshape(cfg.padded_height, cfg.padded_width, 9)[
+            :cfg.height, :cfg.width]
+    img = clip(planes[..., 0:3], 0.0, 1.0)
+    alpha = planes[..., 4]
+    if cfg.background != (0.0, 0.0, 0.0):
+        bg = torch.tensor(cfg.background, dtype=img.dtype, device=img.device)
+        img = img + (1.0 - alpha)[..., None] * bg
+    aux = RenderAux(
+        num_pairs=binning.num_pairs,
+        pair_capacity=cfg.max_pairs,
+        max_tile_count=torch.max(binning.tile_count),
+        per_tile_capacity=cfg.padded_pairs,
+        depth=planes[..., 3],
+        alpha=alpha,
+        screen_radius=proj.radius,
+        num_rows=binning.num_rows,
+        num_pairs_kept=binning.num_pairs_kept,
+        trunc_demand=binning.trunc_demand,
+        normal=planes[..., 5:8],
+        distortion=planes[..., 8],
+    )
+    return img, aux
 
 
 def composited_pair_keys(pair_slot, tile_start, fwd_out, n: int, kb: int,

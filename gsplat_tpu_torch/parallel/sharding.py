@@ -45,7 +45,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..config import FEATURE_KEY, RenderConfig, TrainConfig
+from ..config import FEATURE_KEY, RenderConfig, TrainConfig, is_surfel_pool
 from ..models.gaussians import GaussianPool
 from ..ops.binning import bin_gaussians
 from ..ops.gaussian import build_cov3d_packed
@@ -63,10 +63,15 @@ from .mesh import DATA_AXIS, TILE_AXIS, Mesh
 
 def _refuse_features(state: TrainState):
     """The sharded steps train plain 3DGS: a pool with per-gaussian
-    features (Feature 3DGS) trains on one device."""
+    features (Feature 3DGS) or of surfels (2D Gaussian Splatting) trains
+    on one device."""
     if state.decoder is not None or FEATURE_KEY in state.pool.params:
         raise ValueError("the sharded train steps do not train per-gaussian "
                          "features (f_sem): train such a pool on one device")
+    if state.surfel is not None or is_surfel_pool(state.pool.params):
+        raise ValueError("the sharded train steps do not train surfels (a "
+                         "two-column scale_raw): train such a pool on one "
+                         "device")
 
 
 def band_config(cfg: RenderConfig, n_bands: int) -> tuple[RenderConfig, int]:

@@ -9,19 +9,26 @@ Inputs are tensors on one device; the compositor runs the CUDA kernel for
 CUDA tensors and its plain version for CPU tensors. The per-gaussian
 stages (covariance, SH colour, projection) go through
 ``ops.preprocess.preprocess``: one kernel, P1, for CUDA tensors autograd
-does not record, else the plain chain.
+does not record, else the plain chain. A surfel pool (a two-column
+``scale_raw``: 2D Gaussian Splatting) goes through the surfel transform
+(``ops.surfel``) and the surfel compositor (``ops.raster_surfel``)
+instead, in ``render_from_params`` and ``pair_demand``; the batched entry
+refuses it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .config import FEATURE_KEY, RenderConfig
+from .config import (FEATURE_KEY, RenderConfig, SurfelConfig,
+                     is_surfel_pool)
 from .ops.binning import bin_gaussians
 from .ops.gaussian import pack_cov3d
 from .ops.preprocess import preprocess
 from .ops.projection import ProjectedGaussians, project_gaussians
-from .ops.rasterize import rasterize
+from .ops.raster_surfel import check_config as check_surfel_config
+from .ops.rasterize import rasterize, rasterize_surfels
+from .ops.surfel import surfel_transform
 from .utils.profiling import span
 
 
@@ -78,22 +85,43 @@ def render(
 
 
 def pair_demand(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
-                alive: torch.Tensor | None = None):
+                alive: torch.Tensor | None = None,
+                surfel: SurfelConfig | None = None):
     """True (pair, row, trunc) demand of a view — projection + binning only.
 
     Returns (num_pairs, num_rows, trunc_demand) as 0-d int32 tensors; the
-    last two are 0 in rect mode without truncation.
+    last two are 0 in rect mode without truncation. A surfel pool's
+    demand is its footprints' (``surfel``: as ``render_from_params``).
     """
     c2w = _c2w(c2w, params["pos"])
-    proj, _, _ = preprocess(params, c2w, fx, fy, cx, cy, cfg, alive=alive,
-                            colour=False)
+    if is_surfel_pool(params):
+        proj = _surfels(params, c2w, fx, fy, cx, cy, cfg, alive, None,
+                        surfel)[0]
+    else:
+        proj, _, _ = preprocess(params, c2w, fx, fy, cx, cy, cfg,
+                                alive=alive, colour=False)
     binning = bin_gaussians(proj, cfg)
     return binning.num_pairs, binning.num_rows, binning.trunc_demand
 
 
+def _surfels(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig, alive,
+             uv_tap, surfel):
+    """A surfel pool's transform, after its refusals: (projection, rows,
+    the SurfelConfig)."""
+    if FEATURE_KEY in params:
+        raise ValueError("a surfel pool (two-column scale_raw) carries no "
+                         "per-gaussian features (f_sem)")
+    check_surfel_config(cfg)
+    surfel = surfel or SurfelConfig()
+    proj, rows = surfel_transform(params, c2w, fx, fy, cx, cy, cfg, surfel,
+                                  alive=alive, uv_tap=uv_tap)
+    return proj, rows, surfel
+
+
 def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
                        alive: torch.Tensor | None = None,
-                       uv_tap: torch.Tensor | None = None):
+                       uv_tap: torch.Tensor | None = None,
+                       surfel: SurfelConfig | None = None):
     """Raw parameter dict -> (image [H, W, 3], RenderAux).
 
     Args:
@@ -107,8 +135,16 @@ def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
         alive: optional [N] bool pool-slot mask.
         uv_tap: optional [N, 2] zeros; the gradient w.r.t. it is the
             view-space positional gradient (paper-style ADC statistic).
+        surfel: a surfel pool's ``SurfelConfig`` (``SurfelConfig()``
+            where None): with a two-column ``scale_raw`` the frame is 2D
+            Gaussian Splatting's (``ops.rasterize.rasterize_surfels``), and
+            the aux holds its normal and distortion maps.
     """
     c2w = _c2w(c2w, params["pos"])
+    if is_surfel_pool(params):
+        proj, rows, surfel = _surfels(params, c2w, fx, fy, cx, cy, cfg,
+                                      alive, uv_tap, surfel)
+        return rasterize_surfels(proj, rows, cfg, surfel)
     proj, colors, _ = preprocess(params, c2w, fx, fy, cx, cy, cfg,
                                  alive=alive, uv_tap=uv_tap)
     return rasterize(proj, colors, cfg, params.get(FEATURE_KEY))
@@ -186,6 +222,10 @@ def render_batch_from_params(params: dict, c2w, fx, fy, cx, cy,
     if FEATURE_KEY in params:
         raise ValueError("batched views do not composite per-gaussian "
                          "features: render the views one at a time")
+    if is_surfel_pool(params):
+        raise ValueError("batched views do not composite surfels (a "
+                         "two-column scale_raw): render the views one at "
+                         "a time")
     pos = params["pos"]
     c2w = _c2w(c2w, pos)
     B = c2w.shape[0]

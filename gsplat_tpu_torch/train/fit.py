@@ -19,6 +19,9 @@ Counterpart of ``gsplat_tpu/train/fit.py`` (``FitReport`` :42, ``fit``
 * with ``features`` (Feature 3DGS) the pool starts with zero feature
   vectors and a drawn decoder, batches carry ``teacher`` maps, and the
   ADC's children copy their parent's features (one device only);
+* with ``surfel`` (2D Gaussian Splatting) the pool is of surfels (the
+  initial scales' first two columns), the loss adds the geometric terms
+  and the ADC splits in the tangent plane (one device only);
 * ``max_pairs``, the pool capacity, in ellipse mode the row stage's
   ``max_rows``, with ``tile_rank_cap`` the truncated list's
   ``trunc_pairs`` and with ``bwd_pairs`` the compacted backward's
@@ -40,12 +43,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..config import FeatureConfig, RenderConfig, TrainConfig
+from ..config import FeatureConfig, RenderConfig, SurfelConfig, TrainConfig
 from ..data.pointcloud import load_point_cloud
 from ..device import resolve_device
 from ..models.adc import pos_grad_norm
 from ..models.gaussians import (init_decoder, init_pool_from_points,
-                                with_features)
+                                to_surfels, with_features)
 from ..utils.logging import MetricsLogger
 from ..parallel.mesh import TILE_AXIS
 from ..parallel.sharding import (adc_on_shards, gather_train_state,
@@ -116,6 +119,7 @@ def fit(
     device_cache_bytes: int = 4 << 30,
     features: FeatureConfig | None = None,
     feature_dims: tuple[int, int] = (128, 512),
+    surfel: SurfelConfig | None = None,
 ) -> tuple[TrainState, FitReport]:
     """Train a Gaussian pool on a dataset. Returns (state, report).
 
@@ -160,6 +164,9 @@ def fit(
             and the decoder to D channels is drawn from ``seed``
             (``models.gaussians.init_decoder``); every batch must carry
             ``teacher`` [B, D, h, w].
+        surfel: train 2D Gaussian Splatting with these loss weights
+            (``config.SurfelConfig``): the pool holds surfels. Not with
+            ``mesh`` or ``features``.
 
     Static capacities grow from the observed demand: a pair-capacity
     overflow (checked at log_every boundaries; the steps between are still
@@ -183,6 +190,9 @@ def fit(
     if features is not None and mesh is not None:
         raise ValueError("per-gaussian features train on one device: "
                          "fit(features=...) takes no mesh")
+    if surfel is not None and (mesh is not None or features is not None):
+        raise ValueError("surfels train on one device, without features: "
+                         "fit(surfel=...) takes no mesh and no features")
     dev = mesh.device if mesh is not None else resolve_device(device)
     sharded = mesh is not None and bool(gauss_sharded)
     main = mesh is None or mesh.rank == 0
@@ -232,7 +242,9 @@ def fit(
         pool = with_features(pool, torch.zeros(
             pool.capacity, C, dtype=torch.float32, device=dev))
         decoder = init_decoder(C, D, seed, dev)
-    state = init_train_state(pool, train_cfg, features, decoder)
+    if surfel is not None:
+        pool = to_surfels(pool)
+    state = init_train_state(pool, train_cfg, features, decoder, surfel)
 
     if resume_from:
         state = load_checkpoint(resume_from, state)

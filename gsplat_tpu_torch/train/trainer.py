@@ -37,6 +37,11 @@ Counterpart of ``gsplat_tpu/train/trainer.py:43-582``:
   the batch's teacher maps, Adam takes ``f_sem`` and the decoder at their
   own rates, and the checkpoints carry both with their Adam state in keys
   of their own beside the JAX layout;
+  a surfel pool (a two-column ``scale_raw``: 2D Gaussian Splatting; the
+  port's own, ``config.SurfelConfig``, in ``TrainState.surfel``) renders
+  through the surfel compositor and its loss adds the depth-distortion
+  and normal-consistency terms (``ops.losses.geometry_loss``); every
+  leaf, the update, the ADC and the checkpoints are 3DGS's;
   ``save_checkpoint_dcp``/``load_checkpoint_dcp``: the orbax pair's
   collective directory checkpoints, on ``torch.distributed.checkpoint``,
   for a state sharded over a process grid.
@@ -58,12 +63,13 @@ import numpy as np
 import torch
 
 from ..config import (DECODER_KEYS, FEATURE_KEY, FeatureConfig,
-                      RenderConfig, TrainConfig)
+                      RenderConfig, SurfelConfig, TrainConfig,
+                      is_surfel_pool)
 from ..device import resolve_device
 from ..models.adc import (densify_and_prune, densify_and_prune_paper,
                           raise_low_opacity)
 from ..models.gaussians import PARAM_KEYS, GaussianPool, pool_from_numpy
-from ..ops.losses import compute_loss, feature_loss
+from ..ops.losses import compute_loss, feature_loss, geometry_loss
 from ..ops.update import adam_update
 from ..render import render_batch_from_params, render_from_params
 from ..utils.profiling import span
@@ -158,6 +164,9 @@ class TrainState(NamedTuple):
     # features, else None.
     decoder: dict | None = None
     features: FeatureConfig | None = None
+    # A surfel pool's (2D Gaussian Splatting) loss weights and distortion
+    # range, else None.
+    surfel: SurfelConfig | None = None
 
 
 def _leaves(state: TrainState) -> dict:
@@ -167,13 +176,24 @@ def _leaves(state: TrainState) -> dict:
 
 def init_train_state(pool: GaussianPool, cfg: TrainConfig,
                      features: FeatureConfig | None = None,
-                     decoder: dict | None = None) -> TrainState:
+                     decoder: dict | None = None,
+                     surfel: SurfelConfig | None = None) -> TrainState:
     """The state training starts from. A pool with features (``f_sem``
     [N, C]) needs Feature 3DGS's ``decoder`` (``dec_w`` [D, C], ``dec_b``
     [D], e.g. :func:`models.gaussians.init_decoder`), whose tensors
     become leaves, and trains with ``features`` (``FeatureConfig()``
-    where None); a pool without takes neither."""
+    where None); a pool without takes neither. A surfel pool (a
+    two-column ``scale_raw``) trains with ``surfel`` (``SurfelConfig()``
+    where None); a 3DGS pool takes none."""
     dev = resolve_device(pool.pos.device)  # on CUDA: TF32 off for SSIM
+    if is_surfel_pool(pool.params):
+        if FEATURE_KEY in pool.params:
+            raise ValueError("a surfel pool (two-column scale_raw) carries "
+                             "no per-gaussian features (f_sem)")
+        surfel = surfel or SurfelConfig()
+    elif surfel is not None:
+        raise ValueError("a SurfelConfig takes a surfel pool (a two-column "
+                         "scale_raw)")
     if FEATURE_KEY not in pool.params:
         if features is not None or decoder is not None:
             raise ValueError("a decoder and a FeatureConfig take a pool with "
@@ -198,6 +218,7 @@ def init_train_state(pool: GaussianPool, cfg: TrainConfig,
         step=torch.zeros((), dtype=torch.int32, device=dev),
         decoder=decoder,
         features=features,
+        surfel=surfel,
     )
 
 
@@ -233,6 +254,7 @@ def batch_loss_fn(
     uv_taps: torch.Tensor | None = None,
     decoder: dict | None = None,
     features: FeatureConfig | None = None,
+    surfel: SurfelConfig | None = None,
 ):
     """Mean L1+SSIM loss over a batch of views, rendered one after another.
 
@@ -260,9 +282,17 @@ def batch_loss_fn(
     ``features.semantic_loss_weight`` times ``ops.losses.feature_loss`` of
     its feature map against ``batch["teacher"][i]`` ([B, D, h, w]), and
     the metrics gain ``feat_l1``; views go one at a time.
+
+    With ``surfel`` (params of a surfel pool) each view renders through
+    the surfel compositor and its loss adds ``ops.losses.geometry_loss``
+    (the distortion and normal terms at ``surfel``'s weights); the metrics
+    gain ``dist`` and ``normal``; views go one at a time.
     """
     if decoder is not None and train_cfg.batched_render:
         raise ValueError("per-gaussian features train one view at a time: "
+                         "batched_render must be False")
+    if surfel is not None and train_cfg.batched_render:
+        raise ValueError("surfels train one view at a time: "
                          "batched_render must be False")
     if train_cfg.batched_render:
         imgs, aux = render_batch_from_params(
@@ -292,17 +322,22 @@ def batch_loss_fn(
                                            dim=0, dtype=torch.int32)
             metrics["max_radius"] = torch.amax(radii, dim=0)
         return total, metrics
-    totals, l1s, ssims, pairs, rows, tds, bds, radii, feats = (
-        [] for _ in range(9))
+    totals, l1s, ssims, pairs, rows, tds, bds, radii, feats, geo = (
+        [] for _ in range(10))
     for i in range(batch["c2w"].shape[0]):
         img, aux = render_from_params(
             params, batch["c2w"][i], batch["fx"][i], batch["fy"][i],
             batch["cx"][i], batch["cy"][i], render_cfg, alive=alive,
-            uv_tap=None if uv_taps is None else uv_taps[i],
+            uv_tap=None if uv_taps is None else uv_taps[i], surfel=surfel,
         )
         total, comps = compute_loss(img, batch["image"][i],
                                     train_cfg.lambda_l1,
                                     train_cfg.lambda_ssim)
+        if surfel is not None:
+            g, parts = geometry_loss(aux, batch["fx"][i], batch["fy"][i],
+                                     batch["cx"][i], batch["cy"][i], surfel)
+            total = total + g
+            geo.append(torch.stack([parts["dist"], parts["normal"]]))
         if decoder is not None:
             fl = feature_loss(aux.features, batch["teacher"][i], decoder)
             total = total + features.semantic_loss_weight * fl
@@ -327,6 +362,9 @@ def batch_loss_fn(
     }
     if feats:
         metrics["feat_l1"] = torch.mean(torch.stack(feats)).detach()
+    if geo:
+        g = torch.mean(torch.stack(geo), dim=0).detach()
+        metrics["dist"], metrics["normal"] = g[0], g[1]
     if render_cfg.cull_mode == "ellipse":
         # The row stage's capacity: its overflow drops whole gaussians,
         # so fit() reads and grows it.
@@ -400,7 +438,7 @@ def value_and_grads(state: TrainState, batch: dict,
     loss, metrics = batch_loss_fn(
         apply_sh_warmup(params, state.step, train_cfg), pool.alive,
         batch, render_cfg, train_cfg, uv_taps=taps, decoder=state.decoder,
-        features=state.features,
+        features=state.features, surfel=state.surfel,
     )
     with span("gs.backward"):
         loss.backward()
@@ -682,6 +720,11 @@ def load_checkpoint(path, state: TrainState) -> TrainState:
             "checkpoint and state disagree on features: "
             f"file {'with' if FEATURE_KEY in params else 'without'}, state "
             f"{'with' if state.decoder is not None else 'without'}")
+    if is_surfel_pool(params) != (state.surfel is not None):
+        raise ValueError(
+            "checkpoint and state disagree on surfels: file "
+            f"{'with' if is_surfel_pool(params) else 'without'}, state "
+            f"{'with' if state.surfel is not None else 'without'}")
     opt = _rebuild_optimizer(state.opt_state, params)
     with torch.no_grad():
         for k, p in params.items():

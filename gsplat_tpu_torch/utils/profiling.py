@@ -41,11 +41,13 @@ LAUNCH_WORDS = ("LaunchKernel", "Memcpy", "Memset")
 # then the loss, the backward (K2 and the keyed reduction run on
 # autograd's device thread inside it) and the update. A pool with
 # per-gaussian features adds the feature map (F1) after K1, its decoder
-# and L1 after the loss, and F2 after K2.
+# and L1 after the loss, and F2 after K2. A surfel pool composites with S1
+# in place of K1, adds its geometric loss terms after the loss, and runs
+# S2 in place of K2.
 SPANS = ("gs.frame", "gs.step", "gs.pose", "gs.cov_sh", "gs.project",
-         "gs.bin", "gs.gather", "gs.k1", "gs.feat_k1", "gs.loss",
-         "gs.feat_loss", "gs.backward", "gs.k2", "gs.feat_k2",
-         "gs.pair_grads", "gs.update")
+         "gs.bin", "gs.gather", "gs.k1", "gs.feat_k1", "gs.s1", "gs.loss",
+         "gs.feat_loss", "gs.geo_loss", "gs.backward", "gs.k2",
+         "gs.feat_k2", "gs.s2", "gs.pair_grads", "gs.update")
 
 _OFF = contextlib.nullcontext()
 
