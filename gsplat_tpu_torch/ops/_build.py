@@ -34,16 +34,19 @@ NVCC_FLAGS = (
 # (argtypes, restype)}}. Each library is csrc/<library>.cu.
 FUNCTIONS = {
     "raster_fwd": {
-        # raster_fwd(feat, n_pairs, stride, tile_start, tile_count, order,
-        #            out, state, skipped, log_t, num_tiles, tiles_x,
-        #            rows_mod, tile, G, chi2_clip, alpha_max, alpha_cutoff,
-        #            t_min, margin_rel, margin_eps, margin_abs, kappa_min,
-        #            stream) -> cudaError_t   (order: scratch; state,
-        #            skipped: may be null; log_t: 1 for
-        #            transmittance_math="log", 0 for "cumprod"; rows_mod: a
-        #            view's tile rows for batched views, else 0)
+        # raster_fwd(feat, pair_slot, n_pairs, stride, tile_start,
+        #            tile_count, order, out, state, skipped, log_t,
+        #            num_tiles, tiles_x, rows_mod, tile, G, chi2_clip,
+        #            alpha_max, alpha_cutoff, t_min, margin_rel, margin_eps,
+        #            margin_abs, kappa_min, stream) -> cudaError_t
+        #            (pair_slot: null for the feature-major pair list in
+        #            feat, else feat is the [N, 12] table read by slot;
+        #            order: scratch; state, skipped: may be null; log_t: 1
+        #            for transmittance_math="log", 0 for "cumprod";
+        #            rows_mod: a view's tile rows for batched views, else 0)
         "raster_fwd": (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -52,10 +55,19 @@ FUNCTIONS = {
              ctypes.c_void_p],
             ctypes.c_int,
         ),
-        # raster_fwd_ctas_per_sm(int tile, int G, int log_t, int* n) ->
-        # cudaError_t: K1's resident CTAs per SM on the current device (the
-        # occupancy API)
+        # pair_table(order, valid, uv, conic, opacity, rgb, depth, n,
+        #            table, stream) -> cudaError_t   (K1's depth-ordered
+        #            [n, 12] f32 table; order int32 [n])
+        "pair_table": (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        # raster_fwd_ctas_per_sm(int tile, int G, int log_t, int indexed,
+        # int* n) -> cudaError_t: K1's resident CTAs per SM on the current
+        # device (the occupancy API)
         "raster_fwd_ctas_per_sm": ([ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int,
                                     ctypes.POINTER(ctypes.c_int)],
                                    ctypes.c_int),
     },

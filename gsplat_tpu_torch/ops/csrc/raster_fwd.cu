@@ -40,6 +40,20 @@
 //     static shared memory: 12 KiB at kMaxG 256, 24 KiB at 512. The
 //     tile-16 kernel keeps kMaxG 256 for G <= 256, so its registers, shared
 //     memory and CTAs per SM are those of the one-tile kernel before it;
+//   * the read: the training forward stages the feature-major pair list
+//     (rows gathered per pair before the launch); a frame that autograd
+//     does not record passes the depth-ordered table ([N, 12] f32, a row a
+//     gaussian: the 10 fields and two zero floats) and the pair list's
+//     slots instead, and each thread loads its pair's slot, then the row
+//     the slot names (two float4s and a float2; zeros at a padding slot),
+//     into the same registers (kIndexed; raster_fwd_kernel.cuh). The
+//     staged floats, and so every bit of the output, are the same; the
+//     frame no longer writes a [10, pairs] list for the few blocks K1
+//     reaches before its tiles saturate;
+//     The table is built by pair_table_kernel below, one thread a row:
+//     row i is gaussian order[i]'s fields (zeros where it is not valid),
+//     ops/raster_cuda.py::pair_table_plain's concatenation, mask and
+//     permutation in one pass;
 //   * at tile 32 a CTA of 1,024 threads may hold at most 64 registers a
 //     thread (the kernel needs about 40) and two CTAs share an SM;
 //   * the per-warp pair cull: for the 32 pairs j = w0 + lane of a block,
@@ -134,41 +148,96 @@
 
 namespace {
 
-// The instantiation of raster_fwd_kernel for (tile, G, log_t), or null
-// where none is built: tile 16 stages up to 256 pairs a CTA or 512, tile 32
-// up to 512.
+// The instantiation of raster_fwd_kernel for (tile, G, log_t, indexed), or
+// null where none is built: tile 16 stages up to 256 pairs a CTA or 512,
+// tile 32 up to 512.
 using FwdKernel = void (*)(const float*, int, int, const int*, const int*,
                            const int*, float*, float*, unsigned long long*,
                            int, int, int, float, float, float, float,
-                           CullMargins);
+                           CullMargins, const int*);
 
-template <bool kLog>
+template <bool kLog, bool kIndexed>
 FwdKernel pick_kernel(int tile, int G) {
   if (G <= 0 || G % 32 != 0) return nullptr;
-  if (tile == 16 && G <= 256) return raster_fwd_kernel<16, 256, kLog>;
-  if (tile == 16 && G <= 512) return raster_fwd_kernel<16, 512, kLog>;
-  if (tile == 32 && G <= 512) return raster_fwd_kernel<32, 512, kLog>;
+  if (tile == 16 && G <= 256)
+    return raster_fwd_kernel<16, 256, kLog, kK1, kIndexed>;
+  if (tile == 16 && G <= 512)
+    return raster_fwd_kernel<16, 512, kLog, kK1, kIndexed>;
+  if (tile == 32 && G <= 512)
+    return raster_fwd_kernel<32, 512, kLog, kK1, kIndexed>;
   return nullptr;
 }
 
-FwdKernel pick_kernel(int tile, int G, int log_t) {
-  return log_t ? pick_kernel<true>(tile, G) : pick_kernel<false>(tile, G);
+FwdKernel pick_kernel(int tile, int G, int log_t, bool indexed) {
+  if (indexed) {
+    return log_t ? pick_kernel<true, true>(tile, G)
+                 : pick_kernel<false, true>(tile, G);
+  }
+  return log_t ? pick_kernel<true, false>(tile, G)
+               : pick_kernel<false, false>(tile, G);
+}
+
+constexpr int kTableThreads = 256;
+
+// Row i of the [n, kTableRow] table: gaussian g = order[i]'s u v, conic
+// (3), opacity, rgb, depth and two zeros, or 12 zeros where valid[g] is 0.
+__global__ void __launch_bounds__(kTableThreads) pair_table_kernel(
+    const int* __restrict__ order, const unsigned char* __restrict__ valid,
+    const float* __restrict__ uv, const float* __restrict__ conic,
+    const float* __restrict__ opacity, const float* __restrict__ rgb,
+    const float* __restrict__ depth, int n, float4* __restrict__ table) {
+  const int i = blockIdx.x * kTableThreads + threadIdx.x;
+  if (i >= n) return;
+  const int g = order[i];
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a, c = a;
+  if (valid[g]) {
+    a = make_float4(uv[2 * g], uv[2 * g + 1], conic[3 * g], conic[3 * g + 1]);
+    b = make_float4(conic[3 * g + 2], opacity[g], rgb[3 * g], rgb[3 * g + 1]);
+    c = make_float4(rgb[3 * g + 2], depth[g], 0.0f, 0.0f);
+  }
+  float4* row = table + (size_t)i * (kTableRow / 4);
+  row[0] = a;
+  row[1] = b;
+  row[2] = c;
 }
 
 }  // namespace
 
+// Builds K1's depth-ordered [n, 12] table (pair_table_kernel) on `stream`
+// from the n-row order (int32 slots of the fields' rows) and the
+// contiguous fields: valid [N] bool, uv [N, 2], conic [N, 3], opacity
+// [N], rgb [N, 3], depth [N] f32. Returns cudaGetLastError().
+extern "C" int pair_table(const void* order, const void* valid,
+                          const void* uv, const void* conic,
+                          const void* opacity, const void* rgb,
+                          const void* depth, int n, void* table,
+                          void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  pair_table_kernel<<<(n + kTableThreads - 1) / kTableThreads, kTableThreads,
+                      0, (cudaStream_t)stream>>>(
+      (const int*)order, (const unsigned char*)valid, (const float*)uv,
+      (const float*)conic, (const float*)opacity, (const float*)rgb,
+      (const float*)depth, n, (float4*)table);
+  return (int)cudaGetLastError();
+}
+
 // Launches tile_order_kernel, then the compositor, on `stream` and returns
-// cudaGetLastError() (0 on success). `order` is scratch for num_tiles
-// ints. `state` may be null (nothing written); `skipped` may be null
-// (nothing counted), else the kernel adds the (pair, warp) it skipped to
-// *skipped. log_t selects the transmittance: 1 "log", 0 "cumprod".
+// cudaGetLastError() (0 on success). `pair_slot` null: `feat` is the
+// feature-major pair list, row r of pair j at feat[r * stride + j];
+// otherwise `feat` is the depth-ordered [N, 12] table, pair j's row
+// pair_slot[j] (zeros where it is < 0), and stride is not read; n_pairs is
+// the list's length either way. `order` is scratch for num_tiles ints.
+// `state` may be null (nothing written); `skipped` may be null (nothing
+// counted), else the kernel adds the (pair, warp) it skipped to *skipped. log_t selects the transmittance: 1 "log", 0 "cumprod".
 // tile: 16 or 32; G: a multiple of 32, at most 512 (cudaErrorInvalidValue
 // otherwise).
 // rows_mod: the tile rows of one view for batched views, else 0 (see the
 // header).
 // margin_rel, margin_eps, margin_abs and kappa_min are the cull's (see the
 // header).
-extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
+extern "C" int raster_fwd(const void* feat, const void* pair_slot,
+                          int n_pairs, int stride,
                           const void* tile_start, const void* tile_count,
                           void* order, void* out, void* state, void* skipped,
                           int log_t, int num_tiles, int tiles_x,
@@ -177,7 +246,7 @@ extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
                           float alpha_max, float alpha_cutoff, float t_min,
                           float margin_rel, float margin_eps,
                           float margin_abs, float kappa_min, void* stream) {
-  const FwdKernel kernel = pick_kernel(tile, G, log_t);
+  const FwdKernel kernel = pick_kernel(tile, G, log_t, pair_slot != nullptr);
   if (kernel == nullptr || num_tiles < 0 || rows_mod < 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -193,15 +262,17 @@ extern "C" int raster_fwd(const void* feat, int n_pairs, int stride,
       (const int*)tile_count, (const int*)order, (float*)out, (float*)state,
       (unsigned long long*)skipped, tiles_x, rows_mod, G, chi2_clip,
       alpha_max,
-      alpha_cutoff, t_min, cm);
+      alpha_cutoff, t_min, cm, (const int*)pair_slot);
   return (int)cudaGetLastError();
 }
 
 // The compositor's resident CTAs per SM on the current device for (tile,
-// G, log_t) as raster_fwd takes them, from the occupancy API, into *n;
-// returns the CUDA error (0 on success).
-extern "C" int raster_fwd_ctas_per_sm(int tile, int G, int log_t, int* n) {
-  const FwdKernel kernel = pick_kernel(tile, G, log_t);
+// G, log_t) and the read (indexed: 1 with a pair_slot, 0 without) as
+// raster_fwd takes them, from the occupancy API, into *n; returns the CUDA
+// error (0 on success).
+extern "C" int raster_fwd_ctas_per_sm(int tile, int G, int log_t,
+                                      int indexed, int* n) {
+  const FwdKernel kernel = pick_kernel(tile, G, log_t, indexed != 0);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       n, kernel, tile * tile, 0);

@@ -37,6 +37,15 @@
 //     group totals (gpre), T_excl = (within gpre) T_in, T_out = T_in gpre.
 //     A culled pair has 1 - alpha == 1, so folding a group into gpre when
 //     the walk enters the next one it visits rounds as the full walk does.
+// The read (kIndexed, K1's body only): false reads pair j's 10 rows from
+// the feature-major pair list `feat` ([>= 10, stride] f32, row r at
+// feat[r * stride + j]); true reads them from the depth-ordered table
+// `feat` ([N, kTableRow] f32, one gaussian a row) at row pair_slot[j], as
+// three aligned loads (two float4s and a float2), and zeros where
+// pair_slot[j] < 0 (a padding slot). The staged floats are the same: the
+// list is the table gathered by pair_slot, zeros at padding
+// (ops/raster_cuda.py::gather_rows). Everything from the shared-memory
+// store on is one code.
 // A body skips a (pair, warp) only where its own alpha is exactly 0 at the
 // warp's 32 pixels, where it changes no bit: w = 0, acc + 0 c == acc,
 // T (1 - 0) == T, S + log1pf(-0) == S + -0 == S. Their plain PyTorch
@@ -52,6 +61,7 @@ namespace {
 
 constexpr int kRows = 10;               // u v a b c op r g b depth
 constexpr int kSlots = 3;               // float4s per staged pair
+constexpr int kTableRow = 12;           // floats a row of the indexed table
 constexpr int kWarpW = 8, kWarpH = 4;   // a warp's pixel patch
 constexpr int kOrderThreads = 1024;
 constexpr int kBuckets = 32;  // tile_order: block counts 0..30, 31 and up
@@ -135,14 +145,54 @@ __global__ void __launch_bounds__(kOrderThreads) tile_order_kernel(
   }
 }
 
-template <int kTile, int kMaxG, bool kLog, int kBody = kK1>
+// The indexed read of a block (kIndexed, see the header): thread tid's
+// pairs base + tid + i * kPixels (i < kStage, tid + i * kPixels < G) into
+// f[i], all their slots first, then the rows.
+template <int kPixels, int kStage>
+__device__ __forceinline__ void load_indexed(float (&f)[kStage][kRows],
+                                             const float* __restrict__ table,
+                                             const int* __restrict__ pair_slot,
+                                             int base, int tid, int G) {
+  int slot[kStage];
+#pragma unroll
+  for (int i = 0; i < kStage; ++i) {
+    const int j = tid + i * kPixels;
+    slot[i] = j < G ? pair_slot[base + j] : -1;
+  }
+#pragma unroll
+  for (int i = 0; i < kStage; ++i) {
+    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
+    float2 c = make_float2(0.0f, 0.0f);
+    if (slot[i] >= 0) {
+      const float4* row = reinterpret_cast<const float4*>(table) +
+                          slot[i] * (kTableRow / 4);
+      a = row[0];
+      b = row[1];
+      c = *reinterpret_cast<const float2*>(row + 2);
+    }
+    f[i][0] = a.x;
+    f[i][1] = a.y;
+    f[i][2] = a.z;
+    f[i][3] = a.w;
+    f[i][4] = b.x;
+    f[i][5] = b.y;
+    f[i][6] = b.z;
+    f[i][7] = b.w;
+    f[i][8] = c.x;
+    f[i][9] = c.y;
+  }
+}
+
+template <int kTile, int kMaxG, bool kLog, int kBody = kK1,
+          bool kIndexed = false>
 __global__ void __launch_bounds__(kTile * kTile) raster_fwd_kernel(
     const float* __restrict__ feat, int n_pairs, int stride,
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
     const int* __restrict__ order, float* __restrict__ out,
     float* __restrict__ state, unsigned long long* __restrict__ skipped,
     int tiles_x, int rows_mod, int G, float chi2_clip, float alpha_max,
-    float alpha_cutoff, float t_min, CullMargins cm) {
+    float alpha_cutoff, float t_min, CullMargins cm,
+    const int* __restrict__ pair_slot = nullptr) {
   constexpr int kPixels = kTile * kTile;  // threads per CTA
   constexpr int kWarpsX = kTile / kWarpW;  // warp patches across the tile
   constexpr int kStage = (kMaxG + kPixels - 1) / kPixels;  // pairs a thread
@@ -156,6 +206,7 @@ __global__ void __launch_bounds__(kTile * kTile) raster_fwd_kernel(
   static_assert(kTile % kWarpW == 0 && kTile % kWarpH == 0, "warp patches");
   static_assert(kMaxG % 32 == 0, "pair blocks are whole warps of pairs");
   static_assert(kBody == kK1 || !kLog, "the ablations take cumprod K1");
+  static_assert(kBody == kK1 || !kIndexed, "the ablations read the list");
   __shared__ float4 sm[kReads ? kSlots * kMaxG : 1];
 
   const int tile = order[blockIdx.x];
@@ -183,13 +234,17 @@ __global__ void __launch_bounds__(kTile * kTile) raster_fwd_kernel(
   // registers, loaded while the warps walk the current one.
   float f[kStage][kRows];
   if (kReads && nblk > 0 && start + G <= n_pairs) {
+    if constexpr (kIndexed) {
+      load_indexed<kPixels>(f, feat, pair_slot, start, tid, G);
+    } else {
 #pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int j = tid + i * kPixels;
-      if (j < G) {
+      for (int i = 0; i < kStage; ++i) {
+        const int j = tid + i * kPixels;
+        if (j < G) {
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          f[i][r] = feat[(size_t)r * stride + start + j];
+          for (int r = 0; r < kRows; ++r)
+            f[i][r] = feat[(size_t)r * stride + start + j];
+        }
       }
     }
   }
@@ -233,13 +288,17 @@ __global__ void __launch_bounds__(kTile * kTile) raster_fwd_kernel(
       }
       __syncthreads();
       if (k + 1 < nblk && base + 2 * G <= n_pairs) {
+        if constexpr (kIndexed) {
+          load_indexed<kPixels>(f, feat, pair_slot, base + G, tid, G);
+        } else {
 #pragma unroll
-        for (int i = 0; i < kStage; ++i) {
-          const int j = tid + i * kPixels;
-          if (j < G) {
+          for (int i = 0; i < kStage; ++i) {
+            const int j = tid + i * kPixels;
+            if (j < G) {
 #pragma unroll
-            for (int r = 0; r < kRows; ++r)
-              f[i][r] = feat[(size_t)r * stride + base + G + j];
+              for (int r = 0; r < kRows; ++r)
+                f[i][r] = feat[(size_t)r * stride + base + G + j];
+            }
           }
         }
       }

@@ -58,7 +58,13 @@ dropped and the unused columns are zero.
 
 Feature-major pair features ``[>= 10, padded_pairs]`` f32, rows
 0:u 1:v 2:conic_a 3:conic_b 4:conic_c 5:opacity 6:r 7:g 8:b 9:depth
-(the JAX layout's rows 10-15 are zero padding that nothing reads).
+(the JAX layout's rows 10-15 are zero padding that nothing reads): the
+depth-ordered per-gaussian rows gathered by the binning's ``pair_slot``
+(:func:`gather_rows`). A frame that autograd does not record skips that
+list: :func:`composite_pairs_indexed` hands K1 the depth-ordered table
+``[N, TABLE_WIDTH]`` and ``pair_slot``, and each thread reads its pair's
+row by slot, the same floats (the list is that table gathered), so the
+output is the list's bit for bit.
 
 :func:`composite_pairs` chooses by the tensors' device: CPU tensors take
 :func:`composite_pairs_plain` / :func:`composite_pairs_bwd_plain`; CUDA
@@ -79,6 +85,7 @@ from ..config import RenderConfig
 
 FEAT_WIDTH = 16  # width of the JAX package's pair-feature layout
 FEAT_ROWS = 10  # rows the compositor reads
+TABLE_WIDTH = 12  # floats a row of the indexed read's table (3 float4s)
 
 # Per-block metadata, one int32 per block (raster_pallas.py:51-69):
 #     meta = (owning_tile << 2) | (dead << 1) | first
@@ -121,6 +128,72 @@ def tile_rows(tiles, cfg: RenderConfig):
     integers, as ``raster_pallas.py::_pixel_grid`` wraps them)."""
     ty = tiles // cfg.tiles_x
     return ty % cfg.view_tile_rows if cfg.view_tile_rows else ty
+
+
+def pair_table_plain(order, valid, uv, conic, opacity, rgb, depth):
+    """The depth-ordered table ``[len(order), TABLE_WIDTH]`` f32 that
+    :func:`composite_pairs_indexed` reads: row i is gaussian ``order[i]``'s
+    u, v, conic (3), opacity, rgb (3), depth and two zeros, all zero where
+    it is not ``valid`` (culled slots may hold NaN)."""
+    n = uv.shape[0]
+    feat = torch.cat([uv, conic, opacity[:, None], rgb, depth[:, None],
+                      uv.new_zeros(n, TABLE_WIDTH - FEAT_ROWS)], dim=-1)
+    return torch.where(valid[:, None], feat, 0.0)[order.to(torch.int64)]
+
+
+def pair_table(order, valid, uv, conic, opacity, rgb, depth):
+    """:func:`pair_table_plain`'s table: CPU tensors take it; CUDA tensors
+    launch ``pair_table_kernel`` (``csrc/raster_fwd.cu``: the
+    concatenation, the mask and the permutation in one pass, the same bits),
+    counted in ``pair_table.launches``. ``order`` int32; ``valid`` bool
+    [N]; the fields f32, [N, 2], [N, 3], [N], [N, 3], [N]."""
+    fields = {"uv": (uv, 2), "conic": (conic, 3), "opacity": (opacity, 0),
+              "rgb": (rgb, 3), "depth": (depth, 0)}
+    n = valid.shape[0]
+    for name, (a, w) in fields.items():
+        if a.dtype != torch.float32 or tuple(a.shape) != ((n, w) if w
+                                                          else (n,)):
+            raise ValueError(f"{name} must be [{n}{f', {w}' if w else ''}] "
+                             f"float32, got {tuple(a.shape)} {a.dtype}")
+    if order.dtype != torch.int32 or order.dim() != 1 \
+            or valid.dtype != torch.bool:
+        raise ValueError("order must be int32 [rows] and valid bool [N]")
+    if order.device.type == "cpu":
+        return pair_table_plain(order, valid, uv, conic, opacity, rgb, depth)
+    rows = order.shape[0]
+    if max(rows, n) * TABLE_WIDTH >= 2**31:
+        raise ValueError(f"{max(rows, n)} rows exceed the kernel's int32 "
+                         f"index")
+    table = torch.empty(rows, TABLE_WIDTH, dtype=torch.float32,
+                        device=order.device)
+    if rows == 0:
+        return table
+    from ._build import load_library
+
+    lib = load_library("raster_fwd")
+    args = [t.contiguous() for t in (order, valid, uv, conic, opacity, rgb,
+                                     depth)]
+    with torch.cuda.device(order.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pair_table(*(a.data_ptr() for a in args), rows,
+                             table.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pair_table launch failed: CUDA error {err}")
+    pair_table.launches += 1
+    return table
+
+
+pair_table.launches = 0  # pair_table_kernel launches
+
+
+def gather_rows(table, pair_slot):
+    """The feature-major pair list ``[W, pairs]`` of per-gaussian rows
+    ``table`` ``[N, W]`` in depth order: column j is row ``pair_slot[j]``,
+    zeros where ``pair_slot[j] < 0`` (padding)."""
+    n = table.shape[0]
+    idx = torch.clamp(pair_slot, 0, n - 1).to(torch.int64)
+    out = torch.index_select(table.T.contiguous(), 1, idx)
+    return torch.where(pair_slot[None, :] >= 0, out, 0.0)
 
 
 def _block_alpha(f, px, py, cfg: RenderConfig):
@@ -657,11 +730,78 @@ def composite_pairs(pair_feat, tile_start, tile_count, cfg: RenderConfig):
 
 
 composite_pairs.launches = 0  # forward kernel (K1) launches, "cumprod"
+# K1 launches that read the table by slot (composite_pairs_indexed), either
+# transmittance; launches and log_launches count the pair list's reads
+composite_pairs.indexed_launches = 0
 composite_pairs.bwd_launches = 0  # backward kernel (K2) launches, "cumprod"
 composite_pairs.log_launches = 0  # K1 launches, transmittance_math="log"
 composite_pairs.bwd_log_launches = 0  # K2 launches, "log"
 composite_pairs.bwd_compact_launches = 0  # K2 launches in compact mode
 composite_pairs.bwd_ctas = 0  # CTAs of the last K2 launch (persistent grid)
+
+
+def _check_indexed_inputs(table, pair_slot, tile_start, tile_count,
+                          cfg: RenderConfig):
+    _check_cfg(cfg)
+    if not isinstance(table, torch.Tensor) or table.dtype != torch.float32 \
+            or table.dim() != 2 or table.shape[1] != TABLE_WIDTH:
+        got = (tuple(table.shape), table.dtype) \
+            if isinstance(table, torch.Tensor) else type(table).__name__
+        raise ValueError(f"table must be [N, {TABLE_WIDTH}] float32, got "
+                         f"{got}")
+    if not table.is_contiguous():
+        raise ValueError("table must be contiguous")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {table.device}")
+    for name, a, shape in (("pair_slot", pair_slot, pair_slot.shape[:1]),
+                           ("tile_start", tile_start, (cfg.num_tiles,)),
+                           ("tile_count", tile_count, (cfg.num_tiles,))):
+        if a.dtype != torch.int32 or tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {list(shape)} int32, got "
+                             f"{tuple(a.shape)} {a.dtype}")
+        if a.device != table.device:
+            raise ValueError(f"{name} is on {a.device}, table on "
+                             f"{table.device}")
+    if pair_slot.shape[0] % cfg.pair_block:
+        raise ValueError(
+            f"pair count {pair_slot.shape[0]} is not a multiple of "
+            f"pair_block {cfg.pair_block}")
+    if torch.is_grad_enabled() and table.requires_grad:
+        raise ValueError("composite_pairs_indexed records no autograd; "
+                         "composite_pairs takes a pair list that requires "
+                         "grad")
+
+
+def composite_pairs_indexed(table, pair_slot, tile_start, tile_count,
+                            cfg: RenderConfig):
+    """:func:`composite_pairs` of the pair list ``gather_rows(table,
+    pair_slot)`` without building it: K1 reads each pair's fields by its
+    slot.
+
+    Args:
+        table: [N, TABLE_WIDTH] f32 contiguous per-gaussian rows in depth
+            order (the pair list's 10 rows as columns 0-9; columns 10-11
+            are not read).
+        pair_slot: [padded_pairs] int32, the binning's: the table row of
+            each pair slot, -1 at padding.
+        tile_start, tile_count, cfg: as :func:`composite_pairs`.
+
+    Returns:
+        [num_tiles, 8, tile*tile] f32, bit for bit the output of
+        ``composite_pairs(gather_rows(table, pair_slot), ...)``.
+
+    CPU tensors take exactly that: the gather, then
+    :func:`composite_pairs_plain`. CUDA tensors launch K1's indexed
+    instantiation (``csrc/raster_fwd.cu``), counted in
+    ``composite_pairs.indexed_launches``. Records nothing for autograd,
+    writes no state, and refuses a table that requires grad.
+    """
+    _check_indexed_inputs(table, pair_slot, tile_start, tile_count, cfg)
+    if table.device.type == "cpu":
+        return composite_pairs_plain(gather_rows(table, pair_slot),
+                                     tile_start, tile_count, cfg)
+    return _launch_fwd(table, tile_start, tile_count, cfg,
+                       pair_slot=pair_slot)
 
 
 def check_kernel_config(cfg: RenderConfig):
@@ -686,17 +826,28 @@ def _check_kernel_args(cfg: RenderConfig, **tensors):
     for name, a in tensors.items():
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if "pair_slot" in tensors:  # the indexed read: int32 slot and row index
+        n_pairs = tensors["pair_slot"].shape[0]
+        rows = tensors["pair_feat"].shape[0]
+        if n_pairs >= 2**31 or rows * TABLE_WIDTH >= 2**31:
+            raise ValueError(f"{n_pairs} pairs over a table of {rows} rows "
+                             f"exceed the kernel's int32 index")
+        return
     n_pairs = tensors["pair_feat"].shape[1]
     if n_pairs >= 2**31 // FEAT_ROWS:
         raise ValueError(f"{n_pairs} pairs exceed the kernel's int32 index")
 
 
 def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
-                with_state: bool = False, skipped=None):
+                with_state: bool = False, skipped=None, pair_slot=None):
     """K1. ``skipped``: None (the main path), or a [1] int64 tensor on the
-    card to which the kernel adds the (pair, warp) its cull skipped."""
+    card to which the kernel adds the (pair, warp) its cull skipped.
+    ``pair_slot``: None reads the pair list ``pair_feat``; else
+    ``pair_feat`` is the [N, TABLE_WIDTH] table and K1 reads pair j's row
+    ``pair_slot[j]`` (:func:`composite_pairs_indexed`)."""
+    slots = {} if pair_slot is None else {"pair_slot": pair_slot}
     _check_kernel_args(cfg, pair_feat=pair_feat, tile_start=tile_start,
-                       tile_count=tile_count)
+                       tile_count=tile_count, **slots)
     if skipped is not None and (skipped.dtype != torch.int64
                                 or skipped.device != pair_feat.device
                                 or skipped.numel() != 1):
@@ -706,16 +857,19 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
     lib = load_library("raster_fwd")
     P = cfg.tile * cfg.tile
     dev = pair_feat.device
+    n_pairs = pair_feat.shape[1] if pair_slot is None else pair_slot.shape[0]
     out = torch.empty(cfg.num_tiles, 8, P, dtype=torch.float32, device=dev)
     order = torch.empty(cfg.num_tiles, dtype=torch.int32, device=dev)
     # Only the composited blocks' rows are written (and read back).
-    state = torch.empty(pair_feat.shape[1] // cfg.pair_block, STATE_ROWS, P,
+    state = torch.empty(n_pairs // cfg.pair_block, STATE_ROWS, P,
                         dtype=torch.float32, device=dev) if with_state \
         else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.raster_fwd(
-            pair_feat.data_ptr(), pair_feat.shape[1], pair_feat.stride(0),
+            pair_feat.data_ptr(),
+            None if pair_slot is None else pair_slot.data_ptr(), n_pairs,
+            pair_feat.stride(0),
             tile_start.data_ptr(), tile_count.data_ptr(), order.data_ptr(),
             out.data_ptr(), None if state is None else state.data_ptr(),
             None if skipped is None else skipped.data_ptr(),
@@ -731,7 +885,9 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
         )
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
-    if cfg.transmittance_math == "log":
+    if pair_slot is not None:
+        composite_pairs.indexed_launches += 1
+    elif cfg.transmittance_math == "log":
         composite_pairs.log_launches += 1
     else:
         composite_pairs.launches += 1
@@ -739,17 +895,18 @@ def _launch_fwd(pair_feat, tile_start, tile_count, cfg: RenderConfig,
 
 
 def fwd_ctas_per_sm(device, log: bool = False, tile: int = 16,
-                    pair_block: int = 256) -> int:
+                    pair_block: int = 256, indexed: bool = False) -> int:
     """K1's resident CTAs per SM on the CUDA ``device``, from the occupancy
     API (``raster_fwd_ctas_per_sm``), for the "cumprod" kernel or, with
-    ``log``, the "log" one, at ``tile`` and ``pair_block``."""
+    ``log``, the "log" one, at ``tile`` and ``pair_block``; with
+    ``indexed``, the instantiation that reads the table by slot."""
     from ._build import load_library
 
     lib = load_library("raster_fwd")
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = lib.raster_fwd_ctas_per_sm(tile, pair_block, int(log),
-                                         ctypes.byref(n))
+                                         int(indexed), ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"raster_fwd occupancy query failed: CUDA error "
                            f"{err}")

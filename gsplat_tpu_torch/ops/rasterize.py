@@ -32,6 +32,12 @@ the compact ``[10, kb*G]`` list. The reduction then sorts the same
 cotangents in the same order in both and sums each gaussian's run on its
 own, so a ``bwd_pairs`` at or above the demand gives the gradients of
 ``bwd_pairs = 0`` bit for bit.
+
+When autograd does not record (serving, evaluation) and no per-gaussian
+features are composited, no pair list is gathered: the per-gaussian
+fields go into one depth-ordered table (:func:`_pair_table`) and K1 reads
+each pair's row by its ``pair_slot`` (``raster_cuda.composite_pairs_indexed``),
+the same floats, so the frame is the gathered list's bit for bit.
 """
 
 from __future__ import annotations
@@ -148,11 +154,18 @@ def _pair_features(proj: ProjectedGaussians, colors: torch.Tensor, dtype):
     return torch.where(proj.valid[:, None], feat, 0.0)
 
 
-def _gather(feat10: torch.Tensor, pair_slot: torch.Tensor):
-    n = feat10.shape[0]
-    idx = torch.clamp(pair_slot, 0, n - 1).to(torch.int64)
-    out = torch.index_select(feat10.T.contiguous(), 1, idx)
-    return torch.where(pair_slot[None, :] >= 0, out, 0.0)
+def _pair_table(proj: ProjectedGaussians, colors: torch.Tensor,
+                depth_order: torch.Tensor):
+    """The depth-ordered ``[N, raster_cuda.TABLE_WIDTH]`` table that K1
+    reads by slot: :func:`_pair_features`' rows in ``depth_order`` with two
+    zero columns (``raster_cuda.pair_table``: one kernel on CUDA)."""
+    f32 = torch.float32
+    return raster_cuda.pair_table(
+        depth_order, proj.valid, proj.uv.to(f32), proj.conic.to(f32),
+        proj.opacity.to(f32), colors.to(f32), proj.depth.to(f32))
+
+
+_gather = raster_cuda.gather_rows
 
 
 def _reduce_pair_grads(key, g, n: int, bounds=None):
@@ -574,24 +587,36 @@ def rasterize_binned_pallas(
     (image, aux).
 
     When autograd records (``colors`` or the projection requires grad),
-    the gather and the compositor run as :class:`_CompositeGathered`;
-    otherwise as the gather and ``composite_pairs`` (no state written).
+    the gather and the compositor run as :class:`_CompositeGathered`.
+    Otherwise nothing is gathered: ``raster_cuda.composite_pairs_indexed``
+    reads each pair's row by its ``pair_slot`` from the depth-ordered
+    table (no state written; the same output bit for bit).
     ``features`` [N, C] (per-gaussian features, Feature 3DGS) adds their
     map [C, H, W] as ``aux.features``: F1 and F2 of ``raster_feat``
-    (:class:`_CompositeGatheredFeatures` when autograd records).
+    (:class:`_CompositeGatheredFeatures` when autograd records), which
+    read the gathered pair list's geometry.
     """
     fmap = None
     if features is not None:
         raster_feat.check_config(cfg, features.shape[1])
+    recorded = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (
+            proj.uv, proj.conic, proj.opacity, proj.depth, colors, features))
+    indexed = not recorded and features is None  # K1 reads the table by slot
     with span("gs.gather"):
-        feat10 = _pair_features(proj, colors, torch.float32)[
-            binning.depth_order.to(torch.int64)]
-        recorded = torch.is_grad_enabled() and (
-            feat10.requires_grad
-            or (features is not None and features.requires_grad))
-        if not recorded:
-            pf = _gather(feat10, binning.pair_slot)
-    if recorded and features is not None:
+        if indexed:
+            table = _pair_table(proj, colors, binning.depth_order)
+        else:
+            feat10 = _pair_features(proj, colors, torch.float32)[
+                binning.depth_order.to(torch.int64)]
+            if not recorded:
+                pf = _gather(feat10, binning.pair_slot)
+    if indexed:
+        with span("gs.k1"):
+            out = raster_cuda.composite_pairs_indexed(
+                table, binning.pair_slot, binning.tile_start,
+                binning.tile_count, cfg)
+    elif recorded and features is not None:
         out, fmap = _CompositeGatheredFeatures.apply(
             feat10, features, binning.depth_order, binning.pair_slot,
             binning.tile_start, binning.tile_count, cfg)

@@ -12,7 +12,8 @@ It renders the bench pose of the checkpoint (camera at ``center + (0,
 prints:
 
 * the forward stages of one frame (:func:`stage_ms`: covariance + SH,
-  projection, binning, the pair-feature gather, ``rasterize_binned``);
+  projection, binning, the pair-feature gather a recorded render makes,
+  ``rasterize_binned`` as a served frame runs it);
 * the parts of the backward of one fwd+bwd (:func:`bwd_parts_ms`: K2, the
   reduction of its pair gradients to per-gaussian ones, autograd through
   projection, SH and covariance);
@@ -95,8 +96,10 @@ def serving_path(params, c2w, fx, fy, cx, cy, cfg, alive=None):
 def stage_ms(params, c2w, fx, fy, cx, cy, cfg, alive, reps=5):
     """Device time of each stage of render_from_params, one at a time on
     the same inputs (CUDA events; median of `reps`; the host clock on the
-    CPU). `rasterize_binned` holds the pair-feature gather, the
-    compositor and the plane assembly."""
+    CPU). "gather" is the pair list a recorded render gathers;
+    `rasterize_binned`, run without autograd as a served frame, holds the
+    depth-ordered table K1 reads by slot, the compositor and the plane
+    assembly."""
     from .ops.binning import bin_gaussians
     from .ops.gaussian import build_cov3d_packed
     from .ops.projection import project_gaussians

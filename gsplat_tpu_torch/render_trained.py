@@ -314,8 +314,8 @@ def _run(args, mesh=None):
         if cfg.cull_mode == "ellipse":
             kw["max_rows"] = max(4096, -(-int(rk * 1.2) // 4096) * 4096)
         if cfg.tile_rank_cap:
-            # The truncated demand sizes the compacted list the gather and
-            # the compositor run on.
+            # The truncated demand sizes the compacted list the compositor
+            # runs on.
             kw["trunc_pairs"] = max(4096, -(-int(tk * 1.2) // 4096) * 4096)
         print(f"auto_pairs: demand {pk} pairs"
               + (f" / {rk} rows" if cfg.cull_mode == "ellipse" else "")

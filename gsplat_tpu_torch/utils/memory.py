@@ -33,7 +33,9 @@ Every term is a tensor's shape times its dtype's size (the ``*_mb`` keys,
   ``segment_reduce`` (``[cols, 10]`` f32 each), and the cotangent of K1's
   output; ``cols`` is the list's slots, or ``kb * G`` with ``bwd_pairs``;
 * the forward's working sets: the gather (``_gather``: its int64 index,
-  the ``index_select`` result, the masked copy, the mask) and binning at
+  the ``index_select`` result, the masked copy, the mask; a served frame
+  builds no pair list, only the depth-ordered ``[N, 12]`` table K1 reads
+  by slot) and binning at
   its sort (``ops/binning.py``: the expansion's int64 owner slot and tile,
   its mask, the int64 key, the sort's values and indices and the radix
   sort's alternate buffers), and the SSIM map's temporaries;
@@ -73,6 +75,9 @@ LOSS_TRANSIENT_FLOATS_PER_PIXEL = 18
 # Bytes a (pair, tile) slot of K1's list while it is gathered: int64
 # index 8, index_select result 40, masked copy 40, mask 1.
 GATHER_BYTES_PER_SLOT = 8 + 40 + 40 + 1
+# Bytes a gaussian of the depth-ordered table a served frame's K1 reads by
+# slot ([N, 12] f32, written by one kernel, raster_cuda.pair_table)
+TABLE_BYTES_PER_GAUSSIAN = 48
 # Bytes a pair of max_pairs at binning's sort: owner slot and tile 16,
 # mask 1, key 8, sorted values and indices 16, the radix sort's alternate
 # key and index buffers 16.
@@ -114,19 +119,19 @@ def _list_terms(cfg: RenderConfig) -> dict:
 def estimate_render_memory(cfg: RenderConfig, n_gaussians: int) -> dict:
     """Peak device bytes of one served frame (no autograd), in MB: the
     JAX package's keys with its values, and the port's terms: the
-    parameters, the projection's per-gaussian outputs and the largest of
-    binning's, the gather's and K1's working sets (with ``pair_slot``),
-    summed in ``total_mb``."""
+    parameters, the projection's per-gaussian outputs and the larger of
+    binning's and K1's working sets (with ``pair_slot``), summed in
+    ``total_mb``. No pair list is gathered: K1 reads the depth-ordered
+    table by slot."""
     n = n_gaussians
     jax = _jax_render_terms(cfg, n)
     params = _PARAM_FLOATS * n * _F32
     projected = 16 * n * _F32
     slot = cfg.padded_pairs * 4
     tile_out = cfg.num_tiles * 8 * cfg.tile * cfg.tile * _F32
-    # Binning at its sort; the gather; K1 (features and output).
+    # Binning at its sort; K1 (the table and the output).
     transient = max(BINNING_BYTES_PER_PAIR * cfg.max_pairs,
-                    slot + GATHER_BYTES_PER_SLOT * cfg.padded_pairs,
-                    slot + 10 * cfg.padded_pairs * _F32 + tile_out)
+                    slot + TABLE_BYTES_PER_GAUSSIAN * n + tile_out)
     total = params + projected + transient
     out = {k: _mb(v) for k, v in jax.items()}
     out.update(params_mb=_mb(params), projected_mb=_mb(projected),

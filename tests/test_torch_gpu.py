@@ -744,6 +744,178 @@ def test_k1_body_matches_plain_and_its_cull(cuda, variant):
         assert int(skipped.item()) == n["skipped"]
 
 
+def _indexed_inputs(kind, cfg, dev):
+    """(table [N, TABLE_WIDTH], the pair list [10, pairs] the gathered K1
+    reads, binning, the config it was binned at) of "batched" (three views
+    of the small scene stacked, view_tile_rows set) or "truncated" (the
+    dense patch at tile_rank_cap 600: deep tiles cut, several blocks
+    kept)."""
+    from gsplat_tpu_torch.ops.rasterize import _gather, _pair_table
+    from gsplat_tpu_torch.render import stack_view_projections
+
+    if kind == "truncated":
+        params, c2w = _dense_scene()
+        cfg = cfg.with_(tile_rank_cap=600)
+    else:
+        params, c2w = _scene(600, 0)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+    poses = [torch.from_numpy(c2w).to(dev)]
+    if kind == "batched":
+        poses = [poses[0].clone() for _ in range(3)]
+        for v, p in enumerate(poses):
+            p[0, 3] += 0.3 * v - 0.3
+    with torch.no_grad():
+        cov = build_cov3d_packed(t["scale_raw"], t["q_raw"])
+        projs = [project_gaussians(t["pos"], cov, t["opacity_raw"], p,
+                                   *CAM.values(), cfg) for p in poses]
+        colors = torch.cat([evaluate_sh(t["f_dc"], t["f_rest"], t["pos"], p)
+                            for p in poses])
+        proj = projs[0]
+        if kind == "batched":
+            proj, cfg = stack_view_projections(type(proj)(
+                *(torch.stack(f) for f in zip(*projs))), cfg)
+        b = bin_gaussians(proj, cfg)
+        table = _pair_table(proj, colors, b.depth_order)
+        pf = _gather(_pair_features(proj, colors, torch.float32)[
+            b.depth_order.long()], b.pair_slot)
+    return table, pf, b, cfg
+
+
+@pytest.mark.parametrize("kind", ["batched", "truncated"])
+@pytest.mark.parametrize("math", ["cumprod", "log"])
+@pytest.mark.parametrize("tile,pair_block", [
+    (t, G) for t in (16, 32) for G in (128, 256, 512)])
+def test_indexed_k1_matches_the_gathered_k1(cuda, tile, pair_block, math,
+                                             kind):
+    """K1 reading each pair's row by its slot from the depth-ordered table
+    against K1 reading the gathered pair list, on a batched list and a
+    truncated one, at every (tile, G) instantiation and both
+    transmittances: the output bit for bit (as int32), the same (pair,
+    warp) skipped, each launch in its own counter."""
+    cfg = gt.RenderConfig(**CFG, tile=tile, pair_block=pair_block,
+                          transmittance_math=math)
+    table, pf, b, cfg = _indexed_inputs(kind, cfg, cuda)
+    if kind == "truncated":
+        assert int(b.num_pairs_kept) < int(b.num_pairs)
+        assert int(b.tile_count.max()) > pair_block
+    else:
+        assert cfg.view_tile_rows == CFG["height"] // tile
+    args = (b.tile_start, b.tile_count, cfg)
+    counter = "log_launches" if math == "log" else "launches"
+    cp = tras.composite_pairs
+    n_idx, n_list = cp.indexed_launches, getattr(cp, counter)
+    got = tras.composite_pairs_indexed(table, b.pair_slot, *args)
+    assert cp.indexed_launches == n_idx + 1
+    assert getattr(cp, counter) == n_list
+    want = tras.composite_pairs(pf, *args)
+    assert getattr(cp, counter) == n_list + 1
+    skips = [torch.zeros(1, dtype=torch.int64, device=cuda) for _ in "ab"]
+    tras._launch_fwd(table, *args, skipped=skips[0], pair_slot=b.pair_slot)
+    tras._launch_fwd(pf, *args, skipped=skips[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[:, 5, 0] > 0).any() and torch.isfinite(got).all()
+    assert int(skips[0].item()) == int(skips[1].item()) > 0
+
+
+def test_pair_table_kernel_matches_plain(cuda):
+    """pair_table_kernel against pair_table_plain, bit for bit (as int32):
+    100,003 rows (not a whole number of CTAs) in a random order, a third of
+    them not valid and holding NaN and inf, NaN in valid rows too, each
+    launch counted; no rows; and the bench checkpoint's table at its 1080p
+    bench pose."""
+    gen = torch.Generator().manual_seed(0)
+    n = 100_003
+    f = [torch.randn(n, w, generator=gen) for w in (2, 3, 1, 3, 1)]
+    valid = torch.rand(n, generator=gen) > 1 / 3
+    dead = torch.nonzero(~valid)[:, 0]
+    for a in f:
+        a[dead] = float("nan")
+        a[dead[::7]] = float("inf")
+    f[4][5] = float("nan")
+    assert bool(valid[5])
+    args = [torch.randperm(n, generator=gen).to(torch.int32), valid,
+            f[0], f[1], f[2][:, 0], f[3], f[4][:, 0]]
+    card = [a.to(cuda) for a in args]
+    pool, c2w, _, _ = _bench(cuda)
+    sp = serving_path(pool.params, c2w, *FULL_CAM, gt.RenderConfig(**FULL),
+                      alive=pool.alive)
+    p = sp["proj"]
+    bench = [sp["bin"].depth_order, p.valid, p.uv, p.conic, p.opacity,
+             sp["colors"], p.depth]
+    for a in (card, [a[:0] for a in card], bench):
+        before = tras.pair_table.launches
+        got = tras.pair_table(*a)
+        assert tras.pair_table.launches == before + (a[0].shape[0] > 0)
+        want = tras.pair_table_plain(*a)
+        assert got.shape == (a[0].shape[0], tras.TABLE_WIDTH)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert (got[:, 10:] == 0).all()
+
+
+@pytest.mark.parametrize("scene", ["small", "bench1080p"])
+def test_served_frame_reads_the_table_bit_for_bit(cuda, scene, monkeypatch):
+    """A frame through viewer.make_render_fn (no autograd: K1 reads the
+    table by slot) against the same frame through the pair list (_gather,
+    then composite_pairs, put in composite_pairs_indexed's place): bit for
+    bit; the served frame counts one indexed K1 launch and no other."""
+    from gsplat_tpu_torch.ops import rasterize
+    from gsplat_tpu_torch.viewer import make_render_fn
+
+    if scene == "bench1080p":
+        pool, c2w, _, _ = _bench(cuda)
+        params, alive, cam = pool.params, pool.alive, FULL_CAM
+        cfg = gt.RenderConfig(**FULL)
+    else:
+        params, c2w = _scene(600, 3)
+        params, alive, cam = _card_params(params, cuda), None, CAM.values()
+        cfg = gt.RenderConfig(**CFG)
+    fn = make_render_fn(params, cfg, *cam, alive=alive)
+    cp = tras.composite_pairs
+    counts = lambda: (cp.indexed_launches, cp.launches,  # noqa: E731
+                      cp.log_launches)
+    before = counts()
+    img = fn(c2w)
+    assert [a - b for a, b in zip(counts(), before)] == [1, 0, 0]
+
+    def through_the_list(table, pair_slot, tile_start, tile_count, cfg):
+        pf = rasterize._gather(table[:, :tras.FEAT_ROWS], pair_slot)
+        return tras.composite_pairs(pf, tile_start, tile_count, cfg)
+
+    monkeypatch.setattr(rasterize.raster_cuda, "composite_pairs_indexed",
+                        through_the_list)
+    before = counts()
+    want = fn(c2w)
+    assert [a - b for a, b in zip(counts(), before)] == [0, 1, 0]
+    torch.cuda.synchronize()
+    assert torch.equal(img.view(torch.int32), want.view(torch.int32))
+    assert 0.0 < float(img.mean()) < 1.0
+
+
+def test_a_train_step_reads_the_gathered_list(cuda):
+    """A train step records autograd: its K1 reads the gathered pair list
+    (``launches``), K2 runs once, and the indexed read does not engage."""
+    params, c2w = _scene(600, 0)
+    cfg = gt.RenderConfig(**CFG)
+    tcfg = gt.TrainConfig(capacity=600, batch_size=1)
+    state = gt.init_train_state(gt.pool_from_numpy(
+        params, np.ones(600, bool), device=cuda), tcfg)
+    with torch.no_grad():
+        img = gt.render_from_params(_card_params(params, cuda), c2w,
+                                    *CAM.values(), cfg)[0]
+    batch = {"image": (img + 0.1)[None].clamp(0, 1),
+             "c2w": torch.from_numpy(c2w)[None].to(cuda)}
+    batch.update({k: torch.full((1,), v, device=cuda)
+                  for k, v in CAM.items()})
+    cp = tras.composite_pairs
+    before = (cp.launches, cp.bwd_launches, cp.indexed_launches)
+    state, m = gt.make_train_step(cfg, tcfg)(state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["total"]))
+    assert (cp.launches - before[0], cp.bwd_launches - before[1],
+            cp.indexed_launches - before[2]) == (1, 1, 0)
+
+
 @pytest.mark.parametrize("pair_block", [32, 160, 256])
 @pytest.mark.parametrize("variant", ["pg-roll", "pg-log"])
 def test_pg_kernel_matches_plain(cuda, variant, pair_block):
@@ -798,21 +970,43 @@ def test_tf32_split_kernel_matches_plain(cuda):
         assert torch.equal(k[~nan].view(torch.int32), p[~nan].view(torch.int32))
 
 
+# K1 reading the table by slot at <16, 256, cumprod>: its registers and
+# CTAs per SM as built (nvcc 12, sm_90a)
+INDEXED_REGS, INDEXED_CTAS = 47, 5
+
+
+def _ptxas_entry(ptxas, args):
+    """nvcc's -v report of the raster_fwd_kernel instantiation whose
+    mangled template arguments are ``args`` (registers, shared memory,
+    spills), split on its full mangled name."""
+    import re
+
+    names = [n for n in re.findall(r"Compiling entry function '([^']+)'",
+                                   ptxas)
+             if f"raster_fwd_kernelI{args}EE" in n]
+    assert len(names) == 1, names
+    part = ptxas.split(f"'{names[0]}'", 1)[1].split("Compiling entry", 1)[0]
+    m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", part)
+    spills = re.search(r"(\d+) bytes spill stores", part)
+    return int(m.group(1)), int(m.group(2)), int(spills.group(1))
+
+
 def test_k1_resources_unchanged(cuda):
     """K1 ("cumprod", tile 16, G <= 256) keeps the resources of its
     redesign now that its body is shared with the ablations: 40 registers,
     12,288 B of static shared memory, 6 CTAs per SM, and no library
-    spills."""
+    spills; the same instantiation reading the table by slot (kIndexed)
+    holds what it was measured at."""
     from gsplat_tpu_torch.ops import _build
     import re
 
     built = _build.build()
     ptxas = built["raster_fwd"]["ptxas"]
-    part = ptxas.split("raster_fwd_kernelILi16ELi256ELb0ELi0E", 1)[1]
-    part = part.split("Compiling entry", 1)[0]
-    m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", part)
-    assert (int(m.group(1)), int(m.group(2))) == (40, 12288)
+    assert _ptxas_entry(ptxas, "Li16ELi256ELb0ELi0ELb0E") == (40, 12288, 0)
     assert tras.fwd_ctas_per_sm(cuda) == 6
+    assert _ptxas_entry(ptxas, "Li16ELi256ELb0ELi0ELb1E") == (
+        INDEXED_REGS, 12288, 0)
+    assert tras.fwd_ctas_per_sm(cuda, indexed=True) == INDEXED_CTAS
     for name, info in built.items():
         for n in re.findall(r"(\d+) bytes spill stores", info["ptxas"]):
             assert int(n) == 0, name
@@ -972,14 +1166,15 @@ def test_xla_matches_kernel_on_card(cuda):
     cfg = gt.RenderConfig(**CFG)
     with torch.no_grad():
         img_k, aux_k = gt.render_from_params(p, c2w, *CAM.values(), cfg)
-        n = tras.composite_pairs.launches
+        cp = tras.composite_pairs
+        n = (cp.launches, cp.indexed_launches)
         big = int(aux_k.max_tile_count)
         img_x, aux_x = gt.render_from_params(
             p, c2w, *CAM.values(), cfg.with_(backend="xla", max_per_tile=big))
         img_c, _ = gt.render_from_params(
             p, c2w, *CAM.values(), cfg.with_(backend="xla",
                                              max_per_tile=big // 4))
-    assert tras.composite_pairs.launches == n
+    assert (cp.launches, cp.indexed_launches) == n
     assert img_x.is_cuda and aux_x.bwd_demand is None
     assert float((img_x - img_k).abs().max()) <= TOL
     # The kernel stops a tile once every pixel's T is at or below
@@ -1242,16 +1437,16 @@ def test_kernels_match_plain_on_ellipse_list(cuda, kind):
 
 def _band_rank(params, c2w):
     """One rank of a 2-rank band grid on the card: (rank 0's image, its
-    K1 launches)."""
+    K1 launches, which read the table by slot: no autograd records)."""
     from gsplat_tpu_torch.parallel import make_mesh, make_sharded_render
 
     mesh = make_mesh(tile=2)
     p = {k: torch.from_numpy(v).to(mesh.device) for k, v in params.items()}
-    before = tras.composite_pairs.launches
+    before = tras.composite_pairs.indexed_launches
     img = make_sharded_render(gt.RenderConfig(**CFG), mesh)(
         p, None, c2w, *CAM.values())
     torch.cuda.synchronize()
-    return img.cpu().numpy(), tras.composite_pairs.launches - before
+    return img.cpu().numpy(), tras.composite_pairs.indexed_launches - before
 
 
 def test_band_render_of_two_gloo_ranks_on_card_matches_single_rank(cuda):

@@ -235,13 +235,15 @@ def test_serving_the_bench_orbit_at_1080p(bench):
     other = torch.cuda.memory_allocated() - C.tensor_bytes(pool.params,
                                                            pool.alive)
     torch.cuda.reset_peak_memory_stats()
-    tras.composite_pairs.launches = 0
+    C.zero_counts()
     with BinCalls() as bins:
         _, stats = render_trajectory(counted, bench.traj, keep_frames=False,
                                      pair_capacity=cfg.max_pairs)
-    launches = tras.composite_pairs.launches
+    cp = tras.composite_pairs
+    launches = cp.indexed_launches
     _gate_memory(other, estimate_render_memory(cfg, pool.capacity))
     assert launches == calls[0] >= len(bench.traj)
+    assert cp.launches == 0  # no pair list is gathered
     bins.check()
     assert bins.calls >= calls[0]
     img = served["first"]
@@ -252,13 +254,13 @@ def test_serving_the_bench_orbit_at_1080p(bench):
 
 def test_log_transmittance_on_the_main_path(bench):
     """transmittance_math="log" served over the bench pose and the orbit
-    and one fwd+bwd: K1-log twice a served pose (the warm-up and the
-    pipelined pass) plus the fwd+bwd's two, K2-log once, finite gradients,
-    no overflow."""
+    and one fwd+bwd: K1-log reading the table twice a served pose (the
+    warm-up and the pipelined pass) and once for the trajectory's warm-up,
+    the fwd+bwd's K1-log reading the pair list, K2-log once, finite
+    gradients, no overflow."""
     pool, cam = bench.pool, bench.cam
     cfg_l = bench.cfg.with_(transmittance_math="log")
-    tras.composite_pairs.log_launches = 0
-    tras.composite_pairs.bwd_log_launches = 0
+    C.zero_counts()
     render_fn = make_render_fn(pool.params, cfg_l, *cam, alive=pool.alive,
                                report_demand=True)
     _, stats = render_trajectory(render_fn, bench.traj, keep_frames=False,
@@ -267,7 +269,8 @@ def test_log_transmittance_on_the_main_path(bench):
                                 pool.alive)
     torch.cuda.synchronize()
     assert all(torch.isfinite(p.grad).all() for p in leaves.values())
-    assert tras.composite_pairs.log_launches == 2 * len(bench.traj) + 2
+    assert tras.composite_pairs.indexed_launches == 2 * len(bench.traj) + 1
+    assert tras.composite_pairs.log_launches == 1
     assert tras.composite_pairs.bwd_log_launches == 1
     assert stats["pair_overflow_frames"] == 0
 
@@ -276,8 +279,9 @@ def test_truncation_at_the_bench_pose(bench, lever):
     """The rank truncation (tile_rank_cap 1024, 64 depth chunks): the
     occlusion cull lowers the demand and leaves the image bit for bit with
     the pairs kept equal; served over the orbit with capacities sized as
-    --auto_pairs sizes them and one fwd+bwd: K1 once a frame and K2 once,
-    finite gradients, no overflow."""
+    --auto_pairs sizes them and one fwd+bwd: K1 once a frame (reading the
+    table) and once in the fwd+bwd (the pair list), K2 once, finite
+    gradients, no overflow."""
     pool, cam, cfg = bench.pool, bench.cam, bench.cfg
     nocull = _demand(bench, bench.c2w, lever.cfg.with_(occlusion_cull=False))
     assert lever.demand < nocull[0]
@@ -305,8 +309,10 @@ def test_truncation_at_the_bench_pose(bench, lever):
                                 pool.alive)
     torch.cuda.synchronize()
     k1, k2 = C.counts()
+    served = tras.composite_pairs.indexed_launches
     assert all(torch.isfinite(p.grad).all() for p in leaves.values())
-    assert k1 == 2 * (2 * len(bench.traj) + 1) + 1 and k2 == 1, (k1, k2)
+    assert served == 2 * (2 * len(bench.traj) + 1), served
+    assert k1 == 1 and k2 == 1, (k1, k2)
     assert all(r["pair_overflow_frames"] == 0 for r in runs)
 
 
@@ -318,13 +324,14 @@ def test_bucketed_close_in_orbit(bench):
     from gsplat_tpu_torch import render_trained
 
     pool, cam, cfg = bench.pool, bench.cam, bench.cfg
-    tras.composite_pairs.launches = 0
+    C.zero_counts()
     stats = render_trained.main([
         "--checkpoint", C.CKPT, "--num_frames", "8", "--orbit_scale", "1.0",
         "--tile_rank_cap", str(LEVER_CAP), "--cull_chunks",
         str(LEVER_CHUNKS), "--bucket_pairs", "4", "--max_pairs",
         str(CLOSE_PAIRS), "--benchmark_only"])
-    assert tras.composite_pairs.launches >= 8 and stats["frames"] == 8
+    assert tras.composite_pairs.indexed_launches >= 8
+    assert stats["frames"] == 8
     traj = create_orbit_trajectory(bench.center, bench.radius * 1.0,
                                    num_frames=8, elevation_deg=15.0)
     for i in np.argsort(stats["frame_demand"])[::-1]:
@@ -356,17 +363,17 @@ def test_batched_serving_at_1080p(bench):
     fn = make_batch_render_fn(pool.params, cfg, *cam, alive=pool.alive,
                               batch=B, report_demand=True)
     assert float((fn(traj[:B])[0][0] - first).abs().max()) <= 1e-5
-    tras.composite_pairs.launches = 0
+    C.zero_counts()
     _, st = render_trajectory(fn, traj, batch_size=B, keep_frames=False,
                               pair_capacity=B * cfg.max_pairs)
-    assert tras.composite_pairs.launches == -(-len(traj) // B) + 1
+    assert tras.composite_pairs.indexed_launches == -(-len(traj) // B) + 1
     assert st["pair_overflow_frames"] == 0
-    tras.composite_pairs.launches = 0
+    C.zero_counts()
     cli = render_trained.main([
         "--checkpoint", C.CKPT, "--num_frames", "8", "--orbit_scale", "4.4",
         "--render_batch", str(B), "--max_pairs", str(cfg.max_pairs),
         "--benchmark_only"])
-    assert tras.composite_pairs.launches == 8 // B + 1
+    assert tras.composite_pairs.indexed_launches == 8 // B + 1
     assert cli["pair_overflow_frames"] == 0 and cli["frames"] == 8
 
 
@@ -378,12 +385,12 @@ def test_render_trained_with_the_ellipse_cull(bench, flags):
     overflow."""
     from gsplat_tpu_torch import render_trained
 
-    tras.composite_pairs.launches = 0
+    C.zero_counts()
     st = render_trained.main([
         "--checkpoint", C.CKPT, "--benchmark_only", "--num_frames", "8",
         "--orbit_scale", "4.4", "--max_pairs", str(MAX_PAIRS),
         "--cull_mode", "ellipse"] + flags)
-    assert tras.composite_pairs.launches >= 8
+    assert tras.composite_pairs.indexed_launches >= 8
     assert st["pair_overflow_frames"] == 0 and st["max_rows_seen"] > 0
 
 
@@ -844,14 +851,19 @@ def test_traces_hold_the_counted_kernels(bench, tmp_path):
                                        alive=pool.alive)
         (torch.mean(img) + torch.mean(img * img)).backward()
 
+    cp = tras.composite_pairs
+
+    def counts():  # K1 reading the table (served) or the list, and K2
+        return cp.indexed_launches + cp.launches, cp.bwd_launches
+
     for fn in (lambda: render_fn(bench.c2w), fwd_bwd):
         fn()  # warm-up, outside the trace
         torch.cuda.synchronize()
-        before = C.counts()
+        before = counts()
         with trace(str(tmp_path)) as prof:
             fn()
             torch.cuda.synchronize()
-        n1, n2 = (b - a for a, b in zip(before, C.counts()))
+        n1, n2 = (b - a for a, b in zip(before, counts()))
         s = summarize_trace(prof.chrome_trace_path)
         assert s["kernels"] > 0 and n1 == 1
         assert _kernel_events(s, "raster_fwd_kernel") == n1
@@ -1012,7 +1024,7 @@ def test_train_cli_and_the_tools_on_a_prepared_scene(bench, prepared):
     for k in PARAM_KEYS:
         assert torch.equal(getattr(back, k), getattr(state.pool, k).detach())
 
-    tras.composite_pairs.launches = 0
+    C.zero_counts()
     with contextlib.redirect_stdout(io.StringIO()):
         ev = evaluate.main([
             "--checkpoint", ckpt, "--data_dir", prep, "--scale_factor",
@@ -1036,7 +1048,7 @@ def test_train_cli_and_the_tools_on_a_prepared_scene(bench, prepared):
             "2", "--benchmark_only", "--render_training_views",
             "--export_ply", ply, "--export_splat",
             os.path.join(root, "export.splat"), "--device", "cuda"])
-    assert tras.composite_pairs.launches > 0
+    assert tras.composite_pairs.indexed_launches > 0
     test_views = -(-SCENE_VIEWS // 8)
     assert ev["num_views"] == test_views == ec["num_views"]
     assert np.isfinite(ev["psnr"]) and np.isfinite(ec["psnr"])
@@ -1900,7 +1912,8 @@ def test_bench_asset_recipe_against_the_jax_asset(bench, tmp_path):
     _gate_memory(other, C.memory_est(vcfg.with_(max_pairs=rec.max_pairs[-1]),
                                      tcfg, state.pool.capacity))
     assert np.isfinite(report.final_loss) and report.iterations == iters
-    assert k2 == iters and k1 == iters + 2 * n_views, (k1, k2)
+    served = tras.composite_pairs.indexed_launches
+    assert k2 == k1 == iters and served == 2 * n_views, (k1, k2, served)
 
     with np.load(C.CKPT) as j, np.load(out) as f:
         assert {k: (f[k].shape, str(f[k].dtype)) for k in f.files} \

@@ -127,13 +127,20 @@ def test_train_estimate_phases():
 
 
 def test_render_estimate():
-    """A served frame: parameters, projections and the largest of
-    binning's, the gather's and K1's working sets; the JAX keys beside."""
+    """A served frame: parameters, projections and the larger of binning's
+    and K1's working sets (K1 reads the depth-ordered table: no pair list
+    is gathered); the JAX keys beside."""
+    from gsplat_tpu_torch.utils import memory
+
     cfg = gt.RenderConfig(height=1080, width=1920, max_pairs=2**22)
     est = estimate_render_memory(cfg, 131072)
     assert est["total_mb"] == pytest.approx(
         est["params_mb"] + est["projected_mb"] + est["forward_working_mb"])
-    slots = cfg.padded_pairs
     assert est["forward_working_mb"] == pytest.approx(
-        (4 + 89) * slots / 1e6)  # the gather binds at the bench config
+        memory.BINNING_BYTES_PER_PAIR * 2**22 / 1e6)  # binning binds here
+    slots = cfg.padded_pairs
+    small = gt.RenderConfig(height=64, width=64, max_pairs=2**12)
+    few = estimate_render_memory(small, 131072)
+    assert few["forward_working_mb"] == pytest.approx(  # K1, few pairs
+        (4 * small.padded_pairs + 48 * 131072 + 16 * 8 * 256 * 4) / 1e6)
     assert est["pair_features_mb"] == pytest.approx(16 * slots * 4 / 1e6)

@@ -220,3 +220,133 @@ def test_kernel_config_checks(tile, pair_block, ok):
         return
     with pytest.raises(ValueError, match="backend='xla'"):
         tras.check_kernel_config(cfg)
+
+
+# --- the indexed read: K1 reading each pair's row by its slot ----------------
+
+def _port_binning(kind, math="cumprod"):
+    """(proj, colors, binning, cfg) of the port's own pipeline on the CPU:
+    "plain" one view, "truncated" a rank-truncated list (tile_rank_cap 32
+    over a dense patch), "batched" three views stacked with view_tile_rows
+    (``render.stack_view_projections``)."""
+    from gsplat_tpu_torch.ops.binning import bin_gaussians
+    from gsplat_tpu_torch.ops.gaussian import build_cov3d_packed
+    from gsplat_tpu_torch.ops.projection import project_gaussians
+    from gsplat_tpu_torch.ops.sh import evaluate_sh
+    from gsplat_tpu_torch.render import stack_view_projections
+
+    s = make_scene(None, n=400, seed_offset=7)
+    kw = dict(CFG, transmittance_math=math)
+    if kind == "truncated":
+        s["pos"][:, :2] *= 0.2  # a dense patch: tiles deeper than the cap
+        kw.update(tile_rank_cap=32)
+    cfg = tconfig.RenderConfig(**kw)
+    t = {k: torch.from_numpy(v) for k, v in s.items()}
+    poses = [t["c2w"]]
+    if kind == "batched":
+        poses = [t["c2w"].clone() for _ in range(3)]
+        for v, p in enumerate(poses):
+            p[0, 3] += 0.3 * v - 0.3
+    with torch.no_grad():
+        cov = build_cov3d_packed(t["scale_raw"], t["q_raw"])
+        projs = [project_gaussians(t["pos"], cov, t["opacity_raw"], p, *CAM,
+                                   cfg) for p in poses]
+        colors = torch.cat([evaluate_sh(t["f_dc"], t["f_rest"], t["pos"], p)
+                            for p in poses])
+        if kind == "batched":
+            proj, cfg = stack_view_projections(type(projs[0])(
+                *(torch.stack(f) for f in zip(*projs))), cfg)
+        else:
+            proj = projs[0]
+        return proj, colors, bin_gaussians(proj, cfg), cfg
+
+
+INDEXED_CASES = [(k, m) for k in ("plain", "truncated", "batched")
+                 for m in ("cumprod", "log")]
+
+
+@pytest.mark.parametrize("kind,math", INDEXED_CASES)
+def test_indexed_compositor_equals_the_gathered_list(kind, math):
+    """composite_pairs_indexed on the CPU is composite_pairs_plain of the
+    table gathered by pair_slot, bit for bit, and that equals the 10-row
+    list the recorded path composites: padding slots, a truncated list,
+    batched views' wrapped rows, both transmittances. The CPU launches no
+    kernel."""
+    from gsplat_tpu_torch.ops.rasterize import (_gather, _pair_features,
+                                                _pair_table)
+
+    proj, colors, b, cfg = _port_binning(kind, math)
+    assert bool((b.pair_slot < 0).any()), "no padding slot"
+    if kind == "truncated":
+        assert int(b.num_pairs_kept) < int(b.num_pairs)
+    if kind == "batched":
+        assert cfg.view_tile_rows > 0
+    table = _pair_table(proj, colors, b.depth_order)
+    feat10 = _pair_features(proj, colors, torch.float32)[
+        b.depth_order.long()]
+    assert torch.equal(table[:, :10], feat10)
+    assert (table[:, 10:] == 0).all()
+    before = tras.composite_pairs.indexed_launches
+    got = tras.composite_pairs_indexed(table, b.pair_slot, b.tile_start,
+                                       b.tile_count, cfg)
+    assert tras.composite_pairs.indexed_launches == before
+    want = tras.composite_pairs_plain(_gather(table, b.pair_slot),
+                                      b.tile_start, b.tile_count, cfg)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    listed = tras.composite_pairs(_gather(feat10, b.pair_slot), b.tile_start,
+                                  b.tile_count, cfg)
+    assert torch.equal(got.view(torch.int32), listed.view(torch.int32))
+    assert (got[:, 5, 0] > 0).any()
+
+
+@pytest.mark.parametrize("kind,math", [("plain", "cumprod"),
+                                       ("truncated", "cumprod"),
+                                       ("batched", "log")])
+def test_unrecorded_frame_equals_the_recorded_forward(kind, math):
+    """rasterize_binned_pallas under torch.no_grad() (the table read by
+    slot) gives the image and every aux field of its recorded forward
+    (the gathered list through _CompositeGathered) on the same inputs."""
+    from gsplat_tpu_torch.ops.rasterize import rasterize_binned_pallas
+
+    proj, colors, b, cfg = _port_binning(kind, math)
+    with torch.no_grad():
+        img, aux = rasterize_binned_pallas(proj, colors, b, cfg)
+    leaf = colors.clone().requires_grad_(True)
+    img_r, aux_r = rasterize_binned_pallas(proj, leaf, b, cfg)
+    assert img_r.requires_grad and not img.requires_grad
+    assert torch.equal(img, img_r.detach())
+    for name, a, r in zip(aux._fields, aux, aux_r):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, r.detach()), name
+        else:
+            assert a == r, name
+
+
+def test_indexed_wrapper_rejects_bad_inputs():
+    """The table must be [N, TABLE_WIDTH] float32 and contiguous, the
+    slots [pairs] int32 in whole pair blocks, and no autograd records."""
+    cfg = tconfig.RenderConfig(**CFG)
+    nt, npairs = cfg.num_tiles, cfg.padded_pairs
+    table = torch.zeros(50, tras.TABLE_WIDTH)
+    slot = torch.full((npairs,), -1, dtype=torch.int32)
+    ts = torch.zeros(nt, dtype=torch.int32)
+    tc = torch.zeros(nt, dtype=torch.int32)
+    with pytest.raises(ValueError, match="contiguous"):
+        tras.composite_pairs_indexed(
+            torch.zeros(tras.TABLE_WIDTH, 50).T, slot, ts, tc, cfg)
+    with pytest.raises(ValueError, match="float32"):
+        tras.composite_pairs_indexed(table.double(), slot, ts, tc, cfg)
+    with pytest.raises(ValueError, match="float32"):  # a short row
+        tras.composite_pairs_indexed(table[:, :10].contiguous(), slot, ts,
+                                     tc, cfg)
+    with pytest.raises(ValueError, match="int32"):
+        tras.composite_pairs_indexed(table, slot.long(), ts, tc, cfg)
+    with pytest.raises(ValueError, match="multiple of pair_block"):
+        tras.composite_pairs_indexed(table, slot[:-1], ts, tc, cfg)
+    with pytest.raises(ValueError, match="tile_count"):
+        tras.composite_pairs_indexed(table, slot, ts, tc[:-1], cfg)
+    with pytest.raises(ValueError, match="autograd"):
+        tras.composite_pairs_indexed(table.requires_grad_(True), slot, ts,
+                                     tc, cfg)
+    out = tras.composite_pairs_indexed(table.detach(), slot, ts, tc, cfg)
+    assert (out[:, 4] == 1).all() and (out[:, [0, 1, 2, 3, 5]] == 0).all()

@@ -121,7 +121,9 @@ def memory_ratio(other, est, dev=None) -> float:
 
 
 def counts():
-    """K1's and K2's launch counts ("cumprod" forms)."""
+    """K1's and K2's launch counts ("cumprod" forms; K1 reading the
+    gathered pair list, as a recorded render does; a frame that autograd
+    does not record counts in ``indexed_launches``)."""
     cp = raster_cuda.composite_pairs
     return cp.launches, cp.bwd_launches
 
@@ -129,7 +131,7 @@ def counts():
 def zero_counts():
     cp = raster_cuda.composite_pairs
     for k in ("launches", "bwd_launches", "log_launches", "bwd_log_launches",
-              "bwd_compact_launches"):
+              "bwd_compact_launches", "indexed_launches"):
         setattr(cp, k, 0)
 
 
