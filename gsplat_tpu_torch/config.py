@@ -260,3 +260,75 @@ class SurfelConfig:
     dist_near: float = 0.2
     dist_far: float = 100.0
     filter_inv_square: float = 2.0
+
+
+# An anchor pool (Scaffold-GS, below) holds these leaves; the presence of
+# ``anchor_feat`` selects it. Its three MLPs, one flat tensor each, are
+# the leaves ``train.trainer.TrainState.decoder`` holds beside it, as it
+# holds Feature 3DGS's decoder; every leaf of a network has no slots.
+ANCHOR_KEY = "anchor_feat"
+ANCHOR_KEYS = ("pos", "offset", ANCHOR_KEY, "scale_raw")
+MLP_KEYS = ("mlp_opacity", "mlp_cov", "mlp_color")
+NETWORK_KEYS = DECODER_KEYS + MLP_KEYS
+ANCHOR_SCALES = 6  # l[0:3] scales the offsets, l[3:6] the neural scales
+SLOT_FIELDS = {"mlp_opacity": 1, "mlp_cov": 7, "mlp_color": 3}  # per slot
+
+
+def is_anchor_pool(params: dict) -> bool:
+    """Whether ``params`` are an anchor pool's: an ``anchor_feat`` leaf."""
+    return ANCHOR_KEY in params
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaffoldConfig:
+    """Scaffold-GS (Lu et al., CVPR 2024, arXiv:2312.00109): each anchor
+    (position, k offsets, an F-float feature, six scales
+    ``exp(scale_raw)``) is decoded every view into k neural gaussians by
+    three MLPs ``Linear(F + 3, H) -> ReLU -> Linear(H, m)`` conditioned on
+    the viewing direction (``ops/scaffold.py``); k, F and H are the
+    tensors' own (:func:`mlp_shapes`). Training adds ``scaling_reg`` times
+    the mean
+    over the kept slots of their scales' product to the photometric loss;
+    Adam trains the offsets and the three MLPs on ``position_lr``'s
+    schedule form (from ``*_lr_init`` to ``*_lr_final`` over
+    ``lr_max_steps``, times 0.01 for the first ``lr_delay_mult *
+    lr_max_steps`` updates), the features at ``feature_lr`` and the
+    scales at ``scaling_lr``; the anchor positions take no update (the
+    authors' rate is 0). The rates are the authors' code's.
+
+    The port's own configuration: the JAX package has no anchors, so
+    ``RenderConfig`` and ``TrainConfig`` keep their fields."""
+
+    scaling_reg: float = 0.01
+    feature_lr: float = 0.0075
+    scaling_lr: float = 0.007
+    offset_lr_init: float = 0.01
+    offset_lr_final: float = 0.0001
+    mlp_opacity_lr_init: float = 0.002
+    mlp_opacity_lr_final: float = 0.00002
+    mlp_cov_lr_init: float = 0.004
+    mlp_cov_lr_final: float = 0.004
+    mlp_color_lr_init: float = 0.008
+    mlp_color_lr_final: float = 0.00005
+    lr_delay_mult: float = 0.01
+    lr_max_steps: int = 30000
+
+    def schedules(self) -> dict:
+        """{leaf: (init, final)} of the scheduled leaves."""
+        return {k: (getattr(self, f"{k}_lr_init"),
+                    getattr(self, f"{k}_lr_final"))
+                for k in ("offset",) + MLP_KEYS}
+
+
+# The published widths: the feature, the offsets (slots) an anchor, the
+# hidden layer (what D1 and D2 are built for).
+SCAFFOLD_WIDTHS = (32, 10, 32)
+
+
+def mlp_shapes(feat_dim: int, n_offsets: int, hidden: int) -> dict:
+    """{MLP leaf: (inputs, hidden, outputs)}: the input is the feature and
+    the viewing direction; the heads give each slot's opacity, scale and
+    rotation (3 + 4), and colour. A flat MLP holds ``W1`` [hidden, in],
+    ``b1``, ``W2`` [out, hidden], ``b2``, in that order."""
+    return {k: (feat_dim + 3, hidden, m * n_offsets)
+            for k, m in SLOT_FIELDS.items()}

@@ -17,6 +17,13 @@ The JAX package has no such leaf.
 A pool whose ``scale_raw`` leaf has two columns is a pool of surfels (2D
 Gaussian Splatting, ``config.is_surfel_pool``); every function here
 carries that leaf at its width (:func:`to_surfels` makes one).
+
+A pool with an ``anchor_feat`` leaf is a pool of anchors (Scaffold-GS,
+``config.is_anchor_pool``): its leaves are ``config.ANCHOR_KEYS``
+(``pos`` [A, 3], ``offset`` [A, 3k], ``anchor_feat`` [A, F],
+``scale_raw`` [A, 6]) and ``alive`` [A]; ``pos`` takes no gradient (the
+authors' rate is 0). :func:`init_anchor_mlps` draws the three MLPs that
+decode it.
 """
 
 from __future__ import annotations
@@ -25,10 +32,46 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import FEATURE_KEY
+from ..config import (ANCHOR_KEYS, ANCHOR_SCALES, FEATURE_KEY,
+                      SCAFFOLD_WIDTHS, is_anchor_pool, mlp_shapes)
 from ..device import resolve_device
 
 PARAM_KEYS = ("pos", "opacity_raw", "f_dc", "f_rest", "scale_raw", "q_raw")
+# Every leaf a pool may carry, in the order ``params`` lists them.
+LEAF_KEYS = PARAM_KEYS + (FEATURE_KEY,) + tuple(
+    k for k in ANCHOR_KEYS if k not in PARAM_KEYS)
+
+
+def check_anchor_leaves(params: dict):
+    """Raise ``ValueError`` unless ``params`` hold an anchor pool's leaves
+    alone, at consistent widths: ``pos`` [A, 3], ``offset`` [A, 3k],
+    ``anchor_feat`` [A, F] and ``scale_raw`` [A, 6]; no per-gaussian
+    features and no other 3DGS leaf."""
+    if FEATURE_KEY in params:
+        raise ValueError("an anchor pool (anchor_feat) carries no "
+                         "per-gaussian features (f_sem)")
+    missing = [k for k in ANCHOR_KEYS if k not in params]
+    if missing:
+        raise ValueError(f"anchor pool leaves missing: {missing}")
+    extra = [k for k in PARAM_KEYS if k in params and k not in ANCHOR_KEYS]
+    if extra:
+        raise ValueError(f"an anchor pool has no 3DGS leaves {extra}: its "
+                         f"gaussians are decoded each view")
+    pos, off, feat, sc = (params[k] for k in ANCHOR_KEYS)
+    a = pos.shape[0]
+    shapes_ok = (pos.dim() == 2 and pos.shape[1] == 3 and off.dim() == 2
+                 and off.shape[1] % 3 == 0 and off.shape[1] > 0
+                 and feat.dim() == 2 and sc.dim() == 2
+                 and all(t.shape[0] == a for t in (off, feat, sc)))
+    if not shapes_ok:
+        raise ValueError(
+            f"an anchor pool is pos [A, 3], offset [A, 3k], anchor_feat "
+            f"[A, F] and scale_raw [A, {ANCHOR_SCALES}], got "
+            f"{[tuple(params[k].shape) for k in ANCHOR_KEYS]}")
+    if sc.shape[1] != ANCHOR_SCALES:
+        raise ValueError(f"an anchor pool's scale_raw has {ANCHOR_SCALES} "
+                         f"columns (a surfel's two, or 3DGS's three, do not "
+                         f"go with anchors), got {sc.shape[1]}")
 
 
 class GaussianPool(nn.Module):
@@ -36,19 +79,27 @@ class GaussianPool(nn.Module):
 
     def __init__(self, params: dict, alive: torch.Tensor):
         super().__init__()
-        missing = set(PARAM_KEYS) - set(params)
-        if missing:
-            raise ValueError(f"pool parameters missing: {sorted(missing)}")
-        self.leaf_names = PARAM_KEYS + (
-            (FEATURE_KEY,) if FEATURE_KEY in params else ())
+        if is_anchor_pool(params):
+            check_anchor_leaves(params)
+            self.leaf_names = ANCHOR_KEYS
+        else:
+            missing = set(PARAM_KEYS) - set(params)
+            if missing:
+                raise ValueError(
+                    f"pool parameters missing: {sorted(missing)}")
+            self.leaf_names = PARAM_KEYS + (
+                (FEATURE_KEY,) if FEATURE_KEY in params else ())
+        anchors = is_anchor_pool(params)
         for k in self.leaf_names:
-            self.register_parameter(k, nn.Parameter(params[k]))
+            self.register_parameter(k, nn.Parameter(
+                params[k], requires_grad=not (anchors and k == "pos")))
         self.register_buffer("alive", alive)
 
     @property
     def params(self) -> dict:
         """The six parameters by name (and ``f_sem`` where the pool has
-        features), as ``render_from_params`` takes them."""
+        features; an anchor pool's four leaves), as ``render_from_params``
+        takes them."""
         return {k: getattr(self, k) for k in self.leaf_names}
 
     @property
@@ -66,7 +117,7 @@ def pool_from_numpy(params: dict, alive, device="cuda") -> GaussianPool:
     dev = resolve_device(device)
     tensors = {
         k: torch.from_numpy(np.array(params[k], np.float32, order="C")).to(dev)
-        for k in PARAM_KEYS + (FEATURE_KEY,)
+        for k in LEAF_KEYS
         if k in params
     }
     alive_t = torch.from_numpy(np.array(alive, bool, order="C")).to(dev)
@@ -161,7 +212,7 @@ def pool_from_dense(params: dict, capacity: int, device="cuda") -> GaussianPool:
     if n > capacity:
         raise ValueError(f"{n} gaussians exceed capacity {capacity}")
     padded = {k: _pad_rows(np.asarray(params[k]), capacity)
-              for k in PARAM_KEYS + (FEATURE_KEY,) if k in params}
+              for k in LEAF_KEYS if k in params}
     padded["opacity_raw"][n:] = -10.0
     padded["scale_raw"][n:] = -10.0
     padded["q_raw"][n:, 3] = 1.0
@@ -204,3 +255,24 @@ def init_decoder(in_dim: int, out_dim: int, seed: int = 0,
         return (2.0 * u - 1.0) * bound
 
     return {"dec_w": draw(out_dim, in_dim), "dec_b": draw(out_dim)}
+
+
+def init_anchor_mlps(seed: int = 0, device="cuda") -> dict:
+    """Scaffold-GS's three MLPs at the published widths
+    (``config.SCAFFOLD_WIDTHS``, ``config.mlp_shapes``), each layer drawn
+    as ``torch.nn.Linear`` draws its default (weight and bias uniform in
+    +-1/sqrt(fan_in)), from ``torch.Generator(seed)`` on ``device``, in
+    the order opacity, covariance, colour and within each ``W1``, ``b1``,
+    ``W2``, ``b2``. Returns {``mlp_opacity``, ``mlp_cov``, ``mlp_color``:
+    flat float32 tensors}, each ``W1`` [hidden, in], ``b1``, ``W2`` [out,
+    hidden], ``b2`` laid end to end (``ops.scaffold.split_mlp``)."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for k, (i, h, o) in mlp_shapes(*SCAFFOLD_WIDTHS).items():
+        parts = []
+        for fan_in, n in ((i, h * i), (i, h), (h, o * h), (h, o)):
+            u = torch.rand(n, generator=g, device=dev, dtype=torch.float32)
+            parts.append((2.0 * u - 1.0) / fan_in ** 0.5)
+        out[k] = torch.cat(parts)
+    return out

@@ -209,6 +209,20 @@ FUNCTIONS = {
         "update_work_bytes": ([], ctypes.c_longlong),
         "update_table_bytes": ([], ctypes.c_longlong),
     },
+    "scaffold": {
+        # scaffold_decode(args, stream) -> cudaError_t (D1; args:
+        # ops/scaffold.py's _Args, by reference);
+        # scaffold_decode_bwd(args, ctas, stream) -> cudaError_t (D2 with
+        # ctas CTAs, then the sum of their partials into d_w);
+        # scaffold_decode_bwd_ctas(int* n) -> cudaError_t: D2's CTAs on the
+        # current device, the rows of its [ctas, 7086] partials
+        "scaffold_decode": ([ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+        "scaffold_decode_bwd": ([ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p], ctypes.c_int),
+        "scaffold_decode_bwd_ctas": ([ctypes.POINTER(ctypes.c_int)],
+                                     ctypes.c_int),
+        "scaffold_args_bytes": ([], ctypes.c_longlong),
+    },
     "preprocess": {
         # preprocess(args, sh_bases, stream) -> cudaError_t (P1). args:
         # ops/preprocess.py's _Args, by reference; sh_bases 1, 4, 9 or 16

@@ -85,7 +85,7 @@ struct Table {
   const unsigned char* alive;  // [slots] bool
   const float* loss;           // [] f32
   int n;                       // leaves
-  int pos;                     // the clipped leaf
+  int pos;                     // the clipped leaf, -1 for none
   float max_norm;
   int guard;                   // a non-finite step writes nothing
   int slots;
@@ -371,7 +371,7 @@ int grid_for(K kernel, int cap) {
 }
 
 int check_table(const Table* t) {
-  if (t == nullptr || t->n < 1 || t->n > kMaxLeaves || t->pos < 0 ||
+  if (t == nullptr || t->n < 1 || t->n > kMaxLeaves || t->pos < -1 ||
       t->pos >= t->n || t->loss == nullptr || t->slots < 0 ||
       (t->slots > 0 && t->alive == nullptr)) {
     return (int)cudaErrorInvalidValue;

@@ -57,6 +57,15 @@ def build_sigma_from_params(scale_raw: torch.Tensor,
 def build_cov3d_packed(scale_raw: torch.Tensor, q_raw: torch.Tensor) -> torch.Tensor:
     """Packed covariance [N, 6] = (xx, xy, xz, yy, yz, zz) of Sigma."""
     q = normalize_quat(q_raw)
+    return cov3d_from_activated(exp_scale(scale_raw), q)
+
+
+def cov3d_from_activated(scale: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Packed covariance [N, 6] of Sigma = R diag(scale^2) R^T from
+    positive scales [N, 3] and unit quaternions [N, 4] (x, y, z, w) as
+    they are: the core of :func:`build_cov3d_packed`, which activates the
+    raw leaves first, and what a model whose scales and rotations come
+    activated (Scaffold-GS's decoded slots) calls."""
     x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     xx_, yy_, zz_ = x * x, y * y, z * z
     xy_, xz_, yz_ = x * y, x * z, y * z
@@ -71,7 +80,7 @@ def build_cov3d_packed(scale_raw: torch.Tensor, q_raw: torch.Tensor) -> torch.Te
     r21 = 2 * (yz_ + xw_)
     r22 = 1 - 2 * (xx_ + yy_)
 
-    s2 = exp_scale(scale_raw) ** 2
+    s2 = scale ** 2
     s0, s1, s2_ = s2[..., 0], s2[..., 1], s2[..., 2]
 
     def sig(a0, a1, a2, b0, b1, b2):

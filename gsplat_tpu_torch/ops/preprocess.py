@@ -29,7 +29,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..config import RenderConfig, is_surfel_pool
+from ..config import RenderConfig, is_anchor_pool, is_surfel_pool
 from ..utils.profiling import span
 from .gaussian import build_cov3d_packed
 from .projection import ProjectedGaussians, project_gaussians
@@ -71,11 +71,15 @@ def preprocess(params: dict, c2w: torch.Tensor, fx, fy, cx, cy,
         the plain chain used, or None from P1).
 
     A surfel pool (a two-column ``scale_raw``) is refused, before P1 or
-    the plain chain sees it: its stages are ``ops.surfel``'s.
+    the plain chain sees it: its stages are ``ops.surfel``'s; so is an
+    anchor pool (``anchor_feat``): its stages are ``ops.scaffold``'s.
     """
     if is_surfel_pool(params):
         raise ValueError("a surfel pool (two-column scale_raw) goes through "
                          "ops.surfel, not the 3DGS stages")
+    if is_anchor_pool(params):
+        raise ValueError("an anchor pool (anchor_feat) goes through "
+                         "ops.scaffold, not the 3DGS stages")
     if kernel_applies(params, c2w, (fx, fy, cx, cy), uv_tap, colour):
         with span("gs.project"):
             proj, colours = preprocess_cuda(params, c2w, fx, fy, cx, cy,

@@ -83,6 +83,11 @@ class RenderAux(NamedTuple):
     # [H, W]; else None. Its ``depth`` is then sum w z and ``alpha`` sum w.
     normal: torch.Tensor | None = None
     distortion: torch.Tensor | None = None
+    # An anchor pool's (Scaffold-GS, ``ops/scaffold.py``) decoded slots'
+    # scales [A k, 3] and keep mask [A k], for the loss's scaling term;
+    # else None.
+    neural_scales: torch.Tensor | None = None
+    neural_keep: torch.Tensor | None = None
 
 
 def _composite_chunk(feats: torch.Tensor, mask: torch.Tensor,

@@ -19,7 +19,8 @@ The step, for the leaves' gradients ``g`` and the pool's ``alive`` mask:
   float64), ``scale = min(grad_clip_pos / (norm + 1e-6), 1)``, and the
   position gradient times ``scale``;
 * each pool leaf's gradient zeroed where its slot is dead (a slot is a
-  row of ``numel / capacity`` floats); the decoder's leaves have no slots;
+  row of ``numel / capacity`` floats); a network's leaves (Feature 3DGS's
+  decoder, Scaffold-GS's MLPs) have no slots;
 * with the guard, the step is skipped, nothing written but the position
   gradient, when the loss or one of those clipped, masked gradients is
   non-finite (an alive row's element, any decoder element, or a NaN in
@@ -27,7 +28,9 @@ The step, for the leaves' gradients ``g`` and the pool's ``alive`` mask:
 * Adam from the leaf's count plus one, which it then becomes.
 
 The position gradient is left clipped and masked in place (the step's
-``pos_grad``); the other gradients are left as they came.
+``pos_grad``); the other gradients are left as they came. Where the
+optimizer has no position leaf (an anchor pool's: its positions take no
+update), nothing is clipped and ``pos_grad`` is None.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import ctypes
 
 import torch
 
-from ..config import DECODER_KEYS
+from ..config import NETWORK_KEYS
 
 _MAX_LEAVES = 9  # csrc/update.cu's kMaxLeaves
 
@@ -78,8 +81,6 @@ def _groups(opt: torch.optim.Adam, grads: dict):
         p = group["params"][0]
         out.append((group["name"], p, grads[group["name"]], opt.state[p],
                     group))
-    if "pos" not in [name for name, *_ in out]:
-        raise ValueError("the update needs the position leaf ('pos')")
     return out
 
 
@@ -103,12 +104,15 @@ def adam_update_plain(opt, grads, alive, loss, grad_clip_pos,
     ``torch.where(finite, new, old)`` (no clone). Arguments and return as
     :func:`adam_update`'s."""
     leaves = _groups(opt, grads)
-    g = grads["pos"]
-    sq = torch.sum(torch.square(g.to(torch.float64))).to(torch.float32)
+    g = grads.get("pos")
+    if g is None:
+        sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+    else:
+        sq = torch.sum(torch.square(g.to(torch.float64))).to(torch.float32)
     bad = ~torch.isfinite(loss) | (torch.isnan(sq) & torch.any(alive))
     for name, _, grad, _, _ in leaves:
         nonfinite = ~torch.isfinite(grad)
-        if name not in DECODER_KEYS:
+        if name not in NETWORK_KEYS:
             nonfinite = nonfinite & _rows(grad, alive)
         bad = bad | torch.any(nonfinite)
     flag = bad.to(torch.float32).reshape(1)
@@ -122,7 +126,7 @@ def adam_update_plain(opt, grads, alive, loss, grad_clip_pos,
     scale = torch.clamp(grad_clip_pos / (torch.sqrt(sq[0]) + 1e-6), max=1.0)
     for name, p, grad, st, group in leaves:
         x = grad * scale if name == "pos" else grad
-        if name not in DECODER_KEYS:
+        if name not in NETWORK_KEYS:
             x = torch.where(_rows(x, alive), x, 0.0)
         if name == "pos":
             grad.copy_(x)
@@ -142,7 +146,7 @@ def adam_update_plain(opt, grads, alive, loss, grad_clip_pos,
         for old, val in ((p, new), (st["exp_avg"], m),
                          (st["exp_avg_sq"], v), (st["step"], count)):
             old.copy_(torch.where(keep.to(old.device), val, old))
-    return torch.where(keep, 0, 1).to(torch.int32), grads["pos"]
+    return torch.where(keep, 0, 1).to(torch.int32), grads.get("pos")
 
 
 def adam_update(opt, grads, alive, loss, grad_clip_pos, shard_sum=None,
@@ -155,7 +159,8 @@ def adam_update(opt, grads, alive, loss, grad_clip_pos, shard_sum=None,
     every rank that applies the update) decides the guard over all of
     them, between U1 and U2. With ``nan_guard`` off a non-finite step is
     applied. Returns (skipped: [] int32, 1 where the guard skipped the
-    step; the clipped, masked position gradient, ``grads["pos"]``).
+    step; the clipped, masked position gradient, ``grads["pos"]``, or
+    None where the optimizer has no position leaf).
 
     CPU tensors take :func:`adam_update_plain`; CUDA tensors launch U1 and
     U2 (``csrc/update.cu``), counted in ``adam_update.launches``, or
@@ -174,7 +179,7 @@ def adam_update(opt, grads, alive, loss, grad_clip_pos, shard_sum=None,
     if capacity >= 2**31:
         raise ValueError(f"{capacity} slots: the update indexes with int32")
     table = _Table(alive=alive.data_ptr(), loss=loss.data_ptr(),
-                   n=len(leaves), max_norm=grad_clip_pos,
+                   n=len(leaves), pos=-1, max_norm=grad_clip_pos,
                    guard=int(bool(nan_guard)), slots=capacity)
     for i, (name, p, grad, st, group) in enumerate(leaves):
         for label, t in (("param", p), ("grad", grad),
@@ -186,7 +191,7 @@ def adam_update(opt, grads, alive, loss, grad_clip_pos, shard_sum=None,
             raise ValueError(f"{name} has {p.numel()} floats: the update "
                              f"indexes a leaf with int32")
         per_slot = 0
-        if name not in DECODER_KEYS:
+        if name not in NETWORK_KEYS:
             if p.shape[0] != capacity:
                 raise ValueError(f"{name} has {p.shape[0]} rows for "
                                  f"{capacity} slots")
@@ -225,7 +230,7 @@ def adam_update(opt, grads, alive, loss, grad_clip_pos, shard_sum=None,
     if err != 0:
         raise RuntimeError(f"update_apply launch failed: CUDA error {err}")
     adam_update.launches += 1
-    return skipped, grads["pos"]
+    return skipped, grads.get("pos")
 
 
 adam_update.launches = 0  # update_check and update_apply launches

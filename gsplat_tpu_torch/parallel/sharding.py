@@ -45,7 +45,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..config import FEATURE_KEY, RenderConfig, TrainConfig, is_surfel_pool
+from ..config import (FEATURE_KEY, RenderConfig, TrainConfig,
+                      is_anchor_pool, is_surfel_pool)
 from ..models.gaussians import GaussianPool
 from ..ops.binning import bin_gaussians
 from ..ops.gaussian import build_cov3d_packed
@@ -65,6 +66,9 @@ def _refuse_features(state: TrainState):
     """The sharded steps train plain 3DGS: a pool with per-gaussian
     features (Feature 3DGS) or of surfels (2D Gaussian Splatting) trains
     on one device."""
+    if state.scaffold is not None or is_anchor_pool(state.pool.params):
+        raise ValueError("the sharded train steps do not decode anchors "
+                         "(Scaffold-GS): train an anchor pool on one device")
     if state.decoder is not None or FEATURE_KEY in state.pool.params:
         raise ValueError("the sharded train steps do not train per-gaussian "
                          "features (f_sem): train such a pool on one device")

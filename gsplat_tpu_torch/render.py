@@ -13,7 +13,11 @@ does not record, else the plain chain. A surfel pool (a two-column
 ``scale_raw``: 2D Gaussian Splatting) goes through the surfel transform
 (``ops.surfel``) and the surfel compositor (``ops.raster_surfel``)
 instead, in ``render_from_params`` and ``pair_demand``; the batched entry
-refuses it.
+refuses it. An anchor pool (an ``anchor_feat`` leaf: Scaffold-GS), whose
+params carry its three MLPs beside its leaves, is decoded each view into
+neural gaussians (``ops.scaffold``), projected from their activated
+fields and rasterized with their colours, in the same two entries; the
+batched entry refuses it too.
 """
 
 from __future__ import annotations
@@ -21,11 +25,13 @@ from __future__ import annotations
 import torch
 
 from .config import (FEATURE_KEY, RenderConfig, SurfelConfig,
-                     is_surfel_pool)
+                     is_anchor_pool, is_surfel_pool)
+from .ops import scaffold
 from .ops.binning import bin_gaussians
-from .ops.gaussian import pack_cov3d
+from .ops.gaussian import cov3d_from_activated, pack_cov3d
 from .ops.preprocess import preprocess
-from .ops.projection import ProjectedGaussians, project_gaussians
+from .ops.projection import (ProjectedGaussians, project_activated,
+                             project_gaussians)
 from .ops.raster_surfel import check_config as check_surfel_config
 from .ops.rasterize import rasterize, rasterize_surfels
 from .ops.surfel import surfel_transform
@@ -91,10 +97,13 @@ def pair_demand(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
 
     Returns (num_pairs, num_rows, trunc_demand) as 0-d int32 tensors; the
     last two are 0 in rect mode without truncation. A surfel pool's
-    demand is its footprints' (``surfel``: as ``render_from_params``).
+    demand is its footprints' (``surfel``: as ``render_from_params``); an
+    anchor pool's, its kept neural gaussians'.
     """
     c2w = _c2w(c2w, params["pos"])
-    if is_surfel_pool(params):
+    if is_anchor_pool(params):
+        proj = _anchors(params, c2w, fx, fy, cx, cy, cfg, alive, None)[0]
+    elif is_surfel_pool(params):
         proj = _surfels(params, c2w, fx, fy, cx, cy, cfg, alive, None,
                         surfel)[0]
     else:
@@ -118,6 +127,19 @@ def _surfels(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig, alive,
     return proj, rows, surfel
 
 
+def _anchors(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig, alive,
+             uv_tap):
+    """An anchor pool's neural gaussians, after its refusals: (their
+    projection, colours [A k, 3], scales [A k, 3], keep [A k])."""
+    scaffold.refuse(params, cfg, uv_tap)
+    mu, s, q, alpha, colour, keep = scaffold.decode_view(
+        params, c2w, fx, fy, cx, cy, cfg, alive)
+    with span("gs.project"):
+        proj = project_activated(mu, cov3d_from_activated(s, q), alpha, c2w,
+                                 fx, fy, cx, cy, cfg, extra_valid=keep)
+    return proj, colour, s, keep
+
+
 def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
                        alive: torch.Tensor | None = None,
                        uv_tap: torch.Tensor | None = None,
@@ -139,8 +161,20 @@ def render_from_params(params: dict, c2w, fx, fy, cx, cy, cfg: RenderConfig,
             where None): with a two-column ``scale_raw`` the frame is 2D
             Gaussian Splatting's (``ops.rasterize.rasterize_surfels``), and
             the aux holds its normal and distortion maps.
+
+    An anchor pool's params (``pos``, ``offset``, ``anchor_feat``,
+    ``scale_raw``) carry its MLPs (``mlp_opacity``, ``mlp_cov``,
+    ``mlp_color``) beside them; ``alive`` is then the anchors' [A]. Its
+    frame is the kept neural gaussians' (``ops.scaffold``), and the aux
+    holds their scales and mask (``neural_scales``, ``neural_keep``) for
+    the loss's scaling term.
     """
     c2w = _c2w(c2w, params["pos"])
+    if is_anchor_pool(params):
+        proj, colour, s, keep = _anchors(params, c2w, fx, fy, cx, cy, cfg,
+                                         alive, uv_tap)
+        img, aux = rasterize(proj, colour, cfg)
+        return img, aux._replace(neural_scales=s, neural_keep=keep)
     if is_surfel_pool(params):
         proj, rows, surfel = _surfels(params, c2w, fx, fy, cx, cy, cfg,
                                       alive, uv_tap, surfel)
@@ -222,6 +256,9 @@ def render_batch_from_params(params: dict, c2w, fx, fy, cx, cy,
     if FEATURE_KEY in params:
         raise ValueError("batched views do not composite per-gaussian "
                          "features: render the views one at a time")
+    if is_anchor_pool(params):
+        raise ValueError("batched views do not decode anchors (Scaffold-GS):"
+                         " render the views one at a time")
     if is_surfel_pool(params):
         raise ValueError("batched views do not composite surfels (a "
                          "two-column scale_raw): render the views one at "

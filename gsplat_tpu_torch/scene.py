@@ -35,3 +35,22 @@ def make_scene(n: int, seed: int = 0, device="cuda") -> dict:
     }
     return {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
             for k, v in params.items()}
+
+
+def make_anchor_scene(n: int, seed: int = 0, device="cuda") -> dict:
+    """n Scaffold-GS anchors on :func:`make_scene`'s layout: its positions,
+    all six scale columns its first log-scale column (the authors start
+    the six equal), and 10 offsets [n, 30] and a feature [n, 32] drawn
+    N(0, 1) from ``seed`` (a trained scene's spread, where the authors
+    start both at zero). An anchor pool's leaves as float32 tensors on
+    ``device``; ``models.gaussians.init_anchor_mlps`` draws its MLPs."""
+    base = make_scene(n, seed, device)
+    dev = base["pos"].device
+    rng = np.random.default_rng(seed + 1)
+    draws = {"offset": rng.standard_normal((n, 30)),
+             "anchor_feat": rng.standard_normal((n, 32))}
+    out = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+           for k, v in draws.items()}
+    return {"pos": base["pos"], "offset": out["offset"],
+            "anchor_feat": out["anchor_feat"],
+            "scale_raw": base["scale_raw"][:, :1].repeat(1, 6).contiguous()}

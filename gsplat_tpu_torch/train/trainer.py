@@ -42,6 +42,15 @@ Counterpart of ``gsplat_tpu/train/trainer.py:43-582``:
   through the surfel compositor and its loss adds the depth-distortion
   and normal-consistency terms (``ops.losses.geometry_loss``); every
   leaf, the update, the ADC and the checkpoints are 3DGS's;
+  an anchor pool (an ``anchor_feat`` leaf: Scaffold-GS; the port's own,
+  ``config.ScaffoldConfig``, in ``TrainState.scaffold``) trains its three
+  MLPs beside it (in ``TrainState.decoder``, Feature 3DGS's slot): each
+  view decodes its neural gaussians (``ops.scaffold``), the loss adds the
+  scaling term, Adam takes the offsets, features, scales and MLPs (the
+  offsets and MLPs on ``position_lr``'s schedule form at their own rates;
+  the anchor positions take none), with no clip, and the checkpoints carry
+  every leaf and its Adam state in keys of their own; the ADC, growth and
+  the collective checkpoints refuse it;
   ``save_checkpoint_dcp``/``load_checkpoint_dcp``: the orbax pair's
   collective directory checkpoints, on ``torch.distributed.checkpoint``,
   for a state sharded over a process grid.
@@ -62,14 +71,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import (DECODER_KEYS, FEATURE_KEY, FeatureConfig,
-                      RenderConfig, SurfelConfig, TrainConfig,
+from ..config import (DECODER_KEYS, FEATURE_KEY, MLP_KEYS, NETWORK_KEYS,
+                      FeatureConfig, RenderConfig, ScaffoldConfig,
+                      SurfelConfig, TrainConfig, is_anchor_pool,
                       is_surfel_pool)
 from ..device import resolve_device
 from ..models.adc import (densify_and_prune, densify_and_prune_paper,
                           raise_low_opacity)
 from ..models.gaussians import PARAM_KEYS, GaussianPool, pool_from_numpy
 from ..ops.losses import compute_loss, feature_loss, geometry_loss
+from ..ops.scaffold import scaling_term
 from ..ops.update import adam_update
 from ..render import render_batch_from_params, render_from_params
 from ..utils.profiling import span
@@ -78,21 +89,43 @@ from ..utils.profiling import span
 def position_lr(step, cfg: TrainConfig) -> torch.Tensor:
     """Exponential decay with the reference's 1%-delay phase
     (train.py:445-457). Returns a 0-d f32 tensor on ``step``'s device."""
+    return scheduled_lr(step, cfg.position_lr_init, cfg.position_lr_final,
+                        cfg.position_lr_delay_mult,
+                        cfg.position_lr_max_steps)
+
+
+def scheduled_lr(step, init: float, final: float, delay_mult: float,
+                 max_steps: int) -> torch.Tensor:
+    """:func:`position_lr`'s schedule from ``init`` to ``final``: a 0-d
+    f32 tensor on ``step``'s device."""
     step = torch.as_tensor(step, dtype=torch.float32)
-    frac = torch.clamp(step / cfg.position_lr_max_steps, max=1.0)
-    lr = cfg.position_lr_init * (
-        cfg.position_lr_final / cfg.position_lr_init
-    ) ** frac
-    lr = torch.where(step >= cfg.position_lr_max_steps,
-                     cfg.position_lr_final, lr)
-    delay = step < cfg.position_lr_delay_mult * cfg.position_lr_max_steps
+    frac = torch.clamp(step / max_steps, max=1.0)
+    lr = init * (final / init) ** frac
+    lr = torch.where(step >= max_steps, final, lr)
+    delay = step < delay_mult * max_steps
     return torch.where(delay, lr * 0.01, lr)
 
 
-def _fixed_lrs(cfg: TrainConfig, features: FeatureConfig | None = None
+def _schedules(cfg: TrainConfig, scaffold: ScaffoldConfig | None = None
                ) -> dict:
+    """{leaf: (init, final, delay_mult, max_steps)} of the scheduled
+    leaves: the position's, or an anchor pool's offsets and MLPs."""
+    if scaffold is None:
+        return {"pos": (cfg.position_lr_init, cfg.position_lr_final,
+                        cfg.position_lr_delay_mult,
+                        cfg.position_lr_max_steps)}
+    return {k: (init, final, scaffold.lr_delay_mult, scaffold.lr_max_steps)
+            for k, (init, final) in scaffold.schedules().items()}
+
+
+def _fixed_lrs(cfg: TrainConfig, features: FeatureConfig | None = None,
+               scaffold: ScaffoldConfig | None = None) -> dict:
     """The constant LRs of every leaf but pos (reference train.py:394-401),
-    and with ``features`` those of ``f_sem`` and the decoder."""
+    and with ``features`` those of ``f_sem`` and the decoder; with
+    ``scaffold`` an anchor pool's features and scales."""
+    if scaffold is not None:
+        return {"anchor_feat": scaffold.feature_lr,
+                "scale_raw": scaffold.scaling_lr}
     lrs = {
         "opacity_raw": cfg.opacity_lr,
         "f_dc": cfg.feature_lr,
@@ -108,7 +141,7 @@ def _fixed_lrs(cfg: TrainConfig, features: FeatureConfig | None = None
 
 def _count_device(params: dict) -> torch.device:
     """Where Adam's step counts live: the card when it is capturable."""
-    dev = params["pos"].device
+    dev = next(iter(params.values())).device
     return dev if dev.type == "cuda" else torch.device("cpu")
 
 
@@ -135,14 +168,17 @@ def _build_adam(params: dict, lrs: dict, eps: float) -> torch.optim.Adam:
 
 
 def make_optimizer(params: dict, cfg: TrainConfig,
-                   features: FeatureConfig | None = None
+                   features: FeatureConfig | None = None,
+                   scaffold: ScaffoldConfig | None = None
                    ) -> torch.optim.Adam:
     """Per-parameter Adam groups matching reference train.py:394-401 (and,
-    with ``features``, the feature leaf's and the decoder's)."""
+    with ``features``, the feature leaf's and the decoder's; with
+    ``scaffold``, an anchor pool's leaves but ``pos`` and its MLPs')."""
     count_dev = _count_device(params)
-    lr0 = position_lr(torch.zeros((), device=count_dev), cfg)
-    lrs = dict(_fixed_lrs(cfg, features),
-               pos=lr0 if count_dev.type == "cuda" else float(lr0))
+    lrs = _fixed_lrs(cfg, features, scaffold)
+    for k, sched in _schedules(cfg, scaffold).items():
+        lr0 = scheduled_lr(torch.zeros((), device=count_dev), *sched)
+        lrs[k] = lr0 if count_dev.type == "cuda" else float(lr0)
     return _build_adam(params, lrs, cfg.adam_eps)
 
 
@@ -167,25 +203,65 @@ class TrainState(NamedTuple):
     # A surfel pool's (2D Gaussian Splatting) loss weights and distortion
     # range, else None.
     surfel: SurfelConfig | None = None
+    # An anchor pool's (Scaffold-GS) widths, scaling term and rates, else
+    # None; its three MLPs are then ``decoder``.
+    scaffold: ScaffoldConfig | None = None
+
+
+def _pool_leaves(params: dict) -> dict:
+    """The pool's leaves the optimizer updates: all, or an anchor pool's
+    but ``pos``."""
+    if is_anchor_pool(params):
+        return {k: v for k, v in params.items() if k != "pos"}
+    return params
 
 
 def _leaves(state: TrainState) -> dict:
     """Every leaf the optimizer updates: the pool's, then the decoder's."""
-    return {**state.pool.params, **(state.decoder or {})}
+    return {**_pool_leaves(state.pool.params), **(state.decoder or {})}
 
 
 def init_train_state(pool: GaussianPool, cfg: TrainConfig,
                      features: FeatureConfig | None = None,
                      decoder: dict | None = None,
-                     surfel: SurfelConfig | None = None) -> TrainState:
+                     surfel: SurfelConfig | None = None,
+                     scaffold: ScaffoldConfig | None = None) -> TrainState:
     """The state training starts from. A pool with features (``f_sem``
     [N, C]) needs Feature 3DGS's ``decoder`` (``dec_w`` [D, C], ``dec_b``
     [D], e.g. :func:`models.gaussians.init_decoder`), whose tensors
     become leaves, and trains with ``features`` (``FeatureConfig()``
     where None); a pool without takes neither. A surfel pool (a
     two-column ``scale_raw``) trains with ``surfel`` (``SurfelConfig()``
-    where None); a 3DGS pool takes none."""
+    where None); a 3DGS pool takes none. An anchor pool (``anchor_feat``)
+    needs its three MLPs as ``decoder`` ({``mlp_opacity``, ``mlp_cov``,
+    ``mlp_color``}, e.g. :func:`models.gaussians.init_anchor_mlps`) and
+    trains with ``scaffold`` (``ScaffoldConfig()`` where None)."""
     dev = resolve_device(pool.pos.device)  # on CUDA: TF32 off for SSIM
+    if is_anchor_pool(pool.params):
+        if features is not None or surfel is not None:
+            raise ValueError("an anchor pool (anchor_feat) trains with "
+                             "neither a FeatureConfig nor a SurfelConfig")
+        if decoder is None or set(decoder) != set(MLP_KEYS):
+            raise ValueError(f"an anchor pool trains with its MLPs: pass "
+                             f"decoder={{{', '.join(MLP_KEYS)}}}")
+        from ..ops.scaffold import check_params
+
+        check_params({**pool.params, **decoder})
+        scaffold = scaffold or ScaffoldConfig()
+        # Copies: training updates them in place.
+        decoder = {k: torch.nn.Parameter(decoder[k].detach().to(
+            dev, torch.float32).clone()) for k in MLP_KEYS}
+        return TrainState(
+            pool=pool,
+            opt_state=make_optimizer({**_pool_leaves(pool.params),
+                                      **decoder}, cfg, scaffold=scaffold),
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+            decoder=decoder,
+            scaffold=scaffold,
+        )
+    if scaffold is not None:
+        raise ValueError("a ScaffoldConfig takes an anchor pool "
+                         "(anchor_feat)")
     if is_surfel_pool(pool.params):
         if FEATURE_KEY in pool.params:
             raise ValueError("a surfel pool (two-column scale_raw) carries "
@@ -238,9 +314,10 @@ def sh_warmup_mask(step, cfg: TrainConfig):
 
 
 def apply_sh_warmup(params: dict, step, cfg: TrainConfig) -> dict:
-    """Return params with f_rest masked by the warmup schedule (no-op off)."""
+    """Return params with f_rest masked by the warmup schedule (no-op off,
+    and for an anchor pool, which has no SH)."""
     m = sh_warmup_mask(step, cfg)
-    if m is None:
+    if m is None or "f_rest" not in params:
         return params
     return {**params, "f_rest": params["f_rest"] * m}
 
@@ -255,6 +332,7 @@ def batch_loss_fn(
     decoder: dict | None = None,
     features: FeatureConfig | None = None,
     surfel: SurfelConfig | None = None,
+    scaffold: ScaffoldConfig | None = None,
 ):
     """Mean L1+SSIM loss over a batch of views, rendered one after another.
 
@@ -287,7 +365,17 @@ def batch_loss_fn(
     the surfel compositor and its loss adds ``ops.losses.geometry_loss``
     (the distortion and normal terms at ``surfel``'s weights); the metrics
     gain ``dist`` and ``normal``; views go one at a time.
+
+    With ``scaffold`` (params of an anchor pool, ``decoder`` its MLPs)
+    each view decodes its neural gaussians and its loss adds
+    ``scaffold.scaling_reg`` times ``ops.scaffold.scaling_term`` inside
+    ``gs.loss``; the metrics gain ``scaling``; views go one at a time.
     """
+    if scaffold is not None:
+        if train_cfg.batched_render:
+            raise ValueError("an anchor pool trains one view at a time: "
+                             "batched_render must be False")
+        params = {**params, **decoder}
     if decoder is not None and train_cfg.batched_render:
         raise ValueError("per-gaussian features train one view at a time: "
                          "batched_render must be False")
@@ -322,8 +410,8 @@ def batch_loss_fn(
                                            dim=0, dtype=torch.int32)
             metrics["max_radius"] = torch.amax(radii, dim=0)
         return total, metrics
-    totals, l1s, ssims, pairs, rows, tds, bds, radii, feats, geo = (
-        [] for _ in range(10))
+    totals, l1s, ssims, pairs, rows, tds, bds, radii, feats, geo, scs = (
+        [] for _ in range(11))
     for i in range(batch["c2w"].shape[0]):
         img, aux = render_from_params(
             params, batch["c2w"][i], batch["fx"][i], batch["fy"][i],
@@ -338,7 +426,12 @@ def batch_loss_fn(
                                      batch["cx"][i], batch["cy"][i], surfel)
             total = total + g
             geo.append(torch.stack([parts["dist"], parts["normal"]]))
-        if decoder is not None:
+        if scaffold is not None:
+            with span("gs.loss"):
+                sc = scaling_term(aux.neural_scales, aux.neural_keep)
+                total = total + scaffold.scaling_reg * sc
+            scs.append(sc)
+        elif decoder is not None:
             fl = feature_loss(aux.features, batch["teacher"][i], decoder)
             total = total + features.semantic_loss_weight * fl
             feats.append(fl)
@@ -362,6 +455,8 @@ def batch_loss_fn(
     }
     if feats:
         metrics["feat_l1"] = torch.mean(torch.stack(feats)).detach()
+    if scs:
+        metrics["scaling"] = torch.mean(torch.stack(scs)).detach()
     if geo:
         g = torch.mean(torch.stack(geo), dim=0).detach()
         metrics["dist"], metrics["normal"] = g[0], g[1]
@@ -424,13 +519,18 @@ def value_and_grads(state: TrainState, batch: dict,
 
     A state with a decoder (a pool with features) adds the feature term
     at ``state.features``' weight, and its grads hold the decoder's
-    leaves too.
+    leaves too. An anchor pool's (``state.scaffold``) adds the scaling
+    term, and its grads hold its leaves but ``pos`` and its MLPs.
     """
     pool = state.pool
     params = pool.params
     for p in _leaves(state).values():
         p.grad = None
     taps = None
+    if train_cfg.adc_mode == "paper" and state.scaffold is not None:
+        raise ValueError("an anchor pool trains without the paper ADC's "
+                         "statistics (adc_mode='paper'): anchors grow by "
+                         "their own rule, which the port does not run")
     if train_cfg.adc_mode == "paper":
         taps = torch.zeros((batch["c2w"].shape[0], pool.capacity, 2),
                            dtype=torch.float32, device=pool.pos.device,
@@ -439,6 +539,7 @@ def value_and_grads(state: TrainState, batch: dict,
         apply_sh_warmup(params, state.step, train_cfg), pool.alive,
         batch, render_cfg, train_cfg, uv_taps=taps, decoder=state.decoder,
         features=state.features, surfel=state.surfel,
+        scaffold=state.scaffold,
     )
     with span("gs.backward"):
         loss.backward()
@@ -467,12 +568,13 @@ def apply_update(state: TrainState, loss: torch.Tensor, grads: dict,
     and with ``nan_guard`` ``nonfinite_skipped``)."""
     opt = state.opt_state
     metrics = {}
+    scheds = _schedules(train_cfg, state.scaffold)
     with span("gs.update"), torch.no_grad():
-        # The position schedule reads the optimizer's own update count.
+        # The schedules read the optimizer's own update count.
         for group in opt.param_groups:
-            if group["name"] == "pos":
-                lr = position_lr(opt.state[group["params"][0]]["step"],
-                                 train_cfg)
+            if group["name"] in scheds:
+                lr = scheduled_lr(opt.state[group["params"][0]]["step"],
+                                  *scheds[group["name"]])
                 group["lr"] = lr if group["capturable"] else float(lr)
         skipped, pos_grad = adam_update(
             opt, grads, state.pool.alive, loss, train_cfg.grad_clip_pos,
@@ -523,7 +625,7 @@ def reset_opt_state_slots(opt: torch.optim.Adam,
     returns ``opt``."""
     with torch.no_grad():
         for group in opt.param_groups:
-            if group["name"] in DECODER_KEYS:
+            if group["name"] in NETWORK_KEYS:
                 continue
             st = opt.state[group["params"][0]]
             for key in ("exp_avg", "exp_avg_sq"):
@@ -538,7 +640,10 @@ def map_capacity_leaves(state: TrainState, take) -> TrainState:
     both Adam moments, are ``take(leaf, fill)`` (``fill``: what a new dead
     slot holds, -10 for ``opacity_raw``, False for ``alive``, else 0),
     with a new optimizer of the same LRs; Adam's step counts and the step
-    stay. Growth, and the sharding of ``parallel``, are such maps."""
+    stay. Growth, and the sharding of ``parallel``, are such maps. An
+    anchor pool is refused (``ValueError``): its anchors grow by their own
+    rule."""
+    _refuse_anchors(state, "growth and sharding")
     old = state.opt_state
     with torch.no_grad():
         params = {k: take(v.detach(), -10.0 if k == "opacity_raw" else 0.0)
@@ -551,7 +656,7 @@ def map_capacity_leaves(state: TrainState, take) -> TrainState:
             src, dst = old.state[p_old], opt.state[p_new]
             dst["step"].copy_(src["step"])
             for key in ("exp_avg", "exp_avg_sq"):
-                dst[key].copy_(src[key] if k in DECODER_KEYS
+                dst[key].copy_(src[key] if k in NETWORK_KEYS
                                else take(src[key], 0.0))
     return state._replace(pool=pool, opt_state=opt)
 
@@ -574,12 +679,21 @@ def grow_state_capacity(state: TrainState, new_capacity: int) -> TrainState:
         [x, x.new_full((pad,) + x.shape[1:], fill)]))
 
 
+def _refuse_anchors(state: TrainState, what: str):
+    if is_anchor_pool(state.pool.params):
+        raise ValueError(f"an anchor pool (Scaffold-GS) takes no {what}: "
+                         f"its anchors grow and are pruned by their own "
+                         f"rule (the authors' voxelised gradient "
+                         f"statistics), which the port does not run")
+
+
 def adc_step(state: TrainState, pos_grad: torch.Tensor,
              generator: torch.Generator | None, thresholds,
              noise: torch.Tensor | None = None):
     """Densify/prune (reference form) + optimizer-moment reset, in place.
     ``thresholds`` = (opacity_threshold, max_grad, scale_threshold).
     Returns (state, AdcResult)."""
+    _refuse_anchors(state, "density control")
     opacity_threshold, max_grad, scale_threshold = thresholds
     result = densify_and_prune(
         state.pool, pos_grad, generator,
@@ -598,6 +712,7 @@ def adc_step_paper(state: TrainState, avg_uv_grad: torch.Tensor,
                    noise: tuple | None = None):
     """Original-paper densify/prune + optimizer-moment reset, in place.
     Returns (state, AdcResult)."""
+    _refuse_anchors(state, "density control")
     result = densify_and_prune_paper(
         state.pool, avg_uv_grad, max_radius, generator,
         grad_threshold=cfg.densify_grad_threshold,
@@ -612,6 +727,7 @@ def adc_step_paper(state: TrainState, avg_uv_grad: torch.Tensor,
 
 
 def opacity_raise_step(state: TrainState) -> TrainState:
+    _refuse_anchors(state, "density control")
     raise_low_opacity(state.pool)
     return state
 
@@ -643,10 +759,14 @@ def save_checkpoint(path, state: TrainState):
     ``param_<name>`` and ``opt_0`` .. ``opt_18`` (``OPT_LEAVES``). A pool
     with features adds ``param_f_sem``, the decoder's ``decoder_dec_w``
     and ``decoder_dec_b``, and each of those three leaves' Adam state as
-    ``optx_<leaf>_<field>`` (``EXTRA_OPT_FIELDS``)."""
+    ``optx_<leaf>_<field>`` (``EXTRA_OPT_FIELDS``). An anchor pool's file
+    has no JAX layout (``__num_opt_leaves__`` 0): ``param_<leaf>`` of its
+    four leaves, its MLPs as ``decoder_<mlp>`` and every optimizer leaf's
+    Adam state as ``optx_<leaf>_<field>``."""
     pool, opt = state.pool, state.opt_state
+    anchors = is_anchor_pool(pool.params)
     leaves = []
-    for k, field in OPT_LEAVES:
+    for k, field in (() if anchors else OPT_LEAVES):
         st = opt.state[getattr(pool, k)]
         if field in ("step", "schedule_step"):
             leaves.append(np.asarray(int(st["step"]), np.int32))
@@ -654,7 +774,7 @@ def save_checkpoint(path, state: TrainState):
             leaves.append(st[field].detach().cpu().numpy())
     extra = {}
     for k, p in _leaves(state).items():
-        if k in PARAM_KEYS:
+        if k in PARAM_KEYS and not anchors:
             continue
         st = opt.state[p]
         extra[f"optx_{k}_step"] = np.asarray(int(st["step"]), np.int32)
@@ -692,20 +812,29 @@ def load_checkpoint(path, state: TrainState) -> TrainState:
     file's capacity) and a new optimizer with ``state``'s LRs, holding the
     file's moments and step counts (and a file's features and decoder,
     which ``state`` must have had too). Refuses a file whose optimizer
-    leaves do not match (``OPT_LEAVES``) or whose two pos counts differ."""
+    leaves do not match (``OPT_LEAVES``) or whose two pos counts differ,
+    and one whose pool kind (anchors or not) is not ``state``'s."""
     with np.load(path) as data:
+        anchors = "param_anchor_feat" in data.files
+        if anchors != (state.scaffold is not None):
+            raise ValueError(
+                "checkpoint and state disagree on anchors: file "
+                f"{'with' if anchors else 'without'}, state "
+                f"{'with' if state.scaffold is not None else 'without'}")
         n = int(data["__num_opt_leaves__"])
-        if n != len(OPT_LEAVES):
+        want = 0 if anchors else len(OPT_LEAVES)
+        if n != want:
             raise ValueError(
                 f"checkpoint has {n} optimizer leaves, expected "
-                f"{len(OPT_LEAVES)} (optimizer config changed?)")
+                f"{want} (optimizer config changed?)")
         leaves = dict(zip(OPT_LEAVES, (data[f"opt_{i}"] for i in range(n))))
         extra = {k[len("optx_"):]: data[k] for k in data.files
                  if k.startswith("optx_")}
-        decoder = {k: data[f"decoder_{k}"] for k in DECODER_KEYS
+        decoder = {k: data[f"decoder_{k}"] for k in NETWORK_KEYS
                    if f"decoder_{k}" in data.files}
         step = int(data["__step__"])
-    if int(leaves["pos", "step"]) != int(leaves["pos", "schedule_step"]):
+    if not anchors and int(leaves["pos", "step"]) != int(
+            leaves["pos", "schedule_step"]):
         raise ValueError(
             f"checkpoint's pos Adam count {int(leaves['pos', 'step'])} and "
             f"schedule count {int(leaves['pos', 'schedule_step'])} differ; "
@@ -714,8 +843,9 @@ def load_checkpoint(path, state: TrainState) -> TrainState:
     pool = restore_pool(path, device=dev)
     decoder = {k: torch.nn.Parameter(torch.from_numpy(v).to(dev))
                for k, v in decoder.items()} or None
-    params = {**pool.params, **(decoder or {})}
-    if (FEATURE_KEY in params) != (state.decoder is not None):
+    params = {**_pool_leaves(pool.params), **(decoder or {})}
+    if not anchors and (FEATURE_KEY in params) != (
+            state.decoder is not None):
         raise ValueError(
             "checkpoint and state disagree on features: "
             f"file {'with' if FEATURE_KEY in params else 'without'}, state "
@@ -729,7 +859,7 @@ def load_checkpoint(path, state: TrainState) -> TrainState:
     with torch.no_grad():
         for k, p in params.items():
             st = opt.state[p]
-            if k in PARAM_KEYS:
+            if k in PARAM_KEYS and not anchors:
                 got = {f: leaves[k, f] for f in ("step", "exp_avg",
                                                  "exp_avg_sq")}
             else:
@@ -772,6 +902,7 @@ def _state_tree(state: TrainState, mesh=None) -> dict:
         def wrap(t):
             return DTensor.from_local(t, dmesh, [Shard(0)], run_check=False)
 
+    _refuse_anchors(state, "collective checkpoint")
     pool, opt = state.pool, state.opt_state
     return {
         "params": {k: wrap(p.detach()) for k, p in pool.params.items()},

@@ -43,11 +43,15 @@ LAUNCH_WORDS = ("LaunchKernel", "Memcpy", "Memset")
 # per-gaussian features adds the feature map (F1) after K1, its decoder
 # and L1 after the loss, and F2 after K2. A surfel pool composites with S1
 # in place of K1, adds its geometric loss terms after the loss, and runs
-# S2 in place of K2.
+# S2 in place of K2. An anchor pool (Scaffold-GS, listed last) decodes its
+# neural gaussians (the anchor cull and D1) after the pose and before the
+# projection, and runs D2 (into the anchors and the MLPs) in the backward
+# after the keyed reduction.
 SPANS = ("gs.frame", "gs.step", "gs.pose", "gs.cov_sh", "gs.project",
          "gs.bin", "gs.gather", "gs.k1", "gs.feat_k1", "gs.s1", "gs.loss",
          "gs.feat_loss", "gs.geo_loss", "gs.backward", "gs.k2",
-         "gs.feat_k2", "gs.s2", "gs.pair_grads", "gs.update")
+         "gs.feat_k2", "gs.s2", "gs.pair_grads", "gs.update", "gs.decode",
+         "gs.decode_bwd")
 
 _OFF = contextlib.nullcontext()
 
